@@ -1,0 +1,208 @@
+"""High-level captioner facade: beam-5 caption decode.
+
+Counterpart of `vsrcic_tpu/models/api.py` (`ControllableCaptioner` with
+`beam_search_v` and `beam_search`). Strict by default: the dense joint beam
+in f32, with no hand-written kernel. The fast path is opted into with the
+same switches as in JAX:
+
+  * use_fused_attention: False | True (the fused gather + attention op:
+    the CUDA kernel on the card, its plain version on the CPU) | "plain"
+    (the plain version on any device);
+  * use_vocab_topk: False | True (the vocab top-k + logsumexp op, likewise)
+    | "plain" (the plain version on any device; JAX's "xla");
+  * table_dtype: storage dtype of the statics tables and of the vocab op's
+    out_fc table (torch.bfloat16 halves the bytes read per step). Unlike
+    JAX's "xla" mode, "plain" reads the same cast table as the kernel, so
+    the two differ only in the kernel;
+  * step_dtype: storage dtype of the big fused step weights.
+
+Entry points run on the CUDA card unless `device` names another; a missing
+card raises.
+"""
+from __future__ import annotations
+
+from functools import partial
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from vsrcic_tpu_torch.decode.beam import (BeamResult, beam_search_joint,
+                                          beam_search_joint_candidates)
+from vsrcic_tpu_torch.models.captioner import (
+    CaptionerConfig, Statics, VerbTenseTable, _mm, captioner_step,
+    captioner_step_v, captioner_step_v_topk, derive_fused_step_weights,
+    image_descriptor_f32, init_captioner_params, init_state, precompute_statics)
+from vsrcic_tpu_torch.ops.fused_attention import (
+    fused_group_attention, fused_group_attention_plain)
+from vsrcic_tpu_torch.ops.vocab_topk import (vocab_topk_lse,
+                                             vocab_topk_lse_plain)
+from vsrcic_tpu_torch.utils.device import resolve_device
+
+_MODES = (False, True, "plain")
+
+
+def build_verb_tense_table(verb_2_vob_all: Dict[str, list],
+                           n_verbs: Optional[int] = None,
+                           device="cpu") -> VerbTenseTable:
+    """{str(verb_code): [vocab ids]} (verb_2_vob_all_refine.json schema)
+    -> dense (n_verbs+1, K) id table, -1 padded."""
+    keys = [int(k) for k in verb_2_vob_all.keys()]
+    n = max(keys + [n_verbs or 0]) + 1 if keys else (n_verbs or 1) + 1
+    k_max = max([len(v) for v in verb_2_vob_all.values()] + [1])
+    ids = np.full((n, k_max), -1, np.int64)
+    for k, v in verb_2_vob_all.items():
+        ids[int(k), :len(v)] = v
+    return VerbTenseTable(torch.from_numpy(ids).to(device))
+
+
+def _as_tensor(x, device, dtype=None):
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+class ControllableCaptioner:
+    def __init__(self, cfg: CaptionerConfig, params=None, seed: int = 1234,
+                 verb_2_vob_all: Optional[Dict] = None,
+                 use_fused_attention=False, use_vocab_topk=False,
+                 table_dtype=None, step_dtype=None, device=None):
+        """params: nested dict of tensors or arrays in torch layout (e.g.
+        `utils.params.params_from_jax` of a JAX tree); made from `seed`
+        when None. device: "cuda" unless given; "cpu" runs the plain
+        versions of the kernels."""
+        if use_fused_attention not in _MODES or use_vocab_topk not in _MODES:
+            raise ValueError("use_fused_attention / use_vocab_topk must be "
+                             "one of False, True, 'plain'")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if params is None:
+            params = init_captioner_params(
+                torch.Generator().manual_seed(seed), cfg)
+        self.params = _to_device(params, self.device)
+        self.use_fused_attention = use_fused_attention
+        self.use_vocab_topk = use_vocab_topk
+        self.table_dtype = table_dtype
+        self.step_dtype = step_dtype
+        self.tense_table = (build_verb_tense_table(verb_2_vob_all,
+                                                   device=self.device)
+                            if verb_2_vob_all is not None else None)
+        self._fused_w = None
+        self._vocab_tables = None
+
+    # -- impls ---------------------------------------------------------------
+    def _cast(self, a):
+        dt = self.table_dtype
+        return a.to(dt) if dt is not None and a.is_floating_point() else a
+
+    def _fused_statics(self, detections, det_groups, verb_list=None):
+        """Statics (+ the fused attention op and fused step weights when
+        use_fused_attention); returns (statics, fused_fn, fused_w)."""
+        detections = self._cast(detections)
+        statics = precompute_statics(self.params, self.cfg, detections,
+                                     self._cast(det_groups),
+                                     verb_list=verb_list)
+        if not self.use_fused_attention:
+            return statics, None, None
+        fused = (fused_group_attention if self.use_fused_attention is True
+                 else fused_group_attention_plain)
+        tdt = self.table_dtype or statics.det_groups.dtype
+        if self._fused_w is None:
+            self._fused_w = derive_fused_step_weights(
+                self.params, self.cfg, dtype=self.step_dtype)
+        fw = self._fused_w
+        # the image-descriptor slice of the input_1 projection is
+        # step-invariant: computed once per decode, per item
+        img_y = _mm(image_descriptor_f32(detections), fw["wx_img"]) + fw["bx"]
+        statics = Statics(statics.image_descriptor,
+                          statics.det_groups.to(tdt).contiguous(),
+                          statics.det_groups_proj.to(tdt).contiguous(),
+                          statics.det_groups_mask, statics.verb_list,
+                          img_y=img_y)
+        return statics, fused, fw
+
+    def _vocab_fn_and_tables(self, k):
+        """The vocab op and its out_fc tables (w_t (R, V), bias (V,)),
+        prepared once per captioner."""
+        if self._vocab_tables is None:
+            w_t = self.params["out_fc"]["weight"].T
+            if self.table_dtype is not None:
+                w_t = w_t.to(self.table_dtype)
+            self._vocab_tables = (w_t.contiguous(),
+                                  self.params["out_fc"]["bias"].contiguous())
+        fn = (vocab_topk_lse if self.use_vocab_topk is True
+              else vocab_topk_lse_plain)
+        return partial(fn, k=k), self._vocab_tables
+
+    @torch.no_grad()
+    def _beam_v_impl(self, detections, det_groups, verb_list, beam_size,
+                     eos_word, gt):
+        b = detections.shape[0]
+        statics, fused, fw = self._fused_statics(detections, det_groups,
+                                                 verb_list=verb_list)
+        state = init_state(self.cfg, b * beam_size, device=self.device)
+        if self.use_vocab_topk:
+            vocab_fn, tables = self._vocab_fn_and_tables(beam_size)
+
+            def step_fn(state, pw, pg, t0):
+                return captioner_step_v_topk(
+                    self.params, self.cfg, state, statics, self.tense_table,
+                    vocab_fn, tables, prev_word=pw, prev_gate=pg, t0=t0,
+                    gt=gt, beam=beam_size, k=beam_size, fused_fn=fused,
+                    fused_w=fw)
+
+            return beam_search_joint_candidates(
+                step_fn, state, b, beam_size, self.cfg.seq_len,
+                eos_word=eos_word, vocab_size=self.cfg.vocab_size)
+
+        def step_fn(state, pw, pg, t0):
+            return captioner_step_v(self.params, self.cfg, state, statics,
+                                    self.tense_table, prev_word=pw,
+                                    prev_gate=pg, t0=t0, gt=gt,
+                                    beam=beam_size, fused_fn=fused,
+                                    fused_w=fw)
+
+        return beam_search_joint(step_fn, state, b, beam_size,
+                                 self.cfg.seq_len, eos_word=eos_word)
+
+    @torch.no_grad()
+    def _beam_impl(self, detections, det_groups, beam_size, eos_word):
+        b = detections.shape[0]
+        statics, fused, fw = self._fused_statics(detections, det_groups)
+
+        def step_fn(state, pw, pg, t0):
+            return captioner_step(self.params, self.cfg, state, statics,
+                                  prev_word=pw, prev_gate=pg, t0=t0,
+                                  beam=beam_size, fused_fn=fused, fused_w=fw)
+
+        return beam_search_joint(step_fn,
+                                 init_state(self.cfg, b * beam_size,
+                                            device=self.device),
+                                 b, beam_size, self.cfg.seq_len,
+                                 eos_word=eos_word)
+
+    # -- public API (reference parity) ---------------------------------------
+    def beam_search_v(self, detections, det_groups, verb_list, eos_word,
+                      beam_size=5, gt=False) -> BeamResult:
+        """Beam decode with verb substitution. detections (B, N, D),
+        det_groups (B, L, M, D) (float32 or bfloat16, M padded or not),
+        verb_list (B, L) verb ids or -1. Tensors or arrays."""
+        dev = self.device
+        return self._beam_v_impl(_as_tensor(detections, dev),
+                                 _as_tensor(det_groups, dev),
+                                 _as_tensor(verb_list, dev, torch.long),
+                                 beam_size=beam_size, eos_word=eos_word,
+                                 gt=gt)
+
+    def beam_search(self, detections, det_groups, eos_word,
+                    beam_size=5) -> BeamResult:
+        """Beam decode without verb substitution (dense joint beam)."""
+        dev = self.device
+        return self._beam_impl(_as_tensor(detections, dev),
+                               _as_tensor(det_groups, dev),
+                               beam_size=beam_size, eos_word=eos_word)
+
+
+def _to_device(tree, device):
+    return {k: (_to_device(v, device) if isinstance(v, dict)
+                else _as_tensor(v, device))
+            for k, v in tree.items()}
