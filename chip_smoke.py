@@ -8,15 +8,24 @@ Phases (any failure raises and the script exits non-zero):
      (both off: the JAX reference runs its f32 products at 'highest');
   2. build the kernels from vsrcic_tpu_torch/csrc/ and report the build time;
   3. hold each kernel against its plain PyTorch version on the card: at the
-     full-width step shapes, at ragged shapes and on the vocab tie cases;
-     time the kernel, its plain version and, for the vocab head, the
-     library calls computing the same function;
-  4. replay the golden fixture (JAX results) through the kernel path;
-  5. drive the main path, `ControllableCaptioner.beam_search_v` at the
-     bench.py shapes (batch 1024, beam 5, fused attention, vocab top-k, bf16
+     full-width shapes of the path, at ragged shapes and on the vocab tie
+     cases; time the kernel, its plain version and, where one PyTorch call
+     computes the same function, that call;
+  4. replay the beam's golden fixture (JAX results) through the kernel path;
+  5. drive the beam, `ControllableCaptioner.beam_search_v` at the bench.py
+     shapes (batch 1024, beam 5, fused attention, vocab top-k, bf16
      tables): one warm-up and three timed batches, with every kernel's launch
      count reset just before and read just after;
-  6. run the same batch through the plain versions on the card and compare.
+  6. run the same batch through the plain versions on the card and compare;
+  7. replay the eval pipeline's golden fixture (JAX plans and words) through
+     the kernels, strict and fast captioner;
+  8. drive the eval pipeline, `EvalPipeline.run_stream` and `run_batch`, at
+     full width (scripts/bench_pipeline.py's jobs, 1024 per batch: planner
+     hidden 512 with 2662 verbs, the 2352-d Sinkhorn net, the phase-5
+     captioner): one warm-up and three timed batches through run_stream and
+     one through run_batch, each with the launch counts reset just before
+     and read just after; the plan and beam times of one batch; the same
+     batch through the plain versions on the card, compared.
 
 Prints the kernels' JSON line, then, last, the device JSON line. Details go
 to chiprun_out/chip_smoke.json.
@@ -39,6 +48,9 @@ DET, EMB, RNN, ATT = 2048, 1000, 1000, 512
 L_GROUPS, M_REGIONS, N_DET = 10, 20, 50
 M_PAD = 24   # the eval pipeline hands the tables M-padded (bench.py:73-79)
 ROWS = BATCH * BEAM
+# the eval pipeline's Sinkhorn call at scripts/bench_pipeline.py's jobs:
+# 1536 ambiguous (verb, role) pairs per batch of 1024, n 10, 20 iterations
+SINK_S, SINK_N, SINK_ITERS, SINK_TAU = 1536, 10, 20, 0.1
 
 
 def log(*a):
@@ -278,6 +290,51 @@ def check_vocab(gen, report):
         library_ms=library_ms, near_tie_rows=near)
 
 
+def sinkhorn_bound(s, n, iters):
+    """Least time for one call: each matrix read once and written once in
+    f32 over the HBM rate, or its f32 operations over the f32 rate (per
+    element: the division by tau and exp, then per iteration two sums' adds
+    and two divisions)."""
+    nbytes = 2 * s * n * n * 4
+    ops = s * n * n * (2 + 4 * iters)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_sinkhorn(gen, report):
+    import torch
+    from vsrcic_tpu_torch.ops.sinkhorn import (
+        sinkhorn_normalize as kern, sinkhorn_normalize_plain as plain)
+    worst = 0.0
+    cases = [(SINK_S, SINK_N)] + [(s, n) for s in (1, 7, 1000)
+                                  for n in (1, 3, 10, 17, 32, 33)]
+    timed = None
+    for s, n in cases:
+        # scores as sinkhorn_net_apply hands them over: tanh, in (-1, 1)
+        x = torch.tanh(torch.randn((s, n, n), generator=gen, device="cuda"))
+        got = kern(x, SINK_ITERS, SINK_TAU)
+        torch.cuda.synchronize()
+        want = plain(x, SINK_ITERS, SINK_TAU)
+        err = float((got - want).abs().max())
+        log("  sinkhorn S=%d n=%d: max_abs_err=%.3g" % (s, n, err))
+        if not err <= 1e-6:
+            raise AssertionError("sinkhorn kernel disagrees with its plain "
+                                 "version beyond 1e-6 at S=%d n=%d" % (s, n))
+        worst = max(worst, err)
+        if (s, n) == (SINK_S, SINK_N):
+            timed = x
+    ms = cuda_ms(lambda: kern(timed, SINK_ITERS, SINK_TAU), iters=100)
+    plain_ms = cuda_ms(lambda: plain(timed, SINK_ITERS, SINK_TAU), iters=20)
+    bound_ms, bound_by = sinkhorn_bound(SINK_S, SINK_N, SINK_ITERS)
+    log("  sinkhorn at S=%d n=%d, %d iterations: %.4f ms (plain %.4f ms, "
+        "bound %.6f ms by %s; no single library call)"
+        % (SINK_S, SINK_N, SINK_ITERS, ms, plain_ms, bound_ms, bound_by))
+    report["sinkhorn"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=None)
+
+
 # ---------------------------------------------------------------------------
 # phases 4-6
 # ---------------------------------------------------------------------------
@@ -432,6 +489,272 @@ def run_main_path(report):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 7-8: the eval pipeline
+# ---------------------------------------------------------------------------
+
+JOB_FIELDS = ("seqs_vis", "seqs_txt", "seqs_pos", "seqs_all",
+              "control_verb", "det_seqs_v", "det_seqs_sr", "verb_list")
+
+
+def replay_golden_pipeline(report):
+    """The JAX pipeline's plans and words (vsrcic_tpu_torch/testdata/
+    golden_pipeline.npz, written by tests/torch_parity.py) through the
+    kernels: planner tokens, ranks, verb lists and words identical, the
+    Sinkhorn soft permutations within 1e-6."""
+    import numpy as np
+    from vsrcic_tpu_torch.models.api import ControllableCaptioner
+    from vsrcic_tpu_torch.models.captioner import CaptionerConfig
+    from vsrcic_tpu_torch.models.s_ssp import SSPConfig
+    from vsrcic_tpu_torch.models.sinkhorn import SinkhornConfig
+    from vsrcic_tpu_torch.ops.sinkhorn import sinkhorn_normalize
+    from vsrcic_tpu_torch.pipelines import CaptionJob, EvalPipeline
+    from vsrcic_tpu_torch.utils.params import unflatten
+    import torch
+    path = os.path.join(REPO, "vsrcic_tpu_torch", "testdata",
+                        "golden_pipeline.npz")
+    with np.load(path) as z:
+        g = {k: z[k] for k in z.files}
+    params = unflatten({k[len("param/"):]: v for k, v in g.items()
+                        if k.startswith("param/")})
+    cfg = json.loads(str(g["config"]))
+    table = json.loads(str(g["verb_table"]))
+    batches = []
+    while "b%d/control_verb" % len(batches) in g:
+        pre = "b%d/" % len(batches)
+        batches.append(
+            (g[pre + "detections"],
+             [CaptionJob(**{f: g[pre + f][p] for f in JOB_FIELDS})
+              for p in range(len(g[pre + "control_verb"]))]))
+    out = {}
+    for name, kw in (("strict", {}),
+                     ("fast_bf16", dict(use_fused_attention=True,
+                                        use_vocab_topk=True,
+                                        table_dtype=torch.bfloat16))):
+        cap = ControllableCaptioner(CaptionerConfig(**cfg["captioner"]),
+                                    params=params["captioner"],
+                                    verb_2_vob_all=table, device="cuda",
+                                    **kw)
+        pipe = EvalPipeline(cap, params["ssp"], SSPConfig(**cfg["ssp"]),
+                            params["sinkhorn"],
+                            SinkhornConfig(**cfg["sinkhorn"]),
+                            eos_word=int(g["eos_word"]),
+                            beam_size=int(g["beam_size"]), device="cuda")
+        sinkhorn_normalize.launches = 0
+        err = 0.0
+        for b, (dets, jobs) in enumerate(batches):
+            pre = "%s/b%d/" % (name, b)
+            pend = pipe.plan_dispatch(jobs)
+            plan = dict(zip(("rank_idx", "rank_valid", "verb_lists"),
+                            pipe.plan_finish(pend)))
+            plan["preds"] = (
+                np.zeros((0, pipe.ssp_cfg.max_len), np.int32)
+                if pend.preds is None else pend.preds.numpy())
+            for f, x in plan.items():
+                if not np.array_equal(x, g[pre + f]):
+                    raise AssertionError("golden pipeline %s batch %d: %s "
+                                         "differ from JAX" % (name, b, f))
+            if pend.P_soft is not None:
+                e = float(np.abs(pend.P_soft.numpy() - g[pre + "P_soft"])
+                          .max())
+                if not e <= 1e-6:
+                    raise AssertionError("golden pipeline %s batch %d: "
+                                         "P_soft off by %.3g" % (name, b, e))
+                err = max(err, e)
+            if not np.array_equal(pipe.run_batch(dets, jobs),
+                                  g[pre + "words"]):
+                raise AssertionError("golden pipeline %s batch %d: run_batch "
+                                     "words differ from JAX" % (name, b))
+        for b, words in enumerate(pipe.run_stream(batches)):
+            if not np.array_equal(words, g["%s/b%d/words" % (name, b)]):
+                raise AssertionError("golden pipeline %s batch %d: run_stream"
+                                     " words differ from JAX" % (name, b))
+        if sinkhorn_normalize.launches == 0:
+            raise AssertionError("the golden replay never launched the "
+                                 "Sinkhorn kernel")
+        log("  golden pipeline %s: planner tokens, ranks, verb lists and "
+            "words identical to JAX (%d batches, run_batch and run_stream); "
+            "max P_soft diff %.3g" % (name, len(batches), err))
+        out[name] = err
+    report["golden_pipeline_max_psoft_diff"] = out
+
+
+def make_jobs(n_jobs, L=10, M=20, D=2048, seed=0):
+    """scripts/bench_pipeline.py::make_jobs: per job one or two verbs, each
+    with a shared-role pair (a Sinkhorn matrix), a unique role and a V slot;
+    random features."""
+    import numpy as np
+    from vsrcic_tpu_torch.pipelines import CaptionJob
+    rng = np.random.RandomState(seed)
+    jobs = []
+    for p in range(n_jobs):
+        control_verb = np.zeros(8)
+        seq_v = np.zeros((L, 8))
+        seq_sr = np.zeros((L, 8))
+        verb_list = np.full((L, 1), -1.0)
+        n_verbs = 1 + (p % 2)
+        slot = 0
+        for vi in range(n_verbs):
+            verb = float(1 + (p * 3 + vi) % 150)
+            control_verb[vi] = verb
+            seq_v[slot:slot + 4, 0] = verb
+            seq_sr[slot, 0] = 2.0
+            seq_sr[slot + 1, 0] = 2.0
+            seq_sr[slot + 2, 0] = 7.0 if vi == 0 else 1.0
+            seq_sr[slot + 3, 0] = 25.0
+            verb_list[slot + 3, 0] = verb
+            slot += 4
+        n_used = min(slot, L)
+        seqs_all = np.zeros((L, M, D), np.float32)
+        seqs_all[:n_used] = rng.rand(n_used, M, D).astype(np.float32)
+        jobs.append(CaptionJob(
+            seqs_vis=rng.rand(L, D).astype(np.float32),
+            seqs_txt=rng.rand(L, 300).astype(np.float32),
+            seqs_pos=rng.rand(L, 4).astype(np.float32),
+            seqs_all=seqs_all, control_verb=control_verb,
+            det_seqs_v=seq_v, det_seqs_sr=seq_sr, verb_list=verb_list))
+    return jobs
+
+
+def pipeline_world(captioner, plain=False):
+    """The full-width pipeline around `captioner`: S-SSP coco (hidden 512,
+    3 + 3 layers, 2662 verbs) and the 2352-d Sinkhorn net, random weights
+    from seeds 1 and 2."""
+    import torch
+    from vsrcic_tpu_torch.models.s_ssp import SSPConfig, init_ssp_params
+    from vsrcic_tpu_torch.models.sinkhorn import (SinkhornConfig,
+                                                  init_sinkhorn_params)
+    from vsrcic_tpu_torch.pipelines import EvalPipeline
+    ssp_cfg, sink_cfg = SSPConfig(dataset="coco"), SinkhornConfig()
+    return EvalPipeline(
+        captioner, init_ssp_params(torch.Generator().manual_seed(1), ssp_cfg),
+        ssp_cfg, init_sinkhorn_params(torch.Generator().manual_seed(2),
+                                      sink_cfg),
+        sink_cfg, eos_word=3, beam_size=BEAM, device="cuda",
+        plain_sinkhorn=plain)
+
+
+def pipeline_batch(pipe):
+    """One batch of 1024 jobs, staged on the card once (stage_seqs_all,
+    stage_job_feats), with its detections there too."""
+    import numpy as np
+    import torch
+    jobs = make_jobs(BATCH)
+    dets = np.random.RandomState(3).rand(BATCH, N_DET, DET).astype(
+        np.float32)
+    return (torch.from_numpy(dets).cuda(), jobs, pipe.stage_seqs_all(jobs),
+            pipe.stage_job_feats(jobs))
+
+
+def pipeline_launches():
+    from vsrcic_tpu_torch.ops.fused_attention import fused_group_attention
+    from vsrcic_tpu_torch.ops.sinkhorn import sinkhorn_normalize
+    from vsrcic_tpu_torch.ops.vocab_topk import vocab_topk_lse
+    return {"sinkhorn": sinkhorn_normalize,
+            "fused_attention": fused_group_attention,
+            "vocab_topk": vocab_topk_lse}
+
+
+def counted(fn):
+    """fn() with every kernel's launch count set to 0 just before and read
+    just after; returns (fn's result, seconds, {kernel: launches})."""
+    import torch
+    kernels = pipeline_launches()
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return res, dt, {name: k.launches for name, k in kernels.items()}
+
+
+def check_pipeline_launches(launches, n_batches, what):
+    want = {"sinkhorn": 1, "fused_attention": SEQ_LEN, "vocab_topk": SEQ_LEN}
+    for name, per_batch in want.items():
+        if launches[name] != per_batch * n_batches:
+            raise AssertionError("%s: %s launched %d times in %d batches, "
+                                 "expected %d per batch"
+                                 % (what, name, launches[name], n_batches,
+                                    per_batch))
+
+
+def run_pipeline(report, captioner):
+    """Phase 8 on the phase-5 captioner (fast, bf16 tables)."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    pipe = pipeline_world(captioner)
+    batch = pipeline_batch(pipe)
+    dets, jobs, staged, feats = batch
+    torch.cuda.synchronize()
+    log("  set-up (%d jobs made and staged, planner and Sinkhorn weights "
+        "from seeds 1, 2): %.1f s" % (BATCH, time.perf_counter() - t0))
+    torch.cuda.reset_peak_memory_stats()
+    list(pipe.run_stream([batch]))                       # warm-up
+    n_batches = 3
+    outs, dt, launches = counted(
+        lambda: list(pipe.run_stream([batch] * n_batches)))
+    caps = BATCH * n_batches / dt
+    log("  run_stream: %d batches of %d jobs in %.3f s: %.1f captions/s; "
+        "launches %s" % (n_batches, BATCH, dt, caps, launches))
+    check_pipeline_launches(launches, n_batches, "run_stream")
+    words, batch_s, launches_b = counted(
+        lambda: pipe.run_batch(dets, jobs, seqs_all=staged,
+                               sink_feats=feats))
+    log("  run_batch: one batch in %.3f s (%.1f captions/s); launches %s"
+        % (batch_s, BATCH / batch_s, launches_b))
+    check_pipeline_launches(launches_b, 1, "run_batch")
+    for w in outs + [words]:
+        if w.shape != (BATCH, SEQ_LEN) or not (
+                (w >= 0) & (w < VOCAB)).all():
+            raise AssertionError("pipeline words of shape %s out of range"
+                                 % (w.shape,))
+        if not np.array_equal(w, words):
+            raise AssertionError("run_stream and run_batch give different "
+                                 "words for the same batch")
+
+    # the plan and the beam of one batch, each ended by a synchronize
+    (recons, verb_lists), plan_s, _ = counted(
+        lambda: pipe.plan_batch_device(jobs, seqs_all=staged,
+                                       sink_feats=feats))
+    _, beam_s, _ = counted(lambda: captioner.beam_search_v(
+        dets, recons, verb_lists, eos_word=3, beam_size=BEAM).words.cpu())
+    log("  one batch in turn: plan %.1f ms, beam %.1f ms; peak memory "
+        "%.2f GB" % (1e3 * plan_s, 1e3 * beam_s,
+                     torch.cuda.max_memory_allocated() / 1e9))
+    report["pipeline"] = dict(
+        captions_per_s=caps, seconds=dt, batches=n_batches,
+        launches=launches, run_batch_seconds=batch_s,
+        run_batch_launches=launches_b, plan_ms=1e3 * plan_s,
+        beam_ms=1e3 * beam_s,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    # the same batch through the plain versions on the card
+    plain = pipeline_world(main_captioner("plain", params=captioner.params),
+                           plain=True)
+    t0 = time.perf_counter()
+    ref_plan = plain.plan_rank_batch(jobs, sink_feats=feats)
+    ref_words = plain.run_batch(dets, jobs, seqs_all=staged,
+                                sink_feats=feats)
+    plain_s = time.perf_counter() - t0
+    plan = pipe.plan_rank_batch(jobs, sink_feats=feats)
+    for name, a, b in zip(("rank_idx", "rank_valid", "verb_lists"), plan,
+                          ref_plan):
+        if not np.array_equal(a, b):
+            raise AssertionError("pipeline %s differ from the plain "
+                                 "versions' on the card" % name)
+    share = float((words == ref_words).all(-1).mean())
+    log("  plain versions: plan + run_batch %.3f s; ranks identical; "
+        "captions identical: %.4f" % (plain_s, share))
+    if share < 0.99:
+        raise AssertionError("only %.4f of pipeline captions match the plain "
+                             "versions" % share)
+    report["pipeline"].update(plain_seconds=plain_s, identical_share=share)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -468,21 +791,33 @@ def main():
     kernels = {}
     check_fused(gen, kernels)
     check_vocab(gen, kernels)
+    check_sinkhorn(gen, kernels)
 
     # phase 4
     log("[4] golden replay")
     replay_golden(report)
 
     # phases 5-6
-    log("[5] main path (bench.py shapes, fast configuration)")
-    launches = run_main_path(report)
+    log("[5] beam path (bench.py shapes, fast configuration)")
+    beam_launches = run_main_path(report)
+
+    # phase 7
+    log("[7] golden pipeline replay")
+    replay_golden_pipeline(report)
+
+    # phase 8
+    log("[8] eval pipeline at full width (run_stream, run_batch)")
+    launches = run_pipeline(report, main_captioner())
+    report["beam_path_launches"] = beam_launches
 
     rows = []
     for name, src, replaces in (
             ("fused_attention", "vsrcic_tpu_torch/csrc/fused_attention.cu",
              "vsrcic_tpu/ops/fused_attention.py:35"),
             ("vocab_topk", "vsrcic_tpu_torch/csrc/vocab_topk.cu",
-             "vsrcic_tpu/ops/vocab_topk.py:47")):
+             "vsrcic_tpu/ops/vocab_topk.py:47"),
+            ("sinkhorn", "vsrcic_tpu_torch/csrc/sinkhorn.cu",
+             "scripts/ab_sinkhorn.py:28")):
         k = kernels[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],

@@ -11,6 +11,8 @@ import torch
 
 from vsrcic_tpu_torch.ops.fused_attention import (
     fused_group_attention, fused_group_attention_plain)
+from vsrcic_tpu_torch.ops.sinkhorn import (MAX_N, sinkhorn_normalize,
+                                           sinkhorn_normalize_plain)
 from vsrcic_tpu_torch.ops.vocab_topk import (vocab_topk_lse,
                                              vocab_topk_lse_plain)
 
@@ -51,3 +53,31 @@ def test_vocab_topk_kernel_matches_plain(cuda_device, case, table):
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 10, 32, 33])
+@pytest.mark.parametrize("s", [1, 1536])
+def test_sinkhorn_kernel_matches_plain(cuda_device, s, n):
+    """One warp per matrix up to n = 32, one block per matrix above it;
+    within 1e-6 of the plain version on scores in (-1, 1)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.tanh(torch.randn((s, n, n), generator=gen, device=cuda_device))
+    before = sinkhorn_normalize.launches
+    got = sinkhorn_normalize(x, 20, 0.1)
+    torch.cuda.synchronize()
+    assert sinkhorn_normalize.launches == before + 1
+    torch.testing.assert_close(got, sinkhorn_normalize_plain(x, 20, 0.1),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_sinkhorn_kernel_refuses_what_it_cannot_take(cuda_device):
+    x = torch.zeros((4, 10, 10), device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        sinkhorn_normalize(x.double(), 20, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        sinkhorn_normalize(x.transpose(1, 2), 20, 0.1)
+    with pytest.raises(ValueError, match="exceeds"):
+        sinkhorn_normalize(torch.zeros((1, MAX_N + 1, MAX_N + 1),
+                                       device=cuda_device), 20, 0.1)

@@ -29,6 +29,13 @@ def xavier_normal(gen: torch.Generator, shape, dtype=torch.float32):
     return std * torch.randn(shape, generator=gen, dtype=dtype)
 
 
+def xavier_uniform(gen: torch.Generator, shape, dtype=torch.float32):
+    """torch.nn.init.xavier_uniform_ for a ``(fan_out, fan_in)`` weight."""
+    fan_out, fan_in = shape[0], math.prod(shape[1:])
+    a = math.sqrt(6.0 / (fan_in + fan_out))
+    return _uniform(gen, shape, a, dtype)
+
+
 def orthogonal(gen: torch.Generator, shape, dtype=torch.float32):
     """torch.nn.init.orthogonal_ (gain 1) for a 2-D weight."""
     n_rows, n_cols = shape
@@ -37,6 +44,27 @@ def orthogonal(gen: torch.Generator, shape, dtype=torch.float32):
                                        dtype=dtype))
     q = q * torch.sign(torch.diagonal(r))  # deterministic sign
     return q[:n_rows, :n_cols].contiguous()
+
+
+def _uniform(gen, shape, bound, dtype):
+    """U(-bound, bound)."""
+    return (torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1) * bound
+
+
+def linear_init(gen: torch.Generator, in_features, out_features, bias=True,
+                dtype=torch.float32) -> Params:
+    """torch.nn.Linear's default init: weight and bias U(-1/sqrt(fan_in),
+    1/sqrt(fan_in))."""
+    bound = math.sqrt(1.0 / in_features)
+    p = {"weight": _uniform(gen, (out_features, in_features), bound, dtype)}
+    if bias:
+        p["bias"] = _uniform(gen, (out_features,), bound, dtype)
+    return p
+
+
+def layer_norm_init(size, dtype=torch.float32) -> Params:
+    return {"weight": torch.ones((size,), dtype=dtype),
+            "bias": torch.zeros((size,), dtype=dtype)}
 
 
 # ---------------------------------------------------------------------------
@@ -90,3 +118,12 @@ def top_k(x, k: int):
     idx = torch.sort(~total_order_key(x), dim=-1, stable=True).indices
     idx = idx[..., :k]
     return torch.gather(x, -1, idx), idx
+
+
+def first_argmax(x):
+    """`jnp.argmax` over the last axis: the index of the FIRST maximum
+    (`torch.argmax` promises no tie rule on the card); a row of all -inf
+    gives 0."""
+    mx = x.amax(-1, keepdim=True)
+    pos = torch.arange(x.shape[-1], device=x.device)
+    return torch.where(x == mx, pos, x.shape[-1]).amin(-1)

@@ -80,12 +80,11 @@ def beam_search_joint(step_fn: Callable, state, batch: int, beam_size: int,
             word_is0 = (torch.arange(w.shape[-1], device=dev) == 0)[
                 None, None, :, None]
             froz = torch.where(word_is0, seq_logprob[:, :, None, None],
-                               torch.tensor(FROZEN_SEA, device=dev))
+                               FROZEN_SEA)
             total = torch.where(frozen[:, :, None, None], froz, total)
         if beam0_only:
             beam0 = (torch.arange(k, device=dev) == 0)[None, :, None, None]
-            total = torch.where(beam0, total,
-                                torch.tensor(-torch.inf, device=dev))
+            total = torch.where(beam0, total, -torch.inf)
         v2 = w.shape[-1] * 2
         sel_logprob, idx = top_k(total.reshape(batch, k * v2), k)
         return (sel_logprob,) + _split_flat(idx, v2)
@@ -179,13 +178,13 @@ def beam_search_joint_candidates(step_fn: Callable, state, batch: int,
                  + g[:, :, None, :])                       # (B, K, C, 2)
         if frozen is not None:
             froz = torch.where(slot == 0, seq_logprob[:, :, None],
-                               torch.tensor(FROZEN_SEA, device=dev))
+                               FROZEN_SEA)
             score = torch.where(frozen[:, :, None, None],
                                 froz[:, :, :, None], score)
         if beam0_only:
             score = torch.where(
                 (torch.arange(kk, device=dev) == 0)[None, :, None, None],
-                score, torch.tensor(-torch.inf, device=dev))
+                score, -torch.inf)
         gate_ax = torch.arange(2, device=dev)[None, None, None, :]
         vidx = (torch.arange(kk, device=dev)[None, :, None, None] * v2
                 + cand_ids[:, :, :, None] * 2 + gate_ax)   # (B, K, C, 2)

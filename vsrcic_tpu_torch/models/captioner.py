@@ -401,21 +401,12 @@ class VerbTenseTable(NamedTuple):
         return self.ids.shape[1]
 
 
-def _first_argmax(scores):
-    """argmax over the last axis taking the FIRST maximum (jnp.argmax)."""
-    mx = scores.amax(-1, keepdim=True)
-    n = scores.shape[-1]
-    pos = torch.arange(n, device=scores.device).expand_as(scores)
-    return torch.where(scores == mx, pos, n).amin(-1)
-
-
 def _pick_tense(cand, scores):
     """Target word of each verb row: the best-scoring valid tense candidate
     (first maximum wins), or word 0 where the verb has no tenses."""
     cand_valid = cand >= 0
-    scores = torch.where(cand_valid, scores,
-                         torch.tensor(-torch.inf, device=scores.device))
-    best_k = _first_argmax(scores)
+    scores = torch.where(cand_valid, scores, -torch.inf)
+    best_k = nn.first_argmax(scores)
     tgt = torch.gather(cand, 1, best_k[:, None])[:, 0]
     return torch.where(cand_valid.any(1), tgt, torch.zeros_like(tgt))
 
@@ -423,6 +414,15 @@ def _pick_tense(cand, scores):
 def _tense_candidates(tense_table: VerbTenseTable, verb_curr):
     return tense_table.ids[torch.clamp(verb_curr, 0,
                                        tense_table.ids.shape[0] - 1)]
+
+
+def _gate_on_verbs(is_verb, gate_logp):
+    """gate_logp with the rows where is_verb (B, 1) holds set to
+    (GATE_CHANGE, 0.0). The constants go in as scalars: a tensor made from
+    host values is copied to the card, and that copy waits for the stream."""
+    stay = torch.arange(2, device=gate_logp.device) == 0
+    return torch.where(is_verb & stay, GATE_CHANGE,
+                       torch.where(is_verb, 0.0, gate_logp))
 
 
 def substitute_verb(word_logp, gate_logp, verb_curr,
@@ -444,11 +444,8 @@ def substitute_verb(word_logp, gate_logp, verb_curr,
     verb_out = torch.full((b, v), VERB_SEA, dtype=word_logp.dtype,
                           device=word_logp.device)
     verb_out[torch.arange(b, device=word_logp.device), tgt] = 0.0
-    change_gate = torch.tensor([GATE_CHANGE, 0.0], dtype=gate_logp.dtype,
-                               device=gate_logp.device)
     word_out = torch.where(mask[:, None], verb_out, word_logp)
-    gate_out = torch.where(mask[:, None], change_gate[None, :], gate_logp)
-    return word_out, gate_out
+    return word_out, _gate_on_verbs(mask[:, None], gate_logp)
 
 
 def _verb_curr(verb_list, ctrl):
@@ -551,8 +548,6 @@ def captioner_step_v_topk(params, cfg: CaptionerConfig, state: CaptionerState,
     is_verb = (verb_curr != -1)[:, None]
     cand_ids = torch.where(is_verb, verb_ids, norm_ids)
     cand_wlp = torch.where(is_verb, verb_wlp, norm_wlp)
-    change_gate = torch.tensor([GATE_CHANGE, 0.0], dtype=gate_logp.dtype,
-                               device=dev)
-    gate_out = torch.where(is_verb, change_gate[None, :], gate_logp)
+    gate_out = _gate_on_verbs(is_verb, gate_logp)
     return ((cand_ids, cand_wlp, gate_out),
             CaptionerState(h1, c1, h2, c2, ctrl))

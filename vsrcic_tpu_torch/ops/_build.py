@@ -27,11 +27,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+F = ctypes.c_float
 # C entry points: name -> argtypes; each returns cudaGetLastError()
 SIGNATURES = {
     "vsrcic_fused_attention": [P, P, P, P, P, P, P, P, P, I,
                                I, I, I, I, I, I, P, P, P],
     "vsrcic_vocab_topk": [P, P, P, I, I, I, I, I, P, P, P, P, P, P, P, P],
+    "vsrcic_sinkhorn": [P, I, I, I, F, F, P, P],
 }
 
 # seconds the last build took in this process (0.0 when it was cached)
