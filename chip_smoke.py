@@ -1,16 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`vsrcic_tpu_torch`) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase
+    python3 chip_smoke.py --sinkhorn   # phases 1-2 and the Sinkhorn check
+    python3 chip_smoke.py --pipeline   # phases 1-2 and 8
 
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi), and the TF32 settings
      (both off: the JAX reference runs its f32 products at 'highest');
-  2. build the kernels from vsrcic_tpu_torch/csrc/ and report the build time;
+  2. build the kernels from vsrcic_tpu_torch/csrc/ and report the build time
+     and what ptxas reports (registers, shared memory, spills);
   3. hold each kernel against its plain PyTorch version on the card: at the
-     full-width shapes of the path, at ragged shapes and on the vocab tie
-     cases; time the kernel, its plain version and, where one PyTorch call
-     computes the same function, that call;
+     full-width shapes of the path, at ragged shapes, on the vocab tie cases
+     and, for the Sinkhorn kernel, at every (S, n) of SINK_CASE_S x
+     SINK_CASE_N (the boundaries of its packing); time the kernel, its plain
+     version and, where one PyTorch call computes the same function, that
+     call. The Sinkhorn kernel must also give the same bits as its
+     arithmetic replayed step by step in PyTorch; a few microseconds long,
+     it is timed with the stream held while its launches are enqueued, and
+     by the profiler;
   4. replay the beam's golden fixture (JAX results) through the kernel path;
   5. drive the beam, `ControllableCaptioner.beam_search_v` at the bench.py
      shapes (batch 1024, beam 5, fused attention, vocab top-k, bf16
@@ -51,6 +59,11 @@ ROWS = BATCH * BEAM
 # the eval pipeline's Sinkhorn call at scripts/bench_pipeline.py's jobs:
 # 1536 ambiguous (verb, role) pairs per batch of 1024, n 10, 20 iterations
 SINK_S, SINK_N, SINK_ITERS, SINK_TAU = 1536, 10, 20, 0.1
+# the Sinkhorn kernel's checked shapes: n at the edges of its packing (32 // n
+# matrices per warp up to 16, one up to 32, one block per matrix above) and
+# S at the edges of a warp's group and of the pipeline's batch
+SINK_CASE_N = (1, 2, 3, 10, 11, 16, 17, 31, 32, 33, 64, 241)
+SINK_CASE_S = (1, 2, 3, 7, 1535, 1536, 1537)
 
 
 def log(*a):
@@ -79,6 +92,58 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def held_ms(fn, iters=100, warmup=3, hold_cycles=50_000_000):
+    """Mean device time of fn() over `iters` launches enqueued while a spin
+    kernel (torch.cuda._sleep, ~25 ms) holds the stream, so that the events
+    time the launches back to back on the device, not the host's launch
+    interval. Returns (device ms per call, the host's ms per call to
+    enqueue); raises if the hold ended before the enqueue did."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    held = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    held.record()
+    torch.cuda._sleep(hold_cycles)
+    start.record()
+    t1 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t2 = time.perf_counter()
+    end.record()
+    end.synchronize()
+    hold_ms = held.elapsed_time(start)
+    if 1e3 * (t2 - t0) >= hold_ms:
+        raise AssertionError("the stream's hold (%.3f ms) ended before the "
+                             "host had enqueued %d launches (%.3f ms)"
+                             % (hold_ms, iters, 1e3 * (t2 - t0)))
+    return start.elapsed_time(end) / iters, 1e3 * (t2 - t1) / iters
+
+
+def profiled_ms(fn, name, iters=100):
+    """Device time per call of the kernels whose name holds `name`, under
+    torch.profiler over `iters` calls: (ms per call, kernels counted), or
+    (None, 0) when the trace shows none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if name in e.key and e.self_device_time_total > 0]
+    if not events:
+        return None, 0
+    us = sum(e.self_device_time_total for e in events)
+    return us / 1e3 / iters, sum(e.count for e in events)
 
 
 def max_err(got, want):
@@ -144,8 +209,14 @@ def check_fused(gen, report):
     timed = None
     for name, rows, b, m, d, a, table, n_real in cases:
         args = fused_inputs(gen, rows, b, m, d, a, table, n_real)
+        index = [t.clone() for t in args[:2]]
         got = kern(*args)
         torch.cuda.synchronize()
+        # the plain version gathers with item/ctrl; a kernel that wrote them
+        # would show up there as an out-of-range index, not as a mismatch
+        if not all(torch.equal(t, c) for t, c in zip(args[:2], index)):
+            raise AssertionError("fused attention changed its item/ctrl "
+                                 "inputs (%s)" % name)
         want = plain(*args)
         err = max_err(got, want)
         ok = all(torch.allclose(g, w, rtol=1e-5, atol=1e-5)
@@ -305,34 +376,63 @@ def sinkhorn_bound(s, n, iters):
 def check_sinkhorn(gen, report):
     import torch
     from vsrcic_tpu_torch.ops.sinkhorn import (
-        sinkhorn_normalize as kern, sinkhorn_normalize_plain as plain)
+        sinkhorn_normalize as kern, sinkhorn_normalize_in_order as in_order,
+        sinkhorn_normalize_plain as plain)
     worst = 0.0
-    cases = [(SINK_S, SINK_N)] + [(s, n) for s in (1, 7, 1000)
-                                  for n in (1, 3, 10, 17, 32, 33)]
     timed = None
-    for s, n in cases:
-        # scores as sinkhorn_net_apply hands them over: tanh, in (-1, 1)
-        x = torch.tanh(torch.randn((s, n, n), generator=gen, device="cuda"))
-        got = kern(x, SINK_ITERS, SINK_TAU)
-        torch.cuda.synchronize()
-        want = plain(x, SINK_ITERS, SINK_TAU)
-        err = float((got - want).abs().max())
-        log("  sinkhorn S=%d n=%d: max_abs_err=%.3g" % (s, n, err))
-        if not err <= 1e-6:
-            raise AssertionError("sinkhorn kernel disagrees with its plain "
-                                 "version beyond 1e-6 at S=%d n=%d" % (s, n))
-        worst = max(worst, err)
-        if (s, n) == (SINK_S, SINK_N):
-            timed = x
-    ms = cuda_ms(lambda: kern(timed, SINK_ITERS, SINK_TAU), iters=100)
+    inexact = []
+    for n in SINK_CASE_N:
+        errs = []
+        for s in SINK_CASE_S:
+            # scores as sinkhorn_net_apply hands them over: tanh, in (-1, 1)
+            x = torch.tanh(torch.randn((s, n, n), generator=gen,
+                                       device="cuda"))
+            got = kern(x, SINK_ITERS, SINK_TAU)
+            torch.cuda.synchronize()
+            want = plain(x, SINK_ITERS, SINK_TAU)
+            err = float((got - want).abs().max())
+            if not err <= 1e-6:
+                raise AssertionError("sinkhorn kernel disagrees with its "
+                                     "plain version beyond 1e-6 (%.3g) at "
+                                     "S=%d n=%d" % (err, s, n))
+            errs.append(err)
+            ordered = in_order(x, SINK_ITERS, SINK_TAU)
+            if not torch.equal(got, ordered):  # the same IEEE steps
+                inexact.append((s, n, float((got - ordered).abs().max())))
+            if (s, n) == (SINK_S, SINK_N):
+                timed = x
+        log("  sinkhorn n=%d at S in %s: max_abs_err=%s"
+            % (n, SINK_CASE_S, " ".join("%.3g" % e for e in errs)))
+        worst = max(worst, *errs)
+    if inexact:
+        raise AssertionError("sinkhorn kernel differs from its arithmetic "
+                             "replayed in PyTorch at (S, n, max diff) %s"
+                             % inexact)
+    log("  sinkhorn: bit-identical to its arithmetic replayed in PyTorch at "
+        "all %d (S, n)" % (len(SINK_CASE_N) * len(SINK_CASE_S)))
+
+    def call():
+        return kern(timed, SINK_ITERS, SINK_TAU)
+    if not torch.equal(call(), call()):
+        raise AssertionError("two sinkhorn launches on one input differ")
+    ms, host_ms = held_ms(call)
+    fixed_ms, _ = held_ms(lambda: kern(timed, 0, SINK_TAU))
+    prof_ms, prof_kernels = profiled_ms(call, "sinkhorn")
     plain_ms = cuda_ms(lambda: plain(timed, SINK_ITERS, SINK_TAU), iters=20)
     bound_ms, bound_by = sinkhorn_bound(SINK_S, SINK_N, SINK_ITERS)
-    log("  sinkhorn at S=%d n=%d, %d iterations: %.4f ms (plain %.4f ms, "
-        "bound %.6f ms by %s; no single library call)"
-        % (SINK_S, SINK_N, SINK_ITERS, ms, plain_ms, bound_ms, bound_by))
+    log("  sinkhorn at S=%d n=%d, %d iterations: %.4f ms on the held stream "
+        "(%.4f ms at 0 iterations; profiler %s ms per call over %d kernels; "
+        "the wrapper's host time %.4f ms per call), plain %.4f ms, bound "
+        "%.6f ms by %s; no single library call; two launches bit-identical"
+        % (SINK_S, SINK_N, SINK_ITERS, ms, fixed_ms,
+           "not measured" if prof_ms is None else "%.4f" % prof_ms,
+           prof_kernels, host_ms, plain_ms, bound_ms, bound_by))
     report["sinkhorn"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by,
-                              library_ms=None)
+                              library_ms=None, profiler_ms=prof_ms,
+                              profiler_kernels=prof_kernels,
+                              host_ms_per_call=host_ms,
+                              ms_at_0_iters=fixed_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -789,6 +889,17 @@ def main():
     log("[3] kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(1)
     kernels = {}
+    if "--sinkhorn" in sys.argv[1:]:
+        check_sinkhorn(gen, kernels)
+        print(card)
+        print(json.dumps({"sinkhorn": kernels["sinkhorn"]}))
+        return 0
+    if "--pipeline" in sys.argv[1:]:
+        log("[8] eval pipeline at full width (run_stream, run_batch)")
+        run_pipeline(report, main_captioner())
+        print(card)
+        print(json.dumps({"pipeline": report["pipeline"]}))
+        return 0
     check_fused(gen, kernels)
     check_vocab(gen, kernels)
     check_sinkhorn(gen, kernels)

@@ -12,6 +12,7 @@ import torch
 from vsrcic_tpu_torch.ops.fused_attention import (
     fused_group_attention, fused_group_attention_plain)
 from vsrcic_tpu_torch.ops.sinkhorn import (MAX_N, sinkhorn_normalize,
+                                           sinkhorn_normalize_in_order,
                                            sinkhorn_normalize_plain)
 from vsrcic_tpu_torch.ops.vocab_topk import (vocab_topk_lse,
                                              vocab_topk_lse_plain)
@@ -55,20 +56,76 @@ def test_vocab_topk_kernel_matches_plain(cuda_device, case, table):
     torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-5)
 
 
+# n at the edges of the kernel's packing: 32 // n matrices per warp up to
+# n = 16, one per warp up to 32, one block per matrix above
+SINK_N = [1, 2, 3, 10, 11, 16, 17, 31, 32, 33, 64, 241]
+
+
+def sink_scores(device, s, n, seed):
+    """Scores as sinkhorn_net_apply hands them over: tanh, in (-1, 1)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.tanh(torch.randn((s, n, n), generator=gen, device=device))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 10, 32, 33])
-@pytest.mark.parametrize("s", [1, 1536])
+@pytest.mark.parametrize("n", SINK_N)
+@pytest.mark.parametrize("s", [1, 7, 1536, 1537])
 def test_sinkhorn_kernel_matches_plain(cuda_device, s, n):
-    """One warp per matrix up to n = 32, one block per matrix above it;
-    within 1e-6 of the plain version on scores in (-1, 1)."""
-    gen = torch.Generator(device=cuda_device).manual_seed(n)
-    x = torch.tanh(torch.randn((s, n, n), generator=gen, device=cuda_device))
+    """Within 1e-6 of the plain version on scores in (-1, 1), with S a
+    whole number of warps' groups or not."""
+    x = sink_scores(cuda_device, s, n, seed=n)
     before = sinkhorn_normalize.launches
     got = sinkhorn_normalize(x, 20, 0.1)
     torch.cuda.synchronize()
     assert sinkhorn_normalize.launches == before + 1
     torch.testing.assert_close(got, sinkhorn_normalize_plain(x, 20, 0.1),
                                rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 10, 16, 17, 32, 33])
+def test_sinkhorn_kernel_equals_its_arithmetic_replayed(cuda_device, n):
+    """Sums in index order and correctly rounded divisions, as the replay
+    does them one IEEE operation at a time: the same bits."""
+    x = sink_scores(cuda_device, 1537, n, seed=2 * n)
+    got = sinkhorn_normalize(x, 20, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sinkhorn_normalize_in_order(x, 20, 0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_iters", [0, 1])
+@pytest.mark.parametrize("n", [3, 10, 17, 33])
+def test_sinkhorn_kernel_few_iterations(cuda_device, n, n_iters):
+    """No iteration is exp(x / tau) alone; one is one column and one row
+    pass."""
+    x = sink_scores(cuda_device, 1537, n, seed=n_iters)
+    got = sinkhorn_normalize(x, n_iters, 0.1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, sinkhorn_normalize_plain(x, n_iters, 0.1),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 10, 17, 33])
+def test_sinkhorn_kernel_equal_scores_give_uniform(cuda_device, n):
+    x = torch.full((1537, n, n), 0.3, device=cuda_device)
+    got = sinkhorn_normalize(x, 20, 0.1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, torch.full_like(x, 1.0 / n), rtol=0,
+                               atol=1e-6)
+    torch.testing.assert_close(got, sinkhorn_normalize_plain(x, 20, 0.1),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [10, 33])
+def test_sinkhorn_kernel_is_deterministic(cuda_device, n):
+    x = sink_scores(cuda_device, 1536, n, seed=5)
+    first = sinkhorn_normalize(x, 20, 0.1)
+    second = sinkhorn_normalize(x, 20, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

@@ -16,6 +16,7 @@ import torch
 from vsrcic_tpu.models import sinkhorn as jsk
 from vsrcic_tpu_torch.models import sinkhorn as tsk
 from vsrcic_tpu_torch.ops.sinkhorn import (sinkhorn_normalize,
+                                           sinkhorn_normalize_in_order,
                                            sinkhorn_normalize_plain)
 from vsrcic_tpu_torch.utils.params import params_from_jax
 
@@ -37,6 +38,17 @@ def test_plain_normalize_matches_jax(s, n, n_iters, tau):
     want = np.asarray(jsk.sinkhorn_normalize(x, n_iters, tau))
     got = sinkhorn_normalize_plain(torch.from_numpy(x), n_iters, tau)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
+def test_kernel_sum_order_matches_jax():
+    """The CUDA kernel's arithmetic, replayed step by step (the card's tests
+    hold the kernel to this replay bit for bit), at the eval
+    pipeline's shapes (1536 matrices, n = 10, 20 iterations, tau 0.1):
+    within 1e-6 of JAX."""
+    x = sink_inputs(11, 1536, 10)
+    want = np.asarray(jsk.sinkhorn_normalize(x, 20, 0.1))
+    got = sinkhorn_normalize_in_order(torch.from_numpy(x), 20, 0.1).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
 def test_wrapper_runs_the_plain_version_for_cpu_tensors():
