@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # every phase
     python3 chip_smoke.py --sinkhorn   # phases 1-2 and the Sinkhorn check
     python3 chip_smoke.py --pipeline   # phases 1-2 and 8
+    python3 chip_smoke.py --train      # phases 1-2 and 9-10
 
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi), and the TF32 settings
@@ -33,12 +34,24 @@ Phases (any failure raises and the script exits non-zero):
      captioner): one warm-up and three timed batches through run_stream and
      one through run_batch, each with the launch counts reset just before
      and read just after; the plan and beam times of one batch; the same
-     batch through the plain versions on the card, compared.
+     batch through the plain versions on the card, compared;
+  9. replay the trainers' golden fixture (JAX losses, gradients and greedy
+     words) on the card: the XE trainer's step-1 gradients and three
+     losses, the SCST loss and gradients of a given trajectory, and greedy
+     words strict and through the fused kernel;
+ 10. drive both trainers at full width (the CLI's CaptionerConfig(), 100
+     detections, compact ids (B, 20, 20), batch 1024): XE (lean) and SCST
+     (fast_decode, bf16 tables, baseline "step"), one warm-up and three
+     timed steps each, launch counts reset just before and read just after;
+     XE's loss must fall over five steps on one batch; SCST's decode,
+     reward and grad times of one step; its greedy words through the
+     kernel against the plain version's.
 
 Prints the kernels' JSON line, then, last, the device JSON line. Details go
 to chiprun_out/chip_smoke.json.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -155,16 +168,17 @@ def max_err(got, want):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def fused_inputs(gen, rows, b, m, d, a, table, n_real=None, beam=BEAM):
+def fused_inputs(gen, rows, b, m, d, a, table, n_real=None, beam=BEAM,
+                 l=L_GROUPS):
     import torch
     dev = "cuda"
-    det = torch.rand((b, L_GROUPS, m, d), generator=gen, device=dev)
+    det = torch.rand((b, l, m, d), generator=gen, device=dev)
     det[:, :, n_real or m:] = 0.0           # padded regions are all zero
-    det[:, :, 0, :] *= (torch.rand((b, L_GROUPS, 1), generator=gen,
+    det[:, :, 0, :] *= (torch.rand((b, l, 1), generator=gen,
                                    device=dev) < 0.9)  # some empty regions
-    proj = torch.randn((b, L_GROUPS, m, a), generator=gen, device=dev)
+    proj = torch.randn((b, l, m, a), generator=gen, device=dev)
     item = (torch.arange(rows, device=dev) // beam).clamp(max=b - 1)
-    ctrl = torch.randint(0, L_GROUPS, (rows,), generator=gen, device=dev)
+    ctrl = torch.randint(0, l, (rows,), generator=gen, device=dev)
     ha = torch.randn((rows, a), generator=gen, device=dev)
     sent_w = torch.randn((rows, 1), generator=gen, device=dev)
     sent_mask = (torch.rand((rows, 1), generator=gen, device=dev)
@@ -202,13 +216,19 @@ def check_fused(gen, report):
     for table in (torch.bfloat16, torch.float32):
         for m in (M_REGIONS, M_PAD):
             cases.append(("full", ROWS, BATCH, m, DET, ATT, table,
-                          M_REGIONS))
+                          M_REGIONS, BEAM, L_GROUPS))
     for table in (torch.bfloat16, torch.float32):
-        cases.append(("ragged", 37, 9, 5, 100, 36, table, 4))
-        cases.append(("ragged", 13, 4, 7, 130, 50, table, 7))
-    timed = None
-    for name, rows, b, m, d, a, table, n_real in cases:
-        args = fused_inputs(gen, rows, b, m, d, a, table, n_real)
+        cases.append(("ragged", 37, 9, 5, 100, 36, table, 4, BEAM,
+                      L_GROUPS))
+        cases.append(("ragged", 13, 4, 7, 130, 50, table, 7, BEAM,
+                      L_GROUPS))
+        # the trainers' decodes: beam 1, rows = batch, 20 groups of 20
+        for rows in (BATCH, 37, 1):
+            cases.append(("beam1", rows, rows, M_REGIONS, DET, ATT, table,
+                          M_REGIONS, 1, SEQ_LEN))
+    timed = timed1 = None
+    for name, rows, b, m, d, a, table, n_real, beam, l in cases:
+        args = fused_inputs(gen, rows, b, m, d, a, table, n_real, beam, l)
         index = [t.clone() for t in args[:2]]
         got = kern(*args)
         torch.cuda.synchronize()
@@ -221,8 +241,8 @@ def check_fused(gen, report):
         err = max_err(got, want)
         ok = all(torch.allclose(g, w, rtol=1e-5, atol=1e-5)
                  for g, w in zip(got, want))
-        log("  fused_attention %-6s rows=%d B=%d M=%d D=%d A=%d %s: "
-            "max_abs_err=%.3g" % (name, rows, b, m, d, a,
+        log("  fused_attention %-6s rows=%d B=%d L=%d M=%d D=%d A=%d %s: "
+            "max_abs_err=%.3g" % (name, rows, b, l, m, d, a,
                                   str(table).split(".")[1], err))
         if not ok:
             raise AssertionError("fused attention disagrees with its plain "
@@ -230,15 +250,23 @@ def check_fused(gen, report):
         worst = max(worst, err)
         if name == "full" and table == torch.bfloat16 and m == M_PAD:
             timed = args
-    ms = cuda_ms(lambda: kern(*timed))
-    plain_ms = cuda_ms(lambda: plain(*timed), iters=5)
-    bound_ms, bound_by, groups = fused_bound(timed)
-    log("  fused_attention at rows=%d M=%d bf16: %.4f ms (plain %.4f ms, "
-        "bound %.4f ms by %s, %d distinct groups)"
-        % (ROWS, M_PAD, ms, plain_ms, bound_ms, bound_by, groups))
-    report["fused_attention"] = dict(
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None, distinct_groups=groups)
+        if name == "beam1" and table == torch.bfloat16 and rows == BATCH:
+            timed1 = args
+    out = dict(max_abs_err=worst, library_ms=None)
+    for key, args, what in (("", timed, "the beam's rows=%d M=%d" % (
+            ROWS, M_PAD)), ("beam1_", timed1, "the trainers' rows=%d "
+                            "(beam 1) L=%d M=%d" % (BATCH, SEQ_LEN,
+                                                    M_REGIONS))):
+        ms = cuda_ms(lambda: kern(*args))
+        plain_ms = cuda_ms(lambda: plain(*args), iters=5)
+        bound_ms, bound_by, groups = fused_bound(args)
+        log("  fused_attention at %s bf16: %.4f ms (plain %.4f ms, bound "
+            "%.4f ms by %s, %d distinct groups)"
+            % (what, ms, plain_ms, bound_ms, bound_by, groups))
+        out.update({key + "ms": ms, key + "plain_ms": plain_ms,
+                    key + "bound_ms": bound_ms, key + "bound_by": bound_by,
+                    key + "distinct_groups": groups})
+    report["fused_attention"] = out
 
 
 def vocab_tie_cases(gen):
@@ -855,6 +883,244 @@ def run_pipeline(report, captioner):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 9-10: the trainers
+# ---------------------------------------------------------------------------
+
+# the CLI's captioner (CaptionerConfig() defaults) and the training fields'
+# layout: 100 detections per image, compact ids (B, 20 steps, 20 regions)
+TRAIN_BATCH, TRAIN_DET, TRAIN_LR = 1024, 100, 5e-4
+TRAIN_STEPS = 3
+
+
+def grads_match(what, got, want):
+    """Every gradient leaf within rtol 1e-4 / atol 1e-6 of the fixture's;
+    returns the largest absolute difference."""
+    import numpy as np
+    from vsrcic_tpu_torch.utils.params import flatten
+    got = {k: v.cpu().numpy() for k, v in flatten(got).items()}
+    if sorted(got) != sorted(want):
+        raise AssertionError("%s: gradient leaves differ: %s vs %s"
+                             % (what, sorted(got), sorted(want)))
+    for k, w in want.items():
+        if not np.allclose(got[k], w, rtol=1e-4, atol=1e-6):
+            raise AssertionError("%s: gradient %s beyond rtol 1e-4 / atol "
+                                 "1e-6 (max diff %.3g)" % (
+                                     what, k, np.abs(got[k] - w).max()))
+    return max(float(np.abs(got[k] - w).max()) for k, w in want.items())
+
+
+def replay_golden_train(report):
+    """Phase 9: vsrcic_tpu_torch/testdata/golden_train.npz (written by
+    tests/torch_parity.py from JAX) on the card."""
+    import numpy as np
+    import torch
+    from vsrcic_tpu_torch.models.api import ControllableCaptioner
+    from vsrcic_tpu_torch.models.captioner import CaptionerConfig
+    from vsrcic_tpu_torch.ops.fused_attention import fused_group_attention
+    from vsrcic_tpu_torch.train.captioner import (CaptionerXETrainer,
+                                                  scst_loss_fn)
+    from vsrcic_tpu_torch.train.common import value_and_grad
+    from vsrcic_tpu_torch.utils.params import params_from_jax, unflatten
+    path = os.path.join(REPO, "vsrcic_tpu_torch", "testdata",
+                        "golden_train.npz")
+    with np.load(path) as z:
+        g = {k: z[k] for k in z.files}
+    params = unflatten({k[len("param/"):]: v for k, v in g.items()
+                        if k.startswith("param/")})
+    cfg = CaptionerConfig(**json.loads(str(g["config"])))
+
+    def golden(prefix):
+        return {k[len(prefix):]: v for k, v in g.items()
+                if k.startswith(prefix)}
+    xe = [g["xe/" + k] for k in ("detections", "captions", "ids", "gates")]
+    tr = CaptionerXETrainer(cfg, params, lr=float(g["lr"]), device="cuda")
+    (_, _), grads = tr.loss_and_grads(*xe)
+    xe_err = grads_match("XE step 1", grads, golden("xe/grad/"))
+    losses = np.array([tr.step(*xe)[0] for _ in range(3)])
+    if not np.allclose(losses, g["xe/losses"], rtol=1e-4, atol=0):
+        raise AssertionError("XE losses %s vs JAX %s beyond rtol 1e-4"
+                             % (losses, g["xe/losses"]))
+    scst = [torch.from_numpy(g["scst/" + k]).cuda() for k in (
+        "detections", "groups", "words", "gates", "advantage")]
+    loss, grads = value_and_grad(scst_loss_fn, params_from_jax(
+        params, "cuda"), cfg, *scst, remat=True)
+    if not np.isclose(float(loss), g["scst/loss"], rtol=1e-4, atol=0):
+        raise AssertionError("SCST loss %.7g vs JAX %.7g beyond rtol 1e-4"
+                             % (float(loss), g["scst/loss"]))
+    scst_err = grads_match("SCST", grads, golden("scst/grad/"))
+    for fused in (False, True):
+        cap = ControllableCaptioner(cfg, params=params, device="cuda",
+                                    use_fused_attention=fused)
+        fused_group_attention.launches = 0
+        words, gates = cap.test(g["scst/detections"], g["scst/groups"])
+        if fused and fused_group_attention.launches != cfg.seq_len:
+            raise AssertionError("fused greedy launched the kernel %d times"
+                                 % fused_group_attention.launches)
+        if not (np.array_equal(words.cpu().numpy(), g["greedy/words"])
+                and np.array_equal(gates.cpu().numpy(), g["greedy/gates"])):
+            raise AssertionError("greedy words/gates (%s) differ from JAX's"
+                                 % ("fused kernel" if fused else "strict"))
+    log("  golden train: XE step-1 gradients (max diff %.3g) and losses %s "
+        "(JAX %s), SCST loss %.7g (JAX %.7g) and gradients (max diff "
+        "%.3g) within tolerance; greedy words and gates identical to JAX, "
+        "strict and through the fused kernel"
+        % (xe_err, losses.tolist(), g["xe/losses"].tolist(), float(loss),
+           float(g["scst/loss"]), scst_err))
+    report["golden_train"] = dict(
+        xe_losses=losses.tolist(), xe_grad_max_diff=xe_err,
+        scst_loss=float(loss), scst_grad_max_diff=scst_err)
+
+
+def train_world(seed=0):
+    """Phase 10's batch on the card: detections (B, 100, 2048) standard
+    normal, the last 0-60 of each image empty; captions <bos> w... <eos>
+    <pad>*; compact ids (B, 20, 20) with 1-20 regions per step, -1 after;
+    gate targets in {0, 1}, -1 after the caption; SCST's groups expanded
+    from the ids. The features are zero-mean: on all-positive ones
+    (|normal|) the first Adam step at lr 5e-4 throws the gate head's
+    region-sum logit far off, in the JAX trainer as in this one
+    (`python tests/torch_parity.py --xe-full-width` on the CPU: 25.2, then
+    486.0), and whether the loss is back below its start after five steps
+    depends on the batch."""
+    import torch
+    from vsrcic_tpu_torch.decode.loops import expand_compact_groups
+    b, t, n = TRAIN_BATCH, SEQ_LEN, TRAIN_DET
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *shape: torch.rand(shape, generator=gen,  # noqa: E731
+                                    device="cuda")
+    n_real = (n - (rnd(b) * 61).long())                   # 40-100 regions
+    det = torch.randn((b, n, DET), generator=gen, device="cuda")
+    det = det * (torch.arange(n, device="cuda")[None, :]
+                 < n_real[:, None])[..., None]
+    length = 5 + (rnd(b) * 14).long()                     # 5-18 words
+    pos = torch.arange(t, device="cuda")[None, :]
+    words = 4 + (rnd(b, t) * (VOCAB - 4)).long()
+    caps = torch.where(pos == 0, 2, torch.where(
+        pos <= length[:, None], words, torch.where(
+            pos == length[:, None] + 1, 3, 1)))
+    regions = 1 + (rnd(b, t) * M_REGIONS).long()
+    ids = (rnd(b, t, M_REGIONS) * n_real[:, None, None]).long()
+    ids = torch.where(torch.arange(M_REGIONS, device="cuda")
+                      < regions[..., None], ids, -1)
+    gates = torch.where(pos <= length[:, None] + 1,
+                        (rnd(b, t) < 0.3).long(), -1)
+    return det, caps, ids, gates, expand_compact_groups(det, ids)
+
+
+def text_world(det_caps):
+    """A text field over V words (4 specials + 9996 'w0000'...) and CIDEr-D
+    with the GT captions' document frequency."""
+    from vsrcic_tpu_torch.metrics import Cider
+    from vsrcic_tpu_torch.text import TextField, ptb_tokenize
+    tf = TextField(fix_length=SEQ_LEN)
+    tf.build_vocab([" ".join("w%04d" % i for i in range(VOCAB - 4))])
+    assert len(tf.vocab) == VOCAB, len(tf.vocab)
+    gts = tf.decode(det_caps[:, 1:].cpu().numpy())
+    return tf, Cider(gts=ptb_tokenize({i: [c] for i, c in enumerate(gts)})), gts
+
+
+def run_trainers(report):
+    """Phase 10."""
+    import torch
+    from vsrcic_tpu_torch.models.api import ControllableCaptioner
+    from vsrcic_tpu_torch.models.captioner import (CaptionerConfig,
+                                                   init_captioner_params)
+    from vsrcic_tpu_torch.train.captioner import (CaptionerSCSTTrainer,
+                                                  CaptionerXETrainer)
+    t0 = time.perf_counter()
+    cfg = CaptionerConfig()
+    params = init_captioner_params(torch.Generator().manual_seed(0), cfg)
+    det, caps, ids, gates, groups = train_world()
+    tf, cider, gts = text_world(caps)
+    torch.cuda.synchronize()
+    log("  set-up (CaptionerConfig() weights from seed 0, batch %d, groups "
+        "(B, %d, %d, %d) f32): %.1f s" % (TRAIN_BATCH, SEQ_LEN, M_REGIONS,
+                                         DET, time.perf_counter() - t0))
+    out = {}
+
+    # XE, lean compact path
+    torch.cuda.reset_peak_memory_stats()
+    xe = CaptionerXETrainer(cfg, params, lr=TRAIN_LR, device="cuda")
+    losses = [xe.step(det, caps, ids, gates)[0]]                  # warm-up
+    res, dt, launches = counted(lambda: [
+        xe.step(det, caps, ids, gates)[0] for _ in range(TRAIN_STEPS)])
+    losses += res + [xe.step(det, caps, ids, gates)[0]]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log("  XE (lean): %d steps of %d in %.3f s: %.3f steps/s, %.1f "
+        "sequences/s; losses %s; peak memory %.2f GB; launches %s"
+        % (TRAIN_STEPS, TRAIN_BATCH, dt, TRAIN_STEPS / dt,
+           TRAIN_STEPS * TRAIN_BATCH / dt, ["%.4f" % x for x in losses],
+           peak, launches))
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError("XE losses do not fall over five steps: %s"
+                             % losses)
+    out["xe"] = dict(steps_per_s=TRAIN_STEPS / dt,
+                     sequences_per_s=TRAIN_STEPS * TRAIN_BATCH / dt,
+                     seconds=dt, losses=losses, peak_mem_gb=peak,
+                     launches=launches)
+    del xe
+    torch.cuda.empty_cache()
+
+    # SCST, fast decode with bf16 tables, greedy baseline every step
+    torch.cuda.reset_peak_memory_stats()
+    sc = CaptionerSCSTTrainer(cfg, params, tf, cider, lr=TRAIN_LR,
+                              fast_decode=True, table_dtype=torch.bfloat16,
+                              baseline="step", device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sc.step(det, groups, gts, gen)                                # warm-up
+    res, dt, launches = counted(lambda: [
+        sc.step(det, groups, gts, gen) for _ in range(TRAIN_STEPS)])
+    per_step = launches["fused_attention"] / TRAIN_STEPS
+    log("  SCST (fast_decode, bf16 tables): %d steps of %d in %.3f s: %.3f "
+        "steps/s, %.1f sequences/s; (loss, mean advantage) %s; launches %s, "
+        "fused attention %.0f per step" % (
+            TRAIN_STEPS, TRAIN_BATCH, dt, TRAIN_STEPS / dt,
+            TRAIN_STEPS * TRAIN_BATCH / dt, res, launches, per_step))
+    if per_step != 2 * SEQ_LEN:
+        raise AssertionError("SCST launched the fused kernel %.1f times per "
+                             "step, expected %d" % (per_step, 2 * SEQ_LEN))
+    if not all(math.isfinite(x) for r in res for x in r):
+        raise AssertionError("SCST gave a loss that is not finite: %s" % res)
+
+    # one step in its three parts, each ended by a synchronize
+    (sampled, base), dec_s, _ = counted(lambda: sc.decode(det, groups, gen))
+    (words, s_gates), _ = sampled
+    t0 = time.perf_counter()
+    adv = sc.rewards(sc._decode_caps(words), sc._decode_caps(base), gts)
+    rew_s = time.perf_counter() - t0
+    _, grad_s, _ = counted(lambda: sc.grad_step(det, groups, words, s_gates,
+                                                adv))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log("  SCST one step in parts: decode (sample + greedy) %.1f ms, reward "
+        "(tokenize + CIDEr-D of %d captions, host) %.1f ms, grad %.1f ms; "
+        "peak memory %.2f GB" % (1e3 * dec_s, 2 * TRAIN_BATCH, 1e3 * rew_s,
+                                 1e3 * grad_s, peak))
+
+    # the greedy decode through the kernel and through its plain version
+    kern, plain = (ControllableCaptioner(
+        cfg, params=sc.state.params, use_fused_attention=mode,
+        table_dtype=torch.bfloat16, device="cuda") for mode in (True, "plain"))
+    w_k, g_k = kern.test(det, groups)
+    w_p, g_p = plain.test(det, groups)
+    share = float(((w_k == w_p).all(-1) & (g_k == g_p).all(-1)).float()
+                  .mean())
+    log("  SCST greedy words and gates through the kernel equal the plain "
+        "version's on %.4f of captions" % share)
+    if share < 0.99:
+        raise AssertionError("only %.4f of greedy captions match the plain "
+                             "version" % share)
+    out["scst"] = dict(steps_per_s=TRAIN_STEPS / dt,
+                       sequences_per_s=TRAIN_STEPS * TRAIN_BATCH / dt,
+                       seconds=dt, losses=res, launches=launches,
+                       fused_launches_per_step=per_step,
+                       decode_ms=1e3 * dec_s, reward_ms=1e3 * rew_s,
+                       grad_ms=1e3 * grad_s, peak_mem_gb=peak,
+                       greedy_identical_share=share)
+    report["train"] = out
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -900,6 +1166,16 @@ def main():
         print(card)
         print(json.dumps({"pipeline": report["pipeline"]}))
         return 0
+    if "--train" in sys.argv[1:]:
+        log("[9] golden trainers replay")
+        replay_golden_train(report)
+        log("[10] trainers at full width (XE, SCST fast decode)")
+        run_trainers(report)
+        write_report(report)
+        print(card)
+        print(json.dumps({"train": report["train"]}))
+        print_device_line()
+        return 0
     check_fused(gen, kernels)
     check_vocab(gen, kernels)
     check_sinkhorn(gen, kernels)
@@ -919,7 +1195,14 @@ def main():
     # phase 8
     log("[8] eval pipeline at full width (run_stream, run_batch)")
     launches = run_pipeline(report, main_captioner())
-    report["beam_path_launches"] = beam_launches
+
+    # phases 9-10
+    log("[9] golden trainers replay")
+    replay_golden_train(report)
+    log("[10] trainers at full width (XE, SCST fast decode)")
+    train_launches = run_trainers(report)
+    by_path = {"beam": beam_launches, "pipeline": launches,
+               "train_scst": train_launches}
 
     rows = []
     for name, src, replaces in (
@@ -930,23 +1213,35 @@ def main():
             ("sinkhorn", "vsrcic_tpu_torch/csrc/sinkhorn.cu",
              "scripts/ab_sinkhorn.py:28")):
         k = kernels[name]
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": k["max_abs_err"],
-                     "max_err": k["max_abs_err"], "ms": k["ms"],
-                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                     "bound_by": k["bound_by"],
-                     "library_ms": k["library_ms"]})
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": launches[name],
+               "launches_by_path": {p: n.get(name, 0)
+                                    for p, n in by_path.items()},
+               "max_abs_err": k["max_abs_err"],
+               "max_err": k["max_abs_err"], "ms": k["ms"],
+               "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+               "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
+        row.update({f: v for f, v in k.items() if f.startswith("beam1_")})
+        rows.append(row)
     report["kernels"] = kernels
+    write_report(report)
+    print(card)
+    print(json.dumps({"kernels": rows}))
+    print_device_line()
+    return 0
+
+
+def write_report(report):
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    print(card)
-    print(json.dumps({"kernels": rows}))
+
+
+def print_device_line():
+    import torch
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":

@@ -31,7 +31,8 @@ def _pair(params, gt, fused):
     js = jc._fused_statics(jc.params, jnp.asarray(det), jnp.asarray(groups),
                            jnp.asarray(verb_list).astype(jnp.int32),
                            beam=BEAM)
-    ts = tc._fused_statics(torch.from_numpy(det), torch.from_numpy(groups),
+    ts = tc._fused_statics(tc.params, torch.from_numpy(det),
+                           torch.from_numpy(groups),
                            torch.from_numpy(verb_list))
     return jc, tc, js, ts
 

@@ -1,7 +1,7 @@
 """The port imports neither JAX nor the JAX package: every module of
 `vsrcic_tpu_torch`, and chip_smoke.py, imports in a process whose import
-system refuses the top-level names `jax`, `jaxlib` and `vsrcic_tpu`
-(compared exactly: `vsrcic_tpu_torch` shares the prefix)."""
+system refuses the top-level names `jax`, `jaxlib`, `optax` and
+`vsrcic_tpu` (compared exactly: `vsrcic_tpu_torch` shares the prefix)."""
 import os
 import subprocess
 import sys
@@ -11,7 +11,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROBE = r"""
 import importlib, importlib.abc, importlib.util, pkgutil, sys
 
-BANNED = {"jax", "jaxlib", "vsrcic_tpu"}
+BANNED = {"jax", "jaxlib", "optax", "vsrcic_tpu"}
 refused = []
 
 

@@ -17,6 +17,7 @@ from vsrcic_tpu_torch.ops.sinkhorn import (MAX_N, sinkhorn_normalize,
 from vsrcic_tpu_torch.ops.vocab_topk import (vocab_topk_lse,
                                              vocab_topk_lse_plain)
 
+import torch_parity as tp
 from torch_parity import cuda_device  # noqa: F401  (fixture)
 from torch_parity import fused_inputs, fused_torch_args, vocab_case
 
@@ -36,6 +37,62 @@ def test_fused_attention_kernel_matches_plain(cuda_device, shape, table):
     want = fused_group_attention_plain(*args)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1024, 37, 1])
+def test_fused_attention_kernel_beam1_matches_plain(cuda_device, b, table):
+    """The trainers' decodes: beam 1, one row per item (rows = B), full
+    widths (M 20, D 2048, A 512), B whole or ragged."""
+    args = fused_torch_args(fused_inputs(20, seed=b, rows=b, b=b, d=2048,
+                                         a=512), table, cuda_device)
+    assert torch.equal(args[0].long(), torch.arange(b, device=cuda_device))
+    before = fused_group_attention.launches
+    got = fused_group_attention(*args)
+    torch.cuda.synchronize()
+    assert fused_group_attention.launches == before + 1
+    want = fused_group_attention_plain(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_xe_step_on_the_card(cuda_device):
+    """One small XE step (lean compact path) on the card: finite losses,
+    the same as on the CPU within rtol 1e-4."""
+    from vsrcic_tpu_torch.models.captioner import init_captioner_params
+    from vsrcic_tpu_torch.train.captioner import CaptionerXETrainer
+    cfg = tp.train_cfg("torch")
+    params = init_captioner_params(torch.Generator().manual_seed(0), cfg)
+    losses = {}
+    for dev in ("cpu", cuda_device):
+        tr = CaptionerXETrainer(cfg, params, device=dev)
+        losses[str(dev)] = [tr.step(*tp.xe_batch()) for _ in range(2)]
+    got = torch.tensor(losses["cuda"])
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, torch.tensor(losses["cpu"]), rtol=1e-4,
+                               atol=0)
+
+
+@pytest.mark.cuda
+def test_scst_step_on_the_card(cuda_device):
+    """One small SCST step with fast_decode on the card: the decodes launch
+    the fused kernel, 2 x seq_len times; loss and advantage finite."""
+    from vsrcic_tpu_torch.models.captioner import init_captioner_params
+    from vsrcic_tpu_torch.train.captioner import CaptionerSCSTTrainer
+    cfg = tp.train_cfg("torch")
+    tf, cider = tp.text_world("torch")
+    det, grp, gts = tp.scst_batch()
+    tr = CaptionerSCSTTrainer(
+        cfg, init_captioner_params(torch.Generator().manual_seed(0), cfg),
+        tf, cider, fast_decode=True, table_dtype=torch.bfloat16,
+        device=cuda_device)
+    before = fused_group_attention.launches
+    loss, adv = tr.step(det, grp, gts,
+                        torch.Generator(device=cuda_device).manual_seed(0))
+    assert fused_group_attention.launches == before + 2 * cfg.seq_len
+    assert torch.isfinite(torch.tensor([loss, adv])).all()
 
 
 @pytest.mark.cuda

@@ -4,14 +4,18 @@ the writer of the port's golden fixtures.
 The beam inputs are those of tests/test_vocab_topk.py: a verb in the first
 group, an empty tense list, padded regions and short sequences that force
 finished beams. The eval pipeline's world is the same tiny captioner with a
-small planner (hidden 32, 2 + 2 layers) and a narrow Sinkhorn net. Parameters
-are made by the JAX package and reach the port through its weight bridge
+small planner (hidden 32, 2 + 2 layers) and a narrow Sinkhorn net. The
+trainers' world has tests/test_trainers.py's sizes, compact group ids with
+-1 padding, and a text field of 26 one-letter words. Parameters are made by
+the JAX package and reach the port through its weight bridge
 (`vsrcic_tpu_torch.utils.params`).
 
-    python tests/torch_parity.py   # rewrite vsrcic_tpu_torch/testdata/golden_{beam,pipeline}.npz
+    python tests/torch_parity.py   # rewrite vsrcic_tpu_torch/testdata/golden_{beam,pipeline,train}.npz
+    python tests/torch_parity.py --xe-full-width   # XE losses at full width, both packages
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import sys
@@ -436,12 +440,260 @@ def load_golden_pipeline():
     return params, json.loads(str(g["config"])), batches, g
 
 
+# ---------------------------------------------------------------------------
+# the trainers' world (tests/test_trainers.py's sizes)
+# ---------------------------------------------------------------------------
+
+GOLDEN_TRAIN = os.path.join(REPO, "vsrcic_tpu_torch", "testdata",
+                            "golden_train.npz")
+TR_KW = dict(seq_len=8, vocab_size=30, bos_idx=BOS, det_feat_size=16,
+             input_encoding_size=12, rnn_size=10, att_size=8)
+TR_B, TR_M, TR_N, TR_L = 4, 3, 6, 5
+TR_LR = 1e-3
+# 26 one-letter words + 4 specials: a text field whose vocabulary has
+# TR_KW["vocab_size"] entries
+WORDS = [chr(ord("a") + i) for i in range(26)]
+
+
+def train_cfg(pkg):
+    if pkg == "jax":
+        from vsrcic_tpu.models.captioner import CaptionerConfig
+    else:
+        from vsrcic_tpu_torch.models.captioner import CaptionerConfig
+    return CaptionerConfig(**TR_KW)
+
+
+def train_params(seed=0):
+    """The trainers' parameters, made by the JAX package (its init under
+    jit: one compile instead of the eager init's per-op dispatch). The
+    tests read them from the committed fixture (`load_golden_train`)."""
+    import jax
+    from vsrcic_tpu.models.captioner import init_captioner_params
+    return to_numpy_tree(jax.jit(init_captioner_params, static_argnums=1)(
+        jax.random.PRNGKey(seed), train_cfg("jax")))
+
+
+def xe_batch(seed=0):
+    """(detections, captions, compact ids, gate targets): the last detection
+    of every item is empty, ids hold -1 padding, gate targets hold -1."""
+    rng = np.random.RandomState(seed)
+    v, t, d = TR_KW["vocab_size"], TR_KW["seq_len"], TR_KW["det_feat_size"]
+    detections = rng.rand(TR_B, TR_N, d).astype(np.float32)
+    detections[:, -1] = 0.0
+    captions = rng.randint(0, v, size=(TR_B, t)).astype(np.int64)
+    ids = rng.randint(-1, TR_N, size=(TR_B, t, TR_M)).astype(np.int64)
+    gates = rng.randint(0, 2, size=(TR_B, t)).astype(np.int64)
+    gates[:, -2:] = -1
+    gates[0, 1] = -1
+    return detections, captions, ids, gates
+
+
+def dense_groups(detections, ids):
+    """The (..., M, D) groups that compact ids stand for (a loop oracle)."""
+    out = np.zeros(ids.shape + (detections.shape[-1],), np.float32)
+    for idx in np.ndindex(ids.shape):
+        if ids[idx] >= 0:
+            out[idx] = detections[idx[0], ids[idx]]
+    return out
+
+
+def scst_batch(seed=1):
+    """(detections, dense groups (B, L, M, D) with empty regions, GT
+    captions)."""
+    rng = np.random.RandomState(seed)
+    d = TR_KW["det_feat_size"]
+    detections = rng.rand(TR_B, TR_N, d).astype(np.float32)
+    ids = rng.randint(-1, TR_N, size=(TR_B, TR_L, TR_M))
+    gts = [" ".join(rng.choice(WORDS, size=rng.randint(3, 7)))
+           for _ in range(TR_B)]
+    return detections, dense_groups(detections, ids), gts
+
+
+def text_world(pkg):
+    """(TextField over WORDS, Cider with the GT captions' df) in `pkg`."""
+    if pkg == "jax":
+        from vsrcic_tpu.metrics import Cider
+        from vsrcic_tpu.text import TextField, ptb_tokenize
+    else:
+        from vsrcic_tpu_torch.metrics import Cider
+        from vsrcic_tpu_torch.text import TextField, ptb_tokenize
+    tf = TextField(fix_length=TR_KW["seq_len"])
+    tf.build_vocab([" ".join(WORDS)], min_freq=1)
+    gts = scst_batch()[2]
+    return tf, Cider(gts=ptb_tokenize({i: [c] for i, c in enumerate(gts)}))
+
+
+# the trainers' tolerances: losses within rtol 1e-5, gradients within
+# rtol 1e-4 / atol 1e-6 of jax.value_and_grad
+LOSS_RTOL = 1e-5
+GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
+
+
+def assert_grads_match(got, want):
+    """Every leaf within GRAD_TOL, and exact zeros exact."""
+    got, want = flat_grads(got), flat_grads(want)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], err_msg=k, **GRAD_TOL)
+        np.testing.assert_array_equal(got[k][want[k] == 0], 0.0, err_msg=k)
+
+
+def flat_grads(grads):
+    """A gradient tree (JAX or torch) as {"a.b.weight": numpy}."""
+    from vsrcic_tpu_torch.utils.params import flatten
+    return {k: (v.detach().cpu().numpy() if hasattr(v, "detach")
+                else np.asarray(v)) for k, v in flatten(grads).items()}
+
+
+def scst_trajectory(seed=2):
+    """Given words, gates and advantages for the SCST grad step."""
+    rng = np.random.RandomState(seed)
+    t = TR_KW["seq_len"]
+    return (rng.randint(0, TR_KW["vocab_size"], size=(TR_B, t)),
+            rng.randint(0, 2, size=(TR_B, t)),
+            rng.randn(TR_B).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_train_fns():
+    """Jitted JAX programs shared by the trainers' tests and the fixture
+    writer (one compile per process): value_and_grad of xe_loss_fn (static
+    cfg, lean) and of scst_loss_fn (static cfg, remat), and the strict
+    greedy decode of the trainers' config."""
+    import jax
+    from vsrcic_tpu.decode.loops import greedy_decode
+    from vsrcic_tpu.models.captioner import precompute_statics
+    from vsrcic_tpu.train.captioner import scst_loss_fn, xe_loss_fn
+    cfg = train_cfg("jax")
+
+    def greedy(params, detections, groups):
+        return greedy_decode(params, cfg, precompute_statics(
+            params, cfg, detections, groups))
+    return dict(
+        xe=jax.jit(jax.value_and_grad(xe_loss_fn, has_aux=True),
+                   static_argnums=(1,), static_argnames=("lean",)),
+        scst=jax.jit(jax.value_and_grad(scst_loss_fn), static_argnums=(1,),
+                     static_argnames=("remat",)),
+        greedy=jax.jit(greedy))
+
+
+def train_golden_arrays():
+    """The trainers' fixture, computed by the JAX package: the lean compact
+    XE loss and gradients at three Adam steps (lr TR_LR), the SCST loss and
+    gradients of a given trajectory (remat), and strict greedy words and
+    gates."""
+    import jax
+    import jax.numpy as jnp
+    from vsrcic_tpu.train import common
+    from vsrcic_tpu_torch.utils.params import flatten
+    fns = jax_train_fns()
+    cfg = train_cfg("jax")
+    params_np = train_params()
+    params = jax.tree.map(jnp.asarray, params_np)
+    det, caps, ids, gates = xe_batch()
+    out = {"param/" + k: v for k, v in flatten(params_np).items()}
+    out.update(config=np.array(json.dumps(TR_KW, sort_keys=True)),
+               lr=np.float32(TR_LR), **{"xe/" + k: v for k, v in zip(
+                   ("detections", "captions", "ids", "gates"),
+                   (det, caps, ids, gates))})
+    jargs = (jnp.asarray(det), jnp.asarray(caps, jnp.int32),
+             jnp.asarray(ids, jnp.int32), jnp.asarray(gates, jnp.int32))
+    tx = common.adam(TR_LR)
+    state = common.init_train_state(params, tx)
+    apply = jax.jit(lambda st, g: common.apply_grads(tx, st, g))
+    losses = []
+    for step in range(3):
+        (loss, _), grads = fns["xe"](state.params, cfg, *jargs)
+        if step == 0:
+            out.update({"xe/grad/" + k: v
+                        for k, v in flat_grads(grads).items()})
+        losses.append(float(loss))
+        state = apply(state, grads)
+    out["xe/losses"] = np.array(losses, np.float32)
+    s_det, s_grp, _ = scst_batch()
+    words, s_gates, adv = scst_trajectory()
+    out.update({"scst/detections": s_det, "scst/groups": s_grp,
+                "scst/words": words, "scst/gates": s_gates,
+                "scst/advantage": adv})
+    loss, grads = fns["scst"](
+        params, cfg, jnp.asarray(s_det), jnp.asarray(s_grp),
+        jnp.asarray(words, jnp.int32), jnp.asarray(s_gates, jnp.int32),
+        jnp.asarray(adv), remat=True)
+    out["scst/loss"] = np.float32(loss)
+    out.update({"scst/grad/" + k: v for k, v in flat_grads(grads).items()})
+    g_words, g_gates = fns["greedy"](params, jnp.asarray(s_det),
+                                     jnp.asarray(s_grp))
+    out["greedy/words"] = np.asarray(g_words).astype(np.int64)
+    out["greedy/gates"] = np.asarray(g_gates).astype(np.int64)
+    return out
+
+
+def load_golden_train():
+    """(params, {key: array}) from the committed trainers' fixture."""
+    from vsrcic_tpu_torch.utils.params import unflatten
+    with np.load(GOLDEN_TRAIN) as z:
+        g = {k: z[k] for k in z.files}
+    return unflatten({k[len("param/"):]: v for k, v in g.items()
+                      if k.startswith("param/")}), g
+
+
+def full_width_xe_losses(positive, batch=6, steps=5):
+    """Five XE trainer losses of JAX and of the port, on the CPU, at the
+    CLI's widths (CaptionerConfig()) and chip_smoke.py phase 10's batch
+    layout at a small batch, with standard normal detection features or
+    their absolute values (positive=True). Weights from the port's init
+    (seed 0), lr 5e-4. Returns (jax losses, port losses)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from vsrcic_tpu.models.captioner import CaptionerConfig as JaxConfig
+    from vsrcic_tpu.train.captioner import CaptionerXETrainer as JaxXE
+    from vsrcic_tpu_torch.models.captioner import (CaptionerConfig,
+                                                   init_captioner_params)
+    from vsrcic_tpu_torch.train.captioner import CaptionerXETrainer
+    from vsrcic_tpu_torch.utils.params import params_to_numpy
+    b, n, t, m, v, d = batch, 100, 20, 20, 10000, 2048
+    rng = np.random.RandomState(0)
+    n_real = n - rng.randint(0, 61, b)
+    det = rng.randn(b, n, d).astype(np.float32)
+    det = np.abs(det) if positive else det
+    det *= (np.arange(n)[None] < n_real[:, None])[..., None]
+    length = rng.randint(5, 19, b)
+    pos = np.arange(t)[None]
+    caps = np.where(pos == 0, 2, np.where(
+        pos <= length[:, None], rng.randint(4, v, (b, t)),
+        np.where(pos == length[:, None] + 1, 3, 1)))
+    regions = rng.randint(1, m + 1, (b, t))
+    ids = (rng.rand(b, t, m) * n_real[:, None, None]).astype(np.int64)
+    ids = np.where(np.arange(m) < regions[..., None], ids, -1)
+    gates = np.where(pos <= length[:, None] + 1,
+                     (rng.rand(b, t) < 0.3).astype(np.int64), -1)
+    params = params_to_numpy(init_captioner_params(
+        torch.Generator().manual_seed(0), CaptionerConfig()))
+    batch_ = (det, caps, ids, gates)
+    jt = JaxXE(JaxConfig(), jax.tree.map(jnp.asarray, params), lr=5e-4)
+    tt = CaptionerXETrainer(CaptionerConfig(), params, lr=5e-4,
+                            device="cpu")
+    jbatch = (det, caps, ids.astype(np.int32), gates)
+    return ([jt.step(*jbatch)[0] for _ in range(steps)],
+            [tt.step(*batch_)[0] for _ in range(steps)])
+
+
 if __name__ == "__main__":
     sys.path.insert(0, REPO)
     import jax
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_default_matmul_precision", "highest")
+    if "--xe-full-width" in sys.argv[1:]:
+        for positive in (True, False):
+            want, got = full_width_xe_losses(positive)
+            print("features %s: JAX %s, port %s" % (
+                "|normal|" if positive else "normal",
+                ["%.4f" % x for x in want], ["%.4f" % x for x in got]))
+        sys.exit(0)
     np.savez_compressed(GOLDEN, **golden_arrays())
     print("wrote", GOLDEN)
     np.savez_compressed(GOLDEN_PIPELINE, **pipeline_golden_arrays())
     print("wrote", GOLDEN_PIPELINE)
+    np.savez_compressed(GOLDEN_TRAIN, **train_golden_arrays())
+    print("wrote", GOLDEN_TRAIN)

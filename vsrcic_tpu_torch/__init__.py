@@ -8,7 +8,10 @@ Hopper (`csrc/`), built at first use (`ops/_build.py`) and bound with
 ctypes; beside each kernel is a plain PyTorch version of the same function.
 
 Ported so far: beam caption decode (`models.api.ControllableCaptioner.
-beam_search_v` / `beam_search`), strict and fast paths.
+beam_search_v` / `beam_search`), strict and fast paths; the eval pipeline
+(`pipelines.EvalPipeline`); the XE and SCST captioner trainers
+(`train.CaptionerXETrainer`, `train.CaptionerSCSTTrainer`) with the greedy,
+sampled, forced and teacher-forced decodes they stand on (`decode.loops`).
 """
 
 __version__ = "0.1.0"

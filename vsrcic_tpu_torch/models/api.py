@@ -1,9 +1,10 @@
-"""High-level captioner facade: beam-5 caption decode.
+"""High-level captioner facade: beam, greedy and sampled decodes, and
+teacher forcing.
 
 Counterpart of `vsrcic_tpu/models/api.py` (`ControllableCaptioner` with
-`beam_search_v` and `beam_search`). Strict by default: the dense joint beam
-in f32, with no hand-written kernel. The fast path is opted into with the
-same switches as in JAX:
+`forward`, `test`, `sample_rl`, `beam_search_v` and `beam_search`). Strict
+by default: f32 decodes with no hand-written kernel. The fast path is
+opted into with the same switches as in JAX:
 
   * use_fused_attention: False | True (the fused gather + attention op:
     the CUDA kernel on the card, its plain version on the CPU) | "plain"
@@ -29,6 +30,8 @@ import torch
 
 from vsrcic_tpu_torch.decode.beam import (BeamResult, beam_search_joint,
                                           beam_search_joint_candidates)
+from vsrcic_tpu_torch.decode.loops import (forward_teacher_forcing,
+                                           greedy_decode, sample_decode)
 from vsrcic_tpu_torch.models.captioner import (
     CaptionerConfig, Statics, VerbTenseTable, _mm, captioner_step,
     captioner_step_v, captioner_step_v_topk, derive_fused_step_weights,
@@ -37,7 +40,7 @@ from vsrcic_tpu_torch.ops.fused_attention import (
     fused_group_attention, fused_group_attention_plain)
 from vsrcic_tpu_torch.ops.vocab_topk import (vocab_topk_lse,
                                              vocab_topk_lse_plain)
-from vsrcic_tpu_torch.utils.device import resolve_device
+from vsrcic_tpu_torch.utils.device import as_tensor, resolve_device, to_device
 
 _MODES = (False, True, "plain")
 
@@ -54,11 +57,6 @@ def build_verb_tense_table(verb_2_vob_all: Dict[str, list],
     for k, v in verb_2_vob_all.items():
         ids[int(k), :len(v)] = v
     return VerbTenseTable(torch.from_numpy(ids).to(device))
-
-
-def _as_tensor(x, device, dtype=None):
-    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
-    return t.to(device=device, dtype=dtype or t.dtype)
 
 
 class ControllableCaptioner:
@@ -78,7 +76,7 @@ class ControllableCaptioner:
         if params is None:
             params = init_captioner_params(
                 torch.Generator().manual_seed(seed), cfg)
-        self.params = _to_device(params, self.device)
+        self.params = to_device(params, self.device)
         self.use_fused_attention = use_fused_attention
         self.use_vocab_topk = use_vocab_topk
         self.table_dtype = table_dtype
@@ -86,7 +84,6 @@ class ControllableCaptioner:
         self.tense_table = (build_verb_tense_table(verb_2_vob_all,
                                                    device=self.device)
                             if verb_2_vob_all is not None else None)
-        self._fused_w = None
         self._vocab_tables = None
 
     # -- impls ---------------------------------------------------------------
@@ -94,11 +91,14 @@ class ControllableCaptioner:
         dt = self.table_dtype
         return a.to(dt) if dt is not None and a.is_floating_point() else a
 
-    def _fused_statics(self, detections, det_groups, verb_list=None):
+    def _fused_statics(self, params, detections, det_groups, verb_list=None):
         """Statics (+ the fused attention op and fused step weights when
-        use_fused_attention); returns (statics, fused_fn, fused_w)."""
+        use_fused_attention) of `params`, which every decode passes in: a
+        trainer decodes with its live parameters, and the step weights are
+        derived from them on every call. Returns (statics, fused_fn,
+        fused_w)."""
         detections = self._cast(detections)
-        statics = precompute_statics(self.params, self.cfg, detections,
+        statics = precompute_statics(params, self.cfg, detections,
                                      self._cast(det_groups),
                                      verb_list=verb_list)
         if not self.use_fused_attention:
@@ -106,10 +106,8 @@ class ControllableCaptioner:
         fused = (fused_group_attention if self.use_fused_attention is True
                  else fused_group_attention_plain)
         tdt = self.table_dtype or statics.det_groups.dtype
-        if self._fused_w is None:
-            self._fused_w = derive_fused_step_weights(
-                self.params, self.cfg, dtype=self.step_dtype)
-        fw = self._fused_w
+        fw = derive_fused_step_weights(params, self.cfg,
+                                       dtype=self.step_dtype)
         # the image-descriptor slice of the input_1 projection is
         # step-invariant: computed once per decode, per item
         img_y = _mm(image_descriptor_f32(detections), fw["wx_img"]) + fw["bx"]
@@ -134,10 +132,25 @@ class ControllableCaptioner:
         return partial(fn, k=k), self._vocab_tables
 
     @torch.no_grad()
+    def _greedy_impl(self, params, detections, det_groups):
+        statics, fused, fw = self._fused_statics(params, detections,
+                                                 det_groups)
+        return greedy_decode(params, self.cfg, statics, fused_fn=fused,
+                             fused_w=fw)
+
+    @torch.no_grad()
+    def _sample_impl(self, params, detections, det_groups, gen):
+        statics, fused, fw = self._fused_statics(params, detections,
+                                                 det_groups)
+        return sample_decode(params, self.cfg, statics, gen, fused_fn=fused,
+                             fused_w=fw)
+
+    @torch.no_grad()
     def _beam_v_impl(self, detections, det_groups, verb_list, beam_size,
                      eos_word, gt):
         b = detections.shape[0]
-        statics, fused, fw = self._fused_statics(detections, det_groups,
+        statics, fused, fw = self._fused_statics(self.params, detections,
+                                                 det_groups,
                                                  verb_list=verb_list)
         state = init_state(self.cfg, b * beam_size, device=self.device)
         if self.use_vocab_topk:
@@ -167,7 +180,8 @@ class ControllableCaptioner:
     @torch.no_grad()
     def _beam_impl(self, detections, det_groups, beam_size, eos_word):
         b = detections.shape[0]
-        statics, fused, fw = self._fused_statics(detections, det_groups)
+        statics, fused, fw = self._fused_statics(self.params, detections,
+                                                 det_groups)
 
         def step_fn(state, pw, pg, t0):
             return captioner_step(self.params, self.cfg, state, statics,
@@ -181,15 +195,38 @@ class ControllableCaptioner:
                                  eos_word=eos_word)
 
     # -- public API (reference parity) ---------------------------------------
+    def forward(self, detections, captions, ctrl_det_seqs):
+        """Teacher-forced (word_logp (B, T, V), gate_logp (B, T, 2)) of
+        captions (B, T) under groups ctrl_det_seqs (B, T, M, D)."""
+        dev = self.device
+        return forward_teacher_forcing(
+            self.params, self.cfg, as_tensor(detections, dev),
+            as_tensor(captions, dev, torch.long),
+            as_tensor(ctrl_det_seqs, dev))
+
+    def test(self, detections, ctrl_det_seqs_test):
+        """Greedy decode: (words (B, T), gates (B, T))."""
+        dev = self.device
+        return self._greedy_impl(self.params, as_tensor(detections, dev),
+                                 as_tensor(ctrl_det_seqs_test, dev))
+
+    def sample_rl(self, detections, ctrl_det_seqs_test, gen):
+        """Sampled decode with per-step logprobs, drawn from `gen` (a
+        torch.Generator on this captioner's device): ((words, gates),
+        (word_logps, gate_logps)), each (B, T)."""
+        dev = self.device
+        return self._sample_impl(self.params, as_tensor(detections, dev),
+                                 as_tensor(ctrl_det_seqs_test, dev), gen)
+
     def beam_search_v(self, detections, det_groups, verb_list, eos_word,
                       beam_size=5, gt=False) -> BeamResult:
         """Beam decode with verb substitution. detections (B, N, D),
         det_groups (B, L, M, D) (float32 or bfloat16, M padded or not),
         verb_list (B, L) verb ids or -1. Tensors or arrays."""
         dev = self.device
-        return self._beam_v_impl(_as_tensor(detections, dev),
-                                 _as_tensor(det_groups, dev),
-                                 _as_tensor(verb_list, dev, torch.long),
+        return self._beam_v_impl(as_tensor(detections, dev),
+                                 as_tensor(det_groups, dev),
+                                 as_tensor(verb_list, dev, torch.long),
                                  beam_size=beam_size, eos_word=eos_word,
                                  gt=gt)
 
@@ -197,12 +234,6 @@ class ControllableCaptioner:
                     beam_size=5) -> BeamResult:
         """Beam decode without verb substitution (dense joint beam)."""
         dev = self.device
-        return self._beam_impl(_as_tensor(detections, dev),
-                               _as_tensor(det_groups, dev),
+        return self._beam_impl(as_tensor(detections, dev),
+                               as_tensor(det_groups, dev),
                                beam_size=beam_size, eos_word=eos_word)
-
-
-def _to_device(tree, device):
-    return {k: (_to_device(v, device) if isinstance(v, dict)
-                else _as_tensor(v, device))
-            for k, v in tree.items()}

@@ -369,13 +369,26 @@ def _feedback_inputs(cfg, state, statics, prev_word, prev_gate, t0):
 
 
 def captioner_step(params, cfg: CaptionerConfig, state: CaptionerState,
-                   statics: Statics, prev_word=None, prev_gate=None,
-                   t0=False, beam: int = 1, fused_fn=None, fused_w=None):
-    """One feedback decode step (the step of `beam_search`).
+                   statics: Statics, it=None, det_curr=None,
+                   prev_word=None, prev_gate=None, t0=False, beam: int = 1,
+                   fused_fn=None, fused_w=None):
+    """One decode step.
 
-    The ctrl pointer advances by prev_gate and the group is gathered from
-    statics, or attended in the fused op when fused_fn is given."""
+    Teacher forcing: pass `it` (B,) and `det_curr` (B, M, D); the group's
+    projection and mask are taken here, the pointer stays, and only
+    statics.image_descriptor is read. Feedback (the step of `beam_search`,
+    greedy and sampling): the ctrl pointer advances by prev_gate and the
+    group is gathered from statics, or attended in the fused op when
+    fused_fn is given."""
     b = state.h1.shape[0]
+    if it is not None and det_curr is not None:
+        det_proj = nn.linear(params["att_va"], det_curr)
+        det_mask = (det_curr.sum(-1) != 0).to(det_curr.dtype)
+        (word_logp, gate_logp), (h1, c1, h2, c2) = _step_core(
+            params, cfg, state, it, det_curr, det_proj, det_mask,
+            statics.image_descriptor)
+        return ((word_logp, gate_logp),
+                CaptionerState(h1, c1, h2, c2, state.ctrl_det_idx))
     it, ctrl = _feedback_inputs(cfg, state, statics, prev_word, prev_gate, t0)
     if fused_fn is not None:
         (word_logp, gate_logp), (h1, c1, h2, c2) = _step_core_fused(

@@ -32,7 +32,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from vsrcic_tpu_torch.models.api import ControllableCaptioner, _to_device
+from vsrcic_tpu_torch.models.api import ControllableCaptioner
 from vsrcic_tpu_torch.models.s_ssp import (SSPConfig, ssp_generate,
                                            ssp_generate_fast)
 from vsrcic_tpu_torch.models.sinkhorn import (SinkhornConfig,
@@ -42,7 +42,7 @@ from vsrcic_tpu_torch.ops.sinkhorn import (sinkhorn_normalize,
                                            sinkhorn_normalize_plain)
 from vsrcic_tpu_torch.pipelines.sr_groups import (extract_verb_groups_arrays,
                                                   extract_verb_groups_batch)
-from vsrcic_tpu_torch.utils.device import resolve_device
+from vsrcic_tpu_torch.utils.device import resolve_device, to_device
 from vsrcic_tpu_torch.utils.rank_merge import verb_rank_merge
 
 
@@ -99,9 +99,9 @@ class EvalPipeline:
             raise ValueError("the captioner runs on %s, the pipeline on %s"
                              % (captioner.device, self.device))
         self.captioner = captioner
-        self.ssp_params = _to_device(ssp_params, self.device)
+        self.ssp_params = to_device(ssp_params, self.device)
         self.ssp_cfg = ssp_cfg
-        self.sinkhorn_params = _to_device(sinkhorn_params, self.device)
+        self.sinkhorn_params = to_device(sinkhorn_params, self.device)
         self.sinkhorn_cfg = sinkhorn_cfg
         self.eos_word = eos_word
         self.fixed_len = fixed_len

@@ -1,0 +1,292 @@
+"""Captioner trainers: XE and SCST CIDEr RL.
+
+Counterpart of `vsrcic_tpu/train/captioner.py`.
+
+XE (ref coco_scripts/train.py:92-120): NLL(word) + 4 * NLL(gate, ignore -1),
+Adam.
+
+SCST (ref train.py:121-183): the sampled decode and the greedy baseline run
+on the device under `torch.no_grad()`; rewards are the Python tokenizer and
+CIDEr-D on the host; the gradient pass recomputes the trajectory's logprobs
+(`decode.loops.forced_feedback_logprobs`) in strict f32 on the f32
+detections and groups:
+loss = -(mean word logp + mean gate logp) * (CIDEr(sample) - CIDEr(greedy)).
+With `fast_decode` the two decodes go through the fused attention op (the
+CUDA kernel on the card) with the fused step weights, on tables of
+`table_dtype`; the gradient pass stays strict either way. The fused kernel
+takes any number of rows, so the decode batch is not padded.
+
+Entry points run on the CUDA card unless `device` names another; a missing
+card raises. The JAX package's data-parallel `mesh` and its native CIDEr
+scorer are not ported: asking for either raises.
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from vsrcic_tpu_torch.decode.loops import (
+    _take, expand_compact_groups, forced_feedback_logprobs,
+    forward_teacher_forcing, greedy_decode, sample_decode)
+from vsrcic_tpu_torch.metrics.cider import Cider
+from vsrcic_tpu_torch.models.api import ControllableCaptioner
+from vsrcic_tpu_torch.models.captioner import (
+    CaptionerConfig, Statics, captioner_step, image_descriptor_f32,
+    init_state, precompute_statics)
+from vsrcic_tpu_torch.text.tokenizer import ptb_tokenize
+from vsrcic_tpu_torch.text.vocab import TextField, dedup_join
+from vsrcic_tpu_torch.train.common import (
+    TrainState, adam, apply_grads, init_train_state, nll_loss,
+    set_learning_rate, value_and_grad)
+from vsrcic_tpu_torch.utils.device import as_tensor, resolve_device, to_device
+
+
+def _not_ported(**kw):
+    for name, val in kw.items():
+        if val is not None:
+            raise NotImplementedError(
+                "vsrcic_tpu_torch: %s is not ported yet" % name)
+
+
+def xe_loss_fn(params, cfg: CaptionerConfig, detections, captions,
+               ctrl_det_seqs, gate_targets, lean: bool = True):
+    """ref train.py:103-110: word loss shifted; gate loss unshifted,
+    weighted 4x, -1 ignored. Returns (loss, (loss_cap, loss_gate)).
+
+    ctrl_det_seqs: dense (B, T, M, D) float groups or compact (B, T, M) int
+    ids. Compact ids take the memory-lean path unless lean=False, which
+    expands them once and runs the dense path."""
+    if not ctrl_det_seqs.is_floating_point():
+        if lean:
+            return _xe_loss_compact(params, cfg, detections, captions,
+                                    ctrl_det_seqs, gate_targets)
+        ctrl_det_seqs = expand_compact_groups(detections, ctrl_det_seqs)
+    word_logp, gate_logp = forward_teacher_forcing(
+        params, cfg, detections, captions, ctrl_det_seqs)
+    loss_cap = nll_loss(word_logp[:, :-1], captions[:, 1:])
+    loss_gate = nll_loss(gate_logp, gate_targets, ignore_index=-1)
+    return loss_cap + 4.0 * loss_gate, (loss_cap, loss_gate)
+
+
+def _xe_loss_compact(params, cfg: CaptionerConfig, detections, captions,
+                     det_ids, gate_targets):
+    """XE loss from compact (B, T, M) int group ids, memory-lean: each
+    step expands its group, projects it and reduces its NLL terms inside a
+    checkpointed step, so neither the (B, T, M, D) groups nor the (B, T, V)
+    logprobs are kept, and the backward recomputes the step. Equal to the
+    dense path (word loss over b * (T - 1) terms, gate loss over the
+    targets that are not -1)."""
+    b, t_len = captions.shape
+    captions = captions.long()
+    gate_targets = gate_targets.long()
+    statics = Statics(image_descriptor_f32(detections).to(detections.dtype),
+                      None, None, None, None)
+    # step t predicts captions[:, t + 1]; the last step's word term is
+    # masked, as the dense path drops it
+    tgt_next = torch.cat([captions[:, 1:], torch.zeros_like(captions[:, :1])],
+                         1)
+
+    def body(state, it, ids_t, tgt_t, gate_t, on_t):
+        (w_logp, g_logp), state = captioner_step(
+            params, cfg, state, statics, it=it,
+            det_curr=expand_compact_groups(detections, ids_t))
+        g_valid = gate_t != -1
+        g_lp = _take(g_logp, gate_t.clamp(0, 1))
+        return (state, _take(w_logp, tgt_t).sum() * on_t,
+                (g_lp * g_valid).sum(), g_valid.float().sum())
+
+    state = init_state(cfg, b, device=detections.device)
+    sums = [], [], []
+    for t in range(t_len):
+        # the step draws no random numbers: no RNG state to keep
+        state, *out = checkpoint(
+            body, state, captions[:, t], det_ids[:, t], tgt_next[:, t],
+            gate_targets[:, t], 1.0 if t < t_len - 1 else 0.0,
+            use_reentrant=False, preserve_rng_state=False)
+        for acc, x in zip(sums, out):
+            acc.append(x)
+    w_sums, g_sums, g_counts = (torch.stack(a) for a in sums)
+    loss_cap = -w_sums.sum() / (b * (t_len - 1))
+    loss_gate = -g_sums.sum() / g_counts.sum().clamp_min(1.0)
+    return loss_cap + 4.0 * loss_gate, (loss_cap, loss_gate)
+
+
+class CaptionerXETrainer:
+    def __init__(self, cfg: CaptionerConfig, params, lr: float = 5e-4,
+                 mesh=None, lean: bool = True, device=None):
+        """params: nested dict of tensors or arrays in torch layout.
+        lean: compact-id batches take the checkpointed per-step loss
+        (what batch 1024 needs); lean=False expands them once."""
+        _not_ported(mesh=mesh)
+        self.cfg = cfg
+        self.lean = lean
+        self.device = resolve_device(device)
+        self.tx = adam(lr)
+        self.state = init_train_state(to_device(params, self.device),
+                                      self.tx)
+
+    def set_lr(self, lr: float):
+        self.state = TrainState(self.state.params,
+                                set_learning_rate(self.state.opt_state, lr),
+                                self.state.step)
+
+    def _batch(self, detections, captions, ctrl_det_seqs, gate_targets):
+        dev = self.device
+        ctrl = as_tensor(ctrl_det_seqs, dev)
+        if not ctrl.is_floating_point():
+            ctrl = ctrl.long()
+        return (as_tensor(detections, dev), as_tensor(captions, dev,
+                                                      torch.long),
+                ctrl, as_tensor(gate_targets, dev, torch.long))
+
+    def loss_and_grads(self, detections, captions, ctrl_det_seqs,
+                       gate_targets):
+        """((loss, (loss_cap, loss_gate)), grads) at the current params,
+        with no update."""
+        return value_and_grad(xe_loss_fn, self.state.params, self.cfg,
+                              *self._batch(detections, captions,
+                                           ctrl_det_seqs, gate_targets),
+                              lean=self.lean, has_aux=True)
+
+    def step(self, detections, captions, ctrl_det_seqs, gate_targets):
+        """One Adam step; returns (loss, loss_cap, loss_gate) as floats."""
+        (loss, (lc, lg)), grads = self.loss_and_grads(
+            detections, captions, ctrl_det_seqs, gate_targets)
+        self.state = apply_grads(self.tx, self.state, grads)
+        return tuple(torch.stack([loss, lc, lg]).tolist())
+
+
+def scst_loss_fn(params, cfg: CaptionerConfig, detections, det_groups,
+                 words, gates, advantage, remat: bool = False):
+    statics = precompute_statics(params, cfg, detections, det_groups)
+    w_lps, g_lps = forced_feedback_logprobs(params, cfg, statics, words,
+                                            gates, remat=remat)
+    per_seq = -(w_lps.mean(-1) + g_lps.mean(-1)) * advantage
+    return per_seq.mean()
+
+
+class CaptionerSCSTTrainer:
+    """Self-critical sequence training with the CIDEr-D reward.
+
+    Two baseline schemes:
+      * ``baseline="step"``: a greedy decode with the live params every
+        step, sharing the statics of the sampled decode;
+      * ``baseline="epoch"``: the reference scheme (ref train.py:122-138):
+        call `epoch_baseline_caps` per batch at epoch start and pass the
+        result to `step(..., baseline_caps=...)`.
+    """
+
+    def __init__(self, cfg: CaptionerConfig, params, text_field: TextField,
+                 cider: Cider, lr: float = 5e-4, mesh=None,
+                 baseline: str = "step", fast_decode: bool = False,
+                 table_dtype=None, remat: bool = True, native_cider=None,
+                 device=None):
+        """remat: checkpoint the gradient pass's steps (same gradients, one
+        more forward in the backward), what batch 1024 needs.
+        fast_decode: decode through the fused attention op and the fused
+        step weights, with the tables in table_dtype (e.g. torch.bfloat16).
+        """
+        _not_ported(mesh=mesh, native_cider=native_cider)
+        if baseline not in ("step", "epoch"):
+            raise ValueError("baseline must be 'step' or 'epoch'")
+        self.cfg = cfg
+        self.text_field = text_field
+        self.cider = cider
+        self.baseline = baseline
+        self.remat = remat
+        self.device = resolve_device(device)
+        self.tx = adam(lr)
+        self.state = init_train_state(to_device(params, self.device),
+                                      self.tx)
+        self._fast = None
+        if fast_decode:
+            self._fast = ControllableCaptioner(
+                cfg, params=self.state.params, use_fused_attention=True,
+                table_dtype=table_dtype, device=self.device)
+            # a kernel factory only: every decode passes the live params, so
+            # its construction-time params must never be read
+            self._fast.params = None
+
+    def set_lr(self, lr: float):
+        self.state = TrainState(self.state.params,
+                                set_learning_rate(self.state.opt_state, lr),
+                                self.state.step)
+
+    @torch.no_grad()
+    def decode(self, detections, det_groups, gen=None, greedy=True):
+        """With the live params: the sampled decode ((words, gates),
+        (word_logps, gate_logps)) when `gen` (a torch.Generator on the
+        trainer's device) is given, else None; and the greedy words (B, T)
+        when `greedy`, else None. Both share one statics."""
+        params = self.state.params
+        if self._fast is not None:
+            statics, fused, fw = self._fast._fused_statics(
+                params, detections, det_groups)
+        else:
+            statics = precompute_statics(params, self.cfg, detections,
+                                         det_groups)
+            fused = fw = None
+        sampled = None if gen is None else sample_decode(
+            params, self.cfg, statics, gen, fused_fn=fused, fused_w=fw)
+        base = None if not greedy else greedy_decode(
+            params, self.cfg, statics, fused_fn=fused, fused_w=fw)[0]
+        return sampled, base
+
+    def _decode_caps(self, words) -> List[str]:
+        caps = self.text_field.decode(words.cpu().numpy(), join_words=False)
+        return [dedup_join(c) for c in caps]
+
+    def _inputs(self, detections, det_groups):
+        return (as_tensor(detections, self.device),
+                as_tensor(det_groups, self.device))
+
+    def epoch_baseline_caps(self, detections, det_groups) -> List[str]:
+        """Greedy baseline captions for one batch with the current (epoch-
+        start) params (ref train.py:122-138)."""
+        _, base = self.decode(*self._inputs(detections, det_groups))
+        return self._decode_caps(base)
+
+    def rewards(self, sampled_caps: List[str], baseline_caps: List[str],
+                gt_caps: List[str]) -> np.ndarray:
+        """CIDEr-D(sample) - CIDEr-D(baseline) per caption, f32; one
+        reference cook for both."""
+        gts = ptb_tokenize({i: [g] for i, g in enumerate(gt_caps)})
+        gen = ptb_tokenize({i: [c] for i, c in enumerate(sampled_caps)})
+        base = ptb_tokenize({i: [c] for i, c in enumerate(baseline_caps)})
+        r, rb = self.cider.compute_score_pair(gts, gen, base)
+        return (r - rb).astype(np.float32)
+
+    def grad_step(self, detections, det_groups, words, gates,
+                  advantage) -> float:
+        """One Adam step on scst_loss_fn for given trajectories and
+        advantages (B,); returns the loss."""
+        det, grp = self._inputs(detections, det_groups)
+        dev = self.device
+        loss, grads = value_and_grad(
+            scst_loss_fn, self.state.params, self.cfg, det, grp,
+            as_tensor(words, dev, torch.long),
+            as_tensor(gates, dev, torch.long),
+            as_tensor(np.asarray(advantage, np.float32), dev),
+            remat=self.remat)
+        self.state = apply_grads(self.tx, self.state, grads)
+        return float(loss)
+
+    def step(self, detections, det_groups, gt_caps: List[str],
+             gen: torch.Generator,
+             baseline_caps: List[str] = None) -> Tuple[float, float]:
+        """Sample, score against the baseline, take one Adam step; returns
+        (loss, mean advantage)."""
+        det, grp = self._inputs(detections, det_groups)
+        if baseline_caps is None and self.baseline == "epoch":
+            raise ValueError("baseline='epoch' requires baseline_caps "
+                             "(from epoch_baseline_caps at epoch start)")
+        ((words, gates), _), base = self.decode(
+            det, grp, gen, greedy=baseline_caps is None)
+        if baseline_caps is None:
+            baseline_caps = self._decode_caps(base)
+        adv = self.rewards(self._decode_caps(words), baseline_caps, gt_caps)
+        return self.grad_step(det, grp, words, gates, adv), float(
+            np.mean(adv))

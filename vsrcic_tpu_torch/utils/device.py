@@ -1,6 +1,7 @@
 """Device selection for the port's entry points."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -13,3 +14,16 @@ def resolve_device(device=None) -> torch.device:
             "vsrcic_tpu_torch: CUDA is not available; pass device='cpu' to "
             "run on the CPU")
     return dev
+
+
+def as_tensor(x, device, dtype=None):
+    """A tensor or array-like on `device`, in `dtype` (its own if None)."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def to_device(tree, device):
+    """A nested dict of tensors or array-likes, on `device`."""
+    return {k: (to_device(v, device) if isinstance(v, dict)
+                else as_tensor(v, device))
+            for k, v in tree.items()}
