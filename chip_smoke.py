@@ -5,12 +5,14 @@
     python3 chip_smoke.py --sinkhorn   # phases 1-2 and the Sinkhorn check
     python3 chip_smoke.py --pipeline   # phases 1-2 and 8
     python3 chip_smoke.py --train      # phases 1-2 and 9-10
+    python3 chip_smoke.py --planners   # phases 1-2 and 11-12
 
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi), and the TF32 settings
      (both off: the JAX reference runs its f32 products at 'highest');
   2. build the kernels from vsrcic_tpu_torch/csrc/ and report the build time
-     and what ptxas reports (registers, shared memory, spills);
+     and what ptxas reports (registers, shared memory, spills); build the
+     native CIDEr-D scorer (csrc/cider_scorer.cpp, host C++ compiler);
   3. hold each kernel against its plain PyTorch version on the card: at the
      full-width shapes of the path, at ragged shapes, on the vocab tie cases
      and, for the Sinkhorn kernel, at every (S, n) of SINK_CASE_S x
@@ -43,9 +45,20 @@ Phases (any failure raises and the script exits non-zero):
      detections, compact ids (B, 20, 20), batch 1024): XE (lean) and SCST
      (fast_decode, bf16 tables, baseline "step"), one warm-up and three
      timed steps each, launch counts reset just before and read just after;
-     XE's loss must fall over five steps on one batch; SCST's decode,
-     reward and grad times of one step; its greedy words through the
-     kernel against the plain version's.
+     XE's loss must fall over five steps on one batch; SCST rewards one
+     step's captions with the native CIDEr-D scorer and with the Python
+     one (within 1e-9, each scorer and the tokenizer timed alone), then
+     steps with the native one; SCST's decode, reward and grad times of one
+     step; its greedy words through the kernel against the plain version's;
+ 11. replay the planner trainers' golden fixture (JAX losses, gradient
+     samples, beam sequences, assignments) on the card, the Sinkhorn
+     trainer's loss through the kernel;
+ 12. drive both planner trainers at full width: S-SSP (SSPConfig(), 1536
+     verb groups per step, dropout 0.1) and Sinkhorn (SinkhornConfig(),
+     1536 pairs per step, 'images' over 1024), one warm-up and five timed
+     steps each, launch counts reset just before and read just after; the
+     losses must fall; the Sinkhorn trainer's gradients through the kernel
+     against those through the plain version.
 
 Prints the kernels' JSON line, then, last, the device JSON line. Details go
 to chiprun_out/chip_smoke.json.
@@ -1020,12 +1033,48 @@ def text_world(det_caps):
     return tf, Cider(gts=ptb_tokenize({i: [c] for i, c in enumerate(gts)})), gts
 
 
+def compare_rewards(cider, native, caps_s, caps_b, gts):
+    """One step's SCST reward both ways: the tokenizer alone, then the
+    Python (references' vectors cached, as in a run it scores) and the
+    native CIDEr-D scorers on its output; the advantages (sample -
+    baseline, float64) must agree within 1e-9."""
+    import numpy as np
+    from vsrcic_tpu_torch.text import ptb_tokenize
+    t0 = time.perf_counter()
+    tok = [ptb_tokenize({i: [c] for i, c in enumerate(caps)})
+           for caps in (gts, caps_s, caps_b)]
+    tok_s = time.perf_counter() - t0
+    # the Python scorer caches the references' vectors; a run scored by it
+    # would have them from earlier steps, so the timed call is the second
+    cider.compute_score_pair(*tok)
+    t0 = time.perf_counter()
+    r, rb = cider.compute_score_pair(*tok)
+    py_s = time.perf_counter() - t0
+    keys = range(len(gts))
+    t0 = time.perf_counter()
+    nr, nrb = native.score_pair(*([t[i][0] for i in keys] for t in tok))
+    nat_s = time.perf_counter() - t0
+    diff = float(np.abs((nr - nrb) - (r - rb)).max())
+    log("  SCST reward of one step, %d captions against %d references: "
+        "tokenizer %.1f ms, Python CIDEr-D %.1f ms, native CIDEr-D %.1f ms "
+        "(%d threads); advantages agree within %.3g (bar 1e-9), mean "
+        "advantage %.5f" % (2 * len(gts), len(gts), 1e3 * tok_s, 1e3 * py_s,
+                            1e3 * nat_s, min(os.cpu_count() or 1, 16), diff,
+                            float(np.mean(r - rb))))
+    if not diff <= 1e-9:
+        raise AssertionError("native and Python CIDEr-D advantages differ by "
+                             "%.3g" % diff)
+    return dict(tokenize_ms=1e3 * tok_s, python_cider_ms=1e3 * py_s,
+                native_cider_ms=1e3 * nat_s, max_abs_diff=diff)
+
+
 def run_trainers(report):
     """Phase 10."""
     import torch
     from vsrcic_tpu_torch.models.api import ControllableCaptioner
     from vsrcic_tpu_torch.models.captioner import (CaptionerConfig,
                                                    init_captioner_params)
+    from vsrcic_tpu_torch.metrics.cider_native import NativeCiderPair
     from vsrcic_tpu_torch.train.captioner import (CaptionerSCSTTrainer,
                                                   CaptionerXETrainer)
     t0 = time.perf_counter()
@@ -1062,11 +1111,16 @@ def run_trainers(report):
     del xe
     torch.cuda.empty_cache()
 
-    # SCST, fast decode with bf16 tables, greedy baseline every step
+    # SCST, fast decode with bf16 tables, greedy baseline every step, the
+    # native CIDEr-D reward
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    native = NativeCiderPair(cider)
+    native_s = time.perf_counter() - t0
     sc = CaptionerSCSTTrainer(cfg, params, tf, cider, lr=TRAIN_LR,
                               fast_decode=True, table_dtype=torch.bfloat16,
-                              baseline="step", device="cuda")
+                              baseline="step", native_cider=native,
+                              device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     sc.step(det, groups, gts, gen)                                # warm-up
     res, dt, launches = counted(lambda: [
@@ -1086,16 +1140,24 @@ def run_trainers(report):
     # one step in its three parts, each ended by a synchronize
     (sampled, base), dec_s, _ = counted(lambda: sc.decode(det, groups, gen))
     (words, s_gates), _ = sampled
+    caps_s, caps_b = sc._decode_caps(words), sc._decode_caps(base)
     t0 = time.perf_counter()
-    adv = sc.rewards(sc._decode_caps(words), sc._decode_caps(base), gts)
+    adv = sc.rewards(caps_s, caps_b, gts)
     rew_s = time.perf_counter() - t0
     _, grad_s, _ = counted(lambda: sc.grad_step(det, groups, words, s_gates,
                                                 adv))
     peak = torch.cuda.max_memory_allocated() / 1e9
     log("  SCST one step in parts: decode (sample + greedy) %.1f ms, reward "
-        "(tokenize + CIDEr-D of %d captions, host) %.1f ms, grad %.1f ms; "
-        "peak memory %.2f GB" % (1e3 * dec_s, 2 * TRAIN_BATCH, 1e3 * rew_s,
-                                 1e3 * grad_s, peak))
+        "(tokenize + native CIDEr-D of %d captions, host) %.1f ms, grad "
+        "%.1f ms; peak memory %.2f GB" % (
+            1e3 * dec_s, 2 * TRAIN_BATCH, 1e3 * rew_s, 1e3 * grad_s, peak))
+    # the reward's split, on a new decode's captions: the tokenizer caches
+    # each caption it has seen, so captions already rewarded would time a
+    # warm cache where a step meets new samples
+    ((new_words, _), _), base = sc.decode(det, groups, gen)
+    reward = compare_rewards(cider, native, sc._decode_caps(new_words),
+                             sc._decode_caps(base), gts)
+    reward["native_df_load_s"] = native_s
 
     # the greedy decode through the kernel and through its plain version
     kern, plain = (ControllableCaptioner(
@@ -1116,8 +1178,271 @@ def run_trainers(report):
                        fused_launches_per_step=per_step,
                        decode_ms=1e3 * dec_s, reward_ms=1e3 * rew_s,
                        grad_ms=1e3 * grad_s, peak_mem_gb=peak,
-                       greedy_identical_share=share)
+                       greedy_identical_share=share, reward=reward)
     report["train"] = out
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 11-12: the planner trainers
+# ---------------------------------------------------------------------------
+
+# the eval pipeline's per-batch counts (phase 8): 1536 verb groups and 1536
+# Sinkhorn pairs per batch of 1024 images
+PLAN_GROUPS, PLAN_PAIRS, PLAN_IMAGES, PLAN_LR, PLAN_STEPS = 1536, 1536, 1024, \
+    1e-4, 5
+
+
+def sampled_grads_match(what, grads, g, prefix, cap, scaled):
+    """Each gradient leaf's stored entries (every max(1, size // cap)-th,
+    as tests/torch_parity.py::grad_sample takes them) within rtol 1e-4 /
+    atol 1e-6 of the fixture's, the atol with scaled=True 1e-5 times the
+    leaf's largest entry where that exceeds 1 (the 2352-d Sinkhorn net's
+    f32 round-off, tests/test_torch_sinkhorn_train.py). Returns the
+    largest absolute difference."""
+    import numpy as np
+    from vsrcic_tpu_torch.utils.params import flatten
+    want = {k[len(prefix):]: v for k, v in g.items() if k.startswith(prefix)}
+    got = {}
+    for k, v in flatten(grads).items():
+        flat = v.detach().cpu().numpy().reshape(-1)
+        got[k] = flat[::max(1, flat.size // cap)]
+    if sorted(got) != sorted(want):
+        raise AssertionError("%s: gradient leaves differ" % what)
+    worst = 0.0
+    for k, w in want.items():
+        atol = 1e-6
+        if scaled:
+            atol = 1e-5 * max(1.0, float(np.abs(w).max()))
+        if not np.allclose(got[k], w, rtol=1e-4, atol=atol):
+            raise AssertionError("%s: gradient %s beyond rtol 1e-4 / atol "
+                                 "%.3g (max diff %.3g)" % (
+                                     what, k, atol,
+                                     np.abs(got[k] - w).max()))
+        worst = max(worst, float(np.abs(got[k] - w).max()))
+    return worst
+
+
+def replay_golden_planners(report):
+    """Phase 11: vsrcic_tpu_torch/testdata/golden_planners.npz (written by
+    `python tests/torch_parity.py --planners` from JAX) on the card. The
+    weights are drawn from the fixture's numpy seeds."""
+    import numpy as np
+    import torch
+    from vsrcic_tpu_torch.models.s_ssp import (SSPConfig, init_ssp_params,
+                                               ssp_beam_search)
+    from vsrcic_tpu_torch.models.sinkhorn import (SinkhornConfig,
+                                                  init_sinkhorn_params)
+    from vsrcic_tpu_torch.ops.assignment import greedy_assign_device
+    from vsrcic_tpu_torch.ops.sinkhorn import sinkhorn_normalize
+    from vsrcic_tpu_torch.train.planners import SinkhornTrainer, SSPTrainer
+    from vsrcic_tpu_torch.utils.params import seeded_params
+    path = os.path.join(REPO, "vsrcic_tpu_torch", "testdata",
+                        "golden_planners.npz")
+    with np.load(path) as z:
+        g = {k: z[k] for k in z.files}
+    cfg = json.loads(str(g["config"]))
+    cap = cfg["grad_sample"]
+    template = torch.Generator().manual_seed(0)
+    ssp_cfg = SSPConfig(**cfg["ssp"])
+    ssp = SSPTrainer(ssp_cfg, seeded_params(init_ssp_params(
+        template, ssp_cfg), cfg["ssp_seed"]), device="cuda")
+    loss, grads = ssp.loss_and_grads(g["ssp/verbs"], g["ssp/det_sr"],
+                                     g["ssp/gt_sr"])
+    if not np.isclose(float(loss), g["ssp/loss"], rtol=1e-4, atol=0):
+        raise AssertionError("S-SSP loss %.7g vs JAX %.7g beyond rtol 1e-4"
+                             % (float(loss), g["ssp/loss"]))
+    out = {"ssp_loss": float(loss), "ssp_loss_jax": float(g["ssp/loss"]),
+           "ssp_grad_max_diff": sampled_grads_match(
+               "S-SSP", grads, g, "ssp/grad/", cap, scaled=False)}
+    seqs, scores = ssp_beam_search(
+        ssp.state.params, ssp_cfg, torch.from_numpy(g["beam/verb"]),
+        torch.from_numpy(g["beam/det_sr"]), beam_size=cfg["beam_size"])
+    if not np.array_equal(seqs.cpu().numpy(), g["beam/seqs"]):
+        raise AssertionError("S-SSP beam sequences differ from JAX's")
+    out["beam_score_max_diff"] = float(np.abs(
+        scores.cpu().numpy() - g["beam/scores"]).max())
+    if not np.allclose(scores.cpu().numpy(), g["beam/scores"], rtol=1e-4,
+                       atol=0):
+        raise AssertionError("S-SSP beam scores beyond rtol 1e-4 (max diff "
+                             "%.3g)" % out["beam_score_max_diff"])
+    sink_cfg = SinkhornConfig()
+    sink_params = seeded_params(init_sinkhorn_params(template, sink_cfg),
+                                cfg["sinkhorn_seed"])
+    inputs = g["sink/inputs"].astype(np.float32)
+    for norm in ("images", "pairs"):
+        tr = SinkhornTrainer(sink_cfg, sink_params,
+                             loss_normalization=norm, device="cuda")
+        sinkhorn_normalize.launches = 0
+        loss, grads = tr.loss_and_grads(inputs, g["sink/tr_locs"],
+                                        g["sink/gt_locs"], cfg["n_images"])
+        torch.cuda.synchronize()
+        if sinkhorn_normalize.launches != 1:
+            raise AssertionError("the Sinkhorn trainer's loss launched the "
+                                 "kernel %d times, expected 1"
+                                 % sinkhorn_normalize.launches)
+        want = g["sink/%s/loss" % norm]
+        if not np.isclose(float(loss), want, rtol=1e-4, atol=0):
+            raise AssertionError("Sinkhorn %s loss %.7g vs JAX %.7g beyond "
+                                 "rtol 1e-4" % (norm, float(loss), want))
+        out["sinkhorn_%s_loss" % norm] = float(loss)
+        out["sinkhorn_%s_loss_jax" % norm] = float(want)
+        out["sinkhorn_%s_grad_max_diff" % norm] = sampled_grads_match(
+            "Sinkhorn " + norm, grads, g, "sink/%s/grad/" % norm, cap,
+            scaled=True)
+    for profit, cols in zip(g["assign/profits"], g["assign/cols"]):
+        got = greedy_assign_device(torch.from_numpy(profit).cuda())
+        if got.device.type != "cuda" or not np.array_equal(
+                got.cpu().numpy(), cols):
+            raise AssertionError("greedy_assign_device differs from JAX's")
+    log("  golden planners: S-SSP loss %.7g (JAX %.7g), gradients within "
+        "tolerance (max diff %.3g); beam sequences identical, scores within "
+        "%.3g; Sinkhorn through the kernel: 'images' loss %.7g (JAX %.7g), "
+        "'pairs' %.7g (JAX %.7g), gradients within tolerance (max diff %.3g, "
+        "%.3g); %d greedy assignments identical"
+        % (out["ssp_loss"], out["ssp_loss_jax"], out["ssp_grad_max_diff"],
+           out["beam_score_max_diff"], out["sinkhorn_images_loss"],
+           out["sinkhorn_images_loss_jax"], out["sinkhorn_pairs_loss"],
+           out["sinkhorn_pairs_loss_jax"],
+           out["sinkhorn_images_grad_max_diff"],
+           out["sinkhorn_pairs_grad_max_diff"], len(g["assign/cols"])))
+    report["golden_planners"] = out
+
+
+def ssp_world(seed=0):
+    """Phase 12's S-SSP batch, as the grid batcher builds it: raw verb
+    codes of the 2662 COCO verbs, det_sr of 1-10 distinct roles (of 25),
+    gt_sr a permutation of det_sr's nonzero roles."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    n, length = PLAN_GROUPS, 10
+    verbs = rng.randint(1, 2663, (n, 1)).astype(np.float64)
+    roles = np.argsort(rng.rand(n, 25), 1)[:, :length] + 1
+    k = rng.randint(1, length + 1, n)
+    live = np.arange(length)[None, :] < k[:, None]
+    det_sr = np.where(live, roles, 0)
+    order = np.argsort(np.where(live, rng.rand(n, length), 2.0), 1)
+    gt_sr = np.where(live, np.take_along_axis(det_sr, order, 1), 0)
+    return verbs, det_sr.astype(np.float64), gt_sr.astype(np.float64)
+
+
+def sinkhorn_world(seed=0):
+    """Phase 12's Sinkhorn batch on the card, as the pair builder lays it
+    out: 2-10 slots per pair with uniform [0, 1) features, zero rows and
+    10.0 locations after; tr_locs the sorted slots, gt_locs a permutation
+    of their ranks."""
+    import torch
+    s, n = PLAN_PAIRS, 10
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *shape: torch.rand(shape, generator=gen,  # noqa: E731
+                                    device="cuda")
+    c = 2 + (rnd(s) * (n - 1)).long()                       # 2-10 slots
+    live = torch.arange(n, device="cuda")[None, :] < c[:, None]
+    inputs = rnd(s, n, 2352) * live[..., None]
+    # c distinct slots of a random permutation, sorted, 10.0 after them
+    tr_locs = torch.sort(torch.where(live, torch.argsort(rnd(s, n), 1)
+                                     .float(), 10.0), 1).values
+    perm = torch.argsort(torch.where(live, rnd(s, n), 2.0), 1).float()
+    gt_locs = torch.where(live, perm, 10.0)
+    return inputs, tr_locs, gt_locs
+
+
+def timed_steps(step):
+    """One warm-up step, then PLAN_STEPS counted ones: (losses of the
+    timed steps, seconds, launches, peak memory GB)."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    losses, dt, launches = counted(lambda: [step()
+                                            for _ in range(PLAN_STEPS)])
+    return losses, dt, launches, torch.cuda.max_memory_allocated() / 1e9
+
+
+def run_planner_trainers(report):
+    """Phase 12."""
+    import numpy as np
+    import torch
+    from vsrcic_tpu_torch.models.s_ssp import SSPConfig, init_ssp_params
+    from vsrcic_tpu_torch.models.sinkhorn import (SinkhornConfig,
+                                                  init_sinkhorn_params)
+    from vsrcic_tpu_torch.ops.sinkhorn import sinkhorn_normalize_plain
+    from vsrcic_tpu_torch.train.planners import SinkhornTrainer, SSPTrainer
+    from vsrcic_tpu_torch.utils.params import flatten
+    out = {}
+    cfg = SSPConfig(dataset="coco")
+    tr = SSPTrainer(cfg, init_ssp_params(torch.Generator().manual_seed(1),
+                                         cfg), lr=PLAN_LR, device="cuda")
+    batch = ssp_world()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    losses, dt, launches, peak = timed_steps(lambda: tr.step(*batch, gen))
+    log("  S-SSP (hidden %d, %d + %d layers, %d verbs, dropout %.1f): %d "
+        "steps of %d groups in %.3f s: %.3f steps/s, %.1f groups/s; losses "
+        "%s; peak memory %.2f GB; launches %s"
+        % (cfg.hidden_size, cfg.encoder_layers, cfg.decoder_layers,
+           cfg.verb_size, cfg.dropout, PLAN_STEPS, PLAN_GROUPS, dt,
+           PLAN_STEPS / dt, PLAN_STEPS * PLAN_GROUPS / dt,
+           ["%.4f" % x for x in losses], peak, launches))
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError("S-SSP losses do not fall: %s" % losses)
+    out["ssp"] = dict(steps_per_s=PLAN_STEPS / dt,
+                      groups_per_s=PLAN_STEPS * PLAN_GROUPS / dt, seconds=dt,
+                      losses=losses, peak_mem_gb=peak, launches=launches)
+    del tr
+    torch.cuda.empty_cache()
+
+    cfg = SinkhornConfig()
+    tr = SinkhornTrainer(cfg, init_sinkhorn_params(
+        torch.Generator().manual_seed(2), cfg), lr=PLAN_LR,
+        loss_normalization="images", device="cuda")
+    batch = sinkhorn_world()
+    losses, dt, launches, peak = timed_steps(
+        lambda: tr.step(*batch, n_images=PLAN_IMAGES))
+    per_step = launches["sinkhorn"] / PLAN_STEPS
+    log("  Sinkhorn (2352-d, n %d, %d iterations): %d steps of %d pairs in "
+        "%.3f s: %.3f steps/s, %.1f pairs/s; losses %s; peak memory %.2f GB;"
+        " Sinkhorn kernel %.0f launch(es) per step (the forward; the "
+        "backward replays the plain version)"
+        % (cfg.n, cfg.n_iters, PLAN_STEPS, PLAN_PAIRS, dt, PLAN_STEPS / dt,
+           PLAN_STEPS * PLAN_PAIRS / dt, ["%.5f" % x for x in losses], peak,
+           per_step))
+    if per_step != 1:
+        raise AssertionError("the Sinkhorn trainer launched the kernel %.1f "
+                             "times per step, expected 1" % per_step)
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError("Sinkhorn losses do not fall: %s" % losses)
+
+    # one batch's gradients through the kernel and through the plain version
+    got = tr.loss_and_grads(*batch, n_images=PLAN_IMAGES)
+    want = tr.loss_and_grads(*batch, n_images=PLAN_IMAGES,
+                             normalize=sinkhorn_normalize_plain)
+    g, w = flatten(got[1]), flatten(want[1])
+    worst, strict_misses = 0.0, 0
+    for k in w:
+        a, b = g[k].cpu().numpy(), w[k].cpu().numpy()
+        atol = 1e-5 * max(1.0, float(np.abs(b).max()))
+        if not np.allclose(a, b, rtol=1e-4, atol=atol):
+            raise AssertionError("Sinkhorn gradient %s through the kernel "
+                                 "beyond rtol 1e-4 / atol %.3g of the plain "
+                                 "version's (max diff %.3g)"
+                                 % (k, atol, np.abs(a - b).max()))
+        strict_misses += int((~np.isclose(a, b, rtol=1e-4, atol=1e-6)).sum())
+        worst = max(worst, float(np.abs(a - b).max()))
+    loss_diff = abs(float(got[0]) - float(want[0]))
+    log("  Sinkhorn gradients through the kernel against the plain version's"
+        ": max diff %.3g, %d entries beyond rtol 1e-4 / atol 1e-6 (all "
+        "within the leaf-scaled atol); losses %.7g and %.7g"
+        % (worst, strict_misses, float(got[0]), float(want[0])))
+    if not loss_diff <= 1e-4 * abs(float(want[0])):
+        raise AssertionError("Sinkhorn loss through the kernel %.7g vs plain "
+                             "%.7g" % (float(got[0]), float(want[0])))
+    out["sinkhorn"] = dict(steps_per_s=PLAN_STEPS / dt,
+                           pairs_per_s=PLAN_STEPS * PLAN_PAIRS / dt,
+                           seconds=dt, losses=losses, peak_mem_gb=peak,
+                           launches=launches,
+                           kernel_launches_per_step=per_step,
+                           grad_max_diff_vs_plain=worst,
+                           grad_strict_misses_vs_plain=strict_misses)
+    report["planners"] = out
     return launches
 
 
@@ -1150,6 +1475,11 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("    " + line.strip())
     report["build_seconds"] = build_s
+    t0 = time.perf_counter()
+    _build.host_library("cider_scorer")
+    report["scorer_build_seconds"] = time.perf_counter() - t0
+    log("    native CIDEr-D scorer (csrc/cider_scorer.cpp, c++) built in "
+        "%.1f s" % report["scorer_build_seconds"])
 
     # phase 3
     log("[3] kernels against their plain versions")
@@ -1174,6 +1504,17 @@ def main():
         write_report(report)
         print(card)
         print(json.dumps({"train": report["train"]}))
+        print_device_line()
+        return 0
+    if "--planners" in sys.argv[1:]:
+        log("[11] golden planner trainers replay")
+        replay_golden_planners(report)
+        log("[12] planner trainers at full width (S-SSP, Sinkhorn)")
+        run_planner_trainers(report)
+        write_report(report)
+        print(card)
+        print(json.dumps({"golden_planners": report["golden_planners"],
+                          "planners": report["planners"]}))
         print_device_line()
         return 0
     check_fused(gen, kernels)
@@ -1201,8 +1542,14 @@ def main():
     replay_golden_train(report)
     log("[10] trainers at full width (XE, SCST fast decode)")
     train_launches = run_trainers(report)
+
+    # phases 11-12
+    log("[11] golden planner trainers replay")
+    replay_golden_planners(report)
+    log("[12] planner trainers at full width (S-SSP, Sinkhorn)")
+    sink_launches = run_planner_trainers(report)
     by_path = {"beam": beam_launches, "pipeline": launches,
-               "train_scst": train_launches}
+               "train_scst": train_launches, "train_sinkhorn": sink_launches}
 
     rows = []
     for name, src, replaces in (

@@ -1,7 +1,12 @@
 """The port imports neither JAX nor the JAX package: every module of
 `vsrcic_tpu_torch`, and chip_smoke.py, imports in a process whose import
 system refuses the top-level names `jax`, `jaxlib`, `optax` and
-`vsrcic_tpu` (compared exactly: `vsrcic_tpu_torch` shares the prefix)."""
+`vsrcic_tpu` (compared exactly: `vsrcic_tpu_torch` shares the prefix).
+
+Nor does it read a file of the JAX package or of its `native/` directory:
+an audit hook records every path opened, listed, loaded or handed to a
+subprocess while the port's modules and chip_smoke.py import and while the
+native CIDEr-D scorer is built from scratch and used."""
 import os
 import subprocess
 import sys
@@ -48,3 +53,68 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
     n = int(res.stdout.split("IMPORTED")[1])
     assert n >= 10  # the package, its subpackages and their modules
+
+
+READS = r"""
+import importlib, importlib.util, os, pkgutil, sys, tempfile
+from pathlib import Path
+
+REPO = Path(os.getcwd()).resolve()
+seen = []
+
+
+def record(path):
+    if isinstance(path, (str, bytes, os.PathLike)):
+        p = os.fsdecode(path)
+        if os.sep in p:
+            seen.append(p)
+
+
+def hook(event, args):
+    if event in ("open", "os.listdir", "os.scandir", "glob.glob",
+                 "ctypes.dlopen"):
+        record(args[0])
+    elif event == "subprocess.Popen":
+        for a in [args[0]] + list(args[1] or []):
+            record(a)
+
+
+sys.addaudithook(hook)
+import vsrcic_tpu_torch
+for m in pkgutil.walk_packages(vsrcic_tpu_torch.__path__,
+                               "vsrcic_tpu_torch."):
+    importlib.import_module(m.name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+
+from vsrcic_tpu_torch.metrics import cider_native
+from vsrcic_tpu_torch.metrics.cider import Cider
+from vsrcic_tpu_torch.ops import _build
+with tempfile.TemporaryDirectory() as tmp:
+    _build.BUILD = Path(tmp)                 # a build from scratch
+    cider_native._load.cache_clear()
+    nat = cider_native.NativeCiderPair(Cider(gts=["a dog runs", "a cat"]))
+    print("SCORES", list(nat.score_pair(["a dog"], ["a dog"], ["a cat"])[0]))
+    built = [p for p in seen if p.endswith(".cpp")]
+
+bad = []
+for p in seen:
+    q = Path(p)
+    q = (q if q.is_absolute() else REPO / q).resolve()
+    if q.is_relative_to(REPO) and q.relative_to(REPO).parts[:1] in (
+            ("native",), ("vsrcic_tpu",)):
+        bad.append(p)
+assert not bad, bad
+assert built and all(Path(p).resolve() == REPO / "vsrcic_tpu_torch" / "csrc"
+                     / "cider_scorer.cpp" for p in built), built
+print("PATHS", len(seen))
+"""
+
+
+def test_port_reads_nothing_of_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", READS], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=180)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert int(res.stdout.split("PATHS")[1]) > 100
+    assert "SCORES" in res.stdout

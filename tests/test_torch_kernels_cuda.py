@@ -195,3 +195,79 @@ def test_sinkhorn_kernel_refuses_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="exceeds"):
         sinkhorn_normalize(torch.zeros((1, MAX_N + 1, MAX_N + 1),
                                        device=cuda_device), 20, 0.1)
+
+
+@pytest.mark.cuda
+def test_sinkhorn_autograd_through_the_kernel(cuda_device):
+    """The autograd Function on the card: one kernel launch forward, values
+    within 1e-6 of the plain version's, and the gradient of the plain
+    version replayed, the same bits as autograd through the plain version
+    (the backward runs those very operations)."""
+    from vsrcic_tpu_torch.ops.sinkhorn import sinkhorn_normalize_grad
+    x = sink_scores(cuda_device, 1536, 10, seed=7)
+    w = torch.randn(x.shape, generator=torch.Generator(
+        device=cuda_device).manual_seed(8), device=cuda_device)
+    outs = []
+    for fn in (sinkhorn_normalize_grad, sinkhorn_normalize_plain):
+        xt = x.clone().requires_grad_(True)
+        before = sinkhorn_normalize.launches
+        y = fn(xt, 20, 0.1)
+        (g,) = torch.autograd.grad((y * w).sum(), xt)
+        torch.cuda.synchronize()
+        outs.append((y.detach(), g, sinkhorn_normalize.launches - before))
+    assert [o[2] for o in outs] == [1, 0]
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=0, atol=1e-6)
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.cuda
+def test_sinkhorn_trainer_step_on_the_card(cuda_device):
+    """One SinkhornTrainer step at the pipeline tests' reduced width: the
+    loss and gradients through the kernel against the plain version on the
+    card (loss within rtol 1e-5, gradients within rtol 1e-4 / atol 1e-6),
+    one launch per step, and the step's loss the CPU trainer's within rtol
+    1e-4."""
+    from vsrcic_tpu_torch.models.sinkhorn import init_sinkhorn_params
+    from vsrcic_tpu_torch.train.planners import SinkhornTrainer
+    from vsrcic_tpu_torch.utils.params import flatten
+    cfg = tp.sink_cfg("torch")
+    params = init_sinkhorn_params(torch.Generator().manual_seed(0), cfg)
+    batch = tp.sinkhorn_train_batch(
+        3, 9, width=cfg.txt_dim + cfg.vis_dim + cfg.pos_dim)
+    tr = SinkhornTrainer(cfg, params, lr=1e-3, device=cuda_device)
+    got = tr.loss_and_grads(*batch, n_images=4)
+    want = tr.loss_and_grads(*batch, n_images=4,
+                             normalize=sinkhorn_normalize_plain)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+    g, w = flatten(got[1]), flatten(want[1])
+    for k in w:
+        torch.testing.assert_close(g[k], w[k], rtol=1e-4, atol=1e-6,
+                                   msg=k)
+    before = sinkhorn_normalize.launches
+    loss = tr.step(*batch, n_images=4)
+    assert sinkhorn_normalize.launches == before + 1
+    cpu = SinkhornTrainer(cfg, params, lr=1e-3, device="cpu")
+    torch.testing.assert_close(torch.tensor(loss),
+                               torch.tensor(cpu.step(*batch, n_images=4)),
+                               rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+def test_ssp_trainer_step_on_the_card(cuda_device):
+    """Two SSPTrainer steps with dropout 0 (the small planner): the CPU
+    trainer's losses within rtol 1e-4; with dropout 0.1 and a generator on
+    the card, a finite loss."""
+    from vsrcic_tpu_torch.models.s_ssp import SSPConfig, init_ssp_params
+    from vsrcic_tpu_torch.train.planners import SSPTrainer
+    cfg = SSPConfig(**dict(tp.SSP_KW, dropout=0.0))
+    params = init_ssp_params(torch.Generator().manual_seed(0), cfg)
+    batch = tp.ssp_train_batch(2, 10)
+    losses = {}
+    for dev in ("cpu", cuda_device):
+        tr = SSPTrainer(cfg, params, lr=1e-3, device=dev)
+        losses[str(dev)] = [tr.step(*batch, None) for _ in range(2)]
+    torch.testing.assert_close(torch.tensor(losses["cuda"]),
+                               torch.tensor(losses["cpu"]), rtol=1e-4, atol=0)
+    tr = SSPTrainer(SSPConfig(**tp.SSP_KW), params, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    assert torch.isfinite(torch.tensor(tr.step(*batch, gen)))

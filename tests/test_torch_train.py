@@ -120,7 +120,7 @@ def test_trainers_refuse_what_is_not_ported(params):
     cfg = tp.train_cfg("torch")
     with pytest.raises(NotImplementedError, match="mesh"):
         ttrain.CaptionerXETrainer(cfg, params, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="native_cider"):
+    with pytest.raises(TypeError, match="NativeCiderPair"):
         ttrain.CaptionerSCSTTrainer(cfg, params, tf, cider,
                                     native_cider=object(), device="cpu")
     with pytest.raises(ValueError, match="baseline"):

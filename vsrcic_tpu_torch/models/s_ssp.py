@@ -2,14 +2,15 @@
 
 Counterpart of `vsrcic_tpu/models/s_ssp.py` (reference models/sort_model.py:
 13-183): a 3-layer transformer encoder over (verb-embedding + SR-token)
-inputs and a 3-layer causal decoder that emits the role order.
+inputs and a 3-layer causal decoder that emits the role order, trained with
+the label-smoothed KL divergence (`ssp_forward_loss`).
 
 Generation runs over a fixed-size token buffer (causal + pad masking make
 the suffix inert), and the constrained selection is a batched masked argmax
 over the remaining input slots: first max wins, slot-order ties as in the
-reference's `masked_select`. JAX's `lax.scan` is a Python loop here. The
-teacher-forced loss and the beam search are not ported yet (training, and
-not on the eval path).
+reference's `masked_select`. JAX's `lax.scan` is a Python loop here.
+Dropout is on only when a `torch.Generator` is passed as `rng` (on the
+tensors' device); every sublayer draws from it in turn.
 """
 from __future__ import annotations
 
@@ -68,44 +69,76 @@ def init_ssp_params(gen: torch.Generator, cfg: SSPConfig) -> Dict[str, Any]:
     return params
 
 
-def ssp_encode(params, cfg: SSPConfig, verb, det_sr):
+def ssp_encode(params, cfg: SSPConfig, verb, det_sr, rng=None):
     """Encoder (ref sort_modules.py:49-60). verb: (B,) or (B, 1), raw codes
     (float: Flickr keeps 10000 * occurrence), truncated to int32 and taken
-    modulo 10000; det_sr: (B, L)."""
+    modulo 10000; det_sr: (B, L). rng: dropout at cfg.dropout, or None."""
+    rate = cfg.dropout if rng is not None else 0.0
     verb = verb.to(torch.int32) % 10000
     if verb.dim() == 1:
         verb = verb[:, None]
     det_sr = det_sr.to(torch.int32)
-    v = tfm.transformer_embed(params["v_embed_layer"], verb, cfg.embed_size)
+    v = tfm.transformer_embed(params["v_embed_layer"], verb, cfg.embed_size,
+                              dropout_rate=rate, rng=rng)
     s = tfm.transformer_embed(params["sr_embed_layer"], det_sr,
-                              cfg.embed_size, positional=cfg.pos_enc)
+                              cfg.embed_size, positional=cfg.pos_enc,
+                              dropout_rate=rate, rng=rng)
     x = v + s
     if cfg.add_fc:
         x = nn.linear(params["encoder"]["fc_feat"], x)
     for i in range(cfg.encoder_layers):
         x = tfm.encoder_layer_apply(
             params["encoder"]["encoder_layers"][str(i)], x, mask=None,
-            n_heads=cfg.n_heads)
+            n_heads=cfg.n_heads, dropout_rate=rate, rng=rng)
     return nn.layer_norm(params["encoder"]["layer_norm"], x)
 
 
-def ssp_decode(params, cfg: SSPConfig, tokens, prior_states):
+def ssp_decode(params, cfg: SSPConfig, tokens, prior_states, rng=None):
     """Causal decoder over SR tokens (ref sort_modules.py:119-134).
 
     tokens: (B, S) int — position 0 is <bos>=0; pad is 0. The self-attention
     mask blocks future positions and token==0 keys (reference semantics).
+    rng: dropout at cfg.dropout, or None.
     """
+    rate = cfg.dropout if rng is not None else 0.0
     s = tokens.shape[1]
     length_mask = (tokens == 0)[:, None, :].float()                 # (B,1,S)
     triu = torch.triu(torch.ones((s, s), device=tokens.device), 1)[None]
     self_mask = ((triu + length_mask) == 0)[:, None]                # (B,1,S,S)
     x = tfm.transformer_embed(params["sr_embed_layer"], tokens,
-                              cfg.embed_size)
+                              cfg.embed_size, dropout_rate=rate, rng=rng)
     for i in range(cfg.decoder_layers):
         x = tfm.decoder_layer_apply(
             params["decoder"]["encoder_layers"][str(i)], x, self_mask,
-            prior_states, None, n_heads=cfg.n_heads)
+            prior_states, None, n_heads=cfg.n_heads, dropout_rate=rate,
+            rng=rng)
     return nn.layer_norm(params["decoder"]["layer_norm"], x)
+
+
+def ssp_forward_loss(params, cfg: SSPConfig, verb, det_sr, gt_sr, rng=None,
+                     row_weights=None):
+    """Teacher-forced label-smoothed loss (ref sort_model.py:80-103),
+    divided by the count of scored positions.
+
+    row_weights (B,): optional 0/1 row mask. Position 0 of every row is
+    otherwise always scored (dec_mask starts with 1), so zero-padded rows
+    would shift the loss; weighting them out keeps a padded batch's loss
+    exactly the unpadded one."""
+    gt_sr = gt_sr.to(torch.int32)
+    b = gt_sr.shape[0]
+    zeros = gt_sr.new_zeros((b, 1))
+    dec_in = torch.cat([zeros, gt_sr], 1)                           # (B, L+1)
+    dec_mask = torch.cat([torch.ones((b, 1), device=gt_sr.device),
+                          (gt_sr != 0).float()], 1)
+    if row_weights is not None:
+        dec_mask = dec_mask * row_weights.float()[:, None]
+    targets = torch.cat([gt_sr, zeros], 1)                          # (B, L+1)
+    prior = ssp_encode(params, cfg, verb, det_sr, rng=rng)
+    states = ssp_decode(params, cfg, dec_in, prior, rng=rng)
+    logp = torch.log_softmax(nn.linear(params["expander_nn"], states), -1)
+    return tfm.label_smoothing_kldiv(
+        logp.reshape(-1, N_SR), targets.reshape(-1), dec_mask.reshape(-1),
+        N_SR) / dec_mask.sum()
 
 
 def _generate_loop(cfg: SSPConfig, det_sr, mode, logp_step, extra,
@@ -299,3 +332,49 @@ def ssp_generate_fast(params, cfg: SSPConfig, verb, det_sr, mode="normal",
 
     return _generate_loop(cfg, det_sr, mode, logp_step, caches,
                           n_steps=n_steps)
+
+
+@torch.no_grad()
+def ssp_beam_search(params, cfg: SSPConfig, verb, det_sr, beam_size: int = 3
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched beam search over role sequences, re-running the full decoder
+    over the token buffer at every step (JAX's functional replacement of
+    the reference's dead `sample_beam`, sort_model.py:193). Token 0 is
+    <eos>; at t = 0 only beam 0 is live; finished beams extend only with
+    <eos> at zero cost. Candidates are ranked as `lax.top_k` ranks them
+    (`core/nn.py::top_k`: the lowest flat index first among ties).
+
+    Returns (sequences (B, beam, max_len) int32 by score descending,
+    scores (B, beam)) on the parameters' device.
+    """
+    verb, det_sr = _prepare(verb, det_sr, params["expander_nn"]["weight"]
+                            .device)
+    dev = det_sr.device
+    b, k, t_max = det_sr.shape[0], beam_size, cfg.max_len
+    prior_k = torch.repeat_interleave(ssp_encode(params, cfg, verb, det_sr),
+                                      k, 0)                         # (B*K,L,H)
+    x_buf = torch.zeros((b * k, t_max + 1), dtype=torch.int32, device=dev)
+    scores = torch.where(torch.arange(k, device=dev) == 0, 0.0,
+                         -math.inf).repeat(b, 1)                    # (B, K)
+    alive = torch.ones((b, k), dtype=torch.bool, device=dev)
+    seqs = torch.zeros((b, k, t_max), dtype=torch.int32, device=dev)
+    eos_only = torch.where(torch.arange(N_SR, device=dev) == 0, 0.0,
+                           -math.inf)
+    row = (torch.arange(b * k, device=dev) // k) * k
+    for t in range(t_max):
+        states = ssp_decode(params, cfg, x_buf, prior_k)
+        logp = torch.log_softmax(
+            nn.linear(params["expander_nn"], states[:, t]), -1
+        ).reshape(b, k, N_SR)
+        logp = torch.where(alive[:, :, None], logp, eos_only)
+        total = scores[:, :, None] + logp                          # (B,K,26)
+        scores, idx = nn.top_k(total.reshape(b, k * N_SR), k)
+        sel_beam = idx // N_SR
+        tok = (idx - sel_beam * N_SR).to(torch.int32)
+        seqs = torch.gather(seqs, 1, sel_beam[:, :, None].expand(-1, -1,
+                                                                 t_max))
+        seqs[:, :, t] = tok
+        alive = torch.gather(alive, 1, sel_beam) & (tok != 0)
+        x_buf = x_buf[row + sel_beam.reshape(-1)]
+        x_buf[:, t + 1] = tok.reshape(-1)
+    return seqs, scores

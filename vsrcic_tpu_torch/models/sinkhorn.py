@@ -4,7 +4,9 @@ Counterpart of `vsrcic_tpu/models/sinkhorn.py` (reference
 models/sinkhorn_network.py:5-51): a per-row MLP over concatenated (visual,
 text, position) region features, then iterative column/row normalization
 of exp(score / tau) (`ops/sinkhorn.py`: the CUDA kernel for CUDA tensors,
-its plain version for CPU tensors).
+its plain version for CPU tensors). By default the normalization carries a
+gradient (the kernel forward, the plain version replayed backward), so the
+trainer differentiates through it; eval callers run under no_grad.
 
 Fidelity note (SURVEY.md M3): the reference slices its 2352-d input as
 [:300] -> W1_txt, [300:2348] -> W1_vis, [2348:] -> pos, but every caller
@@ -20,7 +22,8 @@ from typing import Any, Dict
 import torch
 
 from vsrcic_tpu_torch.core import nn
-from vsrcic_tpu_torch.ops.sinkhorn import EPS, sinkhorn_normalize  # noqa: F401
+from vsrcic_tpu_torch.ops.sinkhorn import EPS  # noqa: F401
+from vsrcic_tpu_torch.ops.sinkhorn import sinkhorn_normalize_grad
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,16 +53,16 @@ def init_sinkhorn_params(gen: torch.Generator,
     }
 
 
-@torch.no_grad()
 def sinkhorn_net_apply(params, cfg: SinkhornConfig, seq,
-                       normalize=sinkhorn_normalize):
+                       normalize=sinkhorn_normalize_grad):
     """seq: (B, N, txt+vis+pos) f32 -> soft permutation (B, N, N).
 
     Default dims reproduce the reference's 2352-d slicing exactly
     (:300 / 300:2348 / 2348:, incl. the mislabeled-slice quirk — module
     docstring); other dims serve reduced-width tests. `normalize` is
-    `ops.sinkhorn.sinkhorn_normalize` (the kernel for CUDA tensors) or its
-    plain version."""
+    `ops.sinkhorn.sinkhorn_normalize_grad` (the kernel for CUDA tensors,
+    differentiable), the bare wrapper `sinkhorn_normalize`, or the plain
+    version."""
     x_txt = seq[:, :, :cfg.txt_dim]
     x_vis = seq[:, :, cfg.txt_dim:cfg.txt_dim + cfg.vis_dim]
     x_pos = seq[:, :, cfg.txt_dim + cfg.vis_dim:]

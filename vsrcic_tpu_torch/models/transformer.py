@@ -13,9 +13,15 @@ Numerics kept for parity with released checkpoints:
     were trained with this, so it is reproduced (the unused cross_attention
     params are still created for state-dict compatibility).
 
-Dropout takes a rate and a `torch.Generator`; eval passes neither. Relative
-position logits, the generic decoder layer and the label-smoothed loss are
-not ported yet (training, or unused upstream).
+Dropout takes a rate and a `torch.Generator`; eval passes neither. JAX
+splits its key once per sublayer; here every sublayer draws from the one
+generator, so masks follow the same law but not JAX's bits.
+
+Also here, for training and for the reference's unused layers: the clipped
+relative-position logits (`mha_init(..., relative_pos=True)`), the causal
+`temporal_mask`, the generic decoder layer with its incremental `last_only`
+query, and the sum-reduced label-smoothed KL divergence the planner trains
+with.
 """
 from __future__ import annotations
 
@@ -40,9 +46,16 @@ def _lin(gen, i, o, bias=True):
     return p
 
 
-def mha_init(gen, size):
-    return {name: _lin(gen, size, size)
-            for name in ("linear_Q", "linear_K", "linear_V", "linear_O")}
+RELATIVE_POS_CLIP = 2  # ref transformer_modules.py:73
+
+
+def mha_init(gen, size, relative_pos=False):
+    p = {name: _lin(gen, size, size)
+         for name in ("linear_Q", "linear_K", "linear_V", "linear_O")}
+    if relative_pos:
+        p["relative_posmatrix"] = {"weight": nn.xavier_uniform(
+            gen, (RELATIVE_POS_CLIP * 2 + 1, size))}
+    return p
 
 
 def _dropout(x, rate, rng):
@@ -57,17 +70,29 @@ def mha_apply(p, query, keys, values, mask=None, n_heads=8,
     """Multi-head attention (ref transformer_modules.py:106-134).
 
     mask: broadcastable to (B, heads, Tq, Tk); positions where mask == 0 get
-    the logit MASK_FILL, after the 1/sqrt(head dim) scaling."""
+    the logit MASK_FILL, after the 1/sqrt(head dim) scaling. When p carries
+    "relative_posmatrix" the clipped relative-position logits are added
+    before the scaling and broadcast over heads, computed from the full
+    (unsplit) transformed query (ref :103-115, KeyValAttention :39-42)."""
     b, tq, size = query.shape
     hd = size // n_heads
 
     def split_heads(x):
         return x.reshape(x.shape[0], -1, n_heads, hd).transpose(1, 2)
 
-    q = split_heads(nn.linear(p["linear_Q"], query))
+    tq_full = nn.linear(p["linear_Q"], query)                       # (B,Tq,H)
+    q = split_heads(tq_full)
     k = split_heads(nn.linear(p["linear_K"], keys))
     v = split_heads(nn.linear(p["linear_V"], values))
-    logits = (q @ k.transpose(-1, -2)) / math.sqrt(hd)
+    logits = q @ k.transpose(-1, -2)
+    if "relative_posmatrix" in p:
+        dev = query.device
+        rel = (torch.arange(keys.shape[1], device=dev)[None, :]
+               - torch.arange(tq, device=dev)[:, None]).clamp(
+                   -RELATIVE_POS_CLIP, RELATIVE_POS_CLIP)
+        rpe = p["relative_posmatrix"]["weight"][rel + RELATIVE_POS_CLIP]
+        logits = logits + torch.einsum("bqh,qkh->bqk", tq_full, rpe)[:, None]
+    logits = logits / math.sqrt(hd)
     if mask is not None:
         logits = torch.where(mask == 0, MASK_FILL, logits)
     w = _dropout(torch.softmax(logits, dim=-1), dropout_rate, rng)
@@ -135,6 +160,44 @@ def decoder_layer_apply(p, x, x_mask, y, y_mask=None, n_heads=8,
     return _dropout(h3, dropout_rate, rng) + h2
 
 
+def temporal_mask(x_or_len, device="cpu"):
+    """(1, T, T) causal mask, 1 below and on the diagonal (ref
+    transformer_modules.py:247-269); takes an int length or an embedding
+    (B, T, H), whose device it then uses."""
+    if isinstance(x_or_len, int):
+        t = x_or_len
+    else:
+        t, device = x_or_len.shape[-2], x_or_len.device
+    return torch.tril(torch.ones((1, t, t), device=device))
+
+
+def generic_decoder_layer_apply(p, encoder_states, decoder_states,
+                                src_mask=None, tgt_mask=None, n_heads=8,
+                                dropout_rate=0.0, rng=None, last_only=False):
+    """The generic (upstream-unused) TransformerDecoderLayer (ref
+    transformer_modules.py:347-386), with its quirks: cross-attention also
+    uses p["attention"] (ref :378), and last_only=True takes the
+    self-attention query from the final position alone (incremental
+    decode, ref :364-368). Params: decoder_layer_init."""
+    y1 = nn.layer_norm(p["layer_norm1"], decoder_states)
+    if last_only:
+        y1 = mha_apply(p["attention"], y1[:, -1:], y1, y1, mask=tgt_mask,
+                       n_heads=n_heads, dropout_rate=dropout_rate, rng=rng)
+        y1 = _dropout(y1, dropout_rate, rng) + decoder_states[:, -1:]
+    else:
+        y1 = mha_apply(p["attention"], y1, y1, y1, mask=tgt_mask,
+                       n_heads=n_heads, dropout_rate=dropout_rate, rng=rng)
+        y1 = _dropout(y1, dropout_rate, rng) + decoder_states
+    y2 = nn.layer_norm(p["layer_norm2"], y1)
+    y2 = mha_apply(p["attention"], y2, encoder_states, encoder_states,
+                   mask=src_mask, n_heads=n_heads, dropout_rate=dropout_rate,
+                   rng=rng)
+    y2 = _dropout(y2, dropout_rate, rng) + y1
+    y3 = nn.layer_norm(p["layer_norm3"], y2)
+    y3 = ff_apply(p["ff_layer"], y3, dropout_rate=dropout_rate, rng=rng)
+    return _dropout(y3, dropout_rate, rng) + y2
+
+
 def positional_encoding(length, size, dtype=torch.float32, device="cpu"):
     """Sinusoidal table (ref transformer_modules.py:272-299)."""
     pos = torch.arange(length, dtype=dtype, device=device)[:, None]
@@ -153,3 +216,22 @@ def transformer_embed(p, ids, size, positional=False, dropout_rate=0.0,
     if positional:
         e = e + positional_encoding(ids.shape[-1], size, e.dtype, e.device)
     return _dropout(e, dropout_rate, rng)
+
+
+def label_smoothing_kldiv(log_probs, targets, mask, n_classes,
+                          smoothing=0.1):
+    """Sum-reduced KL divergence against the smoothed one-hot target (ref
+    transformer_modules.py:150-179): sum p * (log p - log q) with
+    0 log 0 := 0, each masked row's p all zero.
+
+    log_probs: (N, C) model log-probs; targets: (N,) int; mask: (N,) {0,1}.
+    p is a constant (built without a graph), so the gradient flows through
+    -p * log_probs alone."""
+    sval = smoothing / (n_classes - 2)
+    conf = 1.0 - smoothing
+    p = torch.full(log_probs.shape, sval, dtype=log_probs.dtype,
+                   device=log_probs.device)
+    p.scatter_(1, targets.long()[:, None], conf)
+    p = torch.where((mask == 0)[:, None], 0.0, p)
+    plogp = torch.where(p > 0, p * torch.log(torch.where(p > 0, p, 1.0)), 0.0)
+    return torch.sum(plogp - p * log_probs)

@@ -1,11 +1,13 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host libraries.
 
 Every `csrc/*.cu` is compiled by `nvcc` for `sm_90a` (one process per
 source, all started together) and linked into one shared library with a
-plain C interface, loaded with `ctypes`. The build runs at first use, from
-the sources in the checkout, into `vsrcic_tpu_torch/build/` (listed in
-`.gitignore`), and is redone when the hash of the sources or flags changes.
-A failed build raises.
+plain C interface, loaded with `ctypes`. A host library (`csrc/<stem>.cpp`,
+the CIDEr-D scorer) is compiled by the host C++ compiler alone
+(`host_library`), so that it builds where there is no CUDA toolkit too.
+Each build runs at first use, from the sources in the checkout, into
+`vsrcic_tpu_torch/build/` (listed in `.gitignore`), and is redone when the
+hash of its sources or flags changes. A failed build raises.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ BUILD = PKG / "build"
 LIB_NAME = "libvsrcic_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-pthread", "-shared"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -39,6 +42,7 @@ SIGNATURES = {
 # seconds the last build took in this process (0.0 when it was cached)
 last_build_seconds = 0.0
 last_build_log = ""
+last_host_build_seconds = 0.0
 
 
 def _nvcc() -> str:
@@ -104,6 +108,37 @@ def build() -> Path:
     stamp.write_text(digest)
     last_build_seconds = time.perf_counter() - t0
     last_build_log = "".join(logs)
+    return lib
+
+
+def host_library(stem: str) -> Path:
+    """Compile `csrc/<stem>.cpp` with the host C++ compiler (`c++`) into
+    `build/lib<stem>.so` unless a build of this source with these flags
+    exists; returns its path. Concurrent builders each compile into their
+    own temporary directory and move the result into place."""
+    global last_host_build_seconds
+    src = CSRC / (stem + ".cpp")
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(src.read_bytes())
+    digest = h.hexdigest()[:16]
+    lib = BUILD / ("lib%s.so" % stem)
+    stamp = BUILD / (lib.name + ".sha")
+    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+        last_host_build_seconds = 0.0
+        return lib
+    BUILD.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        out = Path(tmp) / lib.name
+        cmd = ["c++", *CXX_FLAGS, "-o", str(out), str(src)]
+        res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        if res.returncode:
+            raise RuntimeError("c++ failed (%d): %s\n%s"
+                               % (res.returncode, " ".join(cmd), res.stdout))
+        os.replace(out, lib)
+    stamp.write_text(digest)
+    last_host_build_seconds = time.perf_counter() - t0
     return lib
 
 

@@ -39,6 +39,13 @@ same bits as `sinkhorn_normalize_in_order`.
 `sinkhorn_normalize` runs it for CPU tensors and launches the kernel for
 CUDA tensors; it never falls back. `sinkhorn_normalize_in_order` replays
 the kernel's arithmetic for the tests.
+
+The gradient: `sinkhorn_normalize_grad` is `SinkhornNormalize`, an autograd
+Function whose forward is the wrapper (one kernel launch on the card) and
+whose backward replays the plain version from the saved input and returns
+its vector-Jacobian product. The JAX trainer differentiates its plain
+`lax.fori_loop` and has no backward kernel either; the replay costs ~4
+n_iters + 2 small launches forward and as many backward.
 """
 from __future__ import annotations
 
@@ -112,3 +119,31 @@ def sinkhorn_normalize(x, n_iters: int, tau: float):
 
 
 sinkhorn_normalize.launches = 0
+
+
+class SinkhornNormalize(torch.autograd.Function):
+    """`sinkhorn_normalize` with a gradient: the forward is the wrapper (the
+    kernel for CUDA tensors), the backward differentiates the plain version
+    replayed from the saved input."""
+
+    @staticmethod
+    def forward(ctx, x, n_iters: int, tau: float):
+        ctx.save_for_backward(x)
+        ctx.n_iters, ctx.tau = n_iters, tau
+        return sinkhorn_normalize(x, n_iters, tau)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        (x,) = ctx.saved_tensors
+        with torch.enable_grad():
+            x = x.detach().requires_grad_(True)
+            out = sinkhorn_normalize_plain(x, ctx.n_iters, ctx.tau)
+        (grad_x,) = torch.autograd.grad(out, x, grad_out)
+        return grad_x, None, None
+
+
+def sinkhorn_normalize_grad(x, n_iters: int, tau: float):
+    """`sinkhorn_normalize` that autograd can differentiate (see
+    SinkhornNormalize); the same values and launches."""
+    return SinkhornNormalize.apply(x, n_iters, tau)

@@ -169,6 +169,7 @@ class EvalPipeline:
         return self._gen(self.ssp_params, self.ssp_cfg, verbs, det_sr,
                          mode="not-normal", n_steps=n_steps)
 
+    @torch.no_grad()
     def _sinkhorn_gather(self, vis, txt, pos, owner, locs, valid):
         """Sinkhorn inputs assembled on the device: row j of sink input s is
         concat(vis,txt,pos)[owner[s], locs[s, j]] for valid j, else 0 —

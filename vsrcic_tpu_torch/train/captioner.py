@@ -7,9 +7,10 @@ Adam.
 
 SCST (ref train.py:121-183): the sampled decode and the greedy baseline run
 on the device under `torch.no_grad()`; rewards are the Python tokenizer and
-CIDEr-D on the host; the gradient pass recomputes the trajectory's logprobs
-(`decode.loops.forced_feedback_logprobs`) in strict f32 on the f32
-detections and groups:
+CIDEr-D on the host, the CIDEr-D part in C++ when a `NativeCiderPair` is
+given (`metrics/cider_native.py`); the gradient pass recomputes the
+trajectory's logprobs (`decode.loops.forced_feedback_logprobs`) in strict
+f32 on the f32 detections and groups:
 loss = -(mean word logp + mean gate logp) * (CIDEr(sample) - CIDEr(greedy)).
 With `fast_decode` the two decodes go through the fused attention op (the
 CUDA kernel on the card) with the fused step weights, on tables of
@@ -17,8 +18,8 @@ CUDA kernel on the card) with the fused step weights, on tables of
 takes any number of rows, so the decode batch is not padded.
 
 Entry points run on the CUDA card unless `device` names another; a missing
-card raises. The JAX package's data-parallel `mesh` and its native CIDEr
-scorer are not ported: asking for either raises.
+card raises. The JAX package's data-parallel `mesh` is not ported: asking
+for it raises.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from vsrcic_tpu_torch.decode.loops import (
     _take, expand_compact_groups, forced_feedback_logprobs,
     forward_teacher_forcing, greedy_decode, sample_decode)
 from vsrcic_tpu_torch.metrics.cider import Cider
+from vsrcic_tpu_torch.metrics.cider_native import NativeCiderPair
 from vsrcic_tpu_torch.models.api import ControllableCaptioner
 from vsrcic_tpu_torch.models.captioner import (
     CaptionerConfig, Statics, captioner_step, image_descriptor_f32,
@@ -39,16 +41,9 @@ from vsrcic_tpu_torch.models.captioner import (
 from vsrcic_tpu_torch.text.tokenizer import ptb_tokenize
 from vsrcic_tpu_torch.text.vocab import TextField, dedup_join
 from vsrcic_tpu_torch.train.common import (
-    TrainState, adam, apply_grads, init_train_state, nll_loss,
+    TrainState, adam, apply_grads, init_train_state, nll_loss, not_ported,
     set_learning_rate, value_and_grad)
 from vsrcic_tpu_torch.utils.device import as_tensor, resolve_device, to_device
-
-
-def _not_ported(**kw):
-    for name, val in kw.items():
-        if val is not None:
-            raise NotImplementedError(
-                "vsrcic_tpu_torch: %s is not ported yet" % name)
 
 
 def xe_loss_fn(params, cfg: CaptionerConfig, detections, captions,
@@ -120,7 +115,7 @@ class CaptionerXETrainer:
         """params: nested dict of tensors or arrays in torch layout.
         lean: compact-id batches take the checkpointed per-step loss
         (what batch 1024 needs); lean=False expands them once."""
-        _not_ported(mesh=mesh)
+        not_ported(mesh=mesh)
         self.cfg = cfg
         self.lean = lean
         self.device = resolve_device(device)
@@ -188,10 +183,18 @@ class CaptionerSCSTTrainer:
         more forward in the backward), what batch 1024 needs.
         fast_decode: decode through the fused attention op and the fused
         step weights, with the tables in table_dtype (e.g. torch.bfloat16).
+        native_cider: a NativeCiderPair built from `cider`
+        (`metrics.cider_native.maybe_native`): the reward's CIDEr-D in C++,
+        equal to the Python scorer's to float64 round-off.
         """
-        _not_ported(mesh=mesh, native_cider=native_cider)
+        not_ported(mesh=mesh)
         if baseline not in ("step", "epoch"):
             raise ValueError("baseline must be 'step' or 'epoch'")
+        if native_cider is not None and not isinstance(native_cider,
+                                                       NativeCiderPair):
+            raise TypeError("native_cider must be a NativeCiderPair, got %s"
+                            % type(native_cider).__name__)
+        self.native_cider = native_cider
         self.cfg = cfg
         self.text_field = text_field
         self.cider = cider
@@ -252,11 +255,17 @@ class CaptionerSCSTTrainer:
     def rewards(self, sampled_caps: List[str], baseline_caps: List[str],
                 gt_caps: List[str]) -> np.ndarray:
         """CIDEr-D(sample) - CIDEr-D(baseline) per caption, f32; one
-        reference cook for both."""
+        reference cook for both, in C++ when the trainer has native_cider."""
         gts = ptb_tokenize({i: [g] for i, g in enumerate(gt_caps)})
         gen = ptb_tokenize({i: [c] for i, c in enumerate(sampled_caps)})
         base = ptb_tokenize({i: [c] for i, c in enumerate(baseline_caps)})
-        r, rb = self.cider.compute_score_pair(gts, gen, base)
+        if self.native_cider is not None:
+            keys = range(len(gt_caps))
+            r, rb = self.native_cider.score_pair(
+                [gts[i][0] for i in keys], [gen[i][0] for i in keys],
+                [base[i][0] for i in keys])
+        else:
+            r, rb = self.cider.compute_score_pair(gts, gen, base)
         return (r - rb).astype(np.float32)
 
     def grad_step(self, detections, det_groups, words, gates,

@@ -20,6 +20,15 @@ import torch
 from vsrcic_tpu_torch.utils.params import flatten, unflatten
 
 
+def not_ported(**kw):
+    """Raise NotImplementedError for each named option that is set (the
+    JAX trainers' options the port does not have yet)."""
+    for name, val in kw.items():
+        if val is not None:
+            raise NotImplementedError(
+                "vsrcic_tpu_torch: %s is not ported yet" % name)
+
+
 def tree_map(fn, *trees):
     """fn over the leaves of nested dicts of the same structure."""
     flats = [flatten(t) for t in trees]

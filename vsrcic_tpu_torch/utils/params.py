@@ -7,6 +7,7 @@ give the ``"a.b.weight"`` keys of a torch ``state_dict``.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -53,3 +54,27 @@ def unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[leaf] = val
     return out
+
+
+def seeded_params(template: Mapping[str, Any], seed: int) -> Dict[str, Any]:
+    """A nested dict of f32 numpy arrays with `template`'s keys and leaf
+    shapes, drawn by numpy's RandomState(seed) leaf by leaf in sorted key
+    order: 2-D leaves uniform within +-sqrt(6 / (fan_in + fan_out)) (the
+    xavier_uniform range), 1-D leaves within +-0.1, plus 1 for a "weight"
+    (a layer norm's scale). numpy's legacy generator gives the same values
+    on every machine, so a golden fixture can name its weights by a seed
+    instead of storing them."""
+    rng = np.random.RandomState(seed)
+    flat = flatten(template)
+    out = {}
+    for key in sorted(flat):
+        shape = tuple(flat[key].shape)
+        if len(shape) >= 2:
+            a = math.sqrt(6.0 / (shape[0] + math.prod(shape[1:])))
+            val = rng.uniform(-a, a, shape)
+        else:
+            val = rng.uniform(-0.1, 0.1, shape)
+            if key.endswith("weight"):
+                val = val + 1.0
+        out[key] = val.astype(np.float32)
+    return unflatten(out)
