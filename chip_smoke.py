@@ -6,13 +6,16 @@
     python3 chip_smoke.py --pipeline   # phases 1-2 and 8
     python3 chip_smoke.py --train      # phases 1-2 and 9-10
     python3 chip_smoke.py --planners   # phases 1-2 and 11-12
+    python3 chip_smoke.py --eval       # phases 1-2 and 13
 
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi), and the TF32 settings
      (both off: the JAX reference runs its f32 products at 'highest');
   2. build the kernels from vsrcic_tpu_torch/csrc/ and report the build time
      and what ptxas reports (registers, shared memory, spills); build the
-     native CIDEr-D scorer (csrc/cider_scorer.cpp, host C++ compiler);
+     native CIDEr-D scorer (csrc/cider_scorer.cpp, host C++ compiler) and
+     the packed-store reader (csrc/packed_reader.cpp), the reader held to
+     its numpy version;
   3. hold each kernel against its plain PyTorch version on the card: at the
      full-width shapes of the path, at ragged shapes, on the vocab tie cases
      and, for the Sinkhorn kernel, at every (S, n) of SINK_CASE_S x
@@ -58,11 +61,27 @@ Phases (any failure raises and the script exits non-zero):
      1536 pairs per step, 'images' over 1024), one warm-up and five timed
      steps each, launch counts reset just before and read just after; the
      losses must fall; the Sinkhorn trainer's gradients through the kernel
-     against those through the plain version.
+     against those through the plain version;
+ 13. the eval CLI, `python -m vsrcic_tpu_torch.cli.eval`, called in this
+     process: (a) replay its golden fixture (tiny checkpoints and the JAX
+     CLI's dumps and metric lines, COCO and Flickr): strict flags exact,
+     the fast flags (--fused --vocab_topk --bf16_tables) exact against
+     JAX's Pallas kernels; (b) at the CLI's default widths on synthetic
+     COCO from seeded npz checkpoints, 1024 captions in two batches, four
+     times: no flag (strict), checked (the fast flags, every kernel call
+     held to its plain version on the same inputs, the plain result going
+     on), --fused --vocab_topk (f32 tables) and the fast flags; launch
+     counts reset just before each run and read just after, the fused
+     kernel's item/ctrl watched for writes; the fast run's captions must
+     equal the checked run's save for vocab near ties, and keep
+     F32_KERNELS_BAR / BF16_TABLES_BAR of the strict run's; each kernel
+     timed on the fast run's first inputs; the host's field time per
+     caption; then a short Flickr --det --gt run with the fast flags.
 
 Prints the kernels' JSON line, then, last, the device JSON line. Details go
 to chiprun_out/chip_smoke.json.
 """
+import contextlib
 import json
 import math
 import os
@@ -175,6 +194,29 @@ def profiled_ms(fn, name, iters=100):
 def max_err(got, want):
     return max(float((g.float() - w.float()).abs().max())
                for g, w in zip(got, want))
+
+
+def check_packed_reader(report):
+    """Build the packed-store reader (csrc/packed_reader.cpp, host C++
+    compiler) and hold one gather against its numpy version."""
+    import numpy as np
+    from vsrcic_tpu_torch.data import native_reader
+    from vsrcic_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.host_library("packed_reader")
+    report["packed_reader_build_seconds"] = time.perf_counter() - t0
+    rng = np.random.RandomState(0)
+    src = rng.rand(4000, 2048).astype(np.float32)
+    starts = list(range(0, 3900, 37))
+    counts = [int(c) for c in rng.randint(0, 120, len(starts))]
+    got = native_reader.fill_padded_batch(src, starts, counts, 100)
+    want = native_reader.fill_padded_batch_plain(src, starts, counts, 100)
+    if not np.array_equal(got, want):
+        raise AssertionError("the packed-store reader disagrees with its "
+                             "numpy version")
+    log("    packed-store reader (csrc/packed_reader.cpp, c++) built in "
+        "%.1f s; a %d-image gather equals its numpy version"
+        % (report["packed_reader_build_seconds"], len(starts)))
 
 
 # ---------------------------------------------------------------------------
@@ -1446,6 +1488,397 @@ def run_planner_trainers(report):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the eval CLI
+# ---------------------------------------------------------------------------
+
+# the CLI's default widths (feat 2048, encoding 1000, rnn 1000, att 512),
+# SSPConfig(dataset="coco") and the 2352-d Sinkhorn net at n 10: 1024 test
+# images of one caption each, in two batches of 512
+EVAL_FULL = ["--synthetic", "--dataset", "coco", "--synthetic_images", "8192",
+             "--limit", "1024", "--batch_size", "512", "--seed", "7"]
+EVAL_FLICKR = ["--synthetic", "--dataset", "flickr", "--synthetic_images",
+               "512", "--limit", "64", "--batch_size", "32", "--seed", "7",
+               "--det", "--gt"]
+EVAL_FAST = ["--fused", "--vocab_topk", "--bf16_tables"]
+EVAL_MIN_CAPTIONS = 1024
+ALL_KERNELS = ("sinkhorn", "fused_attention", "vocab_topk")
+# shares of the strict run's captions that 13b's runs must keep: the
+# kernels on f32 tables, and the plain versions on bf16 tables, whose
+# rounding flips 0.0195 of them at the synthetic world's V 30 (PERF.md §6;
+# a cast or layout fault in the tables flips most)
+F32_KERNELS_BAR = 0.99
+BF16_TABLES_BAR = 0.95
+
+
+def run_cli(argv, dump):
+    """`python -m vsrcic_tpu_torch.cli.eval argv --dump_preds dump` in this
+    process (eval_checkpoints.run_captured), with the CLI's own 'decoded'
+    line, its captions/s and the dumped captions added."""
+    from vsrcic_tpu_torch.cli import eval as eval_cli
+    from vsrcic_tpu_torch.tools.eval_checkpoints import run_captured
+    res, decoded = run_captured(eval_cli.main, argv, dump)
+    return dict(res, decoded=decoded,
+                captions_per_s=float(decoded.split("(")[1].split()[0]),
+                preds=[json.loads(x)["pred"]
+                       for x in res["dump"].splitlines()])
+
+
+def metric_lines_match(got, want):
+    """Equal metric lines, except that a card without nltk's stemmer
+    prints 'METEOR unavailable: ...' where the fixture scored natively."""
+    if len(got) != len(want):
+        return False
+    return all(g == w or (g.startswith("METEOR unavailable")
+                          and w.startswith("METEOR(native)"))
+               for g, w in zip(got, want))
+
+
+@contextlib.contextmanager
+def call_sites(*wraps):
+    """The three kernels' call sites in the CLI's captioner and pipeline,
+    each replaced for the block by the function there passed through every
+    wrap(kernel name, fn) in turn."""
+    from vsrcic_tpu_torch.models import api
+    from vsrcic_tpu_torch.pipelines import eval_pipeline
+    sites = (("fused_attention", api, "fused_group_attention"),
+             ("vocab_topk", api, "vocab_topk_lse"),
+             ("sinkhorn", eval_pipeline, "sinkhorn_normalize"))
+    saved = [getattr(m, attr) for _, m, attr in sites]
+    try:
+        for name, m, attr in sites:
+            fn = getattr(m, attr)
+            for wrap in wraps:
+                fn = wrap(name, fn)
+            setattr(m, attr, fn)
+        yield
+    finally:
+        for (_, m, attr), fn in zip(sites, saved):
+            setattr(m, attr, fn)
+
+
+class IndexWatch:
+    """A call_sites wrap. Counts, on the device, the item/ctrl entries that
+    the fused op changed (read once, at the end: no synchronisation per
+    call), and keeps a copy of each op's first inputs: the shapes and
+    values the CLI's main path gives the kernels."""
+
+    def __init__(self):
+        self.changed = None
+        self.calls = 0
+        self.first = {}
+
+    def __call__(self, name, fn):
+        def watched(*args, **kw):
+            if name not in self.first:
+                self.first[name] = (
+                    [a.clone() if hasattr(a, "clone") else a for a in args],
+                    dict(kw))
+            if name != "fused_attention":
+                return fn(*args, **kw)
+            before = [a.clone() for a in args[:2]]
+            out = fn(*args, **kw)
+            n = sum((a != b).sum() for a, b in zip(args[:2], before))
+            self.changed = n if self.changed is None else self.changed + n
+            self.calls += 1
+            return out
+        return watched
+
+
+class PlainCheck:
+    """A call_sites wrap for 13b's checked run: every call runs the kernel
+    and its plain version on the same inputs and passes the plain result
+    on, after holding the two to phase 3's tolerances (fused attention
+    rtol / atol 1e-5; vocab values and lse rtol 1e-5 / atol 1e-6, ids
+    exact or a near tie; Sinkhorn 1e-6)."""
+
+    def __init__(self):
+        self.calls = {name: 0 for name in ALL_KERNELS}
+        self.err = {name: 0.0 for name in ALL_KERNELS}
+        self.near_tie_rows = 0
+
+    def __call__(self, name, kernel):
+        import torch
+        from vsrcic_tpu_torch.ops import fused_attention, sinkhorn, vocab_topk
+        plain = {"fused_attention": fused_attention.fused_group_attention_plain,
+                 "vocab_topk": vocab_topk.vocab_topk_lse_plain,
+                 "sinkhorn": sinkhorn.sinkhorn_normalize_plain}[name]
+
+        def checked(*args, **kw):
+            got, want = kernel(*args, **kw), plain(*args, **kw)
+            self.calls[name] += 1
+            if name == "fused_attention":
+                ok = all(torch.allclose(g, w, rtol=1e-5, atol=1e-5)
+                         for g, w in zip(got, want))
+                err = max_err(got, want)
+            elif name == "vocab_topk":
+                pairs = ((got[0], want[0]), (got[2], want[2]))
+                ok = all(torch.allclose(g, w, rtol=1e-5, atol=1e-6)
+                         for g, w in pairs)
+                err = max_err(*zip(*pairs))
+                if ok:
+                    self.near_tie_rows += vocab_near_ties(*args[:3], got,
+                                                          want)
+            else:
+                err = float((got - want).abs().max())
+                ok = err <= 1e-6
+            self.err[name] = max(self.err[name], err)
+            if not ok:
+                raise AssertionError("%s, call %d of the CLI's checked run: "
+                                     "the kernel is %.3g from its plain "
+                                     "version" % (name, self.calls[name],
+                                                  err))
+            return want
+        return checked
+
+
+def vocab_bound(rows, r, v, k, table_bytes):
+    """(ms, by): the vocab op's f32 product over the f32 rate, or its
+    bytes (h2, the table, bias, outputs) over the HBM rate."""
+    flops = 2.0 * rows * r * v
+    nbytes = (rows * r * 4 + r * v * table_bytes + v * 4
+              + rows * (2 * k + 1) * 4)
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def time_cli_kernels(first):
+    """Each kernel timed on the inputs the CLI's fast run gave it first
+    (IndexWatch.first), beside its plain version, its bound and the
+    library's call where there is one. Returns {kernel: fields}."""
+    import torch
+    from vsrcic_tpu_torch.ops.fused_attention import (
+        fused_group_attention, fused_group_attention_plain)
+    from vsrcic_tpu_torch.ops.sinkhorn import (sinkhorn_normalize,
+                                               sinkhorn_normalize_plain)
+    from vsrcic_tpu_torch.ops.vocab_topk import (vocab_topk_lse,
+                                                 vocab_topk_lse_plain)
+    out = {}
+    args, _ = first["fused_attention"]
+    bound, by, groups = fused_bound(args)
+    out["fused_attention"] = dict(
+        shape="rows %d, B %d, L %d, M %d, D %d, A %d, %s" % (
+            args[2].shape[0], *args[7].shape, args[2].shape[1],
+            str(args[7].dtype).split(".")[1]),
+        ms=cuda_ms(lambda: fused_group_attention(*args)),
+        plain_ms=cuda_ms(lambda: fused_group_attention_plain(*args),
+                         iters=5), bound_ms=bound, bound_by=by,
+        distinct_groups=groups)
+
+    (h2, w, b), kw = first["vocab_topk"]
+    k = kw["k"]
+    bound, by = vocab_bound(h2.shape[0], h2.shape[1], w.shape[1], k,
+                            w.element_size())
+    wf = w.float()
+
+    def library():
+        logits = torch.addmm(b, h2, wf)
+        return torch.topk(logits, k), torch.logsumexp(logits, -1)
+    out["vocab_topk"] = dict(
+        shape="rows %d, R %d, V %d, k %d, %s" % (
+            h2.shape[0], h2.shape[1], w.shape[1], k,
+            str(w.dtype).split(".")[1]),
+        ms=cuda_ms(lambda: vocab_topk_lse(h2, w, b, k)),
+        plain_ms=cuda_ms(lambda: vocab_topk_lse_plain(h2, w, b, k),
+                         iters=5), bound_ms=bound, bound_by=by,
+        library_ms=cuda_ms(library))
+
+    (x, n_iters, tau), _ = first["sinkhorn"]
+    bound, by = sinkhorn_bound(x.shape[0], x.shape[1], n_iters)
+    out["sinkhorn"] = dict(
+        shape="S %d, n %d, %d iterations" % (x.shape[0], x.shape[1],
+                                              n_iters),
+        ms=held_ms(lambda: sinkhorn_normalize(x, n_iters, tau))[0],
+        plain_ms=cuda_ms(lambda: sinkhorn_normalize_plain(x, n_iters, tau),
+                         iters=5), bound_ms=bound, bound_by=by)
+    for name, f in out.items():
+        log("  %s at the CLI's first inputs (%s): %.4f ms (plain %.4f ms, "
+            "bound %.4f ms by %s%s)" % (
+                name, f["shape"], f["ms"], f["plain_ms"], f["bound_ms"],
+                f["bound_by"], ", library %.4f ms" % f["library_ms"]
+                if "library_ms" in f else ""))
+    return out
+
+
+def check_cli_launches(launches, what, kernels):
+    """Each kernel named in `kernels` launched, every other one not."""
+    for name, n in launches.items():
+        if (name in kernels) != (n > 0):
+            raise AssertionError("%s: %s launched %d times" % (what, name, n))
+
+
+def replay_golden_eval_cli(report, tmp):
+    """13a: the port's CLI on the card from the golden fixture
+    (vsrcic_tpu_torch/testdata/golden_eval_cli.npz, written by
+    `python tests/torch_parity.py --eval-cli` from the JAX CLI): strict
+    flags give JAX's dumps, CIDEr and metric lines exactly; the fast flags
+    (the kernels, bf16 tables) give the dumps of JAX's Pallas kernels, ids
+    exact."""
+    from vsrcic_tpu_torch.tools.eval_checkpoints import (golden_flags,
+                                                         load_golden)
+    g = load_golden()
+    fast = json.loads(str(g["fast_flags"]))
+    out = {}
+    for ds in ("coco", "flickr"):
+        flags = golden_flags(g, ds, tmp)
+        for mode, extra in (("strict", []), ("fast", fast)):
+            pre = "%s/%s/" % (ds, mode)
+            res, dt, launches = counted(lambda: run_cli(
+                flags + extra, os.path.join(tmp, "golden.jsonl")))
+            if res["dump"] != str(g[pre + "dump"]):
+                raise AssertionError("golden eval CLI %s %s: the dumped "
+                                     "captions differ from JAX's" % (ds, mode))
+            if res["cider"] != float(g[pre + "cider"]) or not \
+                    metric_lines_match(res["metrics"],
+                                       str(g[pre + "metrics"]).split("\n")):
+                raise AssertionError("golden eval CLI %s %s: metric lines "
+                                     "differ from JAX's:\n%s" % (
+                                         ds, mode, "\n".join(res["metrics"])))
+            check_cli_launches(launches, "golden eval CLI %s %s" % (ds, mode),
+                               ALL_KERNELS if extra else ("sinkhorn",))
+            log("  golden eval CLI %s %s: %d captions and the metric table "
+                "identical to JAX's; launches %s" % (ds, mode, res["n"],
+                                                     launches))
+            out["%s_%s" % (ds, mode)] = dict(n=res["n"], launches=launches,
+                                             seconds=dt)
+    report["golden_eval_cli"] = out
+
+
+def time_fields(argv, n=128):
+    """Host ms per caption of the eval fields (image + eval detection
+    field, as the CLI's loader runs them) on the first n test captions of
+    the world `argv` builds."""
+    import argparse
+    from vsrcic_tpu_torch.cli.common import base_parser, build_world
+    from vsrcic_tpu_torch.cli.fields import (make_eval_det_field,
+                                             make_image_field)
+    opt, _ = base_parser().parse_known_args(argv)
+    opt = argparse.Namespace(**vars(opt), fixed_len=10, det=False, gt=False)
+    world = build_world(opt)
+    image, det = make_image_field(world, opt), make_eval_det_field(world, opt)
+    test = world.splits[2][:n]
+    t0 = time.perf_counter()
+    for ex in test:
+        image.preprocess(ex.image)
+        det.preprocess(ex.detection)
+    ms = 1e3 * (time.perf_counter() - t0) / len(test)
+    log("  host fields: %.2f ms per caption (%d captions, image + eval "
+        "detection field at D %d)" % (ms, len(test), opt.feat_dim))
+    return dict(ms_per_caption=ms, captions=len(test))
+
+
+def run_eval_cli(report, tmp):
+    """13b: the CLI at full width from seeded checkpoints: strict; the fast
+    flags with every kernel call held to its plain version, whose result
+    goes on (the checked run); `--fused --vocab_topk` on f32 tables; the
+    fast flags (the main path). Then a short Flickr --det --gt run with the
+    fast flags."""
+    from vsrcic_tpu_torch.tools.eval_checkpoints import (checkpoint_trees,
+                                                         write)
+    t0 = time.perf_counter()
+    trees = checkpoint_trees(EVAL_FULL)
+    vocab = int(trees["captioner"]["cfg"]["vocab_size"])
+    ckpt = write(os.path.join(tmp, "coco"), trees)
+    log("  seeded full-width checkpoints (vocab V = %d) written in %.1f s"
+        % (vocab, time.perf_counter() - t0))
+    runs = {}
+    # the strict run first: it takes the full-width shapes' first-call
+    # costs; the fast run last, warm
+    for name, extra in (("strict", []), ("checked", EVAL_FAST),
+                        ("f32_kernels", ["--fused", "--vocab_topk"]),
+                        ("fast", EVAL_FAST)):
+        watch = IndexWatch()
+        check = PlainCheck() if name == "checked" else None
+        with call_sites(*filter(None, (check, watch))):
+            res, dt, launches = counted(lambda: run_cli(
+                EVAL_FULL + ckpt + extra, os.path.join(tmp, name + ".jsonl")))
+        changed = None if watch.changed is None else int(watch.changed)
+        log("  %s: %s (whole CLI run %.1f s); launches %s" % (
+            name, res["decoded"], dt, launches))
+        for line in res["metrics"]:
+            log("    " + line)
+        if res["n"] < EVAL_MIN_CAPTIONS or len(res["preds"]) != res["n"]:
+            raise AssertionError("the %s CLI run decoded %d captions"
+                                 % (name, res["n"]))
+        check_cli_launches(launches, "eval CLI " + name,
+                           ALL_KERNELS if extra else ("sinkhorn",))
+        if changed:
+            raise AssertionError("the fused kernel changed %d item/ctrl "
+                                 "entries in the CLI run" % changed)
+        if not math.isfinite(res["cider"]):
+            raise AssertionError("CIDEr is not finite: %s" % res["cider"])
+        runs[name] = dict(res, seconds=dt, launches=launches,
+                          fused_calls_watched=watch.calls,
+                          item_ctrl_changed=changed)
+        if check is not None:
+            log("  checked: every kernel call against its plain version: "
+                "calls %s, max_abs_err %s, vocab near-tie rows %d"
+                % (check.calls, {k: "%.3g" % v for k, v in check.err.items()},
+                   check.near_tie_rows))
+            runs[name].update(calls_checked=check.calls,
+                              max_abs_err=check.err,
+                              near_tie_rows=check.near_tie_rows)
+        if name == "fast":
+            first = watch.first
+
+    def differ(a, b):
+        return sum(x != y for x, y in zip(runs[a]["preds"], runs[b]["preds"]))
+
+    n = len(runs["strict"]["preds"])
+    diffs = {"fast_vs_checked": differ("fast", "checked"),
+             "f32_kernels_vs_strict": differ("f32_kernels", "strict"),
+             "checked_vs_strict": differ("checked", "strict"),
+             "fast_vs_strict": differ("fast", "strict")}
+    shares = {k: 1 - d / n for k, d in diffs.items()}
+    log("  captions that agree, of %d (V = %d): %s" % (
+        n, vocab, ", ".join("%s %.4f" % kv for kv in shares.items())))
+    # the kernels' captions are the plain versions' on the same tables,
+    # but where a near tie in the logits (checked as vocab_near_ties does)
+    # lets them part
+    if diffs["fast_vs_checked"] > runs["checked"]["near_tie_rows"]:
+        raise AssertionError(
+            "%d of the eval CLI's captions differ between the kernels and "
+            "their plain versions, with %d near-tie rows to explain them"
+            % (diffs["fast_vs_checked"], runs["checked"]["near_tie_rows"]))
+    for key, bar in (("f32_kernels_vs_strict", F32_KERNELS_BAR),
+                     ("checked_vs_strict", BF16_TABLES_BAR)):
+        if shares[key] < bar:
+            raise AssertionError("%s: %.4f of the captions agree, below %.2f"
+                                 % (key, shares[key], bar))
+    report["eval_cli_kernels"] = time_cli_kernels(first)
+    for name, f in report["eval_cli_kernels"].items():
+        f["max_abs_err"] = runs["checked"]["max_abs_err"][name]
+    report["eval_cli_fields"] = time_fields(EVAL_FULL)
+    ckpt_f = write(os.path.join(tmp, "flickr"), checkpoint_trees(EVAL_FLICKR))
+    watch = IndexWatch()
+    with call_sites(watch):
+        res, dt, launches = counted(lambda: run_cli(
+            EVAL_FLICKR + ckpt_f + EVAL_FAST,
+            os.path.join(tmp, "flickr.jsonl")))
+    log("  flickr --det --gt fast: %s; launches %s; item/ctrl changed %s"
+        % (res["decoded"], launches, int(watch.changed)))
+    check_cli_launches(launches, "eval CLI flickr", ALL_KERNELS)
+    if int(watch.changed) or res["n"] == 0:
+        raise AssertionError("the Flickr CLI run failed its checks")
+    for r in list(runs.values()) + [res]:
+        del r["dump"], r["preds"]
+    report["eval_cli"] = dict(runs, shares=shares, differ=diffs, vocab=vocab,
+                              flickr=dict(res, seconds=dt,
+                                          launches=launches))
+    return runs["fast"]["launches"]
+
+
+def run_phase13(report):
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        log("[13a] golden eval CLI replay")
+        replay_golden_eval_cli(report, tmp)
+        log("[13b] eval CLI at full width (synthetic COCO, seeded "
+            "checkpoints)")
+        return run_eval_cli(report, tmp)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1480,6 +1913,7 @@ def main():
     report["scorer_build_seconds"] = time.perf_counter() - t0
     log("    native CIDEr-D scorer (csrc/cider_scorer.cpp, c++) built in "
         "%.1f s" % report["scorer_build_seconds"])
+    check_packed_reader(report)
 
     # phase 3
     log("[3] kernels against their plain versions")
@@ -1504,6 +1938,15 @@ def main():
         write_report(report)
         print(card)
         print(json.dumps({"train": report["train"]}))
+        print_device_line()
+        return 0
+    if "--eval" in sys.argv[1:]:
+        run_phase13(report)
+        write_report(report)
+        print(card)
+        print(json.dumps({"golden_eval_cli": report["golden_eval_cli"],
+                          "eval_cli": report["eval_cli"],
+                          "eval_cli_kernels": report["eval_cli_kernels"]}))
         print_device_line()
         return 0
     if "--planners" in sys.argv[1:]:
@@ -1548,8 +1991,12 @@ def main():
     replay_golden_planners(report)
     log("[12] planner trainers at full width (S-SSP, Sinkhorn)")
     sink_launches = run_planner_trainers(report)
+
+    # phase 13: the slice's main path, the eval CLI
+    cli_launches = run_phase13(report)
     by_path = {"beam": beam_launches, "pipeline": launches,
-               "train_scst": train_launches, "train_sinkhorn": sink_launches}
+               "train_scst": train_launches, "train_sinkhorn": sink_launches,
+               "eval_cli": cli_launches}
 
     rows = []
     for name, src, replaces in (
@@ -1561,7 +2008,7 @@ def main():
              "scripts/ab_sinkhorn.py:28")):
         k = kernels[name]
         row = {"name": name, "route": "cuda", "source": src,
-               "replaces": replaces, "launches": launches[name],
+               "replaces": replaces, "launches": cli_launches[name],
                "launches_by_path": {p: n.get(name, 0)
                                     for p, n in by_path.items()},
                "max_abs_err": k["max_abs_err"],
@@ -1569,6 +2016,8 @@ def main():
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
         row.update({f: v for f, v in k.items() if f.startswith("beam1_")})
+        row.update({"cli_" + f: v for f, v in
+                    report["eval_cli_kernels"][name].items()})
         rows.append(row)
     report["kernels"] = kernels
     write_report(report)

@@ -6,7 +6,8 @@ system refuses the top-level names `jax`, `jaxlib`, `optax` and
 Nor does it read a file of the JAX package or of its `native/` directory:
 an audit hook records every path opened, listed, loaded or handed to a
 subprocess while the port's modules and chip_smoke.py import and while the
-native CIDEr-D scorer is built from scratch and used."""
+two host libraries, the native CIDEr-D scorer and the packed-store reader,
+are built from scratch and used."""
 import os
 import subprocess
 import sys
@@ -87,14 +88,21 @@ for m in pkgutil.walk_packages(vsrcic_tpu_torch.__path__,
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 
+import numpy as np
+from vsrcic_tpu_torch.data import native_reader
 from vsrcic_tpu_torch.metrics import cider_native
 from vsrcic_tpu_torch.metrics.cider import Cider
 from vsrcic_tpu_torch.ops import _build
 with tempfile.TemporaryDirectory() as tmp:
     _build.BUILD = Path(tmp)                 # a build from scratch
     cider_native._load.cache_clear()
+    native_reader._load_lib.cache_clear()
     nat = cider_native.NativeCiderPair(Cider(gts=["a dog runs", "a cat"]))
     print("SCORES", list(nat.score_pair(["a dog"], ["a dog"], ["a cat"])[0]))
+    src = np.arange(12, dtype=np.float32).reshape(6, 2)
+    rows = native_reader.fill_padded_batch(src, [1, 3], [2, 3], 3)
+    assert rows.sum() == src[1:3].sum() + src[3:6].sum(), rows
+    print("ROWS", rows.shape)
     built = [p for p in seen if p.endswith(".cpp")]
 
 bad = []
@@ -105,8 +113,9 @@ for p in seen:
             ("native",), ("vsrcic_tpu",)):
         bad.append(p)
 assert not bad, bad
-assert built and all(Path(p).resolve() == REPO / "vsrcic_tpu_torch" / "csrc"
-                     / "cider_scorer.cpp" for p in built), built
+csrc = REPO / "vsrcic_tpu_torch" / "csrc"
+assert sorted({Path(p).resolve() for p in built}) == [
+    csrc / "cider_scorer.cpp", csrc / "packed_reader.cpp"], built
 print("PATHS", len(seen))
 """
 
@@ -117,4 +126,4 @@ def test_port_reads_nothing_of_the_jax_package():
                          capture_output=True, text=True, timeout=180)
     assert res.returncode == 0, res.stdout + res.stderr
     assert int(res.stdout.split("PATHS")[1]) > 100
-    assert "SCORES" in res.stdout
+    assert "SCORES" in res.stdout and "ROWS" in res.stdout

@@ -271,3 +271,27 @@ def test_ssp_trainer_step_on_the_card(cuda_device):
     tr = SSPTrainer(SSPConfig(**tp.SSP_KW), params, device=cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     assert torch.isfinite(torch.tensor(tr.step(*batch, gen)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dataset", ["coco", "flickr"])
+def test_eval_cli_golden_on_the_card(cuda_device, dataset, tmp_path):
+    """The eval CLI on the card from its golden fixture: the fast flags
+    launch all three kernels and dump the captions of JAX's Pallas kernels
+    (ids exact); the strict run dumps JAX's strict captions."""
+    from vsrcic_tpu_torch.cli import eval as eval_cli
+    from vsrcic_tpu_torch.tools.eval_checkpoints import (golden_flags,
+                                                         load_golden)
+    from vsrcic_tpu_torch.ops.sinkhorn import sinkhorn_normalize as sink
+    g = load_golden()
+    flags = golden_flags(g, dataset, str(tmp_path))
+    for mode, extra in (("strict", []), ("fast", tp.EVAL_CLI_FAST)):
+        kernels = (fused_group_attention, vocab_topk_lse, sink)
+        before = [k.launches for k in kernels]
+        got = tp.run_eval_cli(eval_cli.main, flags + extra,
+                              tmp_path / "dump.jsonl")
+        launched = [k.launches - b for k, b in zip(kernels, before)]
+        assert got["dump"] == tp.golden_eval_cli_result(
+            g, dataset, mode)["dump"]
+        assert launched[2] > 0
+        assert (min(launched) > 0) if extra else launched[:2] == [0, 0]

@@ -13,8 +13,12 @@ the JAX package and reach the port through its weight bridge
     python tests/torch_parity.py   # rewrite vsrcic_tpu_torch/testdata/golden_{beam,pipeline,train}.npz
     python tests/torch_parity.py --planners   # golden_planners.npz only
     python tests/torch_parity.py --xe-full-width   # XE losses at full width, both packages
+    python tests/torch_parity.py --eval-cli   # golden_eval_cli.npz only
 
-`--planners` writes only the planner trainers' fixture, so that the three
+`--eval-cli` writes only the eval CLI's fixture: tiny checkpoints (f16-exact
+weights, stored as f16) and what both packages' CLIs print and dump from
+them on the synthetic COCO and Flickr worlds. `--planners` writes only the
+planner trainers' fixture, so that the three
 older fixtures (whose zip timestamps change on every write) stay as they
 are. Its weights are not stored: both packages draw them from numpy seeds
 (`vsrcic_tpu_torch.utils.params.seeded_params`), and each gradient leaf is
@@ -893,6 +897,115 @@ def load_golden_planners():
         return {k: z[k] for k in z.files}
 
 
+# ---------------------------------------------------------------------------
+# the eval CLI's world
+# ---------------------------------------------------------------------------
+
+# 8 test images in 3 batches of at most 3, a 32-d feature store, the
+# tiny captioner of tests/test_cli_lifecycle.py
+EVAL_CLI_ARGV = ["--synthetic", "--synthetic_images", "64", "--batch_size",
+                 "3", "--seed", "7", "--feat_dim", "32", "--rnn_size", "16",
+                 "--att_size", "8", "--input_encoding_size", "16",
+                 "--limit", "8"]
+EVAL_CLI_SSP = ["--ssp_hidden_size", "16", "--ssp_embed_size", "16",
+                "--ssp_layers", "1"]
+EVAL_CLI_FAST = ["--fused", "--vocab_topk", "--bf16_tables"]
+EVAL_CLI_MODES = {"plain": [], "det": ["--det"], "gt": ["--gt"],
+                  "det_gt": ["--det", "--gt"]}
+
+
+def eval_cli_trees(dataset):
+    """The tiny checkpoints of `dataset`'s world (eval_checkpoints' trees),
+    with every f32 weight rounded to f16 so that the fixture can hold it
+    as f16 exactly."""
+    from vsrcic_tpu_torch.tools.eval_checkpoints import checkpoint_trees
+    trees = checkpoint_trees(["--dataset", dataset] + EVAL_CLI_ARGV
+                             + EVAL_CLI_SSP)
+
+    def round16(t):
+        return {k: (round16(v) if isinstance(v, dict)
+                    else v.astype(np.float16).astype(np.float32))
+                for k, v in t.items()}
+
+    for tree in trees.values():
+        tree["params"] = round16(tree["params"])
+    return trees
+
+
+def run_eval_cli(main, argv, dump):
+    """main(argv + --dump_preds dump) with its standard output captured:
+    {"cider", "n", "metrics", "dump"} (eval_checkpoints.run_captured)."""
+    from vsrcic_tpu_torch.tools.eval_checkpoints import run_captured
+    return run_captured(main, argv, dump)[0]
+
+
+def jax_pallas_interpret_captioner():
+    """A stand-in for `vsrcic_tpu.models.api.ControllableCaptioner` that
+    turns the JAX eval CLI's CPU choice for --vocab_topk (its "xla"
+    candidate path, which reads an f32 out_fc table under --bf16_tables)
+    into the Pallas kernels in interpret mode, as the JAX package's tests
+    run them on the CPU: the function the port's kernels compute."""
+    from vsrcic_tpu.models import api
+
+    class Interpret(api.ControllableCaptioner):
+        def __init__(self, *a, use_vocab_topk=False, **kw):
+            if use_vocab_topk == "xla":
+                use_vocab_topk, kw["pallas_interpret"] = True, True
+            super().__init__(*a, use_vocab_topk=use_vocab_topk, **kw)
+
+    return Interpret
+
+
+def eval_cli_golden_arrays():
+    """The eval CLI's golden fixture, computed by the JAX CLI from the tiny
+    checkpoints: for COCO and Flickr, strict (no flag) and fast
+    (EVAL_CLI_FAST, Pallas kernels in interpret mode) runs."""
+    import tempfile
+    from vsrcic_tpu.cli import eval as jax_eval
+    from vsrcic_tpu.core.checkpoint import _flatten, _save_npz
+    from vsrcic_tpu.models import api
+    from vsrcic_tpu_torch.tools.eval_checkpoints import (NAMES,
+                                                         golden_ckpt_prefix)
+    out = {"argv": np.array(json.dumps(EVAL_CLI_ARGV)),
+           "fast_flags": np.array(json.dumps(EVAL_CLI_FAST))}
+    orig = api.ControllableCaptioner
+    with tempfile.TemporaryDirectory() as tmp:
+        for ds in ("coco", "flickr"):
+            trees = eval_cli_trees(ds)
+            flags = ["--dataset", ds] + EVAL_CLI_ARGV + ["--platform", "cpu"]
+            for name in NAMES:
+                path = os.path.join(tmp, "%s_%s.npz" % (ds, name))
+                _save_npz(path, trees[name])
+                flags += ["--%s_ckpt" % name, path]
+                for k, v in _flatten(trees[name]).items():
+                    key = golden_ckpt_prefix(ds, name) + k
+                    v = v.astype(np.float16) if k.startswith("params/") else v
+                    # the Sinkhorn net is the same for both worlds: held once
+                    assert key not in out or np.array_equal(out[key], v), key
+                    out[key] = v
+            for mode, extra in (("strict", []), ("fast", EVAL_CLI_FAST)):
+                api.ControllableCaptioner = (
+                    jax_pallas_interpret_captioner() if extra else orig)
+                try:
+                    res = run_eval_cli(jax_eval.main, flags + extra,
+                                       os.path.join(tmp, "dump.jsonl"))
+                finally:
+                    api.ControllableCaptioner = orig
+                pre = "%s/%s/" % (ds, mode)
+                out[pre + "dump"] = np.array(res["dump"])
+                out[pre + "metrics"] = np.array("\n".join(res["metrics"]))
+                out[pre + "cider"] = np.float64(res["cider"])
+                out[pre + "n"] = np.int64(res["n"])
+    return out
+
+
+def golden_eval_cli_result(golden, dataset, mode):
+    pre = "%s/%s/" % (dataset, mode)
+    return {"cider": float(golden[pre + "cider"]), "n": int(golden[pre + "n"]),
+            "metrics": str(golden[pre + "metrics"]).split("\n"),
+            "dump": str(golden[pre + "dump"])}
+
+
 if __name__ == "__main__":
     sys.path.insert(0, REPO)
     import jax
@@ -904,6 +1017,11 @@ if __name__ == "__main__":
             print("features %s: JAX %s, port %s" % (
                 "|normal|" if positive else "normal",
                 ["%.4f" % x for x in want], ["%.4f" % x for x in got]))
+        sys.exit(0)
+    if "--eval-cli" in sys.argv[1:]:
+        from vsrcic_tpu_torch.tools.eval_checkpoints import GOLDEN as G
+        np.savez_compressed(G, **eval_cli_golden_arrays())
+        print("wrote", G, os.path.getsize(G), "bytes")
         sys.exit(0)
     if "--planners" in sys.argv[1:]:
         np.savez_compressed(GOLDEN_PLANNERS, **planners_golden_arrays())

@@ -11,7 +11,11 @@ Ported so far: beam caption decode (`models.api.ControllableCaptioner.
 beam_search_v` / `beam_search`), strict and fast paths; the eval pipeline
 (`pipelines.EvalPipeline`); the XE and SCST captioner trainers
 (`train.CaptionerXETrainer`, `train.CaptionerSCSTTrainer`) with the greedy,
-sampled, forced and teacher-forced decodes they stand on (`decode.loops`).
+sampled, forced and teacher-forced decodes they stand on (`decode.loops`);
+the planner trainers (`train.SSPTrainer`, `train.SinkhornTrainer`); the
+eval CLI (`python -m vsrcic_tpu_torch.cli.eval`) with the data layer
+(`data`), npz checkpoints and config (`core`) and the eval metrics
+(`metrics`) beneath it.
 """
 
 __version__ = "0.1.0"

@@ -6,8 +6,11 @@ plain C interface, loaded with `ctypes`. A host library (`csrc/<stem>.cpp`,
 the CIDEr-D scorer) is compiled by the host C++ compiler alone
 (`host_library`), so that it builds where there is no CUDA toolkit too.
 Each build runs at first use, from the sources in the checkout, into
-`vsrcic_tpu_torch/build/` (listed in `.gitignore`), and is redone when the
-hash of its sources or flags changes. A failed build raises.
+`vsrcic_tpu_torch/build/` (listed in `.gitignore`), and is redone when its
+stamp changes. The stamp hashes the sources, the flags, the compiler's
+`--version` output and `platform.machine()`, and for the CUDA library also
+`torch.version.cuda`: a `build/` made on another machine or by another
+compiler is rebuilt, never loaded. A failed build raises.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import platform
 import subprocess
 import tempfile
 import time
@@ -26,6 +30,7 @@ BUILD = PKG / "build"
 LIB_NAME = "libvsrcic_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CXX = "c++"
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-pthread", "-shared"]
 
 P = ctypes.c_void_p
@@ -60,26 +65,50 @@ def _sources():
     return srcs
 
 
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
+def compiler_identity(compiler: str) -> str:
+    """The whole `--version` output of `compiler` (nvcc's first line is the
+    same for every release; its release is on a later one). Raises if the
+    compiler does not run."""
+    try:
+        res = subprocess.run([compiler, "--version"], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    except OSError as e:
+        raise RuntimeError("%s does not run: %s" % (compiler, e)) from e
+    if res.returncode:
+        raise RuntimeError("%s --version failed (%d): %s"
+                           % (compiler, res.returncode, res.stdout))
+    return res.stdout.strip()
+
+
+def _stamp(parts, sources) -> str:
+    h = hashlib.sha256()
+    for part in parts:
+        h.update(part.encode() + b"\0")
+    for src in sources:
+        h.update(src.name.encode() + b"\0")
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
+
+
+def source_hash(compiler: str) -> str:
+    """The CUDA library's stamp, given `compiler_identity(nvcc)`."""
+    import torch
+    return _stamp([" ".join(NVCC_FLAGS), compiler, platform.machine(),
+                   str(torch.version.cuda)], _sources())
 
 
 def build() -> Path:
     """Compile and link the library unless a build of these sources exists;
     returns its path."""
     global last_build_seconds, last_build_log
-    digest = source_hash()
+    nvcc = _nvcc()
+    digest = source_hash(compiler_identity(nvcc))
     lib = BUILD / LIB_NAME
     stamp = BUILD / (LIB_NAME + ".sha")
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         last_build_seconds = 0.0
         return lib
     BUILD.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
         procs = []
@@ -112,15 +141,15 @@ def build() -> Path:
 
 
 def host_library(stem: str) -> Path:
-    """Compile `csrc/<stem>.cpp` with the host C++ compiler (`c++`) into
-    `build/lib<stem>.so` unless a build of this source with these flags
-    exists; returns its path. Concurrent builders each compile into their
-    own temporary directory and move the result into place."""
+    """Compile `csrc/<stem>.cpp` with the host C++ compiler (`CXX`) into
+    `build/lib<stem>.so` unless a build of this source with these flags, by
+    this compiler on this kind of machine, exists; returns its path.
+    Concurrent builders each compile into their own temporary directory and
+    move the result into place."""
     global last_host_build_seconds
     src = CSRC / (stem + ".cpp")
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(src.read_bytes())
-    digest = h.hexdigest()[:16]
+    digest = _stamp([" ".join(CXX_FLAGS), compiler_identity(CXX),
+                     platform.machine()], [src])
     lib = BUILD / ("lib%s.so" % stem)
     stamp = BUILD / (lib.name + ".sha")
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
@@ -130,7 +159,7 @@ def host_library(stem: str) -> Path:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
         out = Path(tmp) / lib.name
-        cmd = ["c++", *CXX_FLAGS, "-o", str(out), str(src)]
+        cmd = [CXX, *CXX_FLAGS, "-o", str(out), str(src)]
         res = subprocess.run(cmd, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
         if res.returncode:
