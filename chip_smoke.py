@@ -7,6 +7,7 @@
     python3 chip_smoke.py --train      # phases 1-2 and 9-10
     python3 chip_smoke.py --planners   # phases 1-2 and 11-12
     python3 chip_smoke.py --eval       # phases 1-2 and 13
+    python3 chip_smoke.py --train-cli  # phases 1-2 and 14
 
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi), and the TF32 settings
@@ -76,7 +77,24 @@ Phases (any failure raises and the script exits non-zero):
      equal the checked run's save for vocab near ties, and keep
      F32_KERNELS_BAR / BF16_TABLES_BAR of the strict run's; each kernel
      timed on the fast run's first inputs; the host's field time per
-     caption; then a short Flickr --det --gt run with the fast flags.
+     caption; then a short Flickr --det --gt run with the fast flags;
+ 14. the train CLIs, `python -m vsrcic_tpu_torch.cli.train`,
+     `.train_region_sort` and `.train_sinkhorn`, called in this process
+     with --log_dir: (a) replay their golden fixture (the JAX CLIs' runs
+     at tiny widths from shared initial checkpoints): XE's and the
+     Sinkhorn CLI's (COCO and Flickr) per-step losses within rtol 1e-4,
+     saved weights within rtol 1e-4 / atol 1e-6, XE's validation lines
+     equal; (b) at the CLIs' default widths on synthetic COCO: XE at
+     batch 100 for 5 steps and one validation pass (its first staged
+     batch held to the host's arrays bit for bit), SCST --fast_decode
+     from that checkpoint (2 checked steps, every fused call held to its
+     plain version and item/ctrl watched, then 5 steps), S-SSP and
+     Sinkhorn (2 checked steps, then 5) at their default batches, then
+     the eval CLI's fast flags from the three checkpoints on 64 test
+     captions; launch counts reset before each CLI and read after; per-
+     step times from the journal's `t` deltas, first step excluded;
+     every loss finite; the fused and Sinkhorn kernels timed on the first
+     inputs the train CLIs gave them.
 
 Prints the kernels' JSON line, then, last, the device JSON line. Details go
 to chiprun_out/chip_smoke.json.
@@ -830,6 +848,8 @@ def pipeline_batch(pipe):
 
 
 def pipeline_launches():
+    """{kernel: what holds its launch count}: its wrapper, or what
+    call_sites put in the Sinkhorn wrapper's place."""
     from vsrcic_tpu_torch.ops.fused_attention import fused_group_attention
     from vsrcic_tpu_torch.ops.sinkhorn import sinkhorn_normalize
     from vsrcic_tpu_torch.ops.vocab_topk import vocab_topk_lse
@@ -1524,32 +1544,29 @@ def run_cli(argv, dump):
                        for x in res["dump"].splitlines()])
 
 
-def metric_lines_match(got, want):
-    """Equal metric lines, except that a card without nltk's stemmer
-    prints 'METEOR unavailable: ...' where the fixture scored natively."""
-    if len(got) != len(want):
-        return False
-    return all(g == w or (g.startswith("METEOR unavailable")
-                          and w.startswith("METEOR(native)"))
-               for g, w in zip(got, want))
-
-
 @contextlib.contextmanager
 def call_sites(*wraps):
-    """The three kernels' call sites in the CLI's captioner and pipeline,
-    each replaced for the block by the function there passed through every
-    wrap(kernel name, fn) in turn."""
+    """The three kernels' call sites in the CLIs' captioner, eval pipeline
+    and Sinkhorn trainer, each replaced for the block by the function there
+    passed through every wrap(kernel name, fn) in turn. Each wrapper
+    carries its function's attributes, `launches` among them: the
+    Sinkhorn wrapper counts its launches on what its module's name
+    `sinkhorn_normalize` holds, here the trainer's site's wrapper, and
+    `counted` reads the count there."""
+    import functools
     from vsrcic_tpu_torch.models import api
+    from vsrcic_tpu_torch.ops import sinkhorn
     from vsrcic_tpu_torch.pipelines import eval_pipeline
     sites = (("fused_attention", api, "fused_group_attention"),
              ("vocab_topk", api, "vocab_topk_lse"),
-             ("sinkhorn", eval_pipeline, "sinkhorn_normalize"))
+             ("sinkhorn", eval_pipeline, "sinkhorn_normalize"),
+             ("sinkhorn", sinkhorn, "sinkhorn_normalize"))
     saved = [getattr(m, attr) for _, m, attr in sites]
     try:
         for name, m, attr in sites:
             fn = getattr(m, attr)
             for wrap in wraps:
-                fn = wrap(name, fn)
+                fn = functools.update_wrapper(wrap(name, fn), fn)
             setattr(m, attr, fn)
         yield
     finally:
@@ -1643,29 +1660,54 @@ def vocab_bound(rows, r, v, k, table_bytes):
                                        else "bytes")
 
 
+def time_fused(args):
+    """The fused kernel on `args` (held stream: at a train CLI's 100 rows
+    a launch takes less than the host's interval between launches)
+    beside its plain version and its bound."""
+    from vsrcic_tpu_torch.ops.fused_attention import (
+        fused_group_attention, fused_group_attention_plain)
+    bound, by, groups = fused_bound(args)
+    return dict(
+        shape="rows %d, B %d, L %d, M %d, D %d, A %d, %s" % (
+            args[2].shape[0], *args[7].shape, args[2].shape[1],
+            str(args[7].dtype).split(".")[1]),
+        ms=held_ms(lambda: fused_group_attention(*args))[0],
+        plain_ms=cuda_ms(lambda: fused_group_attention_plain(*args),
+                         iters=5), bound_ms=bound, bound_by=by,
+        distinct_groups=groups)
+
+
+def time_sinkhorn(x, n_iters, tau):
+    """The Sinkhorn kernel on x (held stream) beside its plain version and
+    its bound."""
+    from vsrcic_tpu_torch.ops.sinkhorn import (sinkhorn_normalize,
+                                               sinkhorn_normalize_plain)
+    bound, by = sinkhorn_bound(x.shape[0], x.shape[1], n_iters)
+    return dict(
+        shape="S %d, n %d, %d iterations" % (x.shape[0], x.shape[1],
+                                              n_iters),
+        ms=held_ms(lambda: sinkhorn_normalize(x, n_iters, tau))[0],
+        plain_ms=cuda_ms(lambda: sinkhorn_normalize_plain(x, n_iters, tau),
+                         iters=5), bound_ms=bound, bound_by=by)
+
+
+def log_timings(where, out):
+    for name, f in out.items():
+        log("  %s at %s (%s): %.4f ms (plain %.4f ms, bound %.4f ms by %s%s)"
+            % (name, where, f["shape"], f["ms"], f["plain_ms"],
+               f["bound_ms"], f["bound_by"],
+               ", library %.4f ms" % f["library_ms"]
+               if "library_ms" in f else ""))
+
+
 def time_cli_kernels(first):
     """Each kernel timed on the inputs the CLI's fast run gave it first
     (IndexWatch.first), beside its plain version, its bound and the
     library's call where there is one. Returns {kernel: fields}."""
     import torch
-    from vsrcic_tpu_torch.ops.fused_attention import (
-        fused_group_attention, fused_group_attention_plain)
-    from vsrcic_tpu_torch.ops.sinkhorn import (sinkhorn_normalize,
-                                               sinkhorn_normalize_plain)
     from vsrcic_tpu_torch.ops.vocab_topk import (vocab_topk_lse,
                                                  vocab_topk_lse_plain)
-    out = {}
-    args, _ = first["fused_attention"]
-    bound, by, groups = fused_bound(args)
-    out["fused_attention"] = dict(
-        shape="rows %d, B %d, L %d, M %d, D %d, A %d, %s" % (
-            args[2].shape[0], *args[7].shape, args[2].shape[1],
-            str(args[7].dtype).split(".")[1]),
-        ms=cuda_ms(lambda: fused_group_attention(*args)),
-        plain_ms=cuda_ms(lambda: fused_group_attention_plain(*args),
-                         iters=5), bound_ms=bound, bound_by=by,
-        distinct_groups=groups)
-
+    out = {"fused_attention": time_fused(first["fused_attention"][0])}
     (h2, w, b), kw = first["vocab_topk"]
     k = kw["k"]
     bound, by = vocab_bound(h2.shape[0], h2.shape[1], w.shape[1], k,
@@ -1683,21 +1725,8 @@ def time_cli_kernels(first):
         plain_ms=cuda_ms(lambda: vocab_topk_lse_plain(h2, w, b, k),
                          iters=5), bound_ms=bound, bound_by=by,
         library_ms=cuda_ms(library))
-
-    (x, n_iters, tau), _ = first["sinkhorn"]
-    bound, by = sinkhorn_bound(x.shape[0], x.shape[1], n_iters)
-    out["sinkhorn"] = dict(
-        shape="S %d, n %d, %d iterations" % (x.shape[0], x.shape[1],
-                                              n_iters),
-        ms=held_ms(lambda: sinkhorn_normalize(x, n_iters, tau))[0],
-        plain_ms=cuda_ms(lambda: sinkhorn_normalize_plain(x, n_iters, tau),
-                         iters=5), bound_ms=bound, bound_by=by)
-    for name, f in out.items():
-        log("  %s at the CLI's first inputs (%s): %.4f ms (plain %.4f ms, "
-            "bound %.4f ms by %s%s)" % (
-                name, f["shape"], f["ms"], f["plain_ms"], f["bound_ms"],
-                f["bound_by"], ", library %.4f ms" % f["library_ms"]
-                if "library_ms" in f else ""))
+    out["sinkhorn"] = time_sinkhorn(*first["sinkhorn"][0])
+    log_timings("the CLI's first inputs", out)
     return out
 
 
@@ -1716,6 +1745,7 @@ def replay_golden_eval_cli(report, tmp):
     (the kernels, bf16 tables) give the dumps of JAX's Pallas kernels, ids
     exact."""
     from vsrcic_tpu_torch.tools.eval_checkpoints import (golden_flags,
+                                                         lines_match,
                                                          load_golden)
     g = load_golden()
     fast = json.loads(str(g["fast_flags"]))
@@ -1730,8 +1760,8 @@ def replay_golden_eval_cli(report, tmp):
                 raise AssertionError("golden eval CLI %s %s: the dumped "
                                      "captions differ from JAX's" % (ds, mode))
             if res["cider"] != float(g[pre + "cider"]) or not \
-                    metric_lines_match(res["metrics"],
-                                       str(g[pre + "metrics"]).split("\n")):
+                    lines_match(res["metrics"],
+                                str(g[pre + "metrics"]).split("\n")):
                 raise AssertionError("golden eval CLI %s %s: metric lines "
                                      "differ from JAX's:\n%s" % (
                                          ds, mode, "\n".join(res["metrics"])))
@@ -1879,6 +1909,245 @@ def run_phase13(report):
         return run_eval_cli(report, tmp)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the train CLIs
+# ---------------------------------------------------------------------------
+
+# the CLIs' default widths (feat 2048, encoding 1000, rnn 1000, att 512,
+# SSPConfig() 512/512/3, the 2352-d Sinkhorn net) on synthetic COCO: 512
+# training images of one caption each, 64 for validation and 64 for test
+TRAIN_CLI_FULL = ["--synthetic", "--dataset", "coco", "--synthetic_images",
+                  "512", "--seed", "7"]
+TRAIN_CLI_STEPS = 5
+TRAIN_CLI_CHECKED_STEPS = 2
+SCST_BATCH = 100
+
+
+@contextlib.contextmanager
+def step_sizes(cls):
+    """For the block, cls.step records the leading size of its first
+    argument (the step's groups or pairs) and steps."""
+    sizes = []
+    step = cls.step
+
+    def recording(self, first, *a, **kw):
+        sizes.append(int(first.shape[0]))
+        return step(self, first, *a, **kw)
+
+    cls.step = recording
+    try:
+        yield sizes
+    finally:
+        cls.step = step
+
+
+def replay_golden_train_cli(report, tmp):
+    """14a: the port's XE and Sinkhorn CLIs on the card from the golden
+    fixture (vsrcic_tpu_torch/testdata/golden_train_cli.npz, the JAX CLIs'
+    runs): per-step losses within rtol 1e-4, saved weights within rtol
+    1e-4 / atol 1e-6, XE's validation lines equal; the Sinkhorn runs
+    through the kernel, once per step."""
+    from vsrcic_tpu_torch.cli import train, train_sinkhorn
+    from vsrcic_tpu_torch.tools import train_cli_golden as g
+    golden = g.load_golden()
+    mains = {"train": train.main, "train_sinkhorn": train_sinkhorn.main}
+    out = {}
+    for run, (cli, _, _) in g.RUNS.items():
+        root = os.path.join(tmp, "golden", run)
+        argv = g.golden_flags(golden, run, root)
+        res, dt, launches = counted(lambda: g.run_captured(mains[cli], argv))
+        diffs = g.check_run("golden %s on the card" % run, res,
+                            g.saved_params(root, run),
+                            *g.golden_run(golden, run))
+        expect_launches("golden " + run, launches, {
+            "sinkhorn": len(res["losses"])} if cli == "train_sinkhorn"
+            else {})
+        log("  golden %s: losses %s within rtol %g of JAX's (worst %.3g), "
+            "weights within %.3g%s; launches %s" % (
+                run, ["%.5f" % x for x in res["losses"]], g.LOSS_RTOL,
+                diffs["loss_rel_diff"], diffs["param_max_diff"],
+                ", validation lines equal" if res["lines"] else "",
+                launches))
+        out[run] = dict(diffs, losses=res["losses"], launches=launches,
+                        seconds=dt)
+    report["golden_train_cli"] = out
+
+
+def run_train_cli(name, main, argv, tmp, *wraps):
+    """One train CLI run in this process with `--log_dir`, each kernel's
+    launches counted and every wrap on the kernels' call sites: its
+    run_captured result with the per-step seconds from the journal's `t`
+    deltas (the first step excluded: its record starts the clock), the
+    CLI's epoch line, launches and whole-run seconds."""
+    import numpy as np
+    from vsrcic_tpu_torch.tools import train_cli_golden as g
+    log_dir = os.path.join(tmp, "log", name)
+    with call_sites(*wraps):
+        res, dt, launches = counted(lambda: g.run_captured(
+            main, argv + ["--log_dir", log_dir]))
+    if res["steps"] != list(range(len(res["steps"]))) or not res["steps"]:
+        raise AssertionError("%s: journal steps %s" % (name, res["steps"]))
+    if not all(map(math.isfinite, res["losses"])):
+        raise AssertionError("%s: a loss is not finite: %s"
+                             % (name, res["losses"]))
+    epoch = [ln for ln in res["out"] if ln.startswith("epoch 0 ")]
+    res.update(step_s=np.diff(res["t"]).tolist(), epoch_line=epoch[0],
+               launches=launches, seconds=dt)
+    log("  %s: %d steps, losses %s, %.4f s per step after the first; %s; "
+        "launches %s; whole run %.1f s" % (
+            name, len(res["losses"]), ["%.4f" % x for x in res["losses"]],
+            float(np.mean(res["step_s"])), epoch[0], launches, dt))
+    return res
+
+
+def expect_launches(name, launches, want):
+    if any(n != want.get(k, 0) for k, n in launches.items()):
+        raise AssertionError("%s: launches %s, predicted %s"
+                             % (name, launches, want))
+
+
+def run_train_clis(report, tmp):
+    """14b: the four train CLIs at their default widths on synthetic COCO
+    (XE, SCST --fast_decode from its checkpoint, S-SSP, Sinkhorn), then
+    the eval CLI's fast flags from their three checkpoints."""
+    import numpy as np
+    from vsrcic_tpu_torch.cli import (train, train_region_sort,
+                                      train_sinkhorn)
+    from vsrcic_tpu_torch.tools import train_cli_golden as g
+    from vsrcic_tpu_torch.train import planners
+    root = os.path.join(tmp, "full")
+    base = TRAIN_CLI_FULL + ["--checkpoint_path", root]
+    steps = ["--max_steps", str(TRAIN_CLI_STEPS), "--max_epochs", "1"]
+    checked_steps = ["--max_steps", str(TRAIN_CLI_CHECKED_STEPS),
+                     "--max_epochs", "1"]
+    scst = ["--sample_rl", "--fast_decode", "--batch_size", str(SCST_BATCH)]
+    out = {}
+
+    def rate(res, sizes):
+        per = np.asarray(sizes[1:len(res["t"])], np.float64)
+        return float(per.sum() / np.sum(res["step_s"]))
+
+    with g.first_staged_batch() as staged:
+        xe = run_train_cli("XE", train.main, base + steps + [
+            "--batch_size", str(SCST_BATCH)], tmp)
+    staged_bytes = g.check_staged(staged)
+    expect_launches("XE", xe["launches"], {})
+    if sum(" val CIDEr " in ln for ln in xe["out"]) != 1:
+        raise AssertionError("XE printed no single validation table")
+    xe["sequences_per_s"] = SCST_BATCH / float(np.mean(xe["step_s"]))
+    log("  XE: %.1f sequences/s; the first staged batch equals the host's "
+        "(%d bytes in %d arrays, bit for bit)" % (
+            xe["sequences_per_s"], staged_bytes, len(staged["host"])))
+    out["xe"] = xe
+
+    # SCST checked: every fused call beside its plain version, whose result
+    # goes on; item/ctrl watched for writes
+    check, watch = PlainCheck(), IndexWatch()
+    res = run_train_cli("SCST checked", train.main,
+                        base + scst + checked_steps, tmp, check, watch)
+    n = 2 * SEQ_LEN * TRAIN_CLI_CHECKED_STEPS
+    if check.calls["fused_attention"] != n or int(watch.changed):
+        raise AssertionError("SCST checked: %d fused calls checked (want "
+                             "%d), item/ctrl entries changed %d" % (
+                                 check.calls["fused_attention"], n,
+                                 int(watch.changed)))
+    log("  SCST checked: %d fused calls within phase 3's tolerances of the "
+        "plain version (worst %.3g); no item/ctrl entry changed"
+        % (n, check.err["fused_attention"]))
+    out["scst_checked"] = dict(res, calls_checked=check.calls,
+                               max_abs_err=check.err)
+    fused_err = check.err["fused_attention"]
+
+    watch = IndexWatch()
+    res = run_train_cli("SCST", train.main, base + scst + steps, tmp, watch)
+    if not any(ln.startswith("restored XE best") for ln in res["out"]):
+        raise AssertionError("SCST restored no XE checkpoint")
+    expect_launches("SCST", res["launches"], {
+        "fused_attention": 2 * SEQ_LEN * TRAIN_CLI_STEPS})
+    if int(watch.changed):
+        raise AssertionError("SCST: the fused kernel changed %d item/ctrl "
+                             "entries" % int(watch.changed))
+    res["sequences_per_s"] = SCST_BATCH / float(np.mean(res["step_s"]))
+    log("  SCST --fast_decode: %.1f sequences/s" % res["sequences_per_s"])
+    out["scst"] = res
+    fused_first = watch.first["fused_attention"][0]
+
+    with step_sizes(planners.SSPTrainer) as sizes:
+        res = run_train_cli("S-SSP", train_region_sort.main, base + steps,
+                            tmp)
+    expect_launches("S-SSP", res["launches"], {})
+    res.update(groups=sizes, groups_per_s=rate(res, sizes))
+    log("  S-SSP: %s groups per step, %.1f groups/s" % (
+        sizes, res["groups_per_s"]))
+    out["ssp"] = res
+
+    check = PlainCheck()
+    res = run_train_cli("Sinkhorn checked", train_sinkhorn.main,
+                        base + checked_steps, tmp, check)
+    if check.calls["sinkhorn"] != TRAIN_CLI_CHECKED_STEPS:
+        raise AssertionError("Sinkhorn checked: %d calls checked"
+                             % check.calls["sinkhorn"])
+    log("  Sinkhorn checked: %d calls within 1e-6 of the plain version "
+        "(worst %.3g)" % (check.calls["sinkhorn"], check.err["sinkhorn"]))
+    out["sinkhorn_checked"] = dict(res, calls_checked=check.calls,
+                                   max_abs_err=check.err)
+    sink_err = check.err["sinkhorn"]
+
+    watch = IndexWatch()
+    with step_sizes(planners.SinkhornTrainer) as sizes:
+        res = run_train_cli("Sinkhorn", train_sinkhorn.main, base + steps,
+                            tmp, watch)
+    expect_launches("Sinkhorn", res["launches"],
+                    {"sinkhorn": TRAIN_CLI_STEPS})
+    res.update(pairs=sizes, pairs_per_s=rate(res, sizes))
+    log("  Sinkhorn: %s pairs per step, %.1f pairs/s" % (
+        sizes, res["pairs_per_s"]))
+    out["sinkhorn"] = res
+    sink_first = watch.first["sinkhorn"][0]
+
+    ckpt = ["--captioner_ckpt", os.path.join(root, "coco_cap", "exp_rl_last"),
+            "--ssp_ckpt", os.path.join(root, "coco_s_ssp", "model-tr"),
+            "--sinkhorn_ckpt", os.path.join(root, "coco_sinkhorn",
+                                            "model-sh")]
+    watch = IndexWatch()
+    with call_sites(watch):
+        res, dt, launches = counted(lambda: run_cli(
+            TRAIN_CLI_FULL + ["--limit", "64"] + ckpt + EVAL_FAST,
+            os.path.join(tmp, "train_cli_eval.jsonl")))
+    check_cli_launches(launches, "eval CLI from the trained checkpoints",
+                       ALL_KERNELS)
+    if int(watch.changed) or res["n"] < 64 or not math.isfinite(
+            res["cider"]):
+        raise AssertionError("the eval CLI from the trained checkpoints "
+                             "failed its checks: %s" % res["decoded"])
+    log("  eval CLI from the three trained checkpoints (fast flags): %s; "
+        "CIDEr %.4f; launches %s" % (res["decoded"], res["cider"],
+                                     launches))
+    del res["dump"], res["preds"]
+    out["eval"] = dict(res, seconds=dt, launches=launches)
+
+    for r in out.values():
+        r.pop("out", None)
+    timings = {"fused_attention": time_fused(fused_first),
+               "sinkhorn": time_sinkhorn(*sink_first)}
+    timings["fused_attention"]["max_abs_err"] = fused_err
+    timings["sinkhorn"]["max_abs_err"] = sink_err
+    log_timings("the train CLIs' first inputs", timings)
+    report["train_cli"] = out
+    report["train_cli_kernels"] = timings
+    return {"train_cli_scst": out["scst"]["launches"],
+            "train_cli_sinkhorn": out["sinkhorn"]["launches"]}
+
+
+def run_phase14(report):
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        log("[14a] golden train CLI replay (XE, Sinkhorn COCO and Flickr)")
+        replay_golden_train_cli(report, tmp)
+        log("[14b] train CLIs at full width (synthetic COCO)")
+        return run_train_clis(report, tmp)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1949,6 +2218,14 @@ def main():
                           "eval_cli_kernels": report["eval_cli_kernels"]}))
         print_device_line()
         return 0
+    if "--train-cli" in sys.argv[1:]:
+        run_phase14(report)
+        write_report(report)
+        print(card)
+        print(json.dumps({"golden_train_cli": report["golden_train_cli"],
+                          "train_cli_kernels": report["train_cli_kernels"]}))
+        print_device_line()
+        return 0
     if "--planners" in sys.argv[1:]:
         log("[11] golden planner trainers replay")
         replay_golden_planners(report)
@@ -1998,6 +2275,9 @@ def main():
                "train_scst": train_launches, "train_sinkhorn": sink_launches,
                "eval_cli": cli_launches}
 
+    # phase 14: the train CLIs
+    by_path.update(run_phase14(report))
+
     rows = []
     for name, src, replaces in (
             ("fused_attention", "vsrcic_tpu_torch/csrc/fused_attention.cu",
@@ -2018,6 +2298,8 @@ def main():
         row.update({f: v for f, v in k.items() if f.startswith("beam1_")})
         row.update({"cli_" + f: v for f, v in
                     report["eval_cli_kernels"][name].items()})
+        row.update({"train_cli_" + f: v for f, v in
+                    report["train_cli_kernels"].get(name, {}).items()})
         rows.append(row)
     report["kernels"] = kernels
     write_report(report)

@@ -295,3 +295,65 @@ def test_eval_cli_golden_on_the_card(cuda_device, dataset, tmp_path):
             g, dataset, mode)["dump"]
         assert launched[2] > 0
         assert (min(launched) > 0) if extra else launched[:2] == [0, 0]
+
+
+TRAIN_CLI_TINY = ["--synthetic", "--synthetic_images", "16", "--batch_size",
+                  "8", "--seed", "7", "--rnn_size", "16", "--att_size", "8",
+                  "--input_encoding_size", "16"]
+
+
+@pytest.mark.cuda
+def test_train_cli_lifecycle_on_the_card(cuda_device, tmp_path):
+    """The tiny XE -> SCST --fast_decode -> Sinkhorn lifecycle through the
+    train CLIs on the card (no --platform): XE writes exp_best and runs no
+    kernel; SCST restores it, launches the fused kernel 40 times a step (a
+    greedy and a sampled decode of 20 steps) and writes exp_rl_last; the
+    Sinkhorn CLI launches its kernel once a step; every logged loss is
+    finite."""
+    import math
+    import os
+    from vsrcic_tpu_torch.cli import train, train_sinkhorn
+    from vsrcic_tpu_torch.ops.sinkhorn import sinkhorn_normalize as sink
+    from vsrcic_tpu_torch.tools import train_cli_golden as g
+    root = str(tmp_path / "saved")
+    kernels = (fused_group_attention, vocab_topk_lse, sink)
+    runs = (("xe", train.main, ["--max_epochs", "1"], (0, 0, 0)),
+            ("scst", train.main, ["--sample_rl", "--fast_decode",
+                                  "--max_steps", "2", "--max_epochs", "1"],
+             (80, 0, 0)),
+            ("sinkhorn", train_sinkhorn.main, ["--max_steps", "2"],
+             (0, 0, 2)))
+    out = {}
+    for name, main, extra, want in runs:
+        before = [k.launches for k in kernels]
+        res = out[name] = g.run_captured(
+            main, ["--dataset", "coco", "--checkpoint_path", root,
+                   "--log_dir", str(tmp_path / name)]
+            + extra + TRAIN_CLI_TINY)
+        launched = tuple(k.launches - b for k, b in zip(kernels, before))
+        assert launched == want, (name, launched)
+        assert res["losses"] and all(map(math.isfinite, res["losses"]))
+    assert any(ln.startswith("restored XE best") for ln in out["scst"]["out"])
+    for rel in ("coco_cap/exp_best", "coco_cap/exp_rl_last",
+                "coco_sinkhorn/model-sh"):
+        assert os.path.isfile(os.path.join(root, rel + ".npz")), rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", ["xe", "sinkhorn_coco", "sinkhorn_flickr"])
+def test_train_cli_golden_on_the_card(cuda_device, run, tmp_path):
+    """The train CLIs' golden fixture (the JAX CLIs' runs) replayed on the
+    card: losses within rtol 1e-4, saved weights within rtol 1e-4 / atol
+    1e-6, XE's validation lines equal; the Sinkhorn runs through the
+    kernel."""
+    from vsrcic_tpu_torch.cli import train, train_sinkhorn
+    from vsrcic_tpu_torch.ops.sinkhorn import sinkhorn_normalize as sink
+    from vsrcic_tpu_torch.tools import train_cli_golden as g
+    golden = g.load_golden()
+    main = train.main if run == "xe" else train_sinkhorn.main
+    before = sink.launches
+    res = g.run_captured(main, g.golden_flags(golden, run, str(tmp_path)))
+    g.check_run(run, res, g.saved_params(str(tmp_path), run),
+                *g.golden_run(golden, run))
+    assert sink.launches - before == (0 if run == "xe"
+                                      else len(res["losses"]))

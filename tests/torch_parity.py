@@ -14,6 +14,7 @@ the JAX package and reach the port through its weight bridge
     python tests/torch_parity.py --planners   # golden_planners.npz only
     python tests/torch_parity.py --xe-full-width   # XE losses at full width, both packages
     python tests/torch_parity.py --eval-cli   # golden_eval_cli.npz only
+    python tests/torch_parity.py --train-cli   # golden_train_cli.npz only
 
 `--eval-cli` writes only the eval CLI's fixture: tiny checkpoints (f16-exact
 weights, stored as f16) and what both packages' CLIs print and dump from
@@ -23,10 +24,13 @@ older fixtures (whose zip timestamps change on every write) stay as they
 are. Its weights are not stored: both packages draw them from numpy seeds
 (`vsrcic_tpu_torch.utils.params.seeded_params`), and each gradient leaf is
 stored as a strided sample of at most GP_GRAD_SAMPLE entries, which keeps
-the file under 1 MB at the 2352-d Sinkhorn width.
+the file under 1 MB at the 2352-d Sinkhorn width. `--train-cli` writes
+only the train CLIs' fixture (vsrcic_tpu_torch/tools/train_cli_golden.py
+says what it holds).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -1006,6 +1010,112 @@ def golden_eval_cli_result(golden, dataset, mode):
             "dump": str(golden[pre + "dump"])}
 
 
+# ---------------------------------------------------------------------------
+# the train CLIs' world
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def no_orbax():
+    """Hide orbax from imports for the block: the JAX package's
+    `save_checkpoint` then writes npz, as it does where orbax is absent,
+    and the port reads its checkpoints."""
+    import builtins
+    real_import = builtins.__import__
+
+    def hidden(name, *a, **kw):
+        if name.startswith("orbax"):
+            raise ImportError("orbax hidden")
+        return real_import(name, *a, **kw)
+
+    builtins.__import__ = hidden
+    try:
+        yield
+    finally:
+        builtins.__import__ = real_import
+
+
+def f16_exact(tree):
+    """Every f32 leaf of a nested dict rounded to f16 (and kept f32)."""
+    return {k: (f16_exact(v) if isinstance(v, dict)
+                else np.asarray(v).astype(np.float16).astype(np.float32))
+            for k, v in tree.items()}
+
+
+def train_cli_inits():
+    """{run: flat initial checkpoint} of the train CLIs' fixture: the JAX
+    package's initialisers under PRNGKey(7) at the fixture's widths,
+    rounded to f16, with the cfg blobs the JAX CLIs write."""
+    import jax
+    from vsrcic_tpu.cli.common import base_parser, build_world
+    from vsrcic_tpu.core.checkpoint import _flatten
+    from vsrcic_tpu.models.captioner import (CaptionerConfig,
+                                             init_captioner_params)
+    from vsrcic_tpu.models.sinkhorn import (SinkhornConfig,
+                                            init_sinkhorn_params)
+    from vsrcic_tpu_torch.tools import train_cli_golden as g
+    opt, _ = base_parser().parse_known_args(["--dataset", "coco"] + g.ARGV)
+    tf = build_world(opt).text_field
+    cap = CaptionerConfig(seq_len=20, vocab_size=len(tf.vocab),
+                          bos_idx=tf.bos_idx, det_feat_size=opt.feat_dim,
+                          input_encoding_size=opt.input_encoding_size,
+                          rnn_size=opt.rnn_size, att_size=opt.att_size)
+    sink = SinkhornConfig(n=10, n_iters=20, tau=0.1, vis_dim=opt.feat_dim)
+    key = jax.random.PRNGKey(opt.seed)
+    xe = {"params": f16_exact(to_numpy_tree(init_captioner_params(key, cap))),
+          "step": np.asarray(0),
+          "cfg": {f: np.asarray(getattr(cap, f)) for f in (
+              "seq_len", "vocab_size", "bos_idx", "det_feat_size",
+              "input_encoding_size", "rnn_size", "att_size",
+              "h2_first_lstm", "img_second_lstm")}}
+    sh = {"params": f16_exact(to_numpy_tree(init_sinkhorn_params(key, sink))),
+          "step": np.asarray(0), "epoch": np.asarray(-1),
+          "cfg": {f: np.asarray(getattr(sink, f)) for f in (
+              "n", "n_iters", "tau", "txt_dim", "vis_dim", "pos_dim")}}
+    return {"xe": _flatten(xe), "sinkhorn_coco": _flatten(sh),
+            "sinkhorn_flickr": _flatten(sh)}
+
+
+def jax_train_cli_modules():
+    from vsrcic_tpu.cli import train, train_region_sort, train_sinkhorn
+    return {"train": train, "train_sinkhorn": train_sinkhorn,
+            "train_region_sort": train_region_sort}
+
+
+def run_jax_train_cli(run, flat, root):
+    """The JAX CLI's run `run` of the fixture from the initial checkpoint
+    `flat` under `root` (orbax hidden): (run_captured's result, the saved
+    weights as the fixture holds them)."""
+    from vsrcic_tpu_torch.tools import train_cli_golden as g
+    g.write_init(root, run, flat)
+    with no_orbax():
+        res = g.run_captured(jax_train_cli_modules()[g.RUNS[run][0]].main,
+                             g.argv_for(run, root) + ["--platform", "cpu"])
+    return res, g.saved_params(root, run)
+
+
+def train_cli_golden_arrays():
+    """The train CLIs' golden fixture, from the JAX CLIs (see
+    vsrcic_tpu_torch/tools/train_cli_golden.py)."""
+    import tempfile
+    from vsrcic_tpu_torch.tools import train_cli_golden as g
+    out = {"argv": np.array(json.dumps(g.ARGV))}
+    with tempfile.TemporaryDirectory() as tmp:
+        for run, flat in train_cli_inits().items():
+            for k, v in flat.items():
+                key = g.init_prefix(run) + k
+                v = v.astype(np.float16) if k.startswith("params/") else v
+                assert key not in out or np.array_equal(out[key], v), key
+                out[key] = v
+            res, saved = run_jax_train_cli(run, flat,
+                                           os.path.join(tmp, run))
+            out[run + "/losses"] = np.asarray(res["losses"], np.float64)
+            out[run + "/lines"] = np.array(json.dumps(res["lines"]))
+            for k, v in saved.items():
+                out[run + "/saved/" + k] = v
+    return out
+
+
 if __name__ == "__main__":
     sys.path.insert(0, REPO)
     import jax
@@ -1017,6 +1127,11 @@ if __name__ == "__main__":
             print("features %s: JAX %s, port %s" % (
                 "|normal|" if positive else "normal",
                 ["%.4f" % x for x in want], ["%.4f" % x for x in got]))
+        sys.exit(0)
+    if "--train-cli" in sys.argv[1:]:
+        from vsrcic_tpu_torch.tools.train_cli_golden import GOLDEN as G
+        np.savez_compressed(G, **train_cli_golden_arrays())
+        print("wrote", G, os.path.getsize(G), "bytes")
         sys.exit(0)
     if "--eval-cli" in sys.argv[1:]:
         from vsrcic_tpu_torch.tools.eval_checkpoints import GOLDEN as G

@@ -96,13 +96,24 @@ def cuda_put(batch, device):
     tuples) copied to `device` as a tensor, through pinned memory with
     `non_blocking=True`: the copy is enqueued and this returns at once.
     Other leaves (ids, strings) stay as they are. Meant as the put_fn of
-    `DevicePrefetchLoader`, which calls it in the producer thread."""
+    `DevicePrefetchLoader`, which calls it in the producer thread.
+
+    Ordering on a CUDA device: the copies are enqueued on the device's
+    default stream, which is the stream a consumer runs its step on unless
+    it selects another; a step on that stream starts after the copies end.
+    A consumer on another stream must make it wait on this one first. Each
+    pinned buffer comes from PyTorch's caching host allocator, which
+    records the copy's event with it and hands the block out again only
+    after that event."""
+    import contextlib
     import torch
+
+    cuda = torch.device(device).type == "cuda"
 
     def put(x):
         if isinstance(x, np.ndarray) and x.dtype.kind in "biufc":
             t = torch.from_numpy(np.ascontiguousarray(x))
-            if torch.device(device).type == "cuda":
+            if cuda:
                 t = t.pin_memory()
             return t.to(device, non_blocking=True)
         if isinstance(x, dict):
@@ -111,4 +122,7 @@ def cuda_put(batch, device):
             vals = [put(v) for v in x]
             return type(x)(*vals) if hasattr(x, "_fields") else type(x)(vals)
         return x
-    return put(batch)
+
+    with (torch.cuda.stream(torch.cuda.default_stream(device)) if cuda
+          else contextlib.nullcontext()):
+        return put(batch)
