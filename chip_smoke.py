@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`vsrcic_tpu_torch`) on one CUDA card.
 
     python3 chip_smoke.py              # every phase
+    python3 chip_smoke.py --fused      # phases 1-2 and the fused check
     python3 chip_smoke.py --sinkhorn   # phases 1-2 and the Sinkhorn check
     python3 chip_smoke.py --pipeline   # phases 1-2 and 8
     python3 chip_smoke.py --train      # phases 1-2 and 9-10
@@ -25,7 +26,12 @@ Phases (any failure raises and the script exits non-zero):
      call. The Sinkhorn kernel must also give the same bits as its
      arithmetic replayed step by step in PyTorch; a few microseconds long,
      it is timed with the stream held while its launches are enqueued, and
-     by the profiler;
+     by the profiler. The fused attention kernel is also held to its plain
+     version on runs of rows sharing a group (across its runs and
+     clusters), M 1 and 33, and rows whose item or ctrl is out of range
+     (NaN, the neighbours exact), and timed at its four path shapes: the
+     beam, SCST's decode, the eval CLI's first step and the SCST train
+     CLI's 100 rows (held stream, beside an empty kernel's time);
   4. replay the beam's golden fixture (JAX results) through the kernel path;
   5. drive the beam, `ControllableCaptioner.beam_search_v` at the bench.py
      shapes (batch 1024, beam 5, fused attention, vocab top-k, bf16
@@ -242,7 +248,11 @@ def check_packed_reader(report):
 # ---------------------------------------------------------------------------
 
 def fused_inputs(gen, rows, b, m, d, a, table, n_real=None, beam=BEAM,
-                 l=L_GROUPS):
+                 l=L_GROUPS, ctrl_by="row"):
+    """Phase 3's fused attention inputs. ctrl_by "row": a random ctrl per
+    row; "item": one per item, shared by its beams (consecutive rows on
+    one group, as the eval CLI's first step gives); "one": every row on
+    group (0, 0)."""
     import torch
     dev = "cuda"
     det = torch.rand((b, l, m, d), generator=gen, device=dev)
@@ -251,7 +261,13 @@ def fused_inputs(gen, rows, b, m, d, a, table, n_real=None, beam=BEAM,
                                    device=dev) < 0.9)  # some empty regions
     proj = torch.randn((b, l, m, a), generator=gen, device=dev)
     item = (torch.arange(rows, device=dev) // beam).clamp(max=b - 1)
-    ctrl = torch.randint(0, l, (rows,), generator=gen, device=dev)
+    if ctrl_by == "row":
+        ctrl = torch.randint(0, l, (rows,), generator=gen, device=dev)
+    elif ctrl_by == "item":
+        ctrl = torch.randint(0, l, (b,), generator=gen, device=dev)[item]
+    else:
+        item = torch.zeros_like(item)
+        ctrl = torch.zeros_like(item)
     ha = torch.randn((rows, a), generator=gen, device=dev)
     sent_w = torch.randn((rows, 1), generator=gen, device=dev)
     sent_mask = (torch.rand((rows, 1), generator=gen, device=dev)
@@ -280,62 +296,136 @@ def fused_bound(args):
             "bytes" if t_bytes >= t_ops else "operations", groups)
 
 
+# phase 3's fused attention cases: (name, rows, B, M, D, A, n_real, beam, L,
+# ctrl_by), each on bf16 and f32 tables. "full": the beam's rows (M 20 and
+# the pipeline's padded 24); "ragged": D and A off the 16-byte rows of the
+# bulk copies; "beam1": the trainers' decodes; "shared": the eval CLI's
+# beams on one group, in runs that cross run and cluster boundaries (37
+# rows of beam 5 and 5120 of beam 3); "one": every row on one group; "m1" /
+# "m33": one region and more regions than a warp's lanes; "ragged_run": M
+# 33 with D and A ragged in runs of beam 7
+FUSED_CASES = (
+    ("full", ROWS, BATCH, M_REGIONS, DET, ATT, M_REGIONS, BEAM, L_GROUPS,
+     "row"),
+    ("full", ROWS, BATCH, M_PAD, DET, ATT, M_REGIONS, BEAM, L_GROUPS, "row"),
+    ("ragged", 37, 9, 5, 100, 36, 4, BEAM, L_GROUPS, "row"),
+    ("ragged", 13, 4, 7, 130, 50, 7, BEAM, L_GROUPS, "row"),
+    ("beam1", BATCH, BATCH, M_REGIONS, DET, ATT, M_REGIONS, 1, SEQ_LEN,
+     "row"),
+    ("beam1", 100, 100, M_REGIONS, DET, ATT, M_REGIONS, 1, SEQ_LEN, "row"),
+    ("beam1", 37, 37, M_REGIONS, DET, ATT, M_REGIONS, 1, SEQ_LEN, "row"),
+    ("beam1", 1, 1, M_REGIONS, DET, ATT, M_REGIONS, 1, SEQ_LEN, "row"),
+    ("shared", 2560, 512, M_REGIONS, DET, ATT, M_REGIONS, BEAM, L_GROUPS,
+     "item"),
+    ("shared", 37, 8, M_PAD, DET, ATT, M_REGIONS, BEAM, L_GROUPS, "item"),
+    ("shared", ROWS, 1707, M_PAD, DET, ATT, M_REGIONS, 3, L_GROUPS, "item"),
+    ("one", 777, 3, M_REGIONS, DET, ATT, M_REGIONS, BEAM, L_GROUPS, "one"),
+    ("m1", 64, 13, 1, DET, ATT, 1, BEAM, L_GROUPS, "item"),
+    ("m33", 300, 60, 33, DET, ATT, 33, BEAM, L_GROUPS, "item"),
+    ("ragged_run", 300, 43, 33, 1000, 100, 30, 7, L_GROUPS, "item"),
+    ("ragged_run", 11, 2, 3, 7, 3, 3, 7, L_GROUPS, "item"),
+)
+# rows of the "bad" cases whose item or ctrl is out of range, inside runs of
+# shared groups: NaN outputs, the neighbours exact
+FUSED_BAD_ROWS = (0, 2, 3, 17, 18, 19, 36)
+
+
+def fused_case(gen, name, rows, b, m, d, a, table, n_real, beam, l, ctrl_by,
+               bad=()):
+    """Run the kernel once on a case and hold it to its plain version at
+    rtol / atol 1e-5: item / ctrl unchanged, rows in `bad` (whose item or
+    ctrl is set out of range) NaN, every other row exact. Returns (the
+    inputs, max abs error)."""
+    import torch
+    from vsrcic_tpu_torch.ops.fused_attention import (
+        fused_group_attention as kern, fused_group_attention_plain as plain)
+    args = fused_inputs(gen, rows, b, m, d, a, table, n_real, beam, l,
+                        ctrl_by)
+    ok_rows = torch.ones(rows, dtype=torch.bool, device="cuda")
+    run_args = args
+    if bad:
+        bad_t = torch.tensor(bad, device="cuda")
+        item, ctrl = args[0].clone(), args[1].clone()
+        item[bad_t[0::3]] = b
+        ctrl[bad_t[1::3]] = l
+        item[bad_t[2::3]] = -1
+        ok_rows[bad_t] = False
+        run_args = (item, ctrl) + tuple(args[2:])
+    index = [t.clone() for t in run_args[:2]]
+    got = kern(*run_args)
+    torch.cuda.synchronize()
+    # the plain version gathers with item/ctrl; a kernel that wrote them
+    # would show up there as an out-of-range index, not as a mismatch
+    if not all(torch.equal(t, c) for t, c in zip(run_args[:2], index)):
+        raise AssertionError("fused attention changed its item/ctrl "
+                             "inputs (%s)" % name)
+    want = plain(*args)
+    if bad and not all(bool(torch.isnan(g[~ok_rows]).all()) for g in got):
+        raise AssertionError("fused attention: an out-of-range row is not "
+                             "NaN (%s)" % name)
+    got = [g[ok_rows] for g in got]
+    want = [w[ok_rows] for w in want]
+    err = max_err(got, want)
+    log("  fused_attention %-10s rows=%d B=%d L=%d M=%d D=%d A=%d %s%s: "
+        "max_abs_err=%.3g" % (name, rows, b, l, m, d, a,
+                              str(table).split(".")[1],
+                              " (%d rows out of range)" % len(bad)
+                              if bad else "", err))
+    if not all(torch.allclose(g, w, rtol=1e-5, atol=1e-5)
+               for g, w in zip(got, want)):
+        raise AssertionError("fused attention disagrees with its plain "
+                             "version beyond 1e-5 (%s)" % name)
+    return args, err
+
+
 def check_fused(gen, report):
+    """Phase 3 for fused attention: every case of FUSED_CASES on both
+    tables, the out-of-range rows, then the kernel timed at the four shapes
+    of its paths (the beam, SCST's decode, the eval CLI's first step, the
+    SCST train CLI's 100 rows on a held stream beside an empty kernel's)."""
     import torch
     from vsrcic_tpu_torch.ops.fused_attention import (
         fused_group_attention as kern, fused_group_attention_plain as plain)
     worst = 0.0
-    cases = []
+    timed = {}
+    for case in FUSED_CASES:
+        for table in (torch.bfloat16, torch.float32):
+            args, err = fused_case(gen, case[0], *case[1:6], table,
+                                   *case[6:])
+            worst = max(worst, err)
+            if table == torch.bfloat16:
+                timed.setdefault(case[:3] + (case[3],), args)
     for table in (torch.bfloat16, torch.float32):
-        for m in (M_REGIONS, M_PAD):
-            cases.append(("full", ROWS, BATCH, m, DET, ATT, table,
-                          M_REGIONS, BEAM, L_GROUPS))
-    for table in (torch.bfloat16, torch.float32):
-        cases.append(("ragged", 37, 9, 5, 100, 36, table, 4, BEAM,
-                      L_GROUPS))
-        cases.append(("ragged", 13, 4, 7, 130, 50, table, 7, BEAM,
-                      L_GROUPS))
-        # the trainers' decodes: beam 1, rows = batch, 20 groups of 20
-        for rows in (BATCH, 37, 1):
-            cases.append(("beam1", rows, rows, M_REGIONS, DET, ATT, table,
-                          M_REGIONS, 1, SEQ_LEN))
-    timed = timed1 = None
-    for name, rows, b, m, d, a, table, n_real, beam, l in cases:
-        args = fused_inputs(gen, rows, b, m, d, a, table, n_real, beam, l)
-        index = [t.clone() for t in args[:2]]
-        got = kern(*args)
-        torch.cuda.synchronize()
-        # the plain version gathers with item/ctrl; a kernel that wrote them
-        # would show up there as an out-of-range index, not as a mismatch
-        if not all(torch.equal(t, c) for t, c in zip(args[:2], index)):
-            raise AssertionError("fused attention changed its item/ctrl "
-                                 "inputs (%s)" % name)
-        want = plain(*args)
-        err = max_err(got, want)
-        ok = all(torch.allclose(g, w, rtol=1e-5, atol=1e-5)
-                 for g, w in zip(got, want))
-        log("  fused_attention %-6s rows=%d B=%d L=%d M=%d D=%d A=%d %s: "
-            "max_abs_err=%.3g" % (name, rows, b, l, m, d, a,
-                                  str(table).split(".")[1], err))
-        if not ok:
-            raise AssertionError("fused attention disagrees with its plain "
-                                 "version beyond 1e-5 (%s)" % name)
-        worst = max(worst, err)
-        if name == "full" and table == torch.bfloat16 and m == M_PAD:
-            timed = args
-        if name == "beam1" and table == torch.bfloat16 and rows == BATCH:
-            timed1 = args
+        for shape in ((37, 8, M_PAD, DET, ATT), (37, 8, 5, 100, 36)):
+            _, err = fused_case(gen, "bad", *shape, table, shape[2], BEAM,
+                                L_GROUPS, "item", bad=FUSED_BAD_ROWS)
+            worst = max(worst, err)
     out = dict(max_abs_err=worst, library_ms=None)
-    for key, args, what in (("", timed, "the beam's rows=%d M=%d" % (
-            ROWS, M_PAD)), ("beam1_", timed1, "the trainers' rows=%d "
-                            "(beam 1) L=%d M=%d" % (BATCH, SEQ_LEN,
-                                                    M_REGIONS))):
-        ms = cuda_ms(lambda: kern(*args))
+    for key, args, what, held in (
+            ("", timed["full", ROWS, BATCH, M_PAD],
+             "the beam's rows=%d M=%d" % (ROWS, M_PAD), False),
+            ("beam1_", timed["beam1", BATCH, BATCH, M_REGIONS],
+             "SCST's decode rows=%d (beam 1) L=%d M=%d"
+             % (BATCH, SEQ_LEN, M_REGIONS), False),
+            ("eval_", timed["shared", 2560, 512, M_REGIONS],
+             "the eval CLI's rows=2560 (512 items x beam 5, ctrl shared) "
+             "M=%d" % M_REGIONS, False),
+            ("rows100_", timed["beam1", 100, 100, M_REGIONS],
+             "the SCST train CLI's rows=100 (beam 1) L=%d M=%d, held "
+             "stream" % (SEQ_LEN, M_REGIONS), True)):
+        if held:
+            ms = held_ms(lambda: kern(*args))[0]
+            out[key + "empty_ms"] = held_ms(
+                lambda: torch.cuda._sleep(0))[0]
+        else:
+            ms = cuda_ms(lambda: kern(*args))
         plain_ms = cuda_ms(lambda: plain(*args), iters=5)
         bound_ms, bound_by, groups = fused_bound(args)
         log("  fused_attention at %s bf16: %.4f ms (plain %.4f ms, bound "
-            "%.4f ms by %s, %d distinct groups)"
-            % (what, ms, plain_ms, bound_ms, bound_by, groups))
+            "%.4f ms by %s, %d distinct groups%s)"
+            % (what, ms, plain_ms, bound_ms, bound_by, groups,
+               ", empty kernel %.4f ms" % out[key + "empty_ms"]
+               if held else ""))
         out.update({key + "ms": ms, key + "plain_ms": plain_ms,
                     key + "bound_ms": bound_ms, key + "bound_by": bound_by,
                     key + "distinct_groups": groups})
@@ -2188,6 +2278,14 @@ def main():
     log("[3] kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(1)
     kernels = {}
+    if "--fused" in sys.argv[1:]:
+        check_fused(gen, kernels)
+        report["kernels"] = kernels
+        write_report(report)
+        print(card)
+        print(json.dumps({"fused_attention": kernels["fused_attention"]}))
+        print_device_line()
+        return 0
     if "--sinkhorn" in sys.argv[1:]:
         check_sinkhorn(gen, kernels)
         print(card)
@@ -2295,7 +2393,8 @@ def main():
                "max_err": k["max_abs_err"], "ms": k["ms"],
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
-        row.update({f: v for f, v in k.items() if f.startswith("beam1_")})
+        row.update({f: v for f, v in k.items()
+                    if f.startswith(("beam1_", "eval_", "rows100_"))})
         row.update({"cli_" + f: v for f, v in
                     report["eval_cli_kernels"][name].items()})
         row.update({"train_cli_" + f: v for f, v in

@@ -57,6 +57,107 @@ def test_fused_attention_kernel_beam1_matches_plain(cuda_device, b, table):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
 
 
+def _fused_case(device, rows, b, m, d, a, table, ctrl_by="row", bad=(),
+                seed=7):
+    """Inputs from torch_parity.fused_inputs (item-major rows) with ctrl
+    random per row ("row"), shared by an item's rows ("item") or every row
+    on group (0, 0) ("one"); rows in `bad` get an item or ctrl out of
+    range. att_a is scaled by 1 / sqrt(A), as the model's weights and
+    chip_smoke.py phase 3's inputs are: unscaled, |det_w| ~ 15 and the
+    order of its 512-term sums alone moves gate evidence by ~1e-5.
+    Returns (the inputs the kernel gets, the valid rows' mask, the plain
+    version's inputs with every index in range)."""
+    import numpy as np
+    args = list(fused_inputs(m, seed=seed, rows=rows, b=b, d=d, a=a))
+    args[6] = (args[6] / np.sqrt(a)).astype(np.float32)
+    rng = np.random.RandomState(seed + 1)
+    if ctrl_by == "item":
+        args[1] = rng.randint(0, tp.FA_L, b).astype(np.int32)[args[0]]
+    elif ctrl_by == "one":
+        args[0] = np.zeros(rows, np.int32)
+        args[1] = np.zeros(rows, np.int32)
+    plain_args = fused_torch_args(args, table, device)
+    item, ctrl = args[0].copy(), args[1].copy()
+    for k, r in enumerate(bad):
+        if k % 3 == 0:
+            item[r] = b
+        elif k % 3 == 1:
+            ctrl[r] = tp.FA_L
+        else:
+            item[r] = -1
+    kern_args = list(plain_args)
+    kern_args[0] = torch.from_numpy(item).to(device)
+    kern_args[1] = torch.from_numpy(ctrl).to(device)
+    ok = torch.ones(rows, dtype=torch.bool, device=device)
+    ok[list(bad)] = False
+    return kern_args, ok, plain_args
+
+
+# (rows, B, M, D, A, ctrl_by): runs of rows on one group that cross the
+# kernel's runs and clusters, every row on one group, M 1 and 33, D and A
+# off the 16-byte rows of the bulk copies, one row
+FUSED_CASES = [(37, 8, 24, 2048, 512, "item"), (2560, 512, 20, 2048, 512,
+                                                "item"),
+               (5120, 1707, 24, 2048, 512, "item"),
+               (777, 3, 20, 2048, 512, "one"), (64, 13, 1, 2048, 512, "item"),
+               (300, 60, 33, 2048, 512, "item"), (300, 43, 33, 1000, 100,
+                                                  "item"),
+               (11, 2, 3, 7, 3, "item"), (13, 4, 7, 130, 50, "row"),
+               (1, 1, 20, 2048, 512, "row")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FUSED_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_fused_attention_kernel_cases(cuda_device, case, table):
+    rows, b, m, d, a, ctrl_by = case
+    args, _, _ = _fused_case(cuda_device, rows, b, m, d, a, table, ctrl_by)
+    index = [t.clone() for t in args[:2]]
+    got = fused_group_attention(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(t, c) for t, c in zip(args[:2], index))
+    want = fused_group_attention_plain(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(37, 8, 24, 2048, 512),
+                                   (37, 8, 5, 100, 36)])
+def test_fused_attention_out_of_range_rows(cuda_device, shape, table):
+    """Rows whose item or ctrl is out of range, inside runs of rows on one
+    group: NaN outputs, their neighbours exact, item / ctrl unchanged."""
+    bad = (0, 2, 3, 17, 18, 19, 36)
+    args, ok, plain_args = _fused_case(cuda_device, *shape, table, "item",
+                                       bad)
+    index = [t.clone() for t in args[:2]]
+    got = fused_group_attention(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(t, c) for t, c in zip(args[:2], index))
+    want = fused_group_attention_plain(*plain_args)
+    for g, w in zip(got, want):
+        assert torch.isnan(g[~ok]).all()
+        torch.testing.assert_close(g[ok], w[ok], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_fused_attention_refused_launch_raises(cuda_device):
+    """A plan the entry point refuses (its shared bytes are not the
+    kernel's layout) raises; nothing falls back to the plain version."""
+    import dataclasses
+    from vsrcic_tpu_torch.ops import fused_attention as fa
+    args, _, _ = _fused_case(cuda_device, 8, 2, 5, 2048, 512,
+                             torch.bfloat16)
+    plan = fa.fused_launch_plan(8, 5, 2048, 512, 2)
+    bad = dataclasses.replace(plan, smem_bytes=plan.smem_bytes + 16)
+    out = torch.empty((8, 2048), device=cuda_device)
+    gsum = torch.empty((8, 1), device=cuda_device)
+    with pytest.raises(RuntimeError):
+        fa._launch(bad, *args, out, gsum)
+
+
 @pytest.mark.cuda
 def test_xe_step_on_the_card(cuda_device):
     """One small XE step (lean compact path) on the card: finite losses,

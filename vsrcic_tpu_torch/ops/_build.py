@@ -39,7 +39,8 @@ F = ctypes.c_float
 # C entry points: name -> argtypes; each returns cudaGetLastError()
 SIGNATURES = {
     "vsrcic_fused_attention": [P, P, P, P, P, P, P, P, P, I,
-                               I, I, I, I, I, I, P, P, P],
+                               I, I, I, I, I, I, I, I, I, I, I, I, I,
+                               I, I, P, P, P],
     "vsrcic_vocab_topk": [P, P, P, I, I, I, I, I, P, P, P, P, P, P, P, P],
     "vsrcic_sinkhorn": [P, I, I, I, F, F, P, P],
 }
