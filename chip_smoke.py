@@ -9,6 +9,7 @@
     python3 chip_smoke.py --planners   # phases 1-2 and 11-12
     python3 chip_smoke.py --eval       # phases 1-2 and 13
     python3 chip_smoke.py --train-cli  # phases 1-2 and 14
+    python3 chip_smoke.py --parallel   # phases 1-2 and 15
 
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi), and the TF32 settings
@@ -100,7 +101,28 @@ Phases (any failure raises and the script exits non-zero):
      captions; launch counts reset before each CLI and read after; per-
      step times from the journal's `t` deltas, first step excluded;
      every loss finite; the fused and Sinkhorn kernels timed on the first
-     inputs the train CLIs gave them.
+     inputs the train CLIs gave them;
+ 15. data parallelism (`vsrcic_tpu_torch.parallel`), with every count that
+     can be made not to divide by 2 made so (1023 pipeline jobs, 1537
+     S-SSP groups, 1537 Sinkhorn pairs): (a) NCCL at world 1 in this
+     process: `sharded_beam_search_v` at bench.py's shapes,
+     `EvalPipeline(mesh=...)`, XE and SCST (fast decode, native CIDEr-D)
+     at batch 1024, S-SSP and Sinkhorn, two steps each, give the
+     single-device results bit for bit, and the four train CLIs and the
+     eval CLI (fast flags) at `--data_parallel 1` give the `0` runs'
+     losses, lines and dumps; (b) gloo on two ranks sharing the card
+     (explicit devices cuda:0, cuda:0; NCCL refuses two ranks on one card),
+     one spawn: each rank's beam block equals the single-device program on
+     that block bit for bit, the gathered beam and pipeline keep at least
+     P15_CAPTION_SHARE of the single-device batch's captions (the rest are
+     counted: a block's products round otherwise), the trainers' losses
+     are within rtol 1e-4 of the single-device runs' and their weights as
+     P15_PARAM_SHARE says (SCST's grad step on a single-device trajectory;
+     its whole steps sample each rank's own stream), every rank's weights
+     have one checksum; per-rank launches (fused and vocab top-k 20 a beam
+     batch, the pipeline's 1/20/20, SCST 40 a step, Sinkhorn 1 a step),
+     and every fused launch's item/ctrl watched for writes. A rank that
+     fails fails the phase with its traceback.
 
 Prints the kernels' JSON line, then, last, the device JSON line. Details go
 to chiprun_out/chip_smoke.json.
@@ -703,8 +725,9 @@ VERBS = {str(i): [5 + i, 40 + i] for i in range(1, 200)}
 
 
 def main_captioner(mode=True, params=None):
-    """The bench.py configuration; mode True runs the kernels, "plain" their
-    plain versions (same bf16 tables)."""
+    """The bench.py configuration, weights from seed 0 unless `params`;
+    mode True runs the kernels, "plain" their plain versions (same bf16
+    tables)."""
     import torch
     from vsrcic_tpu_torch.models.api import ControllableCaptioner
     from vsrcic_tpu_torch.models.captioner import CaptionerConfig
@@ -907,10 +930,10 @@ def make_jobs(n_jobs, L=10, M=20, D=2048, seed=0):
     return jobs
 
 
-def pipeline_world(captioner, plain=False):
+def pipeline_world(captioner, plain=False, mesh=None):
     """The full-width pipeline around `captioner`: S-SSP coco (hidden 512,
     3 + 3 layers, 2662 verbs) and the 2352-d Sinkhorn net, random weights
-    from seeds 1 and 2."""
+    from seeds 1 and 2; under `mesh` (phase 15) on its ranks."""
     import torch
     from vsrcic_tpu_torch.models.s_ssp import SSPConfig, init_ssp_params
     from vsrcic_tpu_torch.models.sinkhorn import (SinkhornConfig,
@@ -921,8 +944,8 @@ def pipeline_world(captioner, plain=False):
         captioner, init_ssp_params(torch.Generator().manual_seed(1), ssp_cfg),
         ssp_cfg, init_sinkhorn_params(torch.Generator().manual_seed(2),
                                       sink_cfg),
-        sink_cfg, eos_word=3, beam_size=BEAM, device="cuda",
-        plain_sinkhorn=plain)
+        sink_cfg, eos_word=3, beam_size=BEAM,
+        device=None if mesh else "cuda", plain_sinkhorn=plain, mesh=mesh)
 
 
 def pipeline_batch(pipe):
@@ -1461,13 +1484,13 @@ def replay_golden_planners(report):
     report["golden_planners"] = out
 
 
-def ssp_world(seed=0):
-    """Phase 12's S-SSP batch, as the grid batcher builds it: raw verb
-    codes of the 2662 COCO verbs, det_sr of 1-10 distinct roles (of 25),
-    gt_sr a permutation of det_sr's nonzero roles."""
+def ssp_world(seed=0, n=PLAN_GROUPS):
+    """Phase 12's S-SSP batch of n groups, as the grid batcher builds it:
+    raw verb codes of the 2662 COCO verbs, det_sr of 1-10 distinct roles
+    (of 25), gt_sr a permutation of det_sr's nonzero roles."""
     import numpy as np
     rng = np.random.RandomState(seed)
-    n, length = PLAN_GROUPS, 10
+    length = 10
     verbs = rng.randint(1, 2663, (n, 1)).astype(np.float64)
     roles = np.argsort(rng.rand(n, 25), 1)[:, :length] + 1
     k = rng.randint(1, length + 1, n)
@@ -1478,13 +1501,13 @@ def ssp_world(seed=0):
     return verbs, det_sr.astype(np.float64), gt_sr.astype(np.float64)
 
 
-def sinkhorn_world(seed=0):
-    """Phase 12's Sinkhorn batch on the card, as the pair builder lays it
-    out: 2-10 slots per pair with uniform [0, 1) features, zero rows and
-    10.0 locations after; tr_locs the sorted slots, gt_locs a permutation
-    of their ranks."""
+def sinkhorn_world(seed=0, s=PLAN_PAIRS):
+    """Phase 12's Sinkhorn batch of s pairs on the card, as the pair
+    builder lays it out: 2-10 slots per pair with uniform [0, 1) features,
+    zero rows and 10.0 locations after; tr_locs the sorted slots, gt_locs a
+    permutation of their ranks."""
     import torch
-    s, n = PLAN_PAIRS, 10
+    n = 10
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rnd = lambda *shape: torch.rand(shape, generator=gen,  # noqa: E731
                                     device="cuda")
@@ -2238,6 +2261,427 @@ def run_phase14(report):
         return run_train_clis(report, tmp)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: data parallelism (vsrcic_tpu_torch/parallel/)
+# ---------------------------------------------------------------------------
+
+# counts that do not divide by 2: pipeline jobs, S-SSP groups, Sinkhorn pairs
+P15_JOBS, P15_GROUPS, P15_PAIRS = BATCH - 1, PLAN_GROUPS + 1, PLAN_PAIRS + 1
+P15_STEPS = 2
+P15_TOL = dict(rtol=1e-4, atol=1e-6)
+# the share of a trainer's weights that must be within P15_TOL of the
+# single-device run's at world 2; every other entry within 2 lr a step:
+# where a gradient is round-off of zero, Adam's normalisation turns the two
+# sums of it into steps of up to lr (tests/test_torch_parallel_planners.py)
+P15_PARAM_SHARE = 0.99
+# the share of captions the world-2 beam and pipeline must keep of the
+# single-device batch's: a rank's block is decoded by products of its own
+# shape, whose rounding can flip a vocab near tie
+P15_CAPTION_SHARE = 0.99
+
+
+def p15_rank(out_dir):
+    """Phase 15's paths on one rank: NCCL at world 1 in this process, or
+    gloo at world 2 on two ranks sharing the card; each path beside its
+    single-device run on the same rank. World 1 must give the single-device
+    results bit for bit; at world 2 each rank's beam block must be the
+    single-device program on that block bit for bit. Writes this rank's
+    results to out_dir/rank<r>.json."""
+    import torch
+    from vsrcic_tpu_torch.parallel.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = torch.distributed.get_world_size()
+    mesh = make_mesh(world, devices=["cuda:0"] * world)
+    out = dict(rank=mesh.rank, size=mesh.size, backend=mesh.backend,
+               beam=p15_beam(mesh), pipeline=p15_pipeline(mesh),
+               train=p15_trainers(mesh))
+    with open(os.path.join(out_dir, "rank%d.json" % mesh.rank), "w") as f:
+        json.dump(out, f)
+
+
+def p15_same(what, mesh, got, want):
+    """World 1: every tensor of `got` equal to want's, bit for bit."""
+    import torch
+    if mesh.size == 1 and not all(torch.equal(g, w)
+                                  for g, w in zip(got, want)):
+        raise AssertionError("%s: NCCL at world 1 differs from the "
+                             "single-device run" % what)
+
+
+def p15_captions(what, mesh, got, want):
+    """The number of captions (best beams) that differ; at world 1 none
+    may, at world 2 at most 1 - P15_CAPTION_SHARE of them."""
+    import numpy as np
+    got, want = (np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+                 for x in (got, want))
+    differ = int((got != want).any(-1).sum())
+    if differ and (mesh.size == 1 or differ > (1 - P15_CAPTION_SHARE)
+                   * len(want)):
+        raise AssertionError("%s: %d of %d captions differ from the "
+                             "single-device batch's" % (what, differ,
+                                                        len(want)))
+    return differ
+
+
+def p15_watched(watch, what):
+    if watch.changed is not None and int(watch.changed):
+        raise AssertionError("%s: the fused kernel changed %d item/ctrl "
+                             "entries" % (what, int(watch.changed)))
+
+
+def p15_beam(mesh):
+    """The sharded beam at bench.py's shapes against the single-device
+    beam, and each rank's block against the single-device program run on
+    that block alone."""
+    import torch
+    from vsrcic_tpu_torch.parallel import sharded_beam_search_v
+    cap = main_captioner()
+    det, grp, vl = main_inputs()
+    kw = dict(eos_word=3, beam_size=BEAM)
+    sharded_beam_search_v(cap, mesh, det, grp, vl, **kw)       # warm-up
+    watch = IndexWatch()
+    with call_sites(watch):
+        res, dt, launches = counted(
+            lambda: sharded_beam_search_v(cap, mesh, det, grp, vl, **kw))
+    p15_watched(watch, "sharded beam")
+    expect_launches("rank %d: sharded beam" % mesh.rank, launches,
+                    {"fused_attention": SEQ_LEN, "vocab_topk": SEQ_LEN})
+    check_result(res)
+    lo, hi = mesh.bounds(BATCH)
+    own = cap.beam_search_v(det[lo:hi], grp[lo:hi], vl[lo:hi], **kw)
+    if not all(torch.equal(o, r[lo:hi]) for o, r in zip(own, res)):
+        raise AssertionError("rank %d: its beam block differs from the "
+                             "single-device program on that block"
+                             % mesh.rank)
+    ref, ref_s, _ = counted(lambda: cap.beam_search_v(det, grp, vl, **kw))
+    p15_same("sharded beam", mesh, res, ref)
+    differ = p15_captions("sharded beam", mesh, res.words[:, 0],
+                          ref.words[:, 0])
+    return dict(launches=launches, ms=1e3 * dt, single_ms=1e3 * ref_s,
+                captions_differing=differ, rows=hi - lo)
+
+
+def p15_pipeline(mesh):
+    """EvalPipeline(mesh=...).run_batch on P15_JOBS of phase 8's jobs
+    against the single-device pipeline's."""
+    import numpy as np
+    import torch
+    cap = main_captioner()
+    pipe, single = pipeline_world(cap, mesh=mesh), pipeline_world(cap)
+    jobs = make_jobs(P15_JOBS)
+    dets = torch.from_numpy(np.random.RandomState(3).rand(
+        P15_JOBS, N_DET, DET).astype(np.float32)).cuda()
+    single.run_batch(dets, jobs)                               # warm-up
+    watch = IndexWatch()
+    with call_sites(watch):
+        words, dt, launches = counted(lambda: pipe.run_batch(dets, jobs))
+    p15_watched(watch, "sharded pipeline")
+    check_pipeline_launches(launches, 1, "rank %d: sharded pipeline"
+                            % mesh.rank)
+    ref, ref_s, _ = counted(lambda: single.run_batch(dets, jobs))
+    if words.shape != (P15_JOBS, SEQ_LEN):
+        raise AssertionError("sharded pipeline words %s" % (words.shape,))
+    p15_same("sharded pipeline", mesh, [torch.from_numpy(words)],
+             [torch.from_numpy(ref)])
+    differ = p15_captions("sharded pipeline", mesh, words, ref)
+    return dict(launches=launches, ms=1e3 * dt, single_ms=1e3 * ref_s,
+                captions_differing=differ, jobs=P15_JOBS)
+
+
+def p15_checksum(params, mesh):
+    """Every rank's float64 checksum of `params`; raises unless equal."""
+    import torch
+    from vsrcic_tpu_torch.parallel.mesh import all_gather_blocks
+    from vsrcic_tpu_torch.utils.params import flatten
+    total = sum(float(v.double().sum()) for v in flatten(params).values())
+    sums = all_gather_blocks(torch.tensor([total], dtype=torch.float64,
+                                          device=mesh.device), mesh).tolist()
+    if len(set(sums)) != 1:
+        raise AssertionError("the ranks' parameters differ: checksums %s"
+                             % sums)
+    return total
+
+
+def p15_compare(what, mesh, got, want, lr):
+    """(losses, params, seconds) of the mesh run and of the single-device
+    run: world 1 bit for bit; world 2 losses within rtol 1e-4 and the
+    weights as P15_PARAM_SHARE says."""
+    import numpy as np
+    import torch
+    from vsrcic_tpu_torch.utils.params import flatten
+    (g_loss, g_par, g_s), (w_loss, w_par, w_s) = got, want
+    g_par, w_par = flatten(g_par), flatten(w_par)
+    checksum = p15_checksum(g_par, mesh)
+    diff = max(float((g_par[k] - w_par[k]).abs().max()) for k in w_par)
+    close = sum(int(torch.isclose(g_par[k], w_par[k], **P15_TOL).sum())
+                for k in w_par) / sum(v.numel() for v in w_par.values())
+    if mesh.size == 1:
+        if g_loss != w_loss or diff != 0.0:
+            raise AssertionError("%s: NCCL at world 1 gives losses %s and "
+                                 "weights %.3g off the single-device run's "
+                                 "(%s)" % (what, g_loss, diff, w_loss))
+    elif not (np.allclose(g_loss, w_loss, rtol=1e-4, atol=0)
+              and close >= P15_PARAM_SHARE
+              and diff <= 2 * lr * P15_STEPS):
+        raise AssertionError("%s at world %d: losses %s vs %s, %.4f of the "
+                             "weights within rtol 1e-4 / atol 1e-6, max diff "
+                             "%.3g" % (what, mesh.size, g_loss, w_loss,
+                                       close, diff))
+    return dict(losses=g_loss, single_losses=w_loss, max_param_diff=diff,
+                share_within_tol=close, checksum=checksum,
+                ms_per_step=1e3 * g_s / P15_STEPS,
+                single_ms_per_step=1e3 * w_s / P15_STEPS)
+
+
+def p15_steps(step):
+    """P15_STEPS steps, ended by a synchronize: (losses, seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step(i) for i in range(P15_STEPS)]
+    torch.cuda.synchronize()
+    return losses, time.perf_counter() - t0
+
+
+def p15_trainers(mesh):
+    """XE and SCST (fast decode, bf16 tables, native CIDEr-D) at batch
+    1024, S-SSP on P15_GROUPS groups and Sinkhorn on P15_PAIRS pairs, each
+    under the mesh and alone from the same weights."""
+    import torch
+    from vsrcic_tpu_torch.metrics.cider_native import NativeCiderPair
+    from vsrcic_tpu_torch.models.captioner import (CaptionerConfig,
+                                                   init_captioner_params)
+    from vsrcic_tpu_torch.models.s_ssp import SSPConfig, init_ssp_params
+    from vsrcic_tpu_torch.models.sinkhorn import (SinkhornConfig,
+                                                  init_sinkhorn_params)
+    from vsrcic_tpu_torch.parallel.mesh import replicate, shard_batch
+    from vsrcic_tpu_torch.train import (CaptionerSCSTTrainer,
+                                        CaptionerXETrainer, SinkhornTrainer,
+                                        SSPTrainer)
+    out = {}
+    cfg = CaptionerConfig()
+    params = init_captioner_params(torch.Generator().manual_seed(0), cfg)
+    det, caps, ids, gates, groups = train_world()
+
+    def trainer(cls, m, *a, **kw):
+        return cls(*a, mesh=m, device=None if m else "cuda", **kw)
+
+    # warm-up: the timed runs below meet no first-call set-up
+    trainer(CaptionerXETrainer, None, cfg, params).step(det, caps, ids,
+                                                        gates)
+
+    runs = {}
+    for m in (mesh, None):
+        tr = trainer(CaptionerXETrainer, m, cfg, replicate(params, mesh)
+                     if m else params, lr=TRAIN_LR)
+        batch = shard_batch((det, caps, ids, gates), m) if m else (
+            det, caps, ids, gates)
+        losses, dt = p15_steps(lambda i: tr.step(*batch)[0])
+        runs[m is None] = losses, tr.state.params, dt
+        del tr
+    out["xe"] = p15_compare("XE", mesh, runs[False], runs[True], TRAIN_LR)
+
+    tf, cider, gts = text_world(caps)
+    native = NativeCiderPair(cider)
+    sc = {m is None: trainer(CaptionerSCSTTrainer, m, cfg,
+                             replicate(params, mesh) if m else params, tf,
+                             cider, lr=TRAIN_LR, fast_decode=True,
+                             table_dtype=torch.bfloat16, native_cider=native)
+          for m in (mesh, None)}
+    # the grad step on one single-device trajectory, then whole steps
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    (words, s_gates), _ = sc[True].decode(det, groups, gen)[0]
+    adv = sc[True].rewards(sc[True]._decode_caps(words),
+                           sc[True]._decode_caps(
+                               sc[True].decode(det, groups)[1]), gts)
+    trainer(CaptionerSCSTTrainer, None, cfg, params, tf, cider).grad_step(
+        det, groups, words, s_gates, adv)                      # warm-up
+    for single in (False, True):
+        losses, dt = p15_steps(lambda i: sc[single].grad_step(
+            det, groups, words, s_gates, adv))
+        runs[single] = losses, sc[single].state.params, dt
+    out["scst_grad"] = p15_compare("SCST grad step", mesh, runs[False],
+                                   runs[True], TRAIN_LR)
+    trainer(CaptionerSCSTTrainer, None, cfg, params, tf, cider,
+            fast_decode=True, table_dtype=torch.bfloat16,
+            native_cider=native).step(det, groups, gts, gen)   # warm-up
+    watch = IndexWatch()
+    for single in (False, True):
+        with call_sites(watch):
+            (losses, dt), _, launches = counted(lambda: p15_steps(
+                lambda i: sc[single].step(det, groups, gts, torch.Generator(
+                    device="cuda").manual_seed(i))))
+        if not single:
+            p15_watched(watch, "sharded SCST")
+            expect_launches("rank %d: SCST steps" % mesh.rank, launches,
+                            {"fused_attention": 2 * SEQ_LEN * P15_STEPS})
+            scst_launches = launches
+        runs[single] = losses, sc[single].state.params, dt
+    if mesh.size == 1:      # a rank's own stream at world 1 is the seed's
+        out["scst"] = p15_compare("SCST", mesh, runs[False], runs[True],
+                                  TRAIN_LR)
+    else:
+        p15_checksum(sc[False].state.params, mesh)
+        if not all(math.isfinite(x) for r in runs[False][0] for x in r):
+            raise AssertionError("SCST at world 2: %s" % (runs[False][0],))
+        out["scst"] = dict(losses=runs[False][0],
+                           ms_per_step=1e3 * runs[False][2] / P15_STEPS,
+                           single_ms_per_step=1e3 * runs[True][2]
+                           / P15_STEPS)
+    out["scst"]["launches"] = scst_launches
+    del sc
+
+    scfg = SSPConfig(dataset="coco")
+    sparams = init_ssp_params(torch.Generator().manual_seed(1), scfg)
+    batch = ssp_world(n=P15_GROUPS)
+    trainer(SSPTrainer, None, scfg, sparams).step(*batch, gen)  # warm-up
+    for m in (mesh, None):
+        tr = trainer(SSPTrainer, m, scfg, replicate(sparams, mesh)
+                     if m else sparams, lr=PLAN_LR)
+        losses, dt = p15_steps(lambda i: tr.step(*batch, torch.Generator(
+            device="cuda").manual_seed(i)))
+        runs[m is None] = losses, tr.state.params, dt
+    out["ssp"] = p15_compare("S-SSP", mesh, runs[False], runs[True], PLAN_LR)
+    out["ssp"]["groups"] = P15_GROUPS
+
+    kcfg = SinkhornConfig()
+    kparams = init_sinkhorn_params(torch.Generator().manual_seed(2), kcfg)
+    batch = sinkhorn_world(s=P15_PAIRS)
+    trainer(SinkhornTrainer, None, kcfg, kparams).step(
+        *batch, n_images=PLAN_IMAGES)                          # warm-up
+    for m in (mesh, None):
+        tr = trainer(SinkhornTrainer, m, kcfg, replicate(kparams, mesh)
+                     if m else kparams, lr=PLAN_LR,
+                     loss_normalization="images")
+        (losses, dt), _, launches = counted(lambda: p15_steps(
+            lambda i: tr.step(*batch, n_images=PLAN_IMAGES)))
+        runs[m is None] = losses, tr.state.params, dt
+        if m is not None:
+            expect_launches("rank %d: Sinkhorn steps" % mesh.rank, launches,
+                            {"sinkhorn": P15_STEPS})
+            sink_launches = launches
+    out["sinkhorn"] = p15_compare("Sinkhorn", mesh, runs[False], runs[True],
+                                  PLAN_LR)
+    out["sinkhorn"].update(pairs=P15_PAIRS, launches=sink_launches)
+    return out
+
+
+def p15_world(devices, tmp):
+    """p15_rank on one rank per device (parallel.launch.run); every
+    rank's results."""
+    from vsrcic_tpu_torch.parallel.launch import run
+    out_dir = os.path.join(tmp, "world%d" % len(devices))
+    os.makedirs(out_dir)
+    run(p15_rank, devices, out_dir)
+    ranks = []
+    for r in range(len(devices)):
+        with open(os.path.join(out_dir, "rank%d.json" % r)) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def p15_log(ranks):
+    for res in ranks:
+        tag = "  rank %d of %d (%s)" % (res["rank"], res["size"],
+                                        res["backend"])
+        for path in ("beam", "pipeline"):
+            p = res[path]
+            log("%s %s: %.1f ms (single device %.1f ms), captions differing "
+                "from the single-device batch %d, launches %s"
+                % (tag, path, p["ms"], p["single_ms"],
+                   p["captions_differing"], p["launches"]))
+        for name, t in res["train"].items():
+            log("%s %s: losses %s (single device %s), %.1f ms a step (single"
+                " device %.1f), weights max diff %s, within rtol 1e-4 / atol "
+                "1e-6 %s%s" % (
+                    tag, name, ["%.6g" % x if isinstance(x, float) else x
+                                for x in t["losses"]],
+                    t.get("single_losses", "-"), t["ms_per_step"],
+                    t["single_ms_per_step"], t.get("max_param_diff", "-"),
+                    t.get("share_within_tol", "-"),
+                    "; launches %s" % t["launches"] if "launches" in t
+                    else ""))
+
+
+def p15_clis(tmp):
+    """The four train CLIs and the eval CLI (fast flags) at
+    --data_parallel 1 (NCCL, world 1) against --data_parallel 0 on
+    synthetic COCO at their default widths, 2 steps each: the same
+    per-step losses, printed lines and dumped captions, bit for bit."""
+    from vsrcic_tpu_torch.cli import train, train_region_sort, train_sinkhorn
+    from vsrcic_tpu_torch.tools import train_cli_golden as g
+    steps = ["--max_steps", str(P15_STEPS), "--max_epochs", "1"]
+    runs = (("XE", train.main, ["--batch_size", str(SCST_BATCH)]),
+            ("SCST", train.main, ["--sample_rl", "--fast_decode",
+                                  "--batch_size", str(SCST_BATCH)]),
+            ("S-SSP", train_region_sort.main, []),
+            ("Sinkhorn", train_sinkhorn.main, []))
+    out = {}
+    for dp in ("0", "1"):
+        root = os.path.join(tmp, "cli_dp" + dp)
+        base = TRAIN_CLI_FULL + ["--checkpoint_path", root] + steps
+        res = {}
+        for name, main, flags in runs:
+            res[name] = g.run_captured(main, base + flags + [
+                "--log_dir", os.path.join(root, "log", name),
+                "--data_parallel", dp])
+        ckpt = ["--captioner_ckpt", os.path.join(root, "coco_cap",
+                                                 "exp_rl_last"),
+                "--ssp_ckpt", os.path.join(root, "coco_s_ssp", "model-tr"),
+                "--sinkhorn_ckpt", os.path.join(root, "coco_sinkhorn",
+                                                "model-sh")]
+        res["eval"] = run_cli(TRAIN_CLI_FULL + ["--limit", "64"] + ckpt
+                              + EVAL_FAST + ["--data_parallel", dp],
+                              os.path.join(tmp, "eval_dp%s.jsonl" % dp))
+        out[dp] = res
+    for name, _, _ in runs:
+        a, b = out["0"][name], out["1"][name]
+        if a["losses"] != b["losses"] or a["lines"] != b["lines"]:
+            raise AssertionError("%s CLI at --data_parallel 1: losses %s and "
+                                 "%d lines, at 0: %s and %d lines" % (
+                                     name, b["losses"], len(b["lines"]),
+                                     a["losses"], len(a["lines"])))
+        log("  %s CLI at --data_parallel 1 (NCCL) and 0: losses %s, %d "
+            "printed lines, equal" % (name, ["%.5f" % x for x in b["losses"]],
+                                      len(b["lines"])))
+    a, b = out["0"]["eval"], out["1"]["eval"]
+    if a["dump"] != b["dump"] or a["metrics"] != b["metrics"]:
+        raise AssertionError("the eval CLI at --data_parallel 1 dumps or "
+                             "prints otherwise than at 0")
+    log("  eval CLI (fast flags) at --data_parallel 1 and 0: %d captions "
+        "dumped and %d metric lines, equal; %s" % (
+            b["n"], len(b["metrics"]), b["decoded"]))
+    return {name: dict(losses=out["1"][name]["losses"])
+            for name, _, _ in runs}
+
+
+def run_phase15(report):
+    """Phase 15: (a) NCCL at world 1, (b) gloo on two ranks sharing the
+    card; the launches of each path on rank 0 of (b)."""
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        log("[15a] NCCL at world 1: the sharded beam, pipeline and trainers "
+            "against the single-device runs, bit for bit")
+        out["world1"] = p15_world(["cuda:0"], tmp)
+        p15_log(out["world1"])
+        out["world1_clis"] = p15_clis(tmp)
+        log("[15b] gloo, two ranks sharing the card")
+        import torch
+        torch.cuda.empty_cache()    # the ranks' memory, not this process's
+        t0 = time.perf_counter()
+        out["world2"] = p15_world(["cuda:0", "cuda:0"], tmp)
+        out["world2_seconds"] = time.perf_counter() - t0
+        p15_log(out["world2"])
+    report["parallel"] = out
+    r0 = out["world2"][0]
+    return {"parallel_beam": r0["beam"]["launches"],
+            "parallel_pipeline": r0["pipeline"]["launches"],
+            "parallel_train_scst": r0["train"]["scst"]["launches"],
+            "parallel_train_sinkhorn": r0["train"]["sinkhorn"]["launches"]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2324,6 +2768,13 @@ def main():
                           "train_cli_kernels": report["train_cli_kernels"]}))
         print_device_line()
         return 0
+    if "--parallel" in sys.argv[1:]:
+        by_path = run_phase15(report)
+        write_report(report)
+        print(card)
+        print(json.dumps({"launches_by_path": by_path}))
+        print_device_line()
+        return 0
     if "--planners" in sys.argv[1:]:
         log("[11] golden planner trainers replay")
         replay_golden_planners(report)
@@ -2375,6 +2826,9 @@ def main():
 
     # phase 14: the train CLIs
     by_path.update(run_phase14(report))
+
+    # phase 15: data parallelism
+    by_path.update(run_phase15(report))
 
     rows = []
     for name, src, replaces in (

@@ -7,6 +7,7 @@ library's stamp changes with the compiler's identity, `torch.version.cuda`
 and `platform.machine()` (tested on the digest alone: this host has no
 nvcc).
 """
+import os
 import platform
 
 import pytest
@@ -75,3 +76,33 @@ def test_cuda_stamp_names_compiler_cuda_and_machine(monkeypatch):
     assert cuda != base
     monkeypatch.setattr(platform, "machine", lambda: "aarch64-elsewhere")
     assert _build.source_hash("nvcc release 12.4") not in (base, cuda)
+
+
+def test_stamps_are_written_whole(build_dir, monkeypatch):
+    """A stamp goes into a temporary file beside it and is moved into
+    place: the stamp's path only ever holds a whole digest, and nothing
+    else is left behind, even when the move fails."""
+    lib, _ = built()
+    stamp = build_dir / (lib.name + ".sha")
+    digest = stamp.read_text()
+    seen = []
+    real = os.replace
+
+    def watched(src, dst):
+        if str(dst) == str(stamp):
+            seen.append((open(src).read(), stamp.read_text()))
+        return real(src, dst)
+
+    monkeypatch.setattr(os, "replace", watched)
+    _build.write_stamp(stamp, "f" * 16)
+    assert seen == [("f" * 16, digest)] and stamp.read_text() == "f" * 16
+
+    def refused(src, dst):
+        raise OSError("refused")
+
+    monkeypatch.setattr(os, "replace", refused)
+    with pytest.raises(OSError, match="refused"):
+        _build.write_stamp(stamp, "0" * 16)
+    assert stamp.read_text() == "f" * 16
+    assert sorted(p.name for p in build_dir.iterdir()
+                  if p.name.startswith(stamp.name)) == [stamp.name]

@@ -117,9 +117,15 @@ def test_eval_cli_vocab_mismatch_exits(flags, tmp_path):
         torch_eval.main(argv)
 
 
-def test_eval_cli_data_parallel_raises(flags):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        torch_eval.main(flags[DATASET] + ["--data_parallel", "1"])
+def test_eval_cli_data_parallel_raises(flags, monkeypatch):
+    """--data_parallel N on the card needs N cards: a host with fewer
+    raises, with no fall back to fewer devices or to the CPU (the CLI's
+    data-parallel runs are in test_torch_parallel_cli.py)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    argv = [a for a in flags[DATASET] if a not in ("--platform", "cpu")]
+    with pytest.raises(RuntimeError, match="needs 2 CUDA cards"):
+        torch_eval.main(argv + ["--data_parallel", "2"])
 
 
 def test_eval_cli_wants_the_card(flags):

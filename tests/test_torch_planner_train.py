@@ -165,7 +165,7 @@ def test_greedy_assign_device_matches_jax(case):
 
 def test_planner_trainers_refuse_what_is_not_ported(world):
     _, tparams, _ = world
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DataMesh"):
         tplan.SSPTrainer(tp.ssp_cfg("torch"), tparams, mesh=object(),
                          device="cpu")
     if not torch.cuda.is_available():

@@ -175,7 +175,7 @@ def test_eval_pipeline_sinkhorn_builds_no_graph():
 
 def test_sinkhorn_trainer_refuses_what_it_cannot_take(nets):
     _, np_params, _, tcfg = nets["small"]
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DataMesh"):
         tplan.SinkhornTrainer(tcfg, np_params, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="loss_normalization"):
         tplan.SinkhornTrainer(tcfg, np_params, loss_normalization="x",

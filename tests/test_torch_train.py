@@ -118,7 +118,7 @@ def test_nll_loss_and_schedules_match_jax():
 def test_trainers_refuse_what_is_not_ported(params):
     tf, cider = tp.text_world("torch")
     cfg = tp.train_cfg("torch")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DataMesh"):
         ttrain.CaptionerXETrainer(cfg, params, mesh=object(), device="cpu")
     with pytest.raises(TypeError, match="NativeCiderPair"):
         ttrain.CaptionerSCSTTrainer(cfg, params, tf, cider,

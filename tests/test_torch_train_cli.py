@@ -17,7 +17,8 @@ baseline and the fast decode (the fused attention op's plain version on
 the CPU), restores the XE best and writes exp_rl_last; the eval CLI loads
 the three checkpoints the port's train CLIs wrote and prints the metric
 table, and JAX's eval CLI dumps the same captions from them;
-`--data_parallel 2` raises NotImplementedError in every train CLI.
+`--data_parallel 2` on the card raises in every train CLI where the host
+has fewer than 2 cards.
 """
 import os
 import shutil
@@ -146,11 +147,18 @@ def test_three_checkpoints_eval_in_both_packages(tmp_path, capsys):
 @pytest.mark.parametrize("cli", [torch_train, torch_region_sort,
                                  torch_sinkhorn],
                          ids=["train", "train_region_sort", "train_sinkhorn"])
-def test_data_parallel_raises(cli, tmp_path):
-    with pytest.raises(NotImplementedError, match="data_parallel"):
+def test_data_parallel_raises(cli, tmp_path, monkeypatch):
+    """--data_parallel N on the card needs N cards: a host with fewer
+    raises, with no fall back (the CLIs' data-parallel runs are in
+    test_torch_parallel_train_cli.py)."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    argv = [a for a in TINY if a not in ("--platform", "cpu")]
+    with pytest.raises(RuntimeError, match="needs 2 CUDA cards"):
         cli.main(["--dataset", "coco", "--checkpoint_path",
                   str(tmp_path), "--max_steps", "1", "--data_parallel", "2"]
-                 + TINY)
+                 + argv)
 
 
 def test_train_cli_stages_the_host_batch(tmp_path, capsys):

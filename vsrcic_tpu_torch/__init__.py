@@ -15,7 +15,9 @@ sampled, forced and teacher-forced decodes they stand on (`decode.loops`);
 the planner trainers (`train.SSPTrainer`, `train.SinkhornTrainer`); the
 eval CLI (`python -m vsrcic_tpu_torch.cli.eval`) with the data layer
 (`data`), npz checkpoints and config (`core`) and the eval metrics
-(`metrics`) beneath it.
+(`metrics`) beneath it; the train CLIs; data parallelism over
+`torch.distributed` (`parallel`: one process per device, `mesh=` on the
+trainers and the pipeline, every CLI's `--data_parallel`).
 """
 
 __version__ = "0.1.0"

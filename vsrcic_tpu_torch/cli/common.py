@@ -2,8 +2,11 @@
 selection, seeding.
 
 A copy of `vsrcic_tpu/cli/common.py` without JAX: `--platform cpu` selects
-the CPU and anything else the card (`resolve_device`), and
-`data_parallel_mesh` raises for a nonzero count until multi-GPU is ported.
+the CPU and anything else the card (`resolve_device`). `--data_parallel N`
+keeps the JAX CLIs' meaning, N devices: N cards, or N processes sharing the
+CPU under `--platform cpu` (the counterpart of `ensure_virtual_devices`).
+`run_data_parallel` runs a CLI's body on the N ranks (`parallel.launch`)
+and `data_parallel_mesh` builds a rank's mesh and replicates the params.
 
 Flag names mirror the reference scripts (--batch_size, --sample_rl, --det,
 --gt, --checkpoint_path, --start_from, --load_best ...; reference
@@ -29,14 +32,41 @@ def resolve_device(platform: Optional[str]):
     return _resolve("cpu" if platform == "cpu" else None)
 
 
-def data_parallel_mesh(n: int, params):
-    """(None, params) when n == 0. Multi-GPU data parallelism is not ported
-    yet (ROADMAP.md section 1, item 7), so any other n raises."""
+def data_parallel_devices(n: int, platform: Optional[str]):
+    """The devices of `--data_parallel n`: n times the CPU under
+    `--platform cpu`, else the first n CUDA cards; fewer cards than n
+    raises (no fall back to fewer devices or to the CPU)."""
+    if platform == "cpu":
+        return ["cpu"] * n
+    import torch
+    resolve_device(platform)
+    have = torch.cuda.device_count()
+    if have < n:
+        raise RuntimeError("--data_parallel %d needs %d CUDA cards; this "
+                           "host has %d" % (n, n, have))
+    return ["cuda:%d" % i for i in range(n)]
+
+
+def run_data_parallel(body, opt):
+    """body(opt) in this process when opt.data_parallel is 0, else on
+    opt.data_parallel ranks (`parallel.launch.run`: in place under
+    torchrun, else spawned); rank 0's result."""
+    if not opt.data_parallel:
+        return body(opt)
+    from vsrcic_tpu_torch.parallel.launch import run
+    return run(body, data_parallel_devices(opt.data_parallel, opt.platform),
+               opt)
+
+
+def data_parallel_mesh(n: int, params, platform: Optional[str] = None):
+    """(None, params) when n == 0; else, on a rank of a
+    `run_data_parallel` run, (its mesh, params broadcast from rank 0 onto
+    its device; None stays None)."""
     if not n:
         return None, params
-    raise NotImplementedError(
-        "--data_parallel %d: multi-GPU data parallelism is not ported yet "
-        "(ROADMAP.md section 1, item 7); run with --data_parallel 0" % n)
+    from vsrcic_tpu_torch.parallel.mesh import make_mesh, replicate
+    mesh = make_mesh(n, devices=data_parallel_devices(n, platform))
+    return mesh, None if params is None else replicate(params, mesh)
 
 
 def seed_all(seed: int = 1234):

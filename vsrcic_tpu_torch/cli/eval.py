@@ -13,6 +13,11 @@ hand-written kernels (their plain versions on the CPU). Untrained weights
 come from `torch.Generator`s seeded from --seed, which cannot reproduce the
 JAX CLI's `jax.random` draws: the two CLIs agree when they start from the
 same checkpoints.
+
+`--data_parallel N` runs the pipeline on N ranks (`EvalPipeline(mesh=...)`;
+N cards, or N processes on the CPU under `--platform cpu`): every rank reads
+every batch and decodes its block, and rank 0 alone prints, dumps and scores
+the gathered captions, in the dataset's order.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import numpy as np
 
 from vsrcic_tpu_torch.cli.common import (base_parser, build_world,
                                          data_parallel_mesh, resolve_device,
-                                         seed_all)
+                                         run_data_parallel, seed_all)
 from vsrcic_tpu_torch.cli.fields import (make_eval_det_field,
                                          make_image_field,
                                          unpack_eval_output)
@@ -52,16 +57,20 @@ def main(argv=None):
                    help="KV-cached incremental planner decode (token-exact "
                    "vs the full-buffer path; 0 = strict full-buffer)")
     p.add_argument("--data_parallel", default=0, type=int,
-                   help="shard the beam over N devices (not ported yet: "
-                   "only 0, a single device)")
+                   help="shard the pipeline over N devices (N cards, or N "
+                   "processes under --platform cpu; 0 = single device)")
     p.add_argument("--dump_preds", default=None, type=str,
                    help="write decoded/gt caption pairs as JSON lines "
                    "(used by scripts/fastpath_metric_delta.py and the "
                    "real-data parity runbook, docs/MIGRATION.md)")
-    opt = p.parse_args(argv)
+    return run_data_parallel(_run, p.parse_args(argv))
+
+
+def _run(opt):
+    """The CLI on one rank (or alone); the CIDEr, or None on ranks > 0."""
     print(opt)
-    device = resolve_device(opt.platform)
-    data_parallel_mesh(opt.data_parallel, None)   # raises unless 0
+    mesh, _ = data_parallel_mesh(opt.data_parallel, None, opt.platform)
+    device = mesh.device if mesh else resolve_device(opt.platform)
     seed_all(opt.seed)
 
     import torch
@@ -195,7 +204,8 @@ def main(argv=None):
                         eos_word=tf.eos_idx, fixed_len=opt.fixed_len,
                         sinkhorn_len=opt.sinkhorn_len,
                         beam_size=opt.beam_size, gt=opt.gt,
-                        fast_ssp=bool(opt.fast_ssp), device=device)
+                        fast_ssp=bool(opt.fast_ssp), device=device,
+                        mesh=mesh)
 
     predictions, gt_captions = [], []
     t0 = time.time()
@@ -225,6 +235,8 @@ def main(argv=None):
     dt = time.time() - t0
     print("decoded %d captions in %.2fs (%.1f captions/s)"
           % (len(predictions), dt, len(predictions) / max(dt, 1e-9)))
+    if mesh is not None and mesh.rank:
+        return None
 
     gen, gts = {}, {}
     for i, (pred, cap) in enumerate(zip(predictions, gt_captions)):

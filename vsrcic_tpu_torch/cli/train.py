@@ -21,6 +21,14 @@ the two CLIs agree when they start from the same checkpoint
 Each training batch is staged on the device by the loader's producer
 thread (`DevicePrefetchLoader` with `cuda_put`), on the device's default
 stream, which the steps run on: a step starts after its batch's copies.
+
+`--data_parallel N` trains on N ranks (N cards, or N processes on the CPU
+under `--platform cpu`): every rank reads every batch and steps on its block
+(XE: `shard_batch` of a batch that divides by N, a trailing partial batch
+dropped, as in JAX; SCST: the trainer splits the whole batch). Rank 0
+alone prints, writes the journal and the checkpoints and validates; the
+others wait at a barrier before reading a checkpoint and take rank 0's
+decision to stop.
 """
 from __future__ import annotations
 
@@ -31,7 +39,7 @@ import numpy as np
 
 from vsrcic_tpu_torch.cli.common import (base_parser, build_world,
                                          data_parallel_mesh, resolve_device,
-                                         seed_all)
+                                         run_data_parallel, seed_all)
 
 
 def main(argv=None):
@@ -55,19 +63,32 @@ def main(argv=None):
                    "logprobs stay strict")
     p.add_argument("--log_dir", default=None, type=str)
     p.add_argument("--data_parallel", default=0, type=int, metavar="N",
-                   help="shard training over N devices (not ported yet: "
-                   "only 0, a single device)")
+                   help="shard training over N devices (N cards, or N "
+                   "processes under --platform cpu; 0 = single device). XE "
+                   "shards the batch; SCST shards sample/greedy/grad "
+                   "(rewards stay on the host)")
     opt = p.parse_args(argv)
+    if (opt.data_parallel and opt.batch_size % opt.data_parallel
+            and not opt.sample_rl):
+        # XE shards the exact batch; SCST pads internally (exact mean)
+        p.error("--batch_size %d must be divisible by --data_parallel %d"
+                % (opt.batch_size, opt.data_parallel))
+    return run_data_parallel(_run, opt)
+
+
+def _run(opt):
+    """The CLI on one rank (or alone)."""
     # --dataset flickr is an EXTENSION: the reference ships no Flickr
     # captioner-training script (SURVEY.md S7; its flickr checkpoint is
     # pretrained) — here the same XE/SCST trainers run on Flickr entities
     # via FlickrControlSequenceField (entity-IoU region groups)
     print(opt)
-    device = resolve_device(opt.platform)
-    data_parallel_mesh(opt.data_parallel, None)   # raises unless 0
+    mesh, _ = data_parallel_mesh(opt.data_parallel, None, opt.platform)
+    device = mesh.device if mesh else resolve_device(opt.platform)
+    rank0 = mesh is None or mesh.rank == 0
     seed_all(opt.seed)
     from vsrcic_tpu_torch.utils.observability import MetricLogger
-    mlog = MetricLogger(opt.log_dir)
+    mlog = MetricLogger(opt.log_dir if rank0 else None)
 
     import torch
     from vsrcic_tpu_torch.core.checkpoint import CheckpointManager
@@ -86,6 +107,8 @@ def main(argv=None):
     from vsrcic_tpu_torch.models.captioner import (CaptionerConfig,
                                                    init_captioner_params,
                                                    precompute_statics)
+    from vsrcic_tpu_torch.parallel.mesh import (barrier, broadcast_object,
+                                                replicate, shard_batch)
     from vsrcic_tpu_torch.text import dedup_join, ptb_tokenize
     from vsrcic_tpu_torch.train import (CaptionerSCSTTrainer,
                                         CaptionerXETrainer, step_lr)
@@ -142,6 +165,8 @@ def main(argv=None):
     ckpt = CheckpointManager(opt.checkpoint_path + cap_dir,
                              opt.exp_name + ("_rl" if opt.sample_rl else ""))
     restored = None
+    if mesh is not None:
+        barrier(mesh)   # no rank reads a checkpoint another still writes
     if opt.sample_rl:
         # RL warm-starts from the XE best checkpoint (ref train.py:85-90)
         xe_ckpt = CheckpointManager(opt.checkpoint_path + cap_dir,
@@ -166,6 +191,22 @@ def main(argv=None):
                     "checkpoint was trained against a different vocabulary"
                     % (ckpt_vocab, len(tf.vocab)))
         params = restored["params"]
+    if mesh is not None:
+        params = replicate(params, mesh)
+
+    def dp_batches(loader):
+        """Under data-parallel XE each rank steps on its block of the
+        batch, which must divide by the ranks: drop the trailing partial
+        batch (the SCST trainer pads internally with an exact-mean
+        correction instead)."""
+        for batch in loader:
+            if (mesh is not None and not opt.sample_rl
+                    and batch[0][0].shape[0] % mesh.size):
+                print("dropping trailing partial batch of %d (not divisible "
+                      "by --data_parallel %d)"
+                      % (batch[0][0].shape[0], mesh.size))
+                continue
+            yield batch
 
     if opt.sample_rl:
         ref_caps = [e.text for e in train_ex]
@@ -177,9 +218,10 @@ def main(argv=None):
             cfg, params, tf, cider_train, lr=opt.lr,
             baseline=opt.scst_baseline, fast_decode=opt.fast_decode,
             table_dtype=torch.bfloat16 if opt.fast_decode else None,
-            native_cider=native_cider, device=device)
+            native_cider=native_cider, device=device, mesh=mesh)
     else:
-        trainer = CaptionerXETrainer(cfg, params, lr=opt.lr, device=device)
+        trainer = CaptionerXETrainer(cfg, params, lr=opt.lr, device=device,
+                                     mesh=mesh)
 
     cider_val = Cider()
 
@@ -207,7 +249,7 @@ def main(argv=None):
                     dets, expand_compact_groups(dets, det_seqs_test)))
         running = 0.0
         n_it = 0
-        for batch in loader_train:
+        for batch in dp_batches(loader_train):
             (dets, _), det_out, caps = batch
             det_seqs, gate_gts, det_seqs_test, _ = det_out
             # each step returns floats: the loss is on the host before its
@@ -221,9 +263,10 @@ def main(argv=None):
                     torch.Generator(device=device).manual_seed(step),
                     baseline_caps=base)
             else:
-                cap_ids = tf.process(list(caps))
-                loss, lc, lg = trainer.step(dets, cap_ids, det_seqs,
-                                            gate_gts)
+                xe_batch = (dets, tf.process(list(caps)), det_seqs, gate_gts)
+                if mesh is not None:
+                    xe_batch = shard_batch(xe_batch, mesh)
+                loss, lc, lg = trainer.step(*xe_batch)
             running += loss
             mlog.add_scalar('train_loss', loss, step)
             n_it += 1
@@ -232,6 +275,10 @@ def main(argv=None):
                 break
         print("epoch %d train loss %.4f (%.1fs)"
               % (e, running / max(n_it, 1), time.time() - t0))
+        if not rank0:
+            if broadcast_object(None, mesh):
+                break
+            continue
 
         # validation CIDEr with greedy decode (ref train.py:185-219)
         gen, gts = {}, {}
@@ -284,6 +331,9 @@ def main(argv=None):
         stop = ckpt.step({"params": trainer.state.params,
                           "step": np.asarray(step), "cfg": cfg_blob},
                          val_cider, e, patience_limit=opt.patience)
+        done = stop or bool(opt.max_steps and step >= opt.max_steps)
+        if mesh is not None:
+            broadcast_object(done, mesh)
         if stop:
             print("patience ended.")
             break

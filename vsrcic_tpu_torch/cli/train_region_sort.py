@@ -22,7 +22,7 @@ import numpy as np
 
 from vsrcic_tpu_torch.cli.common import (base_parser, build_world,
                                          data_parallel_mesh, resolve_device,
-                                         seed_all)
+                                         run_data_parallel, seed_all)
 from vsrcic_tpu_torch.cli.fields import make_image_field, make_ssp_det_field
 
 
@@ -34,8 +34,9 @@ def main(argv=None):
     p.add_argument("--stop_epoch", default=20, type=int)
     p.add_argument("--log_dir", default=None, type=str)
     p.add_argument("--data_parallel", default=0, type=int, metavar="N",
-                   help="shard training over N devices (not ported yet: "
-                   "only 0, a single device)")
+                   help="shard training over N devices (N cards, or N "
+                   "processes under --platform cpu; 0 = single device): "
+                   "the group / pair axis, padded when it does not divide")
     # planner width knobs (the reference hardcodes 512/512/3,
     # sort_model.py:23-28 — defaults match; tiny values make the CLI
     # testable on a CPU host, like the captioner's dim flags)
@@ -43,12 +44,18 @@ def main(argv=None):
     p.add_argument("--ssp_embed_size", default=512, type=int)
     p.add_argument("--ssp_layers", default=3, type=int)
     opt = p.parse_args(argv)
+    return run_data_parallel(_run, opt)
+
+
+def _run(opt):
+    """The CLI on one rank (or alone)."""
     print(opt)
-    device = resolve_device(opt.platform)
-    data_parallel_mesh(opt.data_parallel, None)   # raises unless 0
+    mesh, _ = data_parallel_mesh(opt.data_parallel, None, opt.platform)
+    device = mesh.device if mesh else resolve_device(opt.platform)
+    rank0 = mesh is None or mesh.rank == 0
     seed_all(opt.seed)
     from vsrcic_tpu_torch.utils.observability import MetricLogger
-    mlog = MetricLogger(opt.log_dir)
+    mlog = MetricLogger(opt.log_dir if rank0 else None)
 
     import torch
     from vsrcic_tpu_torch.core.checkpoint import save_checkpoint
@@ -80,6 +87,9 @@ def main(argv=None):
         from vsrcic_tpu_torch.core.checkpoint import restore_checkpoint
         path = opt.start_from
         cand = os.path.join(path, "model-tr")   # dir form, like the ref
+        if mesh is not None:   # no rank reads a checkpoint being written
+            from vsrcic_tpu_torch.parallel.mesh import barrier
+            barrier(mesh)
         if os.path.isdir(cand) or os.path.isfile(cand + ".npz"):
             path = cand
         blob = restore_checkpoint(path)
@@ -108,7 +118,11 @@ def main(argv=None):
               else init_ssp_params(torch.Generator().manual_seed(opt.seed),
                                    cfg))
 
-    trainer = SSPTrainer(cfg, params, lr=opt.learning_rate, device=device)
+    if mesh is not None:
+        from vsrcic_tpu_torch.parallel.mesh import replicate
+        params = replicate(params, mesh)
+    trainer = SSPTrainer(cfg, params, lr=opt.learning_rate, device=device,
+                         mesh=mesh)
 
     for e in range(start_epoch, opt.max_epochs):
         if e == opt.stop_epoch:
@@ -148,19 +162,21 @@ def main(argv=None):
         # otherwise load under the default 512/512/3 SSPConfig WITHOUT a
         # shape error (sqrt(embed_size) scaling, layer count) and compute
         # silently wrong plans at eval/resume
-        save_checkpoint(opt.checkpoint_path + "/%s_s_ssp/model-tr"
-                        % opt.dataset,
-                        {"params": trainer.state.params,
-                         "step": np.asarray(step), "epoch": np.asarray(e),
-                         "cfg": {"dataset_id": np.asarray(
-                                     0 if opt.dataset == "coco" else 1),
-                                 "hidden_size": np.asarray(cfg.hidden_size),
-                                 "embed_size": np.asarray(cfg.embed_size),
-                                 "encoder_layers":
-                                     np.asarray(cfg.encoder_layers),
-                                 "decoder_layers":
-                                     np.asarray(cfg.decoder_layers),
-                                 "max_len": np.asarray(cfg.max_len)}})
+        if rank0:
+            save_checkpoint(opt.checkpoint_path + "/%s_s_ssp/model-tr"
+                            % opt.dataset,
+                            {"params": trainer.state.params,
+                             "step": np.asarray(step), "epoch": np.asarray(e),
+                             "cfg": {"dataset_id": np.asarray(
+                                         0 if opt.dataset == "coco" else 1),
+                                     "hidden_size":
+                                         np.asarray(cfg.hidden_size),
+                                     "embed_size": np.asarray(cfg.embed_size),
+                                     "encoder_layers":
+                                         np.asarray(cfg.encoder_layers),
+                                     "decoder_layers":
+                                         np.asarray(cfg.decoder_layers),
+                                     "max_len": np.asarray(cfg.max_len)}})
         if opt.max_steps and step >= opt.max_steps:
             break
     mlog.close()

@@ -20,7 +20,7 @@ import numpy as np
 
 from vsrcic_tpu_torch.cli.common import (base_parser, build_world,
                                          data_parallel_mesh, resolve_device,
-                                         seed_all)
+                                         run_data_parallel, seed_all)
 from vsrcic_tpu_torch.cli.fields import (make_image_field,
                                          make_sinkhorn_det_field)
 
@@ -38,8 +38,9 @@ def main(argv=None):
     p.add_argument("--sinkhorn_len", default=10, type=int)
     p.add_argument("--log_dir", default=None, type=str)
     p.add_argument("--data_parallel", default=0, type=int, metavar="N",
-                   help="shard training over N devices (not ported yet: "
-                   "only 0, a single device)")
+                   help="shard training over N devices (N cards, or N "
+                   "processes under --platform cpu; 0 = single device): "
+                   "the group / pair axis, padded when it does not divide")
     opt = p.parse_args(argv)
     coco = opt.dataset == "coco"
     if opt.batch_size is None:
@@ -48,12 +49,18 @@ def main(argv=None):
         opt.learning_rate = 1e-4 if coco else 1e-3
     if opt.stop_epoch is None:
         opt.stop_epoch = 20 if coco else 30
+    return run_data_parallel(_run, opt)
+
+
+def _run(opt):
+    """The CLI on one rank (or alone)."""
     print(opt)
-    device = resolve_device(opt.platform)
-    data_parallel_mesh(opt.data_parallel, None)   # raises unless 0
+    mesh, _ = data_parallel_mesh(opt.data_parallel, None, opt.platform)
+    device = mesh.device if mesh else resolve_device(opt.platform)
+    rank0 = mesh is None or mesh.rank == 0
     seed_all(opt.seed)
     from vsrcic_tpu_torch.utils.observability import MetricLogger
-    mlog = MetricLogger(opt.log_dir)
+    mlog = MetricLogger(opt.log_dir if rank0 else None)
 
     import torch
     from vsrcic_tpu_torch.core.checkpoint import save_checkpoint
@@ -84,6 +91,9 @@ def main(argv=None):
         from vsrcic_tpu_torch.core.checkpoint import restore_checkpoint
         path = opt.start_from
         cand = os.path.join(path, "model-sh")   # dir form, like the ref
+        if mesh is not None:   # no rank reads a checkpoint being written
+            from vsrcic_tpu_torch.parallel.mesh import barrier
+            barrier(mesh)
         if os.path.isdir(cand) or os.path.isfile(cand + ".npz"):
             path = cand
         blob = restore_checkpoint(path)
@@ -106,8 +116,12 @@ def main(argv=None):
                   torch.Generator().manual_seed(opt.seed), cfg))
 
     norm = "images" if opt.dataset == "coco" else "pairs"
+    if mesh is not None:
+        from vsrcic_tpu_torch.parallel.mesh import replicate
+        params = replicate(params, mesh)
     trainer = SinkhornTrainer(cfg, params, lr=opt.learning_rate,
-                              loss_normalization=norm, device=device)
+                              loss_normalization=norm, device=device,
+                              mesh=mesh)
 
     for e in range(start_epoch, opt.max_epochs):
         if e == opt.stop_epoch:
@@ -143,16 +157,17 @@ def main(argv=None):
                 break
         print("epoch %d sinkhorn loss %.4f (%.1fs)"
               % (e, running / max(n_it, 1), time.time() - t0))
-        save_checkpoint(opt.checkpoint_path + "/%s_sinkhorn/model-sh"
-                        % opt.dataset,
-                        {"params": trainer.state.params,
-                         "step": np.asarray(step), "epoch": np.asarray(e),
-                         "cfg": {"n": np.asarray(cfg.n),
-                                 "n_iters": np.asarray(cfg.n_iters),
-                                 "tau": np.asarray(cfg.tau),
-                                 "txt_dim": np.asarray(cfg.txt_dim),
-                                 "vis_dim": np.asarray(cfg.vis_dim),
-                                 "pos_dim": np.asarray(cfg.pos_dim)}})
+        if rank0:
+            save_checkpoint(opt.checkpoint_path + "/%s_sinkhorn/model-sh"
+                            % opt.dataset,
+                            {"params": trainer.state.params,
+                             "step": np.asarray(step), "epoch": np.asarray(e),
+                             "cfg": {"n": np.asarray(cfg.n),
+                                     "n_iters": np.asarray(cfg.n_iters),
+                                     "tau": np.asarray(cfg.tau),
+                                     "txt_dim": np.asarray(cfg.txt_dim),
+                                     "vis_dim": np.asarray(cfg.vis_dim),
+                                     "pos_dim": np.asarray(cfg.pos_dim)}})
         if opt.max_steps and step >= opt.max_steps:
             break
     mlog.close()

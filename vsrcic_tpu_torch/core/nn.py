@@ -11,7 +11,7 @@ distributions of the JAX initialisers, not their random stream.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple
 
 import torch
 
@@ -127,3 +127,23 @@ def first_argmax(x):
     mx = x.amax(-1, keepdim=True)
     pos = torch.arange(x.shape[-1], device=x.device)
     return torch.where(x == mx, pos, x.shape[-1]).amin(-1)
+
+
+class BlockRNG(NamedTuple):
+    """A generator standing for a rank's block of a data-parallel batch:
+    a draw of shape (rows, ...) is rows lo..hi of the (n, ...) draw the
+    whole batch would take from `gen`, rows past n repeating the last. So
+    every rank's draws for its rows are those of the single-device run."""
+    gen: torch.Generator
+    lo: int
+    hi: int
+    n: int
+
+
+def rand(rng, shape, device):
+    """torch.rand(shape) from `rng`, a torch.Generator or a BlockRNG."""
+    if not isinstance(rng, BlockRNG):
+        return torch.rand(shape, generator=rng, device=device)
+    u = torch.rand((rng.n,) + tuple(shape[1:]), generator=rng.gen,
+                   device=device)
+    return u[torch.arange(rng.lo, rng.hi, device=device).clamp_max(rng.n - 1)]

@@ -125,10 +125,11 @@ def forced_feedback_logprobs(params, cfg: CaptionerConfig, statics: Statics,
     return torch.stack(w_lps, 1), torch.stack(g_lps, 1)
 
 
-def categorical(gen: torch.Generator, logits):
+def categorical(gen, logits):
     """One draw per row from softmax(logits), as `jax.random.categorical`
-    draws it: the first maximum of logits + Gumbel noise."""
-    u = torch.rand(logits.shape, generator=gen, device=logits.device)
+    draws it: the first maximum of logits + Gumbel noise. gen: a
+    torch.Generator or a `core.nn.BlockRNG`."""
+    u = nn.rand(gen, logits.shape, logits.device)
     return nn.first_argmax(logits - torch.log(-torch.log(u)))
 
 
@@ -137,8 +138,9 @@ def sample_decode(params, cfg: CaptionerConfig, statics: Statics,
                   fused_fn=None, fused_w=None):
     """Ancestral sampling with per-step logprobs.
 
-    gen: a generator on the statics' device. Returns ((words, gates),
-    (word_logps, gate_logps)), each (B, T)."""
+    gen: a generator on the statics' device (or a `core.nn.BlockRNG` over
+    one). Returns ((words, gates), (word_logps, gate_logps)), each
+    (B, T)."""
     state, word, gate = _feedback_start(cfg, statics)
     out = [], [], [], []
     for t in range(seq_len or cfg.seq_len):

@@ -116,14 +116,16 @@ def ssp_decode(params, cfg: SSPConfig, tokens, prior_states, rng=None):
 
 
 def ssp_forward_loss(params, cfg: SSPConfig, verb, det_sr, gt_sr, rng=None,
-                     row_weights=None):
+                     row_weights=None, denom=None):
     """Teacher-forced label-smoothed loss (ref sort_model.py:80-103),
     divided by the count of scored positions.
 
     row_weights (B,): optional 0/1 row mask. Position 0 of every row is
     otherwise always scored (dec_mask starts with 1), so zero-padded rows
     would shift the loss; weighting them out keeps a padded batch's loss
-    exactly the unpadded one."""
+    exactly the unpadded one. denom: the count of scored positions when
+    these rows are a block of a larger batch (a 0-d tensor), else the
+    rows' own."""
     gt_sr = gt_sr.to(torch.int32)
     b = gt_sr.shape[0]
     zeros = gt_sr.new_zeros((b, 1))
@@ -138,7 +140,7 @@ def ssp_forward_loss(params, cfg: SSPConfig, verb, det_sr, gt_sr, rng=None,
     logp = torch.log_softmax(nn.linear(params["expander_nn"], states), -1)
     return tfm.label_smoothing_kldiv(
         logp.reshape(-1, N_SR), targets.reshape(-1), dec_mask.reshape(-1),
-        N_SR) / dec_mask.sum()
+        N_SR) / (dec_mask.sum() if denom is None else denom)
 
 
 def _generate_loop(cfg: SSPConfig, det_sr, mode, logp_step, extra,

@@ -60,7 +60,7 @@ def mha_init(gen, size, relative_pos=False):
 
 def _dropout(x, rate, rng):
     if rate > 0.0 and rng is not None:
-        keep = torch.rand(x.shape, generator=rng, device=x.device) < 1 - rate
+        keep = nn.rand(rng, x.shape, x.device) < 1 - rate
         return torch.where(keep, x / (1.0 - rate), 0.0)
     return x
 

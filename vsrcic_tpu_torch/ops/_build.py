@@ -10,7 +10,10 @@ Each build runs at first use, from the sources in the checkout, into
 stamp changes. The stamp hashes the sources, the flags, the compiler's
 `--version` output and `platform.machine()`, and for the CUDA library also
 `torch.version.cuda`: a `build/` made on another machine or by another
-compiler is rebuilt, never loaded. A failed build raises.
+compiler is rebuilt, never loaded. A failed build raises. Libraries and
+stamps are written into temporary files and moved into place, so that
+processes building at once (the ranks of a data-parallel run) never read
+half of either.
 """
 from __future__ import annotations
 
@@ -98,6 +101,21 @@ def source_hash(compiler: str) -> str:
                    str(torch.version.cuda)], _sources())
 
 
+def write_stamp(stamp: Path, digest: str) -> None:
+    """Write a stamp as the libraries are written: into a temporary file
+    beside it, then `os.replace`, so that a process reading it (another
+    rank building at the same time) sees the old stamp or the new one,
+    never half of one."""
+    fd, tmp = tempfile.mkstemp(dir=stamp.parent, prefix=stamp.name + ".")
+    try:
+        with os.fdopen(fd, "w") as f:
+            f.write(digest)
+        os.replace(tmp, stamp)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+
+
 def build() -> Path:
     """Compile and link the library unless a build of these sources exists;
     returns its path."""
@@ -135,7 +153,7 @@ def build() -> Path:
             raise RuntimeError("nvcc link failed (%d): %s\n%s"
                                % (res.returncode, " ".join(cmd), res.stdout))
         os.replace(tmp_lib, lib)
-    stamp.write_text(digest)
+    write_stamp(stamp, digest)
     last_build_seconds = time.perf_counter() - t0
     last_build_log = "".join(logs)
     return lib
@@ -167,7 +185,7 @@ def host_library(stem: str) -> Path:
             raise RuntimeError("c++ failed (%d): %s\n%s"
                                % (res.returncode, " ".join(cmd), res.stdout))
         os.replace(out, lib)
-    stamp.write_text(digest)
+    write_stamp(stamp, digest)
     last_host_build_seconds = time.perf_counter() - t0
     return lib
 

@@ -21,8 +21,21 @@ back into pinned buffers behind a CUDA event that `plan_finish` waits on
 alone. A blocking `.cpu()` would wait for everything enqueued on the
 stream before it, including the previous batch's beam in `run_stream`.
 
-Not ported yet: the `mesh` argument of the JAX class and its padded
-sharded calls (`_pad_sharded`); they belong to the multi-GPU work.
+Data parallelism (`mesh`, a `parallel.mesh.DataMesh`; JAX's `mesh`): every
+rank runs the same host work on the whole batch, and each device phase on
+its block. The planner's generate over the verb groups and the Sinkhorn net
+over the ambiguous pairs pad their leading axis to a multiple of the size
+with inert zero rows (zero verbs and roles plan nothing; a padded pair's
+matrix is cut away), run the rank's block, gather the blocks and cut them
+back (`_pad_sharded`). The recons build runs on the rank's block of the jobs,
+padded the same way, and its block stays on the rank: it is the block the
+beam decodes, its jobs' verb lists padded with -1 and their detections with
+repeats of the last job's (zero detections would make the image
+descriptor 0/0, and NaN logits give the vocab top-k kernel no candidate
+ids), so only the beam's words are gathered. Under gloo a gather
+waits for its inputs on the host; in `run_stream` the beam's gather comes
+after the next batch's plan is dispatched, so that plan never waits on the
+beam, but the host waits for the beam before it finishes the next plan.
 """
 from __future__ import annotations
 
@@ -40,9 +53,11 @@ from vsrcic_tpu_torch.models.sinkhorn import (SinkhornConfig,
 from vsrcic_tpu_torch.ops.assignment import hungarian_assign
 from vsrcic_tpu_torch.ops.sinkhorn import (sinkhorn_normalize,
                                            sinkhorn_normalize_plain)
+from vsrcic_tpu_torch.parallel.mesh import (all_gather_blocks, block_of,
+                                            mesh_device, same_device)
 from vsrcic_tpu_torch.pipelines.sr_groups import (extract_verb_groups_arrays,
                                                   extract_verb_groups_batch)
-from vsrcic_tpu_torch.utils.device import resolve_device, to_device
+from vsrcic_tpu_torch.utils.device import to_device
 from vsrcic_tpu_torch.utils.rank_merge import verb_rank_merge
 
 
@@ -88,14 +103,16 @@ class EvalPipeline:
                  fixed_len: int = 10, sinkhorn_len: int = 10,
                  beam_size: int = 5, gt: bool = False,
                  fast_ssp: bool = True, device=None,
-                 plain_sinkhorn: bool = False):
+                 plain_sinkhorn: bool = False, mesh=None):
         """ssp_params / sinkhorn_params: nested dicts of tensors or arrays
         in torch layout. device: the captioner's device ("cuda" unless
-        given). fast_ssp: the KV-cached planner decode (token-exact vs the
-        full-buffer one). plain_sinkhorn: normalize with the plain version
-        on any device (a reference run on the card)."""
-        self.device = resolve_device(device)
-        if captioner.device != self.device:
+        given; the mesh's under a mesh). fast_ssp: the KV-cached planner
+        decode (token-exact vs the full-buffer one). plain_sinkhorn:
+        normalize with the plain version on any device (a reference run on
+        the card). mesh: a DataMesh (see the module's docstring)."""
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
+        if not same_device(captioner.device, self.device):
             raise ValueError("the captioner runs on %s, the pipeline on %s"
                              % (captioner.device, self.device))
         self.captioner = captioner
@@ -115,6 +132,26 @@ class EvalPipeline:
         # fast path); M is not padded: the port's fused attention kernel
         # takes any M (the TPU kernel wanted a multiple of 8)
         self._recons_dtype = captioner.table_dtype
+        if mesh is not None:
+            self._ssp_run = self._pad_sharded(self._ssp_run, static_args=1)
+            self._sinkhorn_gather = self._pad_sharded(self._sinkhorn_gather,
+                                                      static_args=3)
+
+    def _pad_sharded(self, fn, static_args: int = 0):
+        """fn run on this rank's block: the arguments after the first
+        `static_args` (whole on every rank) padded along their leading axis
+        to a multiple of the mesh's size with zero rows and cut to the
+        block; the outputs' blocks gathered and cut back to the rows."""
+        mesh = self.mesh
+
+        def wrapped(*args):
+            b = args[static_args].shape[0]
+            out = fn(*args[:static_args],
+                     *(block_of(a, mesh) for a in args[static_args:]))
+            if isinstance(out, tuple):
+                return tuple(all_gather_blocks(o, mesh)[:b] for o in out)
+            return all_gather_blocks(out, mesh)[:b]
+        return wrapped
 
     # -- host <-> device ----------------------------------------------------
     def _put(self, a, dtype=None):
@@ -164,6 +201,9 @@ class EvalPipeline:
         if isinstance(det_sr, np.ndarray) and det_sr.size:
             m = int((det_sr != 0).sum(axis=1).max())
             n_steps = min(n_steps, max(2, m + (m % 2)))
+        return self._ssp_run(n_steps, verbs, det_sr)
+
+    def _ssp_run(self, n_steps, verbs, det_sr):
         if isinstance(verbs, np.ndarray):
             verbs, det_sr = self._put(verbs), self._put(det_sr)
         return self._gen(self.ssp_params, self.ssp_cfg, verbs, det_sr,
@@ -451,6 +491,12 @@ class EvalPipeline:
         return seqs_all, seqs_all.float().sum((2, 3))
 
     def _build_recons(self, arr, rank_idx, rank_valid, row_sums):
+        """The recons of the jobs; under a mesh of this rank's block of the
+        jobs padded with zero rows (the block the beam decodes)."""
+        if self.mesh is not None:
+            arr, rank_idx, rank_valid, row_sums = (
+                block_of(a, self.mesh)
+                for a in (arr, rank_idx, rank_valid, row_sums))
         return self._build_recons_impl(arr, self._put(rank_idx, torch.long),
                                        self._put(rank_valid), row_sums)
 
@@ -463,13 +509,16 @@ class EvalPipeline:
         the reference's `perm_matrix @ flat` exactly (ref
         eval_coco.py:222-231)."""
         recons, verb_lists = self.plan_batch_device(jobs)
+        if self.mesh is not None:
+            recons = all_gather_blocks(recons, self.mesh)[:len(jobs)]
         return recons.float().cpu().numpy(), verb_lists
 
     def plan_batch_device(self, jobs, seqs_all=None, sink_feats=None):
         """plan_rank_batch + device recons, keeping the features on the
         device. seqs_all: pre-staged stage_seqs_all output (or a raw (P, L,
         M, D) device tensor; staged here if None). Returns (recons device
-        tensor, verb_lists host array)."""
+        tensor, verb_lists host array); under a mesh the recons of this
+        rank's block of the jobs (`_build_recons`)."""
         rank_idx, rank_valid, verb_lists = self.plan_rank_batch(
             jobs, sink_feats=sink_feats)
         if seqs_all is None:
@@ -511,10 +560,19 @@ class EvalPipeline:
     def _dispatch_beam(self, detections_per_job, recons, verb_lists,
                        n_jobs: int):
         """Enqueue the joint beam search; returns the still-computing (P, T)
-        best-beam device tensor."""
+        best-beam device tensor. Under a mesh `recons` is this rank's
+        block; its detections are padded with repeats of the last job's,
+        its verb lists with -1, and the blocks' words gathered."""
+        mesh = self.mesh
+        if mesh is not None:
+            detections_per_job = block_of(detections_per_job, mesh,
+                                          fill=None)
+            verb_lists = block_of(np.asarray(verb_lists), mesh, fill=-1)
         res = self.captioner.beam_search_v(
             detections_per_job, recons, self._put(verb_lists, torch.long),
             eos_word=self.eos_word, beam_size=self.beam_size, gt=self.gt)
+        if mesh is not None:
+            return all_gather_blocks(res.words[:, 0], mesh)[:n_jobs]
         return res.words[:n_jobs, 0]
 
     def submit_batch(self, detections_per_job, jobs: Sequence[CaptionJob],

@@ -9,6 +9,12 @@ and the step ``-lr * mu_hat / (sqrt(nu_hat) + eps)`` with eps outside the
 root (`torch.optim.Adam` divides by ``sqrt(nu) / sqrt(bc2) + eps``
 instead). The learning rate can change between steps
 (`set_learning_rate`).
+
+Under a data-parallel mesh (`parallel.mesh.DataMesh`) each rank takes the
+gradient of its block's share of the global loss, and `apply_grads` sums
+the ranks' gradients (one all-reduce over a flat buffer) before Adam, and
+so before Adam's clamp: JAX clips the summed gradient. Every rank then
+runs the same Adam on the same bits.
 """
 from __future__ import annotations
 
@@ -17,16 +23,19 @@ from typing import Any, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from vsrcic_tpu_torch.parallel.mesh import all_reduce_sum, all_reduce_tree
 from vsrcic_tpu_torch.utils.params import flatten, unflatten
 
 
-def not_ported(**kw):
-    """Raise NotImplementedError for each named option that is set (the
-    JAX trainers' options the port does not have yet)."""
-    for name, val in kw.items():
-        if val is not None:
-            raise NotImplementedError(
-                "vsrcic_tpu_torch: %s is not ported yet" % name)
+def rank_generator(gen: torch.Generator, mesh) -> torch.Generator:
+    """gen, or under a mesh a generator of this rank's own, seeded from
+    gen's seed and the rank (seed * size + rank: distinct for every seed
+    and rank of a world), on gen's device. JAX folds the shard index into
+    its key for the same purpose."""
+    if mesh is None or gen is None:
+        return gen
+    return torch.Generator(device=gen.device).manual_seed(
+        gen.initial_seed() * mesh.size + mesh.rank)
 
 
 def tree_map(fn, *trees):
@@ -122,7 +131,11 @@ def init_train_state(params, tx: Adam) -> TrainState:
 
 
 @torch.no_grad()
-def apply_grads(tx: Adam, state: TrainState, grads) -> TrainState:
+def apply_grads(tx: Adam, state: TrainState, grads, mesh=None) -> TrainState:
+    """One Adam update; under a mesh the gradients are first summed over
+    the ranks."""
+    if mesh is not None:
+        grads = all_reduce_tree(grads, mesh)
     updates, opt_state = tx.update(grads, state.opt_state)
     params = tree_map(lambda p, u: p + u, state.params, updates)
     return TrainState(params, opt_state, state.step + 1)
@@ -145,15 +158,23 @@ def value_and_grad(loss_fn, params, *args, has_aux: bool = False, **kw):
     return loss.detach(), grads
 
 
-def nll_loss(log_probs, targets, ignore_index: Optional[int] = None):
+def nll_loss(log_probs, targets, ignore_index: Optional[int] = None,
+             mesh=None):
     """Mean NLL over (optionally masked) targets — torch NLLLoss parity.
 
-    log_probs: (..., C) log-probabilities; targets: (...) int."""
+    log_probs: (..., C) log-probabilities; targets: (...) int. Under a
+    mesh: this rank's share of the mean over every rank's targets (the
+    ranks' shares sum to it); each rank holds the same number of them."""
     flat_lp = log_probs.reshape(-1, log_probs.shape[-1])
     flat_t = targets.reshape(-1).long()
     picked = torch.gather(
         flat_lp, 1, flat_t.clamp(0, flat_lp.shape[-1] - 1)[:, None])[:, 0]
     if ignore_index is None:
-        return -picked.mean()
+        if mesh is None:
+            return -picked.mean()
+        return -picked.sum() / (picked.numel() * mesh.size)
     mask = (flat_t != ignore_index).to(log_probs.dtype)
-    return -(picked * mask).sum() / mask.sum().clamp_min(1.0)
+    count = mask.sum()
+    if mesh is not None:
+        count = all_reduce_sum(count, mesh)
+    return -(picked * mask).sum() / count.clamp_min(1.0)

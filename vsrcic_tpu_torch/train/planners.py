@@ -17,32 +17,51 @@ normalization's forward is the CUDA kernel on the card and its backward
 the plain version replayed (`ops/sinkhorn.py::SinkhornNormalize`).
 
 Entry points run on the CUDA card unless `device` names another; a missing
-card raises. The JAX package's data-parallel `mesh` is not ported: asking
-for it raises.
+card raises.
+
+Data parallelism (`mesh`, a `parallel.mesh.DataMesh`; JAX's GSPMD mesh):
+the steps take the whole batch on every rank; each rank runs its block of
+the batch zero-padded to a multiple of the size, and the gradients are
+summed before Adam (`train.common.apply_grads`). Group and pair counts are
+data-dependent, so the padding is made inert as in JAX: S-SSP's padded rows
+weigh 0 and its denominator, the scored positions, is counted over the
+whole batch; Sinkhorn's padded pairs have tr_locs and gt_locs 0 (an error
+of exactly 0) and its denominator is explicit. Each rank reports the
+global loss. S-SSP's dropout takes the rows of its block from the masks
+the whole batch would draw (`core.nn.BlockRNG`), so its steps are those of
+the single-device run.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from vsrcic_tpu_torch.core.nn import BlockRNG
 from vsrcic_tpu_torch.models.s_ssp import SSPConfig, ssp_forward_loss
 from vsrcic_tpu_torch.models.sinkhorn import (SinkhornConfig,
                                               sinkhorn_net_apply)
 from vsrcic_tpu_torch.ops.sinkhorn import sinkhorn_normalize_grad
 from vsrcic_tpu_torch.pipelines.sr_groups import extract_verb_groups
+from vsrcic_tpu_torch.parallel.mesh import (all_reduce_sum, block_of,
+                                            mesh_device)
 from vsrcic_tpu_torch.train.common import (
-    TrainState, adam, apply_grads, init_train_state, not_ported,
-    set_learning_rate, value_and_grad)
-from vsrcic_tpu_torch.utils.device import as_tensor, resolve_device, to_device
+    TrainState, adam, apply_grads, init_train_state, set_learning_rate,
+    value_and_grad)
+from vsrcic_tpu_torch.utils.device import as_tensor, to_device
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 class SSPTrainer:
     def __init__(self, cfg: SSPConfig, params, lr: float = 1e-4, mesh=None,
                  device=None):
-        """params: nested dict of tensors or arrays in torch layout."""
-        not_ported(mesh=mesh)
+        """params: nested dict of tensors or arrays in torch layout (the
+        same on every rank under a mesh: `parallel.mesh.replicate`)."""
+        self.mesh = mesh
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = mesh_device(mesh, device)
         self.tx = adam(lr)
         self.state = init_train_state(to_device(params, self.device),
                                       self.tx)
@@ -76,17 +95,31 @@ class SSPTrainer:
 
     def loss_and_grads(self, verbs, det_sr, gt_sr, rng=None):
         """(loss, grads) at the current params, with no update; rng: a
-        torch.Generator on the trainer's device for dropout, or None."""
-        dev = self.device
+        torch.Generator on the trainer's device for dropout, or None.
+        Under a mesh: this rank's share of the loss and its gradients."""
+        dev, mesh = self.device, self.mesh
+        kw = {}
+        if mesh is not None:
+            gt = _host(gt_sr)
+            kw["denom"] = torch.full((), float(len(gt) + (gt != 0).sum()),
+                                     device=dev)
+            kw["row_weights"] = as_tensor(block_of(
+                np.ones(len(gt), np.float32), mesh), dev)
+            if rng is not None:
+                rng = BlockRNG(rng, *mesh.bounds(len(gt)), len(gt))
+            verbs, det_sr, gt_sr = (block_of(_host(x), mesh)
+                                    for x in (verbs, det_sr, gt))
         return value_and_grad(
             ssp_forward_loss, self.state.params, self.cfg,
             as_tensor(verbs, dev), as_tensor(det_sr, dev, torch.int32),
-            as_tensor(gt_sr, dev, torch.int32), rng=rng)
+            as_tensor(gt_sr, dev, torch.int32), rng=rng, **kw)
 
     def step(self, verbs, det_sr, gt_sr, rng) -> float:
-        """One Adam step; returns the loss."""
+        """One Adam step; returns the (global) loss."""
         loss, grads = self.loss_and_grads(verbs, det_sr, gt_sr, rng)
-        self.state = apply_grads(self.tx, self.state, grads)
+        self.state = apply_grads(self.tx, self.state, grads, self.mesh)
+        if self.mesh is not None:
+            loss = all_reduce_sum(loss, self.mesh)
         return float(loss)
 
 
@@ -146,13 +179,14 @@ class SinkhornTrainer:
                  loss_normalization: str = "images", mesh=None, device=None):
         """loss_normalization: 'images' (COCO script: / batch_size,
         train_sinkhorn.py:211) or 'pairs' (Flickr script: / pair count,
-        train_sinkhorn_flickr.py:209-210)."""
-        not_ported(mesh=mesh)
+        train_sinkhorn_flickr.py:209-210). mesh: a DataMesh (see the
+        module's docstring)."""
         if loss_normalization not in ("images", "pairs"):
             raise ValueError("loss_normalization must be 'images' or 'pairs'")
         self.cfg = cfg
         self.loss_normalization = loss_normalization
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         self.tx = adam(lr)
         self.state = init_train_state(to_device(params, self.device),
                                       self.tx)
@@ -164,10 +198,14 @@ class SinkhornTrainer:
 
     def batch(self, inputs, tr_locs, gt_locs, n_images: int):
         """(inputs, tr_locs, gt_locs, denom) as f32 tensors on the
-        trainer's device."""
+        trainer's device; under a mesh this rank's zero-padded block of the
+        pairs, with the whole batch's denom."""
         dev = self.device
         denom = float(n_images if self.loss_normalization == "images"
                       else len(inputs))
+        if self.mesh is not None:
+            inputs, tr_locs, gt_locs = (block_of(x, self.mesh)
+                                        for x in (inputs, tr_locs, gt_locs))
         return (as_tensor(inputs, dev, torch.float32),
                 as_tensor(tr_locs, dev, torch.float32),
                 as_tensor(gt_locs, dev, torch.float32),
@@ -181,7 +219,9 @@ class SinkhornTrainer:
                               normalize=normalize)
 
     def step(self, inputs, tr_locs, gt_locs, n_images: int) -> float:
-        """One Adam step; returns the loss."""
+        """One Adam step; returns the (global) loss."""
         loss, grads = self.loss_and_grads(inputs, tr_locs, gt_locs, n_images)
-        self.state = apply_grads(self.tx, self.state, grads)
+        self.state = apply_grads(self.tx, self.state, grads, self.mesh)
+        if self.mesh is not None:
+            loss = all_reduce_sum(loss, self.mesh)
         return float(loss)
