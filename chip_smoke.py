@@ -10,6 +10,7 @@
     python3 chip_smoke.py --eval       # phases 1-2 and 13
     python3 chip_smoke.py --train-cli  # phases 1-2 and 14
     python3 chip_smoke.py --parallel   # phases 1-2 and 15
+    python3 chip_smoke.py --vocab-bf16 # phases 1-2, 3's vocab checks, 5-5c
 
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi), and the TF32 settings
@@ -32,13 +33,30 @@ Phases (any failure raises and the script exits non-zero):
      clusters), M 1 and 33, and rows whose item or ctrl is out of range
      (NaN, the neighbours exact), and timed at its four path shapes: the
      beam, SCST's decode, the eval CLI's first step and the SCST train
-     CLI's 100 rows (held stream, beside an empty kernel's time);
-  4. replay the beam's golden fixture (JAX results) through the kernel path;
+     CLI's 100 rows (held stream, beside an empty kernel's time). The vocab
+     head's bf16-operand kernel (bf16 h2 and table, tensor cores) is held
+     to its plain version on the tie cases (ids exact), at ragged shapes
+     and at full width (ids equal save near ties), and timed beside its
+     tensor-core bound and a cuBLAS bf16 product + topk + logsumexp;
+  4. replay the beam's golden fixtures (JAX results) through the kernel
+     path: golden_beam.npz, and golden_beam_bf16.npz's four paths
+     (VSRCIC_VOCAB_LHS_BF16=1 on bf16 and f32 tables, decode_dtype=bfloat16
+     strict and fast);
   5. drive the beam, `ControllableCaptioner.beam_search_v` at the bench.py
      shapes (batch 1024, beam 5, fused attention, vocab top-k, bf16
      tables): one warm-up and three timed batches, with every kernel's launch
      count reset just before and read just after;
-  6. run the same batch through the plain versions on the card and compare;
+ 5b. the same beam under VSRCIC_VOCAB_LHS_BF16=1 (the vocab head's bf16
+     kernel): one warm-up and three timed batches, 20 bf16 launches a
+     batch; its captions (each item's best beam) equal a checked run's
+     save vocab near ties (every kernel call held to its plain version,
+     the vocab op's plain result going on); the share of phase 5's
+     captions it keeps;
+ 5c. the same beam with decode_dtype=torch.bfloat16, strict (no kernel)
+     and fast: one warm-up and three timed batches each, every beam
+     valid, the share of phase 5's captions each keeps;
+  6. run phase 5's batch through the plain versions on the card and
+     compare;
   7. replay the eval pipeline's golden fixture (JAX plans and words) through
      the kernels, strict and fast captioner;
   8. drive the eval pipeline, `EvalPipeline.run_stream` and `run_batch`, at
@@ -137,9 +155,11 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor) flop/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) flop/s
+# and dense bf16 tensor-core flop/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_TENSOR_FLOPS = 989e12
 
 # bench.py:43-49 shapes
 BATCH, BEAM, SEQ_LEN, VOCAB = 1024, 5, 20, 10000
@@ -487,7 +507,7 @@ def vocab_near_ties(h2, w, b, got, want):
     rows = torch.nonzero((got[1] != want[1]).any(1)).flatten()
     if rows.numel() == 0:
         return 0
-    logits = h2[rows] @ w.float() + b
+    logits = h2[rows].float() @ w.float() + b
     for i, r in enumerate(rows.tolist()):
         kid = got[1][r].long()
         lk = logits[i, kid]
@@ -499,29 +519,41 @@ def vocab_near_ties(h2, w, b, got, want):
     return int(rows.numel())
 
 
+def hold_vocab(h2, w, b, k, exact_ids, worst):
+    """One input of phase 3's vocab checks: the wrapper's kernel against
+    its plain version, values and lse within rtol 1e-5 / atol 1e-6, ids
+    exact (tie cases) or equal save near ties. `worst` keeps the largest
+    absolute ("abs") and relative ("rel") errors seen. Returns the count of
+    near-tie rows."""
+    import torch
+    from vsrcic_tpu_torch.ops.vocab_topk import (
+        vocab_topk_lse as kern, vocab_topk_lse_plain as plain)
+    got = kern(h2, w, b, k)
+    torch.cuda.synchronize()
+    want = plain(h2, w, b, k)
+    for g, wnt, name in ((got[0], want[0], "vals"),
+                         (got[2], want[2], "lse")):
+        if not torch.allclose(g, wnt, rtol=1e-5, atol=1e-6):
+            raise AssertionError("vocab top-k %s beyond rtol 1e-5: %.3g"
+                                 % (name, float((g - wnt).abs().max())))
+        worst["abs"] = max(worst["abs"], float((g - wnt).abs().max()))
+        worst["rel"] = max(worst["rel"], float(
+            ((g - wnt).abs() / wnt.abs().clamp_min(1e-30)).max()))
+    if exact_ids:
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError("vocab top-k ids differ on a tie case")
+        return 0
+    return vocab_near_ties(h2, w, b, got, want)
+
+
 def check_vocab(gen, report):
     import torch
     from vsrcic_tpu_torch.ops.vocab_topk import (
         vocab_topk_lse as kern, vocab_topk_lse_plain as plain)
-    worst = 0.0
+    worst = {"abs": 0.0, "rel": 0.0}
 
     def compare(h2, w, b, k, exact_ids):
-        nonlocal worst
-        got = kern(h2, w, b, k)
-        torch.cuda.synchronize()
-        want = plain(h2, w, b, k)
-        for g, wnt, name in ((got[0], want[0], "vals"),
-                             (got[2], want[2], "lse")):
-            if not torch.allclose(g, wnt, rtol=1e-5, atol=1e-6):
-                raise AssertionError("vocab top-k %s beyond rtol 1e-5: %.3g"
-                                     % (name, float((g - wnt).abs().max())))
-        worst = max(worst, float((got[0] - want[0]).abs().max()),
-                    float((got[2] - want[2]).abs().max()))
-        if exact_ids:
-            if not torch.equal(got[1], want[1]):
-                raise AssertionError("vocab top-k ids differ on a tie case")
-            return 0
-        return vocab_near_ties(h2, w, b, got, want)
+        return hold_vocab(h2, w, b, k, exact_ids, worst)
 
     for i, (h2, w, b, k) in enumerate(vocab_tie_cases(gen)):
         for table in (torch.float32, torch.bfloat16):
@@ -569,9 +601,91 @@ def check_vocab(gen, report):
         "%.4f ms, bound %.4f ms by operations, %.1f f32 TFLOP/s)"
         % (ROWS, ms, plain_ms, library_ms, bound_ms, flops / ms / 1e9))
     report["vocab_topk"] = dict(
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        max_abs_err=worst["abs"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=library_ms, near_tie_rows=near)
+
+
+def vocab_bf16_bound(rows, r, v, k):
+    """(ms, by): the bf16 kernel's product over the tensor cores' bf16 rate,
+    or its bytes (bf16 h2 and table, f32 bias, outputs) over the HBM
+    rate."""
+    flops = 2.0 * rows * r * v
+    nbytes = rows * r * 2 + r * v * 2 + v * 4 + rows * (2 * k + 1) * 4
+    t_ops, t_bytes = flops / BF16_TENSOR_FLOPS, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def check_vocab_bf16(gen, report):
+    """Phase 3 for the bf16-operand kernel (bf16 h2 and table): the tie
+    cases with ids exact, ragged and full-width shapes with ids equal save
+    near ties, all at check_vocab's rtol 1e-5 / atol 1e-6; then its times.
+    The tensor cores sum the exact products in another order than the
+    plain version's f32 product; the worst relative error is reported."""
+    import torch
+    from vsrcic_tpu_torch.ops.vocab_topk import (
+        vocab_topk_lse as kern, vocab_topk_lse_plain as plain)
+    bf16 = torch.bfloat16
+    worst = {"abs": 0.0, "rel": 0.0}
+
+    def compare(h2, w, b, k, exact_ids):
+        before = kern.launches_bf16
+        n = hold_vocab(h2, w, b, k, exact_ids, worst)
+        if kern.launches_bf16 != before + 1:
+            raise AssertionError("bf16 operands did not launch the bf16 "
+                                 "kernel")
+        return n
+
+    for i, (h2, w, b, k) in enumerate(vocab_tie_cases(gen)):
+        compare(h2.to(bf16), w.to(bf16).contiguous(), b, k, exact_ids=True)
+        log("  vocab_topk_bf16 tie case %d rows=%d R=%d V=%d k=%d: ids exact"
+            % (i, h2.shape[0], h2.shape[1], w.shape[1], k))
+    for rows, r, v, k in ((37, 77, 1001, 5), (3, 1000, 130, 1),
+                          (101, 129, 257, 16)):
+        h2 = torch.randn((rows, r), generator=gen, device="cuda")
+        w = torch.randn((r, v), generator=gen, device="cuda") / r ** 0.5
+        b = torch.randn((v,), generator=gen, device="cuda")
+        n = compare(h2.to(bf16), w.to(bf16), b, k, exact_ids=False)
+        log("  vocab_topk_bf16 ragged rows=%d R=%d V=%d k=%d: near-tie rows "
+            "%d" % (rows, r, v, k, n))
+    h2 = torch.tanh(torch.randn((ROWS, RNN), generator=gen,
+                                device="cuda")).to(bf16)
+    wt = (torch.randn((RNN, VOCAB), generator=gen, device="cuda") * (
+        2.0 / (RNN + VOCAB)) ** 0.5).to(bf16)
+    b = 0.01 * torch.randn((VOCAB,), generator=gen, device="cuda")
+    near = compare(h2, wt, b, BEAM, exact_ids=False)
+    log("  vocab_topk_bf16 full rows=%d R=%d V=%d k=%d: near-tie rows %d; "
+        "worst error %.3g absolute, %.3g relative"
+        % (ROWS, RNN, VOCAB, BEAM, near, worst["abs"], worst["rel"]))
+    ms = cuda_ms(lambda: kern(h2, wt, b, BEAM))
+    plain_ms = cuda_ms(lambda: plain(h2, wt, b, BEAM), iters=5)
+    try:
+        torch.mm(h2, wt, out_dtype=torch.float32)
+        kind = "torch.mm(bf16, bf16, out_dtype=float32)"
+
+        def product():
+            return torch.mm(h2, wt, out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        kind = "torch.mm(bf16, bf16).float()"
+
+        def product():
+            return torch.mm(h2, wt).float()
+
+    def library():  # cuBLAS product, bias, top-k and logsumexp (timed only)
+        logits = product() + b
+        return torch.topk(logits, BEAM), torch.logsumexp(logits, -1)
+    library_ms = cuda_ms(library)
+    bound_ms, bound_by = vocab_bf16_bound(ROWS, RNN, VOCAB, BEAM)
+    log("  vocab_topk_bf16 at rows=%d: %.4f ms (plain %.4f ms, library "
+        "%.4f ms [%s + bias, topk, logsumexp], bound %.4f ms by %s, %.1f "
+        "bf16 TFLOP/s)" % (ROWS, ms, plain_ms, library_ms, kind, bound_ms,
+                           bound_by, 2.0 * ROWS * RNN * VOCAB / ms / 1e9))
+    report["vocab_topk_bf16"] = dict(
+        max_abs_err=worst["abs"], max_rel_err=worst["rel"], ms=ms,
+        plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        library_kind=kind, near_tie_rows=near)
 
 
 def sinkhorn_bound(s, n, iters):
@@ -690,6 +804,37 @@ def replay_golden(report):
     report["golden_max_logprob_diff"] = out
 
 
+def replay_golden_bf16(report):
+    """Phase 4 for vsrcic_tpu_torch/testdata/golden_beam_bf16.npz (written
+    by `python tests/torch_parity.py --bf16`): each path through the
+    kernels gives JAX's words and gates; the bf16 kernel launches under
+    the variable on bf16 tables."""
+    import numpy as np
+    from vsrcic_tpu_torch.ops.vocab_topk import vocab_topk_lse
+    from vsrcic_tpu_torch.tools import golden_bf16 as gb
+    g = gb.load()
+    out = {}
+    for path in gb.PATHS:
+        before = vocab_topk_lse.launches_bf16
+        res = gb.replay(g, path, "cuda")
+        n_bf16 = vocab_topk_lse.launches_bf16 - before
+        if (n_bf16 > 0) != (path == "lhs_bf16"):
+            raise AssertionError("golden bf16 replay %s: %d bf16 vocab "
+                                 "launches" % (path, n_bf16))
+        for f in ("words", "gates"):
+            if not np.array_equal(getattr(res, f).cpu().numpy(),
+                                  g[path + "/" + f]):
+                raise AssertionError("golden bf16 replay %s: %s differ from "
+                                     "JAX" % (path, f))
+        err = max(float(np.abs(getattr(res, f).cpu().numpy()
+                               - g[path + "/" + f]).max())
+                  for f in ("scores", "word_logps", "gate_logps"))
+        log("  golden bf16 %s: words and gates identical to JAX; max "
+            "logprob diff %.3g; bf16 vocab launches %d" % (path, err, n_bf16))
+        out[path] = err
+    report["golden_bf16_max_logprob_diff"] = out
+
+
 def main_inputs():
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -724,23 +869,21 @@ MAIN_CFG = dict(seq_len=SEQ_LEN, vocab_size=VOCAB, bos_idx=2,
 VERBS = {str(i): [5 + i, 40 + i] for i in range(1, 200)}
 
 
-def main_captioner(mode=True, params=None):
+def main_captioner(mode=True, params=None, decode_dtype=None):
     """The bench.py configuration, weights from seed 0 unless `params`;
     mode True runs the kernels, "plain" their plain versions (same bf16
-    tables)."""
+    tables), False neither (the strict beam)."""
     import torch
     from vsrcic_tpu_torch.models.api import ControllableCaptioner
     from vsrcic_tpu_torch.models.captioner import CaptionerConfig
     return ControllableCaptioner(
         CaptionerConfig(**MAIN_CFG), params=params, seed=0,
         verb_2_vob_all=VERBS, use_fused_attention=mode, use_vocab_topk=mode,
-        table_dtype=torch.bfloat16, device="cuda")
+        table_dtype=torch.bfloat16, device="cuda", decode_dtype=decode_dtype)
 
 
 def run_main_path(report):
     import torch
-    from vsrcic_tpu_torch.ops.fused_attention import fused_group_attention
-    from vsrcic_tpu_torch.ops.vocab_topk import vocab_topk_lse
     t0 = time.perf_counter()
     fast = main_captioner()
     detections, det_groups, verb_list = main_inputs()
@@ -752,28 +895,18 @@ def run_main_path(report):
         return cap.beam_search_v(detections, det_groups, verb_list,
                                  eos_word=3, beam_size=BEAM)
 
-    run(fast)                                   # warm-up
-    torch.cuda.synchronize()
     n_batches = 3
-    fused_group_attention.launches = 0
-    vocab_topk_lse.launches = 0
-    t0 = time.perf_counter()
-    outs = [run(fast) for _ in range(n_batches)]
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {"fused_attention": fused_group_attention.launches,
-                "vocab_topk": vocab_topk_lse.launches}
+    inputs = (detections, det_groups, verb_list)
+    outs, dt, launches = timed_batches(fast, inputs, n_batches)
     caps = BATCH * n_batches / dt
     log("  main path: %d batches of %d captions (beam %d) in %.3f s: %.1f "
         "captions/s; launches %s" % (n_batches, BATCH, BEAM, dt, caps,
                                      launches))
-    for name, n in launches.items():
-        if n != SEQ_LEN * n_batches:
-            raise AssertionError("%s launched %d times in %d batches, "
-                                 "expected %d per batch"
-                                 % (name, n, n_batches, SEQ_LEN))
-    for res in outs:
-        check_result(res)
+    want = {"fused_attention": SEQ_LEN * n_batches,
+            "vocab_topk": SEQ_LEN * n_batches, "vocab_topk_bf16": 0}
+    if launches != want:
+        raise AssertionError("launches %s in %d batches, expected %s"
+                             % (launches, n_batches, want))
     for res in outs[1:]:
         if not (torch.equal(res.words, outs[0].words)
                 and torch.equal(res.gates, outs[0].gates)):
@@ -800,7 +933,107 @@ def run_main_path(report):
                              % share)
     report["main_path"].update(plain_seconds_per_batch=plain_s,
                                identical_share=share)
-    return launches
+    return launches, fast, inputs, outs[0]
+
+
+def caption_share(res, ref):
+    """The share of items whose caption, the best beam's words and gates
+    (what the eval CLI dumps), equals ref's."""
+    same = ((res.words[:, 0] == ref.words[:, 0]).all(-1)
+            & (res.gates[:, 0] == ref.gates[:, 0]).all(-1))
+    return float(same.float().mean())
+
+
+def timed_batches(cap, inputs, n_batches=3):
+    """One warm-up batch of `inputs` (main_inputs()), then n_batches timed
+    with the launch counts reset just before and read just after, every
+    result checked: (outputs, seconds, launches)."""
+    import torch
+    from vsrcic_tpu_torch.ops.fused_attention import fused_group_attention
+    from vsrcic_tpu_torch.ops.vocab_topk import vocab_topk_lse
+    detections, det_groups, verb_list = inputs
+
+    def run():
+        return cap.beam_search_v(detections, det_groups, verb_list,
+                                 eos_word=3, beam_size=BEAM)
+    run()
+    torch.cuda.synchronize()
+    fused_group_attention.launches = 0
+    vocab_topk_lse.launches = 0
+    vocab_topk_lse.launches_bf16 = 0
+    t0 = time.perf_counter()
+    outs = [run() for _ in range(n_batches)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"fused_attention": fused_group_attention.launches,
+                "vocab_topk": vocab_topk_lse.launches,
+                "vocab_topk_bf16": vocab_topk_lse.launches_bf16}
+    for res in outs:
+        check_result(res)
+    return outs, dt, launches
+
+
+def run_bf16_paths(report, fast, inputs, ref):
+    """Phases 5b (VSRCIC_VOCAB_LHS_BF16=1) and 5c (decode_dtype=bfloat16,
+    strict and fast) on phase 5's captioner `fast` and `inputs`; `ref` is
+    phase 5's first batch. Returns 5b's launch counts."""
+    import torch
+    from vsrcic_tpu_torch.tools.golden_bf16 import lhs_bf16
+    base = report["main_path"]["captions_per_s"]
+    n_batches = 3
+    with lhs_bf16(True):
+        outs, dt, launches = timed_batches(fast, inputs, n_batches)
+        caps = BATCH * n_batches / dt
+        log("  5b lhs bf16: %d batches in %.3f s: %.1f captions/s (phase 5: "
+            "%.1f); launches %s" % (n_batches, dt, caps, base, launches))
+        want = {k: SEQ_LEN * n_batches for k in launches}
+        if launches != want:
+            raise AssertionError("5b launches %s, expected %s" % (launches,
+                                                                  want))
+        # only the vocab op's plain result goes on (the fused kernel's own
+        # does: phases 3 and 6 hold it), so that the runs differ by the
+        # vocab op alone
+        check = PlainCheck(plain_on=("vocab_topk",))
+        detections, det_groups, verb_list = inputs
+        with call_sites(check):
+            checked = fast.beam_search_v(detections, det_groups, verb_list,
+                                         eos_word=3, beam_size=BEAM)
+        torch.cuda.synchronize()
+    differ = int(round((1 - caption_share(outs[0], checked)) * BATCH))
+    kept = caption_share(outs[0], ref)
+    log("  5b checked run: calls %s, max_abs_err %s, vocab near-tie rows %d; "
+        "captions differing from it %d; phase 5's captions kept %.4f"
+        % (check.calls, {k: "%.3g" % v for k, v in check.err.items()},
+           check.near_tie_rows, differ, kept))
+    if differ > check.near_tie_rows:
+        raise AssertionError("5b: %d captions differ between the kernels and "
+                             "their plain versions, with %d near-tie rows to "
+                             "explain them" % (differ, check.near_tie_rows))
+    report["lhs_bf16"] = dict(
+        captions_per_s=caps, seconds=dt, batches=n_batches,
+        launches=launches, checked_calls=check.calls,
+        checked_max_abs_err=check.err, near_tie_rows=check.near_tie_rows,
+        differ_from_checked=differ, phase5_share=kept)
+    out = {}
+    for name, mode in (("strict", False), ("fast", True)):
+        cap = main_captioner(mode, params=fast.params,
+                             decode_dtype=torch.bfloat16)
+        outs, dt, launches = timed_batches(cap, inputs, n_batches)
+        caps = BATCH * n_batches / dt
+        want = SEQ_LEN * n_batches if mode else 0
+        if launches != {"fused_attention": want, "vocab_topk": want,
+                        "vocab_topk_bf16": 0}:
+            raise AssertionError("5c %s launches %s" % (name, launches))
+        kept = caption_share(outs[0], ref)
+        log("  5c decode_dtype=bfloat16 %s: %d batches in %.3f s: %.1f "
+            "captions/s (phase 5: %.1f); launches %s; every caption valid; "
+            "phase 5's captions kept %.4f"
+            % (name, n_batches, dt, caps, base, launches, kept))
+        out[name] = dict(captions_per_s=caps, seconds=dt,
+                         batches=n_batches, launches=launches,
+                         phase5_share=kept)
+    report["decode_bf16"] = out
+    return report["lhs_bf16"]["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -1718,14 +1951,16 @@ class IndexWatch:
 class PlainCheck:
     """A call_sites wrap for 13b's checked run: every call runs the kernel
     and its plain version on the same inputs and passes the plain result
-    on, after holding the two to phase 3's tolerances (fused attention
-    rtol / atol 1e-5; vocab values and lse rtol 1e-5 / atol 1e-6, ids
-    exact or a near tie; Sinkhorn 1e-6)."""
+    on (of the kernels in `plain_on`; the others' own result), after
+    holding the two to phase 3's tolerances (fused attention rtol / atol
+    1e-5; vocab values and lse rtol 1e-5 / atol 1e-6, ids exact or a near
+    tie; Sinkhorn 1e-6)."""
 
-    def __init__(self):
+    def __init__(self, plain_on=ALL_KERNELS):
         self.calls = {name: 0 for name in ALL_KERNELS}
         self.err = {name: 0.0 for name in ALL_KERNELS}
         self.near_tie_rows = 0
+        self.plain_on = plain_on
 
     def __call__(self, name, kernel):
         import torch
@@ -1758,7 +1993,7 @@ class PlainCheck:
                                      "the kernel is %.3g from its plain "
                                      "version" % (name, self.calls[name],
                                                   err))
-            return want
+            return want if name in self.plain_on else got
         return checked
 
 
@@ -2722,6 +2957,20 @@ def main():
     log("[3] kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(1)
     kernels = {}
+    if "--vocab-bf16" in sys.argv[1:]:
+        check_vocab(gen, kernels)
+        check_vocab_bf16(gen, kernels)
+        log("[5] beam path (bench.py shapes, fast configuration)")
+        _, fast, inputs, ref = run_main_path(report)
+        log("[5b-5c] the beam's bf16 modes")
+        run_bf16_paths(report, fast, inputs, ref)
+        report["kernels"] = kernels
+        write_report(report)
+        print(card)
+        print(json.dumps({k: report[k] for k in ("lhs_bf16", "decode_bf16")}
+                         | {"vocab_topk_bf16": kernels["vocab_topk_bf16"]}))
+        print_device_line()
+        return 0
     if "--fused" in sys.argv[1:]:
         check_fused(gen, kernels)
         report["kernels"] = kernels
@@ -2788,15 +3037,20 @@ def main():
         return 0
     check_fused(gen, kernels)
     check_vocab(gen, kernels)
+    check_vocab_bf16(gen, kernels)
     check_sinkhorn(gen, kernels)
 
     # phase 4
     log("[4] golden replay")
     replay_golden(report)
+    replay_golden_bf16(report)
 
     # phases 5-6
     log("[5] beam path (bench.py shapes, fast configuration)")
-    beam_launches = run_main_path(report)
+    beam_launches, fast, inputs, ref = run_main_path(report)
+    log("[5b-5c] the beam's bf16 modes")
+    bf16_launches = run_bf16_paths(report, fast, inputs, ref)
+    del fast, inputs, ref
 
     # phase 7
     log("[7] golden pipeline replay")
@@ -2820,7 +3074,8 @@ def main():
 
     # phase 13: the slice's main path, the eval CLI
     cli_launches = run_phase13(report)
-    by_path = {"beam": beam_launches, "pipeline": launches,
+    by_path = {"beam": beam_launches, "beam_lhs_bf16": bf16_launches,
+               "pipeline": launches,
                "train_scst": train_launches, "train_sinkhorn": sink_launches,
                "eval_cli": cli_launches}
 
@@ -2854,6 +3109,20 @@ def main():
         row.update({"train_cli_" + f: v for f, v in
                     report["train_cli_kernels"].get(name, {}).items()})
         rows.append(row)
+    # the bf16-operand kernel runs on the beam under VSRCIC_VOCAB_LHS_BF16=1
+    # (phase 5b), its main path; no CLI flag selects it, as in JAX
+    k = kernels["vocab_topk_bf16"]
+    rows.append({
+        "name": "vocab_topk_bf16", "route": "cuda",
+        "source": "vsrcic_tpu_torch/csrc/vocab_topk.cu",
+        "replaces": "vsrcic_tpu/ops/vocab_topk.py:47 (lhs_dtype=bfloat16)",
+        "launches": bf16_launches["vocab_topk_bf16"],
+        "launches_by_path": {p: n.get("vocab_topk_bf16", 0)
+                             for p, n in by_path.items()},
+        "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
+        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+        "library_kind": k["library_kind"]})
     report["kernels"] = kernels
     write_report(report)
     print(card)

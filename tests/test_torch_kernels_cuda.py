@@ -214,6 +214,97 @@ def test_vocab_topk_kernel_matches_plain(cuda_device, case, table):
     torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-5)
 
 
+def _near_ties(h2, w_t, b, got, want, rtol):
+    """Rows whose ids differ; each must be a near tie: the plain logit of
+    every id the kernel chose within `rtol` of the plain value at its
+    rank. Returns the count of such rows."""
+    rows = torch.nonzero((got[1] != want[1]).any(1)).flatten()
+    logits = h2[rows].float() @ w_t.float() + b
+    for i, r in enumerate(rows.tolist()):
+        lk = logits[i, got[1][r].long()]
+        assert torch.all((lk - want[0][r]).abs()
+                         <= rtol * want[0][r].abs()), r
+    return int(rows.numel())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ties", "multi_chunk", "row_blocked"])
+def test_vocab_topk_bf16_kernel_matches_plain(cuda_device, case):
+    """bf16 h2 and table: the tensor-core kernel, ids exact on the tie
+    cases, values and lse at phase 3's bar."""
+    h2, w_t, b, k, _ = vocab_case(case)
+    args = (torch.from_numpy(h2).to(cuda_device, torch.bfloat16),
+            torch.from_numpy(w_t).to(cuda_device, torch.bfloat16),
+            torch.from_numpy(b).to(cuda_device))
+    before = (vocab_topk_lse.launches, vocab_topk_lse.launches_bf16)
+    got = vocab_topk_lse(*args, k)
+    torch.cuda.synchronize()
+    assert (vocab_topk_lse.launches, vocab_topk_lse.launches_bf16) == (
+        before[0] + 1, before[1] + 1)
+    want = vocab_topk_lse_plain(*args, k)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(37, 77, 1001, 5), (3, 1000, 130, 1),
+                                   (101, 129, 257, 16), (130, 64, 136, 5),
+                                   (512, 1000, 10000, 5)])
+def test_vocab_topk_bf16_kernel_ragged(cuda_device, shape):
+    """R not a multiple of 16 (77, 129: the slices' zero-filled depth), rows
+    and V past a tile's edge, unaligned rows (element loads), k up to
+    K_MAX; ids equal save near ties."""
+    rows, r, v, k = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + r)
+    h2 = torch.randn((rows, r), generator=gen, device=cuda_device)
+    w_t = torch.randn((r, v), generator=gen, device=cuda_device) / r ** 0.5
+    b = torch.randn((v,), generator=gen, device=cuda_device)
+    args = (h2.bfloat16(), w_t.bfloat16(), b)
+    got = vocab_topk_lse(*args, k)
+    torch.cuda.synchronize()
+    want = vocab_topk_lse_plain(*args, k)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-6)
+    assert _near_ties(*args, got, want, 1e-5) <= rows // 100 + 1
+
+
+@pytest.mark.cuda
+def test_vocab_topk_bf16_lhs_on_f32_table(cuda_device):
+    """bf16 h2 on an f32 table: h2 upcast, the f32 kernel (not counted as
+    a bf16 launch), the same bits as the f32 kernel on the upcast h2."""
+    h2, w_t, b, k, _ = vocab_case("ties")
+    h2 = torch.from_numpy(h2).to(cuda_device, torch.bfloat16)
+    w_t = torch.from_numpy(w_t).to(cuda_device)
+    b = torch.from_numpy(b).to(cuda_device)
+    before = (vocab_topk_lse.launches, vocab_topk_lse.launches_bf16)
+    got = vocab_topk_lse(h2, w_t, b, k)
+    assert (vocab_topk_lse.launches, vocab_topk_lse.launches_bf16) == (
+        before[0] + 1, before[1])
+    want = vocab_topk_lse(h2.float(), w_t, b, k)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_vocab_topk_refuses_what_it_cannot_take(cuda_device):
+    h2 = torch.zeros((4, 16), device=cuda_device)
+    w_t = torch.zeros((16, 40), device=cuda_device)
+    b = torch.zeros((40,), device=cuda_device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        vocab_topk_lse(h2.half(), w_t, b, 5)
+    with pytest.raises(ValueError, match="bfloat16"):
+        vocab_topk_lse(h2.bfloat16(), w_t.double(), b, 5)
+    with pytest.raises(ValueError, match="bias"):
+        vocab_topk_lse(h2.bfloat16(), w_t.bfloat16(), b.bfloat16(), 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        vocab_topk_lse(h2.bfloat16(),
+                       w_t.bfloat16().t().contiguous().t(), b, 5)
+    out = vocab_topk_lse(h2[:0].bfloat16(), w_t.bfloat16(), b, 5)
+    assert [tuple(x.shape) for x in out] == [(0, 5), (0, 5), (0, 1)]
+
+
 # n at the edges of the kernel's packing: 32 // n matrices per warp up to
 # n = 16, one per warp up to 32, one block per matrix above
 SINK_N = [1, 2, 3, 10, 11, 16, 17, 31, 32, 33, 64, 241]

@@ -15,6 +15,7 @@ the JAX package and reach the port through its weight bridge
     python tests/torch_parity.py --xe-full-width   # XE losses at full width, both packages
     python tests/torch_parity.py --eval-cli   # golden_eval_cli.npz only
     python tests/torch_parity.py --train-cli   # golden_train_cli.npz only
+    python tests/torch_parity.py --bf16   # golden_beam_bf16.npz only
 
 `--eval-cli` writes only the eval CLI's fixture: tiny checkpoints (f16-exact
 weights, stored as f16) and what both packages' CLIs print and dump from
@@ -156,23 +157,31 @@ def to_numpy_tree(tree):
             for k, v in tree.items()}
 
 
-def jax_captioner(params, fast=None, step_bf16=False):
+def jax_captioner(params, fast=None, step_bf16=False, decode_bf16=False,
+                  cfg=None):
     """fast: None (strict), "f32" or "bf16" (fused attention + vocab top-k
     through the Pallas kernels in interpret mode, with that table dtype).
-    step_bf16: store the big fused step weights in bf16 (step_dtype)."""
+    step_bf16: store the big fused step weights in bf16 (step_dtype).
+    decode_bf16: decode_dtype=bfloat16. cfg: CaptionerConfig kwargs (this
+    file's small config when None)."""
     import jax.numpy as jnp
     from vsrcic_tpu.models.api import ControllableCaptioner
+    from vsrcic_tpu.models.captioner import CaptionerConfig
     kw = {}
     if fast is not None:
         kw = dict(use_fused_attention=True, use_vocab_topk=True,
                   pallas_interpret=True,
                   table_dtype=jnp.bfloat16 if fast == "bf16" else None,
                   step_dtype=jnp.bfloat16 if step_bf16 else None)
-    return ControllableCaptioner(jax_cfg(), params=params,
-                                 verb_2_vob_all=VERB_TABLE, **kw)
+    if decode_bf16:
+        kw["decode_dtype"] = jnp.bfloat16
+    return ControllableCaptioner(
+        jax_cfg() if cfg is None else CaptionerConfig(**cfg), params=params,
+        verb_2_vob_all=VERB_TABLE, **kw)
 
 
-def torch_captioner(params_np, fast=None, device="cpu", step_bf16=False):
+def torch_captioner(params_np, fast=None, device="cpu", step_bf16=False,
+                    decode_bf16=False):
     import torch
     from vsrcic_tpu_torch.models.api import ControllableCaptioner
     from vsrcic_tpu_torch.utils.params import params_from_jax
@@ -181,6 +190,8 @@ def torch_captioner(params_np, fast=None, device="cpu", step_bf16=False):
         kw = dict(use_fused_attention=True, use_vocab_topk=True,
                   table_dtype=torch.bfloat16 if fast == "bf16" else None,
                   step_dtype=torch.bfloat16 if step_bf16 else None)
+    if decode_bf16:
+        kw["decode_dtype"] = torch.bfloat16
     return ControllableCaptioner(torch_cfg(),
                                  params=params_from_jax(params_np, device),
                                  verb_2_vob_all=VERB_TABLE, device=device,
@@ -208,6 +219,34 @@ def assert_beams_match(got, want):
                                    err_msg=f)
 
 
+def assert_beams_match_save_tied(got, want):
+    """assert_beams_match, save that the per-step logprobs of two beams of
+    an item may be exchanged at a step where both chose the same word and
+    gate from parents whose scores tie within f32 rounding. bf16 operands
+    make such ties: at step 7 of `inputs(2)` under VSRCIC_VOCAB_LHS_BF16
+    the port's two best candidates are 1 ulp apart (-26.54134369,
+    -26.54134560), at step 5 of golden_beam_bf16.npz's item 5 under
+    decode_dtype bit-equal; JAX's order of each pair is the other one. The
+    order of the two rests on the last bit of upstream sums, and with it
+    which beam's record holds which parent's logprobs; words, gates and
+    scores are held to assert_beams_match's bar all the same."""
+    got, want = result_arrays(got), result_arrays(want)
+    np.testing.assert_array_equal(got["words"], want["words"])
+    np.testing.assert_array_equal(got["gates"], want["gates"])
+    np.testing.assert_allclose(got["scores"], want["scores"], rtol=1e-5,
+                               atol=1e-6, err_msg="scores")
+    close = lambda a, b: np.abs(a - b) <= 1e-6 + 1e-5 * np.abs(b)
+    for f in ("word_logps", "gate_logps"):
+        for i, k, t in np.argwhere(~close(got[f], want[f])):
+            peers = [j for j in range(got[f].shape[1])
+                     if got["words"][i, j, t] == got["words"][i, k, t]
+                     and got["gates"][i, j, t] == got["gates"][i, k, t]
+                     and all(close(got[h][i, k, t], want[h][i, j, t])
+                             for h in ("word_logps", "gate_logps"))]
+            assert peers, "%s differs at %s with no tied peer" % (
+                f, (i, k, t))
+
+
 def golden_arrays():
     """The golden fixture's contents, computed by the JAX package."""
     from vsrcic_tpu_torch.utils.params import flatten
@@ -227,6 +266,36 @@ def golden_arrays():
             beam_size=GOLDEN_BEAM)
         for f, x in result_arrays(res).items():
             out[name + "/" + f] = x
+    return out
+
+
+def golden_bf16_arrays():
+    """The bf16 modes' fixture (vsrcic_tpu_torch/tools/golden_bf16.py says
+    what it holds), computed by the JAX package; the weights are drawn from
+    numpy's seed in both packages, over the keys and shapes of JAX's
+    init."""
+    import jax
+    from vsrcic_tpu.models.captioner import (CaptionerConfig,
+                                             init_captioner_params)
+    from vsrcic_tpu_torch.tools import golden_bf16 as gb
+    from vsrcic_tpu_torch.utils.params import seeded_params
+    params = seeded_params(to_numpy_tree(init_captioner_params(
+        jax.random.PRNGKey(0), CaptionerConfig(**gb.CFG))), gb.PARAM_SEED)
+    detections, groups, verb_list = gb.inputs()
+    out = dict(detections=detections, det_groups=groups, verb_list=verb_list,
+               beam_size=np.int64(gb.BEAM), eos_word=np.int64(gb.EOS),
+               param_seed=np.int64(gb.PARAM_SEED),
+               config=np.array(json.dumps(gb.CFG, sort_keys=True)))
+    assert gb.VERB_TABLE == VERB_TABLE
+    for name, (fast, decode_bf16, lhs) in gb.PATHS.items():
+        # a new captioner per path: JAX reads the variable when it traces
+        with gb.lhs_bf16(lhs):
+            res = jax_captioner(params, fast, decode_bf16=decode_bf16,
+                                cfg=gb.CFG).beam_search_v(
+                detections, groups, verb_list, eos_word=gb.EOS,
+                beam_size=gb.BEAM)
+            for f, x in result_arrays(res).items():
+                out[name + "/" + f] = x
     return out
 
 
@@ -1136,6 +1205,11 @@ if __name__ == "__main__":
     if "--eval-cli" in sys.argv[1:]:
         from vsrcic_tpu_torch.tools.eval_checkpoints import GOLDEN as G
         np.savez_compressed(G, **eval_cli_golden_arrays())
+        print("wrote", G, os.path.getsize(G), "bytes")
+        sys.exit(0)
+    if "--bf16" in sys.argv[1:]:
+        from vsrcic_tpu_torch.tools.golden_bf16 import GOLDEN as G
+        np.savez_compressed(G, **golden_bf16_arrays())
         print("wrote", G, os.path.getsize(G), "bytes")
         sys.exit(0)
     if "--planners" in sys.argv[1:]:

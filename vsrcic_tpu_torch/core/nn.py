@@ -71,8 +71,18 @@ def layer_norm_init(size, dtype=torch.float32) -> Params:
 # Layers
 # ---------------------------------------------------------------------------
 
+def matmul_t(x, w):
+    """x @ w.T with jnp's type promotion: operands of two dtypes meet in
+    the wider one (a bf16 weight and an f32 input: an f32 product of the
+    exact upcast); two bf16 operands give a bf16 product."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w.T
+
+
 def linear(p: Params, x):
-    y = x @ p["weight"].T
+    y = matmul_t(x, p["weight"])
     if "bias" in p:
         y = y + p["bias"]
     return y
@@ -85,8 +95,8 @@ def embedding(p: Params, ids):
 def lstm_cell(p: Params, x, state):
     """One LSTM step (torch gate packing i, f, g, o). state = (h, c)."""
     h, c = state
-    gates = (x @ p["weight_ih"].T + p["bias_ih"] + h @ p["weight_hh"].T
-             + p["bias_hh"])
+    gates = (matmul_t(x, p["weight_ih"]) + p["bias_ih"]
+             + matmul_t(h, p["weight_hh"]) + p["bias_hh"])
     i, f, g, o = torch.chunk(gates, 4, dim=-1)
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)

@@ -15,13 +15,25 @@ opted into with the same switches as in JAX:
     out_fc table (torch.bfloat16 halves the bytes read per step). Unlike
     JAX's "xla" mode, "plain" reads the same cast table as the kernel, so
     the two differ only in the kernel;
-  * step_dtype: storage dtype of the big fused step weights.
+  * step_dtype: storage dtype of the big fused step weights;
+  * decode_dtype: every parameter cast to it for `test`, `beam_search` and
+    `beam_search_v` (`forward` and `sample_rl` keep the parameters as
+    given), and the statics tables' dtype when table_dtype is None. The
+    step then follows JAX's type promotion: a bf16 weight meets the f32
+    state as an f32 product of its exact upcast, and only products of two
+    bf16 operands (the groups' projection) stay bf16.
+
+The environment variable VSRCIC_VOCAB_LHS_BF16=1 (JAX's knob, read where
+JAX reads it: whenever a beam builds its vocab op, and only when
+use_vocab_topk is True) rounds the vocab op's h2 to bf16; on a bf16 table
+the card then runs the product on its tensor cores.
 
 Entry points run on the CUDA card unless `device` names another; a missing
 card raises.
 """
 from __future__ import annotations
 
+import os
 from functools import partial
 from typing import Dict, Optional
 
@@ -41,6 +53,7 @@ from vsrcic_tpu_torch.ops.fused_attention import (
 from vsrcic_tpu_torch.ops.vocab_topk import (vocab_topk_lse,
                                              vocab_topk_lse_plain)
 from vsrcic_tpu_torch.utils.device import as_tensor, resolve_device, to_device
+from vsrcic_tpu_torch.utils.params import flatten, unflatten
 
 _MODES = (False, True, "plain")
 
@@ -63,11 +76,13 @@ class ControllableCaptioner:
     def __init__(self, cfg: CaptionerConfig, params=None, seed: int = 1234,
                  verb_2_vob_all: Optional[Dict] = None,
                  use_fused_attention=False, use_vocab_topk=False,
-                 table_dtype=None, step_dtype=None, device=None):
+                 table_dtype=None, step_dtype=None, device=None,
+                 decode_dtype=None):
         """params: nested dict of tensors or arrays in torch layout (e.g.
         `utils.params.params_from_jax` of a JAX tree); made from `seed`
         when None. device: "cuda" unless given; "cpu" runs the plain
-        versions of the kernels."""
+        versions of the kernels. decode_dtype: a torch dtype or None (see
+        the module's note)."""
         if use_fused_attention not in _MODES or use_vocab_topk not in _MODES:
             raise ValueError("use_fused_attention / use_vocab_topk must be "
                              "one of False, True, 'plain'")
@@ -81,6 +96,10 @@ class ControllableCaptioner:
         self.use_vocab_topk = use_vocab_topk
         self.table_dtype = table_dtype
         self.step_dtype = step_dtype
+        self.decode_dtype = decode_dtype
+        self.decode_params = self.params if decode_dtype is None else \
+            unflatten({k: v.to(decode_dtype) if v.is_floating_point() else v
+                       for k, v in flatten(self.params).items()})
         self.tense_table = (build_verb_tense_table(verb_2_vob_all,
                                                    device=self.device)
                             if verb_2_vob_all is not None else None)
@@ -88,7 +107,7 @@ class ControllableCaptioner:
 
     # -- impls ---------------------------------------------------------------
     def _cast(self, a):
-        dt = self.table_dtype
+        dt = self.table_dtype or self.decode_dtype
         return a.to(dt) if dt is not None and a.is_floating_point() else a
 
     def _fused_statics(self, params, detections, det_groups, verb_list=None):
@@ -105,7 +124,8 @@ class ControllableCaptioner:
             return statics, None, None
         fused = (fused_group_attention if self.use_fused_attention is True
                  else fused_group_attention_plain)
-        tdt = self.table_dtype or statics.det_groups.dtype
+        tdt = (self.table_dtype or self.decode_dtype
+               or statics.det_groups.dtype)
         fw = derive_fused_step_weights(params, self.cfg,
                                        dtype=self.step_dtype)
         # the image-descriptor slice of the input_1 projection is
@@ -119,17 +139,24 @@ class ControllableCaptioner:
         return statics, fused, fw
 
     def _vocab_fn_and_tables(self, k):
-        """The vocab op and its out_fc tables (w_t (R, V), bias (V,)),
-        prepared once per captioner."""
+        """The vocab op and its out_fc tables (w_t (R, V) in table_dtype or
+        f32, bias (V,) f32), made from the decode params once per
+        captioner. With use_vocab_topk True, VSRCIC_VOCAB_LHS_BF16=1 (read
+        on every call, as JAX reads it on every trace) makes the op round
+        h2 to bf16 first, as JAX's `make_vocab_topk_lse(lhs_dtype=
+        bfloat16)` does; "plain" ignores it, as JAX's "xla" path does."""
         if self._vocab_tables is None:
-            w_t = self.params["out_fc"]["weight"].T
-            if self.table_dtype is not None:
-                w_t = w_t.to(self.table_dtype)
+            out_fc = self.decode_params["out_fc"]
+            w_t = out_fc["weight"].T.to(self.table_dtype or torch.float32)
             self._vocab_tables = (w_t.contiguous(),
-                                  self.params["out_fc"]["bias"].contiguous())
-        fn = (vocab_topk_lse if self.use_vocab_topk is True
-              else vocab_topk_lse_plain)
-        return partial(fn, k=k), self._vocab_tables
+                                  out_fc["bias"].float().contiguous())
+        if self.use_vocab_topk is not True:
+            return partial(vocab_topk_lse_plain, k=k), self._vocab_tables
+        if os.environ.get("VSRCIC_VOCAB_LHS_BF16", "0") == "1":
+            return (lambda h2, w_t, b: vocab_topk_lse(h2.to(torch.bfloat16),
+                                                      w_t, b, k=k),
+                    self._vocab_tables)
+        return partial(vocab_topk_lse, k=k), self._vocab_tables
 
     @torch.no_grad()
     def _greedy_impl(self, params, detections, det_groups):
@@ -146,10 +173,10 @@ class ControllableCaptioner:
                              fused_w=fw)
 
     @torch.no_grad()
-    def _beam_v_impl(self, detections, det_groups, verb_list, beam_size,
-                     eos_word, gt):
+    def _beam_v_impl(self, params, detections, det_groups, verb_list,
+                     beam_size, eos_word, gt):
         b = detections.shape[0]
-        statics, fused, fw = self._fused_statics(self.params, detections,
+        statics, fused, fw = self._fused_statics(params, detections,
                                                  det_groups,
                                                  verb_list=verb_list)
         state = init_state(self.cfg, b * beam_size, device=self.device)
@@ -158,7 +185,7 @@ class ControllableCaptioner:
 
             def step_fn(state, pw, pg, t0):
                 return captioner_step_v_topk(
-                    self.params, self.cfg, state, statics, self.tense_table,
+                    params, self.cfg, state, statics, self.tense_table,
                     vocab_fn, tables, prev_word=pw, prev_gate=pg, t0=t0,
                     gt=gt, beam=beam_size, k=beam_size, fused_fn=fused,
                     fused_w=fw)
@@ -168,7 +195,7 @@ class ControllableCaptioner:
                 eos_word=eos_word, vocab_size=self.cfg.vocab_size)
 
         def step_fn(state, pw, pg, t0):
-            return captioner_step_v(self.params, self.cfg, state, statics,
+            return captioner_step_v(params, self.cfg, state, statics,
                                     self.tense_table, prev_word=pw,
                                     prev_gate=pg, t0=t0, gt=gt,
                                     beam=beam_size, fused_fn=fused,
@@ -178,13 +205,14 @@ class ControllableCaptioner:
                                  self.cfg.seq_len, eos_word=eos_word)
 
     @torch.no_grad()
-    def _beam_impl(self, detections, det_groups, beam_size, eos_word):
+    def _beam_impl(self, params, detections, det_groups, beam_size,
+                   eos_word):
         b = detections.shape[0]
-        statics, fused, fw = self._fused_statics(self.params, detections,
+        statics, fused, fw = self._fused_statics(params, detections,
                                                  det_groups)
 
         def step_fn(state, pw, pg, t0):
-            return captioner_step(self.params, self.cfg, state, statics,
+            return captioner_step(params, self.cfg, state, statics,
                                   prev_word=pw, prev_gate=pg, t0=t0,
                                   beam=beam_size, fused_fn=fused, fused_w=fw)
 
@@ -207,7 +235,8 @@ class ControllableCaptioner:
     def test(self, detections, ctrl_det_seqs_test):
         """Greedy decode: (words (B, T), gates (B, T))."""
         dev = self.device
-        return self._greedy_impl(self.params, as_tensor(detections, dev),
+        return self._greedy_impl(self.decode_params,
+                                 as_tensor(detections, dev),
                                  as_tensor(ctrl_det_seqs_test, dev))
 
     def sample_rl(self, detections, ctrl_det_seqs_test, gen):
@@ -224,7 +253,8 @@ class ControllableCaptioner:
         det_groups (B, L, M, D) (float32 or bfloat16, M padded or not),
         verb_list (B, L) verb ids or -1. Tensors or arrays."""
         dev = self.device
-        return self._beam_v_impl(as_tensor(detections, dev),
+        return self._beam_v_impl(self.decode_params,
+                                 as_tensor(detections, dev),
                                  as_tensor(det_groups, dev),
                                  as_tensor(verb_list, dev, torch.long),
                                  beam_size=beam_size, eos_word=eos_word,
@@ -234,6 +264,6 @@ class ControllableCaptioner:
                     beam_size=5) -> BeamResult:
         """Beam decode without verb substitution (dense joint beam)."""
         dev = self.device
-        return self._beam_impl(as_tensor(detections, dev),
+        return self._beam_impl(self.decode_params, as_tensor(detections, dev),
                                as_tensor(det_groups, dev),
                                beam_size=beam_size, eos_word=eos_word)

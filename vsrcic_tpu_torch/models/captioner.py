@@ -200,10 +200,10 @@ def precompute_statics(params, cfg: CaptionerConfig, detections, det_groups,
                        verb_list=None) -> Statics:
     """detections: (B, N, D) raw detections; det_groups: (B, L, M, D).
     Computed in the inputs' dtype, as the JAX step does (the projection of
-    bf16 groups is an f32 product of their upcast)."""
+    bf16 groups by f32 weights is an f32 product of their upcast; by bf16
+    weights a bf16 product)."""
     image_descriptor = image_descriptor_f32(detections).to(detections.dtype)
-    groups_proj = nn.linear(params["att_va"],
-                            det_groups.to(params["att_va"]["weight"].dtype))
+    groups_proj = nn.linear(params["att_va"], det_groups)
     groups_mask = (det_groups.sum(-1) != 0).to(det_groups.dtype)
     return Statics(image_descriptor, det_groups, groups_proj, groups_mask,
                    verb_list)
@@ -300,8 +300,8 @@ def _step_core_fused(params, cfg: CaptionerConfig, state: CaptionerState,
     att_detections, det_w_sum = fused_fn(
         item.to(torch.int32), ctrl.to(torch.int32), ha.contiguous(),
         sent_w.contiguous(), sent_mask, fc_sentinel.contiguous(),
-        params["att_a"]["weight"][0].contiguous(), statics.det_groups,
-        statics.det_groups_proj)
+        params["att_a"]["weight"][0].float().contiguous(),
+        statics.det_groups, statics.det_groups_proj)
 
     if cfg.img_second_lstm:
         image_descriptor = statics.image_descriptor[item]
@@ -504,7 +504,8 @@ def _verb_target(params, h2, verb_curr, tense_table: Optional[VerbTenseTable],
     cand = _tense_candidates(tense_table, verb_curr)          # (B, Kt)
     safe = torch.clamp(cand, 0, vocab_size - 1)
     w_cols = params["out_fc"]["weight"][safe]                 # (B, Kt, R)
-    logits_cand = (torch.einsum("br,bkr->bk", h2, w_cols)
+    dt = torch.promote_types(h2.dtype, w_cols.dtype)   # as jnp.einsum
+    logits_cand = (torch.einsum("br,bkr->bk", h2.to(dt), w_cols.to(dt))
                    + params["out_fc"]["bias"][safe]).float()
     return _pick_tense(cand, logits_cand)
 

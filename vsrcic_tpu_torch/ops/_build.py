@@ -45,6 +45,7 @@ SIGNATURES = {
                                I, I, I, I, I, I, I, I, I, I, I, I, I,
                                I, I, P, P, P],
     "vsrcic_vocab_topk": [P, P, P, I, I, I, I, I, P, P, P, P, P, P, P, P],
+    "vsrcic_vocab_topk_bf16": [P, P, P, I, I, I, I, P, P, P, P, P, P, P, P],
     "vsrcic_sinkhorn": [P, I, I, I, F, F, P, P],
 }
 

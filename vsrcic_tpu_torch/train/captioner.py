@@ -252,6 +252,7 @@ class CaptionerSCSTTrainer:
             # a kernel factory only: every decode passes the live params, so
             # its construction-time params must never be read
             self._fast.params = None
+            self._fast.decode_params = None
 
     def set_lr(self, lr: float):
         self.state = TrainState(self.state.params,
