@@ -39,8 +39,11 @@
 //     of the tile. The accumulators then go through shared memory into the
 //     f32 kernel's register layout and the same fold.
 //   Stage 2: one warp per row merges the partials of all vocab tiles.
-// Every comparison orders by (value descending, vocab id ascending), which
-// is jax.lax.top_k's rule. Every logit is summed over R in the same order,
+// Every comparison orders by (XLA's total-order key descending, vocab id
+// ascending), which is jax.lax.top_k's rule: NaN above +inf, +0 above -0;
+// the logsumexp shifts by the max only where it is finite
+// (jax.nn.logsumexp), so a row with a NaN gives NaN, one with +inf +inf
+// and an all -inf row -inf. Every logit is summed over R in the same order,
 // so duplicated weight columns give bit-equal logits and tie exactly. The
 // ragged edges of rows, R and V are masked in the kernel: a column past V
 // is never a candidate and adds nothing to the sum.
@@ -58,38 +61,76 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int K_MAX = 16;     // ops/vocab_topk.K_MAX
 constexpr int NO_ID = 0x7fffffff;
+constexpr int KEY_LOW = (int)0x80000000;  // the lowest total-order key
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// (value descending, id ascending)
-__device__ __forceinline__ bool better(float v1, int i1, float v2, int i2) {
-  return v1 > v2 || (v1 == v2 && i1 < i2);
+// XLA's total-order key of an f32 (core/nn.py::total_order_key): its bits
+// as an int32, the negative ones xor-ed with 0x7fffffff. Ordered as ints,
+// keys order -NaN < -inf < ... < -0 < +0 < ... < +inf < +NaN; the map is
+// its own inverse.
+__device__ __forceinline__ int order_key(float x) {
+  const int b = __float_as_int(x);
+  return b < 0 ? b ^ 0x7fffffff : b;
 }
 
-// warp-wide best (value, id) pair
-__device__ __forceinline__ void warp_best(float& v, int& id) {
+__device__ __forceinline__ float key_value(int key) {
+  return __int_as_float(key < 0 ? key ^ 0x7fffffff : key);
+}
+
+// (key descending, id ascending): jax.lax.top_k's order. A slot is seeded
+// with (KEY_LOW, NO_ID), which every real candidate beats (its id is lower).
+__device__ __forceinline__ bool better(int k1, int i1, int k2, int i2) {
+  return k1 > k2 || (k1 == k2 && i1 < i2);
+}
+
+// warp-wide best (key, id) pair
+__device__ __forceinline__ void warp_best(int& key, int& id) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+    const int ok = __shfl_xor_sync(0xffffffffu, key, o);
     const int oi = __shfl_xor_sync(0xffffffffu, id, o);
-    if (better(ov, oi, v, id)) {
-      v = ov;
+    if (better(ok, oi, key, id)) {
+      key = ok;
       id = oi;
     }
   }
 }
 
-// combine two (max, sum of exp(x - max)) pairs; s == 0 marks an empty pair
+// The logsumexp follows jax.nn.logsumexp: the sum of exp(x - shift), shift
+// the max where it is finite, else 0. A part is (m, s): m its max (NaN if
+// any of its values is NaN), s its sum of exp(x - shift(m)); (-inf, 0) is
+// empty or all -inf.
+__device__ __forceinline__ float lse_shift(float m) {
+  return isfinite(m) ? m : 0.f;
+}
+
+// max that propagates NaN (fmaxf drops it)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a != a || b != b) ? a + b : fmaxf(a, b);
+}
+
+// combine two parts: any NaN gives NaN; a +inf max gives an infinite sum
 __device__ __forceinline__ void lse_combine(float& m, float& s, float om,
                                             float os) {
-  const float nm = fmaxf(m, om);
-  const float a = (s == 0.f) ? 0.f : s * expf(m - nm);
-  const float b = (os == 0.f) ? 0.f : os * expf(om - nm);
+  const float nm = max_nan(m, om);
+  if (nm != nm || nm == INFINITY) {
+    s = nm;        // the lse is NaN, or +inf
+  } else if (nm == -INFINITY) {
+    s = 0.f;       // both empty or all -inf: the lse is -inf
+  } else {
+    const float a = (s == 0.f) ? 0.f : s * expf(m - nm);
+    const float b = (os == 0.f) ? 0.f : os * expf(om - nm);
+    s = a + b;
+  }
   m = nm;
-  s = a + b;
+}
+
+__device__ __forceinline__ float lse_final(float m, float s) {
+  return lse_shift(m) + logf(s);
 }
 
 __device__ __forceinline__ void warp_lse(float& m, float& s) {
@@ -102,11 +143,11 @@ __device__ __forceinline__ void warp_lse(float& m, float& s) {
 }
 
 // half-warp (16 lanes sharing a row) reductions
-__device__ __forceinline__ float half_max(float x) {
+__device__ __forceinline__ int half_max(int key) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+    key = max(key, __shfl_xor_sync(0xffffffffu, key, o));
+  return key;
 }
 
 __device__ __forceinline__ float half_sum(float x) {
@@ -115,13 +156,13 @@ __device__ __forceinline__ float half_sum(float x) {
   return x;
 }
 
-__device__ __forceinline__ void half_best(float& v, int& id) {
+__device__ __forceinline__ void half_best(int& key, int& id) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+    const int ok = __shfl_xor_sync(0xffffffffu, key, o);
     const int oi = __shfl_xor_sync(0xffffffffu, id, o);
-    if (better(ov, oi, v, id)) {
-      v = ov;
+    if (better(ok, oi, key, id)) {
+      key = ok;
       id = oi;
     }
   }
@@ -151,20 +192,24 @@ __device__ __forceinline__ void fold_tile(
   for (int i = 0; i < 8; ++i) {
     const int gr = row0 + ((i < 4) ? ty * 4 + i : 64 + ty * 4 + (i - 4));
     float x[8];
-    int xi[8];
-    float m = -INFINITY;
+    int xk[8], xi[8];
+    int mk = KEY_LOW;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const bool ok = col[j] < V;
-      x[j] = ok ? acc[i][j] + bcol[j] : -INFINITY;
+      x[j] = acc[i][j] + bcol[j];
+      xk[j] = ok ? order_key(x[j]) : KEY_LOW;
       xi[j] = ok ? col[j] : NO_ID;
-      if (ok) m = fmaxf(m, x[j]);
+      mk = max(mk, xk[j]);
     }
-    m = half_max(m);   // every row has a valid column in some lane
+    // the row's max by key: a sum's NaN is the card's canonical one (sign
+    // clear), the largest key, so m is NaN if any value is
+    const float m = key_value(half_max(mk));
+    const float sh = lse_shift(m);
     float s = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      if (xi[j] != NO_ID) s += expf(x[j] - m);
+      if (xi[j] != NO_ID) s += expf(x[j] - sh);
     s = half_sum(s);
     const bool write = gr < rows && tx == 0;
     const size_t prow = (size_t)tile * rows + gr;
@@ -173,23 +218,23 @@ __device__ __forceinline__ void fold_tile(
       part_s[prow] = s;
     }
     for (int q = 0; q < k; ++q) {
-      float bv = -INFINITY;
+      int bk = KEY_LOW;
       int bi = NO_ID;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        if (better(x[j], xi[j], bv, bi)) {
-          bv = x[j];
+        if (better(xk[j], xi[j], bk, bi)) {
+          bk = xk[j];
           bi = xi[j];
         }
-      half_best(bv, bi);
+      half_best(bk, bi);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         if (xi[j] == bi && bi != NO_ID) {
-          x[j] = -INFINITY;
+          xk[j] = KEY_LOW;
           xi[j] = NO_ID;
         }
       if (write) {
-        part_vals[prow * k + q] = bv;
+        part_vals[prow * k + q] = key_value(bk);
         part_ids[prow * k + q] = bi;
       }
     }
@@ -519,11 +564,10 @@ vocab_merge_kernel(int rows, int k, int n_tiles,
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (r >= rows) return;
-  float lv[K_MAX];
-  int li[K_MAX];
+  int lk[K_MAX], li[K_MAX];
 #pragma unroll
   for (int j = 0; j < K_MAX; ++j) {
-    lv[j] = -INFINITY;
+    lk[j] = KEY_LOW;
     li[j] = NO_ID;
   }
   float m = -INFINITY, s = 0.f;
@@ -531,17 +575,17 @@ vocab_merge_kernel(int rows, int k, int n_tiles,
     const size_t prow = (size_t)t * rows + r;
     lse_combine(m, s, part_m[prow], part_s[prow]);
     for (int q = 0; q < k; ++q) {
-      float x = part_vals[prow * k + q];
+      int xk = order_key(part_vals[prow * k + q]);
       int xi = part_ids[prow * k + q];
-      if (!better(x, xi, lv[K_MAX - 1], li[K_MAX - 1])) break;  // sorted
+      if (!better(xk, xi, lk[K_MAX - 1], li[K_MAX - 1])) break;  // sorted
 #pragma unroll
       for (int j = 0; j < K_MAX; ++j) {
-        if (better(x, xi, lv[j], li[j])) {
-          const float tv = lv[j];
+        if (better(xk, xi, lk[j], li[j])) {
+          const int tk = lk[j];
           const int ti = li[j];
-          lv[j] = x;
+          lk[j] = xk;
           li[j] = xi;
-          x = tv;
+          xk = tk;
           xi = ti;
         }
       }
@@ -549,24 +593,24 @@ vocab_merge_kernel(int rows, int k, int n_tiles,
   }
   warp_lse(m, s);
   for (int q = 0; q < k; ++q) {
-    float bv = lv[0];
+    int bk = lk[0];
     int bi = li[0];
-    warp_best(bv, bi);
+    warp_best(bk, bi);
     if (li[0] == bi) {  // ids are unique across lanes: pop the winner
 #pragma unroll
       for (int j = 0; j < K_MAX - 1; ++j) {
-        lv[j] = lv[j + 1];
+        lk[j] = lk[j + 1];
         li[j] = li[j + 1];
       }
-      lv[K_MAX - 1] = -INFINITY;
+      lk[K_MAX - 1] = KEY_LOW;
       li[K_MAX - 1] = NO_ID;
     }
     if (lane == 0) {
-      vals[(size_t)r * k + q] = bv;
+      vals[(size_t)r * k + q] = key_value(bk);
       ids[(size_t)r * k + q] = bi;
     }
   }
-  if (lane == 0) lse[r] = m + logf(s);
+  if (lane == 0) lse[r] = lse_final(m, s);
 }
 
 // stage 2 (both operand types)
