@@ -149,6 +149,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -255,6 +256,35 @@ def profiled_ms(fn, name, iters=100):
         return None, 0
     us = sum(e.self_device_time_total for e in events)
     return us / 1e3 / iters, sum(e.count for e in events)
+
+
+def kernel_split(fn, match, iters=50):
+    """Device ms per call of each kernel whose name holds `match`, under
+    torch.profiler over `iters` calls of fn: {short name: ms}, empty when
+    the trace shows no device time (then CUDA events must do)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    import re
+    out = {}
+    for e in prof.key_averages():
+        found = re.search(r"\b%s\w*" % match, e.key)
+        if found and e.self_device_time_total > 0:
+            name = found.group(0)
+            out[name] = out.get(name, 0.0) + (
+                e.self_device_time_total / 1e3 / iters)
+    return out
+
+
+def fmt_split(split):
+    return ", ".join("%s %.4f ms" % kv for kv in sorted(split.items())) or (
+        "no device time in the trace")
 
 
 def max_err(got, want):
@@ -597,13 +627,16 @@ def check_vocab(gen, report):
               + ROWS * (2 * BEAM + 1) * 4)
     t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
     bound_ms = 1e3 * max(t_ops, t_bytes)
+    split = kernel_split(lambda: kern(h2, wt, b, BEAM), "vocab")
     log("  vocab_topk at rows=%d bf16: %.4f ms (plain %.4f ms, library "
-        "%.4f ms, bound %.4f ms by operations, %.1f f32 TFLOP/s)"
-        % (ROWS, ms, plain_ms, library_ms, bound_ms, flops / ms / 1e9))
+        "%.4f ms, bound %.4f ms by operations, %.1f f32 TFLOP/s); "
+        "profiler split %s"
+        % (ROWS, ms, plain_ms, library_ms, bound_ms, flops / ms / 1e9,
+           fmt_split(split)))
     report["vocab_topk"] = dict(
         max_abs_err=worst["abs"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=library_ms, near_tie_rows=near)
+        library_ms=library_ms, near_tie_rows=near, split_ms=split)
 
 
 def vocab_bf16_bound(rows, r, v, k):
@@ -617,6 +650,29 @@ def vocab_bf16_bound(rows, r, v, k):
                                        else "bytes")
 
 
+def vocab_route(h2, w, k):
+    """The route vocab_topk_lse takes for bf16 h2 and table on the card:
+    "tma" or "mma_sync" (ops/vocab_topk.py::vocab_bf16_launch_plan)."""
+    from vsrcic_tpu_torch.ops import _build
+    from vsrcic_tpu_torch.ops.vocab_topk import vocab_bf16_launch_plan
+    aligned = h2.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    return vocab_bf16_launch_plan(h2.shape[0], h2.shape[1], w.shape[1], k,
+                                  aligned, _build.sm_count(h2.device)).route
+
+
+def expect_route(route, call):
+    """call() (one vocab_topk_lse on bf16 operands), asserting it was one
+    bf16 launch and a TMA one exactly when `route` is "tma"."""
+    from vsrcic_tpu_torch.ops.vocab_topk import vocab_topk_lse as kern
+    before = (kern.launches_bf16, kern.launches_bf16_tma)
+    out = call()
+    if (kern.launches_bf16, kern.launches_bf16_tma) != (
+            before[0] + 1, before[1] + (route == "tma")):
+        raise AssertionError("bf16 operands did not launch the bf16 kernel "
+                             "on its %s route" % route)
+    return out
+
+
 def check_vocab_bf16(gen, report):
     """Phase 3 for the bf16-operand kernel (bf16 h2 and table): the tie
     cases with ids exact, ragged and full-width shapes with ids equal save
@@ -628,13 +684,13 @@ def check_vocab_bf16(gen, report):
         vocab_topk_lse as kern, vocab_topk_lse_plain as plain)
     bf16 = torch.bfloat16
     worst = {"abs": 0.0, "rel": 0.0}
+    routes = {}
 
     def compare(h2, w, b, k, exact_ids):
-        before = kern.launches_bf16
-        n = hold_vocab(h2, w, b, k, exact_ids, worst)
-        if kern.launches_bf16 != before + 1:
-            raise AssertionError("bf16 operands did not launch the bf16 "
-                                 "kernel")
+        route = vocab_route(h2, w, k)
+        routes[route] = routes.get(route, 0) + 1
+        n = expect_route(route, lambda: hold_vocab(h2, w, b, k, exact_ids,
+                                                   worst))
         return n
 
     for i, (h2, w, b, k) in enumerate(vocab_tie_cases(gen)):
@@ -655,9 +711,11 @@ def check_vocab_bf16(gen, report):
         2.0 / (RNN + VOCAB)) ** 0.5).to(bf16)
     b = 0.01 * torch.randn((VOCAB,), generator=gen, device="cuda")
     near = compare(h2, wt, b, BEAM, exact_ids=False)
+    route = vocab_route(h2, wt, BEAM)
     log("  vocab_topk_bf16 full rows=%d R=%d V=%d k=%d: near-tie rows %d; "
-        "worst error %.3g absolute, %.3g relative"
-        % (ROWS, RNN, VOCAB, BEAM, near, worst["abs"], worst["rel"]))
+        "worst error %.3g absolute, %.3g relative; route %s (checks by "
+        "route: %s)" % (ROWS, RNN, VOCAB, BEAM, near, worst["abs"],
+                        worst["rel"], route, routes))
     ms = cuda_ms(lambda: kern(h2, wt, b, BEAM))
     plain_ms = cuda_ms(lambda: plain(h2, wt, b, BEAM), iters=5)
     try:
@@ -676,16 +734,109 @@ def check_vocab_bf16(gen, report):
         logits = product() + b
         return torch.topk(logits, BEAM), torch.logsumexp(logits, -1)
     library_ms = cuda_ms(library)
+    product_ms = cuda_ms(product)
+    k1_ms = cuda_ms(lambda: kern(h2, wt, b, 1))
+    split = kernel_split(lambda: kern(h2, wt, b, BEAM), "vocab")
+    split_k1 = kernel_split(lambda: kern(h2, wt, b, 1), "vocab")
     bound_ms, bound_by = vocab_bf16_bound(ROWS, RNN, VOCAB, BEAM)
     log("  vocab_topk_bf16 at rows=%d: %.4f ms (plain %.4f ms, library "
         "%.4f ms [%s + bias, topk, logsumexp], bound %.4f ms by %s, %.1f "
         "bf16 TFLOP/s)" % (ROWS, ms, plain_ms, library_ms, kind, bound_ms,
                            bound_by, 2.0 * ROWS * RNN * VOCAB / ms / 1e9))
+    log("  vocab_topk_bf16 split: k %d %s; k 1: %.4f ms, %s; the cuBLAS "
+        "product alone (%s) %.4f ms"
+        % (BEAM, fmt_split(split), k1_ms, fmt_split(split_k1), kind,
+           product_ms))
     report["vocab_topk_bf16"] = dict(
         max_abs_err=worst["abs"], max_rel_err=worst["rel"], ms=ms,
         plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-        library_kind=kind, near_tie_rows=near)
+        library_kind=kind, near_tie_rows=near, k1_ms=k1_ms,
+        split_ms=split, split_k1_ms=split_k1,
+        library_product_ms=product_ms, route=route, checks_by_route=routes)
+
+
+def vocab_nonfinite_inputs(gen, rows, r, v, case):
+    """Phase 3's non-finite vocab inputs, made on the card: "rows" puts a
+    0/0 descriptor (NaN) in row 3, +-inf products in row 5 (one +inf
+    entry, the weights' signs) and an all -inf row 7 among finite rows;
+    "columns" a NaN weight in column 9 (NaN in every row) and a +inf bias
+    in the last column."""
+    import torch
+    h2 = torch.tanh(torch.randn((rows, r), generator=gen, device="cuda"))
+    w = torch.randn((r, v), generator=gen, device="cuda") / r ** 0.5
+    b = 0.01 * torch.randn((v,), generator=gen, device="cuda")
+    zero = torch.zeros((r,), device="cuda")
+    if case == "rows":
+        h2[3] = zero / zero
+        h2[5] = 0.0
+        h2[5, 2] = math.inf
+        h2[7] = 0.0
+        h2[7, 4] = -math.inf
+        w[4] = w[4].abs() + 0.5
+    else:
+        w[6, 9] = zero[0] / zero[0]
+        b[v - 1] = math.inf
+    return h2, w, b
+
+
+def check_vocab_nonfinite(gen, report):
+    """The vocab kernels on non-finite logits (ROADMAP §3 item 2): every
+    entry point and route against its plain version, which ranks as
+    jax.lax.top_k and sums as jax.nn.logsumexp. Values and lse at phase
+    3's bar, NaN and +-inf exactly where the plain version has them; ids
+    exact on the rows with a non-finite logit, equal save near ties on the
+    finite rows around them; no id outside [0, V)."""
+    import torch
+    from vsrcic_tpu_torch.ops.vocab_topk import (
+        vocab_topk_lse as kern, vocab_topk_lse_plain as plain)
+    bf16 = torch.bfloat16
+    out = {}
+    for rows, r, v in ((300, RNN, VOCAB), (37, 77, 1001)):
+        for case in ("rows", "columns"):
+            h2, w, b = vocab_nonfinite_inputs(gen, rows, r, v, case)
+            for name, lhs, table in (("f32", h2, w),
+                                     ("f32_bf16table", h2, w.to(bf16)),
+                                     ("bf16", h2.to(bf16), w.to(bf16))):
+                if name == "bf16":
+                    name = "bf16_" + vocab_route(lhs, table, BEAM)
+                    got = expect_route(name[5:],
+                                       lambda: kern(lhs, table, b, BEAM))
+                else:
+                    got = kern(lhs, table, b, BEAM)
+                torch.cuda.synchronize()
+                want = plain(lhs, table, b, BEAM)
+                ids = got[1]
+                if int(ids.min()) < 0 or int(ids.max()) >= v:
+                    raise AssertionError(
+                        "vocab top-k %s %s R=%d V=%d: ids outside [0, V)"
+                        % (name, case, r, v))
+                bad = ~torch.isfinite(
+                    lhs.float() @ table.float() + b).all(1)
+                for g, wnt, what in ((got[0], want[0], "vals"),
+                                     (got[2], want[2], "lse")):
+                    # NaN and +-inf where the plain version has them, the
+                    # finite values at phase 3's bar
+                    torch.testing.assert_close(
+                        g, wnt, rtol=1e-5, atol=1e-6, equal_nan=True,
+                        msg=lambda m: "vocab top-k %s %s %s: %s"
+                        % (name, case, what, m))
+                if not torch.equal(ids[bad], want[1][bad]):
+                    raise AssertionError(
+                        "vocab top-k %s %s R=%d V=%d: ids differ on a "
+                        "non-finite row" % (name, case, r, v))
+                fin = torch.nonzero(~bad).flatten()
+                near = vocab_near_ties(
+                    lhs[fin], table, b, (got[0][fin], ids[fin]),
+                    (want[0][fin], want[1][fin]))
+                key = "%s_%s_r%d_v%d" % (name, case, r, v)
+                out[key] = dict(nonfinite_rows=int(bad.sum()),
+                                near_tie_rows=near)
+                log("  vocab_topk non-finite %-14s %-7s rows=%d R=%d V=%d: "
+                    "%d non-finite rows exact, %d finite rows (near ties "
+                    "%d)" % (name, case, rows, r, v, int(bad.sum()),
+                             int(fin.numel()), near))
+    report["vocab_nonfinite"] = out
 
 
 def sinkhorn_bound(s, n, iters):
@@ -903,7 +1054,8 @@ def run_main_path(report):
         "captions/s; launches %s" % (n_batches, BATCH, BEAM, dt, caps,
                                      launches))
     want = {"fused_attention": SEQ_LEN * n_batches,
-            "vocab_topk": SEQ_LEN * n_batches, "vocab_topk_bf16": 0}
+            "vocab_topk": SEQ_LEN * n_batches, "vocab_topk_bf16": 0,
+            "vocab_topk_bf16_tma": 0}
     if launches != want:
         raise AssertionError("launches %s in %d batches, expected %s"
                              % (launches, n_batches, want))
@@ -961,13 +1113,15 @@ def timed_batches(cap, inputs, n_batches=3):
     fused_group_attention.launches = 0
     vocab_topk_lse.launches = 0
     vocab_topk_lse.launches_bf16 = 0
+    vocab_topk_lse.launches_bf16_tma = 0
     t0 = time.perf_counter()
     outs = [run() for _ in range(n_batches)]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"fused_attention": fused_group_attention.launches,
                 "vocab_topk": vocab_topk_lse.launches,
-                "vocab_topk_bf16": vocab_topk_lse.launches_bf16}
+                "vocab_topk_bf16": vocab_topk_lse.launches_bf16,
+                "vocab_topk_bf16_tma": vocab_topk_lse.launches_bf16_tma}
     for res in outs:
         check_result(res)
     return outs, dt, launches
@@ -986,6 +1140,7 @@ def run_bf16_paths(report, fast, inputs, ref):
         caps = BATCH * n_batches / dt
         log("  5b lhs bf16: %d batches in %.3f s: %.1f captions/s (phase 5: "
             "%.1f); launches %s" % (n_batches, dt, caps, base, launches))
+        # every vocab launch a bf16 one, on the TMA route
         want = {k: SEQ_LEN * n_batches for k in launches}
         if launches != want:
             raise AssertionError("5b launches %s, expected %s" % (launches,
@@ -1022,7 +1177,7 @@ def run_bf16_paths(report, fast, inputs, ref):
         caps = BATCH * n_batches / dt
         want = SEQ_LEN * n_batches if mode else 0
         if launches != {"fused_attention": want, "vocab_topk": want,
-                        "vocab_topk_bf16": 0}:
+                        "vocab_topk_bf16": 0, "vocab_topk_bf16_tma": 0}:
             raise AssertionError("5c %s launches %s" % (name, launches))
         kept = caption_share(outs[0], ref)
         log("  5c decode_dtype=bfloat16 %s: %d batches in %.3f s: %.1f "
@@ -2960,6 +3115,7 @@ def main():
     if "--vocab-bf16" in sys.argv[1:]:
         check_vocab(gen, kernels)
         check_vocab_bf16(gen, kernels)
+        check_vocab_nonfinite(gen, kernels)
         log("[5] beam path (bench.py shapes, fast configuration)")
         _, fast, inputs, ref = run_main_path(report)
         log("[5b-5c] the beam's bf16 modes")
@@ -3038,6 +3194,7 @@ def main():
     check_fused(gen, kernels)
     check_vocab(gen, kernels)
     check_vocab_bf16(gen, kernels)
+    check_vocab_nonfinite(gen, kernels)
     check_sinkhorn(gen, kernels)
 
     # phase 4
@@ -3114,6 +3271,7 @@ def main():
     k = kernels["vocab_topk_bf16"]
     rows.append({
         "name": "vocab_topk_bf16", "route": "cuda",
+        "kernel_route": k["route"],
         "source": "vsrcic_tpu_torch/csrc/vocab_topk.cu",
         "replaces": "vsrcic_tpu/ops/vocab_topk.py:47 (lhs_dtype=bfloat16)",
         "launches": bf16_launches["vocab_topk_bf16"],

@@ -6,15 +6,18 @@ the port runs:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
+from vsrcic_tpu_torch.ops import _build
 from vsrcic_tpu_torch.ops.fused_attention import (
     fused_group_attention, fused_group_attention_plain)
 from vsrcic_tpu_torch.ops.sinkhorn import (MAX_N, sinkhorn_normalize,
                                            sinkhorn_normalize_in_order,
                                            sinkhorn_normalize_plain)
-from vsrcic_tpu_torch.ops.vocab_topk import (vocab_topk_lse,
+from vsrcic_tpu_torch.ops.vocab_topk import (vocab_bf16_launch_plan,
+                                             vocab_topk_lse,
                                              vocab_topk_lse_plain)
 
 import torch_parity as tp
@@ -285,6 +288,144 @@ def test_vocab_topk_bf16_lhs_on_f32_table(cuda_device):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _bf16_route(h2, w_t, k):
+    aligned = h2.data_ptr() % 16 == 0 and w_t.data_ptr() % 16 == 0
+    return vocab_bf16_launch_plan(h2.shape[0], h2.shape[1], w_t.shape[1], k,
+                                  aligned, _build.sm_count(h2.device)).route
+
+
+def _counted_call(h2, w_t, b, k):
+    """vocab_topk_lse, asserting its launch counts: one launch; on bf16
+    operands one bf16 launch, a TMA one exactly on the TMA route."""
+    tensor_cores = h2.dtype == w_t.dtype == torch.bfloat16
+    route = _bf16_route(h2, w_t, k) if tensor_cores else None
+    before = (vocab_topk_lse.launches, vocab_topk_lse.launches_bf16,
+              vocab_topk_lse.launches_bf16_tma)
+    got = vocab_topk_lse(h2, w_t, b, k)
+    torch.cuda.synchronize()
+    assert (vocab_topk_lse.launches, vocab_topk_lse.launches_bf16,
+            vocab_topk_lse.launches_bf16_tma) == (
+        before[0] + 1, before[1] + tensor_cores,
+        before[2] + (route == "tma"))
+    return got, route
+
+
+def _nonfinite_inputs(device, rows, r, v, case):
+    """A 0/0 descriptor's NaN row 3, +-inf products in row 5 (one +inf
+    entry), an all -inf row 7 ("rows"); or a NaN weight in column 9 and a
+    +inf bias in the last column ("columns"); the NaNs made on the card."""
+    rng = np.random.RandomState(rows + r + v)
+    h2 = torch.from_numpy(np.tanh(rng.randn(rows, r)).astype(np.float32))
+    w_t = torch.from_numpy((rng.randn(r, v) / r ** 0.5).astype(np.float32))
+    b = torch.from_numpy((0.01 * rng.randn(v)).astype(np.float32))
+    h2, w_t, b = h2.to(device), w_t.to(device), b.to(device)
+    zero = torch.zeros((r,), device=device)
+    if case == "rows":
+        h2[3] = zero / zero
+        h2[5] = 0.0
+        h2[5, 2] = float("inf")
+        h2[7] = 0.0
+        h2[7, 4] = -float("inf")
+        w_t[4] = w_t[4].abs() + 0.5
+    else:
+        w_t[6, 9] = zero[0] / zero[0]
+        b[v - 1] = float("inf")
+    return h2, w_t, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operands", ["f32", "f32_bf16table", "bf16"])
+@pytest.mark.parametrize("case", ["rows", "columns"])
+@pytest.mark.parametrize("shape", [(300, 1000, 10000), (130, 64, 136),
+                                   (37, 77, 1001)])
+def test_vocab_topk_nonfinite_matches_plain(cuda_device, shape, case,
+                                            operands):
+    """Non-finite logits (ROADMAP §3 item 2) through every entry point and
+    both bf16 routes (TMA at the first two shapes, mma.sync at the ragged
+    third): ids exact on the rows holding them, NaN and +-inf where the
+    plain version has them, the finite rows around them at the bar; no id
+    outside [0, V)."""
+    rows, r, v = shape
+    h2, w_t, b = _nonfinite_inputs(cuda_device, rows, r, v, case)
+    if operands != "f32":
+        w_t = w_t.bfloat16()
+    if operands == "bf16":
+        h2 = h2.bfloat16()
+    got, route = _counted_call(h2, w_t, b, 5)
+    if operands == "bf16":
+        assert route == ("mma_sync" if r % 8 else "tma")
+    want = vocab_topk_lse_plain(h2, w_t, b, 5)
+    assert 0 <= int(got[1].min()) and int(got[1].max()) < v
+    bad = ~torch.isfinite(h2.float() @ w_t.float() + b).all(1)
+    assert int(bad.sum()) == (3 if case == "rows" else rows)
+    torch.testing.assert_close(got[1][bad], want[1][bad], rtol=0, atol=0)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6,
+                               equal_nan=True)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-6,
+                               equal_nan=True)
+    fin = ~bad
+    if fin.any():
+        assert _near_ties(h2[fin], w_t, b, (got[0][fin], got[1][fin]),
+                          (want[0][fin], want[1][fin]), 1e-5) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,route", [((5120, 1000, 10000, 5), "tma"),
+                                         ((130, 64, 136, 16), "tma"),
+                                         ((300, 64, 10000, 1), "tma"),
+                                         ((37, 77, 1001, 5), "mma_sync"),
+                                         ((24, 16, 260, 4), "mma_sync")])
+def test_vocab_topk_bf16_routes(cuda_device, shape, route):
+    """Each bf16 shape on the route its plan names, counted; the aligned
+    shapes again from bases 2 bytes off 16 (mma.sync); values and lse at
+    the bar, ids equal save near ties."""
+    rows, r, v, k = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + v)
+    h2 = torch.randn((rows, r), generator=gen, device=cuda_device)
+    w_t = torch.randn((r, v), generator=gen, device=cuda_device) / r ** 0.5
+    b = torch.randn((v,), generator=gen, device=cuda_device)
+    cases = [(h2.bfloat16(), w_t.bfloat16(), route)]
+    if route == "tma":
+        off = torch.empty(rows * r + 1, dtype=torch.bfloat16,
+                          device=cuda_device)[1:].view(rows, r)
+        off.copy_(h2)
+        cases.append((off, w_t.bfloat16(), "mma_sync"))
+    for lhs, table, want_route in cases:
+        got, taken = _counted_call(lhs, table, b, k)
+        assert taken == want_route
+        want = vocab_topk_lse_plain(lhs, table, b, k)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-6)
+        assert _near_ties(lhs, table, b, got, want, 1e-5) <= rows // 100 + 1
+
+
+@pytest.mark.cuda
+def test_vocab_topk_bf16_tma_ties(cuda_device):
+    """Duplicated columns on the TMA route (V a multiple of 8): within a
+    tile, across tiles and across the quad's lanes; ids exact."""
+    rng = np.random.RandomState(11)
+    rows, r, v, k = 40, 64, 392, 5
+    h2 = rng.randn(rows, r).astype(np.float32)
+    w_t = rng.randn(r, v).astype(np.float32)
+    b = rng.randn(v).astype(np.float32)
+    for a, c in ((3, 10), (42, 170), (5, 7), (130, 390), (200, 201)):
+        w_t[:, c] = w_t[:, a]
+        b[c] = b[a]
+    top = (h2 @ w_t + b).argmax(1)
+    for i in range(0, rows, 3):   # ties at rank 0 on some rows
+        w_t[:, (top[i] + 129) % v] = w_t[:, top[i]]
+        b[(top[i] + 129) % v] = b[top[i]]
+    args = (torch.from_numpy(h2).to(cuda_device, torch.bfloat16),
+            torch.from_numpy(w_t).to(cuda_device, torch.bfloat16),
+            torch.from_numpy(b).to(cuda_device))
+    got, route = _counted_call(*args, k)
+    assert route == "tma"
+    want = vocab_topk_lse_plain(*args, k)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda

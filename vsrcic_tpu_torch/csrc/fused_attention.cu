@@ -56,6 +56,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -191,41 +193,6 @@ __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra.uni DONE;\n"
-      "bra.uni WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-
-// one (rows, cols) box of a 2D tensor map at column x, row y -> shared
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
-                                        int x, int y, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(map), "r"(x), "r"(y), "r"(smem_addr(bar)) : "memory");
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -635,41 +602,6 @@ fused_attention_kernel(const __grid_constant__ Params p) {
 }
 
 int g_smem_set[2][2] = {{0, 0}, {0, 0}};
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// a (rows, cols) row-major table of `tb`-byte elements, box (box_rows,
-// box_cols); false if the driver refuses it
-bool encode_2d(CUtensorMap* map, const void* base, int tb, long long rows,
-               int cols, int box_rows, int box_cols) {
-  static EncodeTiled encode = nullptr;
-  if (!encode) {
-    cudaDriverEntryPointQueryResult q;
-    void* fn = nullptr;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess || !fn)
-      return false;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * tb};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map,
-                tb == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                2, const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <typename T, bool BULK>
 cudaError_t launch(const Params& p, int smem, cudaStream_t stream) {

@@ -2,55 +2,65 @@
 // without writing the (rows, V) logits to device memory.
 //
 // Replaces the TPU kernel vsrcic_tpu/ops/vocab_topk.py
-// (make_vocab_topk_lse: `kernel` :116 and the default two-stage `kernel2`
-// :159, pallas_call :220), in both of its operand configurations:
+// (make_vocab_topk_lse :47: `kernel` :116 and the default two-stage
+// `kernel2` :159, pallas_call :220), in both of its operand configurations:
 //
 //   vsrcic_vocab_topk: f32 h2 (lhs_dtype=float32, the default). What bounds
 //     it on the H100: f32 operations. The product is 2*rows*R*V flops
 //     (102 GFLOP at rows 5120, R 1000, V 10000) against ~40 MB of operands,
 //     and it must run in full f32 on the CUDA cores: the JAX path multiplies
 //     the f32 h2 by the upcast weights with f32 accumulation, and TF32 or a
-//     bf16 rounding of h2 would change the numbers.
+//     bf16 rounding of h2 would change the numbers. A tiled SGEMM (8-deep
+//     slices through double-buffered shared memory, an 8x8 register tile
+//     per thread, bf16 weights upcast on load), folded from the registers.
 //   vsrcic_vocab_topk_bf16: bf16 h2 and bf16 W_t (make_vocab_topk_lse
-//     (lhs_dtype=jnp.bfloat16), :47, selected by VSRCIC_VOCAB_LHS_BF16=1 on
-//     bf16 tables), products accumulated in f32. What bounds it: tensor-core
+//     (lhs_dtype=jnp.bfloat16), selected by VSRCIC_VOCAB_LHS_BF16=1 on bf16
+//     tables), products accumulated in f32. What bounds it: tensor-core
 //     operations, the same 102 GFLOP over 989 TFLOP/s (0.1035 ms) against
 //     ~30 MB over 3.35 TB/s (0.009 ms). A bf16 x bf16 product is exact in
 //     f32, so this is the f32-operand function of the bf16-rounded h2; only
-//     the order of the f32 sums differs from a sequential loop. Identical
-//     inputs give identical mma outputs at every position of the tile, so
-//     duplicated weight columns still give bit-equal logits and tie
-//     exactly.
+//     the order of the f32 sums differs from a sequential loop. Two routes,
+//     chosen by ops/vocab_topk.py::vocab_bf16_launch_plan:
+//     * TMA (R and V multiples of 8, 16-byte aligned bases: the beam's
+//       shapes). What holds it back is not the tensor cores: every tile's
+//       operands stream from L2 (1.6 GB a call at R 1000 for 128 x 128
+//       tiles), at ~5-6 TB/s (PERF.md §6). So: 128 x 256 tiles (24 bytes
+//       into shared memory an output, not 32); persistent CTAs, one an
+//       SM, in clusters of 2 along the rows that multicast each W_t box to
+//       both (16 bytes from L2 an output); wgmma m64n256k16 (f32
+//       accumulators) fed by TMA (128-byte-swizzled 64-deep boxes in a
+//       ring of mbarrier-guarded stages, one producer thread); both
+//       consumer warpgroups on one tile, each folding its 64 x 256 half
+//       straight from its accumulators while the producer fills the ring
+//       with the next tile: no round trip of the tile through shared
+//       memory, branch-free passes, top-k rounds over per-lane group
+//       maxima (vocab_tma_kernel).
+//     * mma.sync (any other shape): mma.sync.m16n8k16 fed by ldmatrix from
+//       32-deep slices (element loads, zero-filled past R, rows and V), the
+//       128 x 128 accumulator tile through shared memory into the f32
+//       kernel's register layout and fold (vocab_tile_bf16_kernel).
 //
-// Design: the TPU grid carried running top-k/lse state from one vocab tile
-// to the next; CUDA blocks run in no order, so the work is split in two
-// launches.
-//   Stage 1: a CTA computes a 128-row x 128-column logits tile and folds
-//     each row of it into that tile's partial top-k and (max, sum of exp)
-//     pair. f32: a tiled SGEMM (8-deep slices of h2 and W through
-//     double-buffered shared memory, the next slice's loads in flight during
-//     the current one's products; an 8x8 register tile per thread, bf16
-//     weights upcast on load), folded straight from the registers. bf16:
-//     32-deep slices of h2 and W_t brought into double-buffered shared
-//     memory by cp.async (16-byte copies, zero-filled past R, rows and V;
-//     element loads where a row is not 16-byte aligned), fed to
-//     mma.sync.m16n8k16 (bf16 in, f32 accumulators) by ldmatrix (.trans for
-//     W_t, whose V is contiguous); each of the 8 warps owns a 64 x 32 block
-//     of the tile. The accumulators then go through shared memory into the
-//     f32 kernel's register layout and the same fold.
-//   Stage 2: one warp per row merges the partials of all vocab tiles.
+// The TPU grid carried running top-k/lse state from one vocab tile to the
+// next; CUDA blocks run in no order, so the work is split in two launches.
+// Stage 1 folds each row of each logits tile (128 x 128; 128 x 256 on the
+// TMA route) into that tile's partial top-k and (max, sum of exp) pair;
+// stage 2 (one warp per row) merges the partials of all vocab tiles.
 // Every comparison orders by (XLA's total-order key descending, vocab id
 // ascending), which is jax.lax.top_k's rule: NaN above +inf, +0 above -0;
 // the logsumexp shifts by the max only where it is finite
 // (jax.nn.logsumexp), so a row with a NaN gives NaN, one with +inf +inf
-// and an all -inf row -inf. Every logit is summed over R in the same order,
-// so duplicated weight columns give bit-equal logits and tie exactly. The
-// ragged edges of rows, R and V are masked in the kernel: a column past V
+// and an all -inf row -inf. Every logit of a tile is summed over R by the
+// same instruction sequence (no split along R), so duplicated weight
+// columns give bit-equal logits and tie exactly. The ragged edges of rows,
+// R and V are masked in the kernel (or zero-filled by TMA): a column past V
 // is never a candidate and adds nothing to the sum.
-#include <cuda_runtime.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -227,9 +237,10 @@ __device__ __forceinline__ void fold_tile(
           bi = xi[j];
         }
       half_best(bk, bi);
+      // drop the winner (a winner of NO_ID resets only empty slots)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        if (xi[j] == bi && bi != NO_ID) {
+        if (xi[j] == bi) {
           xk[j] = KEY_LOW;
           xi[j] = NO_ID;
         }
@@ -342,28 +353,6 @@ constexpr int BF16_SMEM = PIPE_BYTES > TILE_BYTES ? PIPE_BYTES : TILE_BYTES;
 static_assert(TR * BK / 8 == 2 * kThreads && BK * TV / 8 == 2 * kThreads,
               "two 16-byte copies of each slice per thread");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled when !ok (src is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait for every committed group but the newest
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 // 8 bf16 elements start..start+7 of a row, those at or past `limit` zero,
 // into 16 bytes of shared memory (rows that are not 16-byte aligned)
 __device__ __forceinline__ void load8(__nv_bfloat16* dst,
@@ -381,9 +370,7 @@ __device__ __forceinline__ void load8(__nv_bfloat16* dst,
 }
 
 // one slice: h2 rows row0.., depth k0..k0+BK; W_t depth k0.., columns v0..
-// VEC: every row is 16-byte aligned (R, V multiples of 8, aligned bases), so
-// a 16-byte chunk is wholly inside or wholly past each edge
-template <bool VEC>
+// (element loads: rows need not be 16-byte aligned on this route)
 __device__ __forceinline__ void load_slice(
     __nv_bfloat16* as, __nv_bfloat16* bs, const __nv_bfloat16* h2,
     const __nv_bfloat16* w, int row0, int v0, int k0, int rows, int R, int V,
@@ -392,29 +379,19 @@ __device__ __forceinline__ void load_slice(
   for (int l = 0; l < 2; ++l) {
     const int c = tid + l * kThreads;
     const int r = c >> 2, kc = (c & 3) * 8;
-    const int gr = row0 + r, gk = k0 + kc;
-    __nv_bfloat16* dst = as + r * A_PITCH + kc;
-    if (VEC) {
-      const bool ok = gr < rows && gk < R;
-      cp_async16(dst, ok ? h2 + (size_t)gr * R + gk : h2, ok);
-    } else {
-      load8(dst, reinterpret_cast<const unsigned short*>(h2) + (size_t)gr * R,
-            gk, gr < rows ? R : 0);
-    }
+    const int gr = row0 + r;
+    load8(as + r * A_PITCH + kc,
+          reinterpret_cast<const unsigned short*>(h2) + (size_t)gr * R,
+          k0 + kc, gr < rows ? R : 0);
   }
 #pragma unroll
   for (int l = 0; l < 2; ++l) {
     const int c = tid + l * kThreads;
     const int kr = c >> 4, nc = (c & 15) * 8;
-    const int gk = k0 + kr, gc = v0 + nc;
-    __nv_bfloat16* dst = bs + kr * B_PITCH + nc;
-    if (VEC) {
-      const bool ok = gk < R && gc < V;
-      cp_async16(dst, ok ? w + (size_t)gk * V + gc : w, ok);
-    } else {
-      load8(dst, reinterpret_cast<const unsigned short*>(w) + (size_t)gk * V,
-            gc, gk < R ? V : 0);
-    }
+    const int gk = k0 + kr;
+    load8(bs + kr * B_PITCH + nc,
+          reinterpret_cast<const unsigned short*>(w) + (size_t)gk * V,
+          v0 + nc, gk < R ? V : 0);
   }
 }
 
@@ -422,7 +399,7 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      : "r"(smem_addr(p)));
 }
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
@@ -431,7 +408,7 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      : "r"(smem_addr(p)));
 }
 
 // d += a (16 x 16, row-major) * b (16 x 8, column-major), f32 accumulators
@@ -444,9 +421,9 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// bf16 stage 1: warp (wm, wn) = (warp / 4, warp % 4) accumulates rows
-// wm*64.. and columns wn*32.. of the tile as 4 x 4 mma tiles of 16 x 8
-template <bool VEC>
+// bf16 stage 1, mma.sync route (shapes TMA cannot describe): warp (wm, wn)
+// = (warp / 4, warp % 4) accumulates rows wm*64.. and columns wn*32.. of
+// the tile as 4 x 4 mma tiles of 16 x 8
 __global__ void __launch_bounds__(kThreads, 2)
 vocab_tile_bf16_kernel(const __nv_bfloat16* __restrict__ h2,
                        const __nv_bfloat16* __restrict__ w,
@@ -477,16 +454,13 @@ vocab_tile_bf16_kernel(const __nv_bfloat16* __restrict__ h2,
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
   const int n_k = (R + BK - 1) / BK;
-  load_slice<VEC>(As, Bs, h2, w, row0, v0, 0, rows, R, V, tid);
-  cp_async_commit();
+  load_slice(As, Bs, h2, w, row0, v0, 0, rows, R, V, tid);
   for (int t = 0; t < n_k; ++t) {
     const int buf = t & 1;
     if (t + 1 < n_k)
-      load_slice<VEC>(As + (buf ^ 1) * A_STAGE, Bs + (buf ^ 1) * B_STAGE, h2,
-                      w, row0, v0, (t + 1) * BK, rows, R, V, tid);
-    cp_async_commit();     // (an empty group on the last slice)
-    cp_async_wait_prev();  // slice t has landed
-    __syncthreads();
+      load_slice(As + (buf ^ 1) * A_STAGE, Bs + (buf ^ 1) * B_STAGE, h2, w,
+                 row0, v0, (t + 1) * BK, rows, R, V, tid);
+    __syncthreads();  // slice t is in place
     const __nv_bfloat16* as = As + buf * A_STAGE;
     const __nv_bfloat16* bs = Bs + buf * B_STAGE;
 #pragma unroll
@@ -553,8 +527,460 @@ vocab_tile_bf16_kernel(const __nv_bfloat16* __restrict__ h2,
             part_m, part_s);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 stage 1 on the TMA route: wgmma fed by TMA (R and V multiples of 8,
+// 16-byte aligned bases; ops/vocab_topk.py::vocab_bf16_launch_plan)
+// ---------------------------------------------------------------------------
+constexpr int T_BM = 128;                     // rows per tile
+constexpr int T_BN = 256;                     // vocab columns per tile
+constexpr int T_BK = 64;                      // depth per stage: 128 bytes
+constexpr int T_A_BYTES = T_BM * T_BK * 2;    // h2 box (128 rows x 64)
+constexpr int T_B_BOX = T_BK * 64 * 2;        // W_t box (64 deep x 64)
+constexpr int T_B_BOXES = T_BN / 64;          // W_t boxes per stage
+constexpr int T_STAGE = T_A_BYTES + T_B_BOXES * T_B_BOX;
+constexpr int T_THREADS = 384;  // consumer warpgroups 0, 1; producer 2
+constexpr int T_MIN_STAGES = 2;
+constexpr int T_MAX_STAGES = 4;
+
+// dynamic shared bytes: 1024 of slack to align the ring, the stages, a
+// full and an empty mbarrier per stage (vocab_bf16_launch_plan's figure)
+constexpr int tma_smem_bytes(int stages) {
+  return 1024 + stages * T_STAGE + 2 * 8 * stages;
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand (the
+// swizzle TMA writes): start address, leading and stride byte offsets in
+// 16-byte units, layout type 1 (128B swizzle); base offset 0 (every box
+// starts on a 1024-byte swizzle atom)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3ffff) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous products
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 256, f32) = (scale ? d : 0) + A (64 x 16, K-major) * B (16 x 256,
+// MN-major: W_t's V is contiguous, so B is taken transposed)
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
+                                                 uint64_t desc_a,
+                                                 uint64_t desc_b, int scale) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale));
+}
+
+// 2^x on the special-function unit, subnormal results flushed to zero
+// (~2 ulp; the logsumexp's sums only)
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// quad (4 lanes sharing a row of the wgmma fragment) reductions
+__device__ __forceinline__ int quad_max(int key) {
+  key = max(key, __shfl_xor_sync(0xffffffffu, key, 1));
+  return max(key, __shfl_xor_sync(0xffffffffu, key, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ void quad_best(int& key, int& col) {
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    const int ok = __shfl_xor_sync(0xffffffffu, key, o);
+    const int oc = __shfl_xor_sync(0xffffffffu, col, o);
+    if (better(ok, oc, key, col)) {
+      key = ok;
+      col = oc;
+    }
+  }
+}
+
+// The fold of a consumer warpgroup's 64 x 256 half of a tile, read in
+// place from its wgmma accumulators (bias added). Thread (warp w, lane l)
+// holds two rows, r = 0, 1: rows w*16 + l/4 + 8*r of the half, each as 64
+// values, index i = j*2 + e (j < 32, e < 2) at tile column j*8 + e +
+// (l % 4)*2, in d[j*4 + r*2 + e]. The four lanes of a quad hold a row's
+// 256 columns. Every pass is branch free and the two rows go side by side,
+// so the fold issues independent instructions.
+#define TILE_VAL(r, i) d[((i) >> 1) * 4 + (r) * 2 + ((i)&1)]
+
+// best (key, index) of the 2^L leaves B.. in index order: a higher key
+// wins, the lower index among equal keys (jax.lax.top_k's order in a
+// lane). leaf(i, key, idx) gives leaf i's key and index, in index order.
+template <int L, int B>
+struct TreeBest {
+  template <typename Leaf>
+  __device__ __forceinline__ static void run(Leaf leaf, int& key, int& idx) {
+    int k0, i0, k1, i1;
+    TreeBest<L - 1, B>::run(leaf, k0, i0);
+    TreeBest<L - 1, B + (1 << (L - 1))>::run(leaf, k1, i1);
+    const bool right = k1 > k0;
+    key = right ? k1 : k0;
+    idx = right ? i1 : i0;
+  }
+};
+
+template <int B>
+struct TreeBest<0, B> {
+  template <typename Leaf>
+  __device__ __forceinline__ static void run(Leaf leaf, int& key, int& idx) {
+    leaf(B, key, idx);
+  }
+};
+
+// f(g) for a runtime g < 8, by a tree of selects (no indexed registers)
+template <typename F>
+__device__ __forceinline__ int select8(int g, F f) {
+  const bool b0 = g & 1, b1 = g & 2, b2 = g & 4;
+  const int a0 = b0 ? f(1) : f(0), a1 = b0 ? f(3) : f(2);
+  const int a2 = b0 ? f(5) : f(4), a3 = b0 ? f(7) : f(6);
+  const int c0 = b1 ? a1 : a0, c1 = b1 ? a3 : a2;
+  return b2 ? c1 : c0;
+}
+
+__device__ __forceinline__ void fold_tile_tma(
+    float (&d)[128], int lane, int row0, int v0, int vt, int n_vt, int V,
+    int rows, int k, float* __restrict__ part_vals,
+    int* __restrict__ part_ids, float* __restrict__ part_m,
+    float* __restrict__ part_s) {
+  const int lc = (lane & 3) * 2;  // this lane's first column of a chunk
+  // chunks j < live hold columns below V (V is a multiple of 8, so a chunk
+  // of 8 columns is all in or all out)
+  const int live = min(32, (V - v0) / 8);
+  // each row's max key; every step is branch free, so the rows' chains
+  // interleave
+  float m[2], s[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    int mk = KEY_LOW;
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      mk = max(mk, (i >> 1) < live ? order_key(TILE_VAL(r, i)) : KEY_LOW);
+    // a sum's NaN is the card's canonical one (sign clear): the largest
+    // key, so m is NaN if any value is
+    m[r] = key_value(quad_max(mk));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float sh = lse_shift(m[r]);
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const float e = ex2_ftz((TILE_VAL(r, i) - sh) * 1.4426950408889634f);
+      part[i & 3] += (i >> 1) < live ? e : 0.f;
+    }
+    s[r] = quad_sum((part[0] + part[1]) + (part[2] + part[3]));
+  }
+  // keys in place, KEY_LOW past V
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      TILE_VAL(r, i) = __int_as_float(
+          (i >> 1) < live ? order_key(TILE_VAL(r, i)) : KEY_LOW);
+  const bool lead = (lane & 3) == 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (lead && row < rows) {
+      part_m[(size_t)row * n_vt + vt] = m[r];
+      part_s[(size_t)row * n_vt + vt] = s[r];
+    }
+  }
+  // k rounds: each takes the best (key, lowest column) left in the quad.
+  // A lane keeps the best of each group of 8 of its values (gk, gi) and a
+  // mask of the values taken; a round runs the tree over the 8 group
+  // bests, and the lane that held the winner marks it taken and recomputes
+  // only its group. A winner of KEY_LOW is no candidate (a column past V:
+  // no sum gives a sign-set NaN).
+  int gk[2][8], gi[2][8];
+  uint32_t taken[2][2] = {{0u, 0u}, {0u, 0u}};
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int g = 0; g < 8; ++g)
+      TreeBest<3, 0>::run(
+          [&](int p, int& key, int& idx) {
+            key = __float_as_int(TILE_VAL(r, g * 8 + p));
+            idx = g * 8 + p;
+          },
+          gk[r][g], gi[r][g]);
+  for (int q = 0; q < k; ++q) {
+    int bk[2], bc[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      int bi;
+      TreeBest<3, 0>::run(
+          [&](int g, int& key, int& idx) {
+            key = gk[r][g];
+            idx = gi[r][g];
+          },
+          bk[r], bi);
+      bc[r] = (bi >> 1) * 8 + (bi & 1) + lc;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      quad_best(bk[r], bc[r]);
+      const int row = row0 + 8 * r;
+      if (lead && row < rows) {
+        const size_t prow = (size_t)row * n_vt + vt;
+        part_vals[prow * k + q] = key_value(bk[r]);
+        part_ids[prow * k + q] = bk[r] == KEY_LOW ? NO_ID : v0 + bc[r];
+      }
+      // the winner in this lane's values, if it is this lane's
+      const int c = bc[r] - lc;
+      const bool mine = c >= 0 && (c & 7) < 2;
+      const int i = (c >> 3) * 2 + (c & 7);
+      if (mine && i < 32) taken[r][0] |= 1u << i;
+      if (mine && i >= 32) taken[r][1] |= 1u << (i - 32);
+      // its group, recomputed from the values not taken
+      const int g = mine ? i >> 3 : 0;
+      const uint32_t byte =
+          (((g & 4) ? taken[r][1] : taken[r][0]) >> ((g & 3) * 8)) & 0xffu;
+      int nk, ni;
+      TreeBest<3, 0>::run(
+          [&](int p, int& key, int& idx) {
+            const int v = select8(g, [&](int h) {
+              return __float_as_int(TILE_VAL(r, h * 8 + p));
+            });
+            key = (byte >> p) & 1u ? KEY_LOW : v;
+            idx = p;
+          },
+          nk, ni);
+#pragma unroll
+      for (int h = 0; h < 8; ++h)
+        if (mine && h == g) {
+          gk[r][h] = nk;
+          gi[r][h] = h * 8 + ni;
+        }
+    }
+  }
+}
+#undef TILE_VAL
+
+// a consumer warp's release of a slot: to every CTA of its cluster, whose
+// producers all write into it
+template <int C>
+__device__ __forceinline__ void release(uint64_t* bar, int rank) {
+  mbar_arrive(bar);
+#pragma unroll
+  for (int i = 0; i < C; ++i)
+    if (i != rank) mbar_arrive_remote(bar, i);
+}
+
+// bf16 stage 1, TMA route. Persistent clusters of C CTAs (1 or 2) walk the
+// (row block, vocab tile) list in groups of C row blocks of one vocab
+// tile: group p of n_rbg * n_vt is vocab tile p / n_rbg, row group p %
+// n_rbg; cluster c takes p = c, c + clusters, ...; its CTA of rank m takes
+// row block rbg * C + m (a block past the rows is computed on TMA's zero
+// fill and not written). Warpgroup 2's first thread fills a ring of
+// `stages` slots with 64-deep stages: the tile's h2 box (128 rows x 64)
+// and its four W_t boxes (64 deep x 64 columns), each W_t box copied by
+// one CTA of the cluster and multicast to all, so the cluster reads it
+// from L2 once. A slot is refilled once every CTA it is written into has
+// released it (empty: all eight consumer warps of each). Warpgroups 0 and
+// 1 compute rows 0-63 and 64-127 of the 128 x 256 tile, one m64n256k16
+// product per 16 of depth each, then fold their halves from their
+// registers while the producer fills the ring with the next tile.
+template <int C>
+__global__ void __launch_bounds__(T_THREADS, 1)
+vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
+                 const __grid_constant__ CUtensorMap tm_w,
+                 const float* __restrict__ bias, int rows, int R, int V,
+                 int k, int stages, float* __restrict__ part_vals,
+                 int* __restrict__ part_ids, float* __restrict__ part_m,
+                 float* __restrict__ part_s) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * T_STAGE);
+  uint64_t* empty = full + stages;
+  const int n_rb = (rows + T_BM - 1) / T_BM;
+  const int n_rbg = (n_rb + C - 1) / C;
+  const int n_vt = (V + T_BN - 1) / T_BN;
+  const int n_groups = n_rbg * n_vt;
+  const int n_k = (R + T_BK - 1) / T_BK;
+  const int clusters = gridDim.x / C;
+  const int cl = blockIdx.x / C;
+  const int rank = C > 1 ? (int)cluster_rank() : 0;
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);  // the producer's arrival + the copies' bytes
+      mbar_init(&empty[s], 8 * C);  // eight consumer warps of each CTA
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (C > 1)
+    cluster_sync();  // every CTA's barriers exist before any copy or arrival
+  else
+    __syncthreads();
+
+  if (wg == 2) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      int g = 0;  // ring position: slot g % stages, pass g / stages
+      for (int p = cl; p < n_groups; p += clusters) {
+        const int rb = (p % n_rbg) * C + rank;
+        const int vt = p / n_rbg;
+        for (int kb = 0; kb < n_k; ++kb, ++g) {
+          const int s = g % stages;
+          mbar_wait(&empty[s], ((g / stages) & 1) ^ 1);
+          mbar_expect_tx(&full[s], T_STAGE);
+          unsigned char* a = ring + s * T_STAGE;
+          tma_box(a, &tm_h2, kb * T_BK, rb * T_BM, &full[s]);
+#pragma unroll
+          for (int i = 0; i < T_B_BOXES / C; ++i) {
+            const int bx = rank * (T_B_BOXES / C) + i;
+            unsigned char* dst = a + T_A_BYTES + bx * T_B_BOX;
+            if (C == 1)
+              tma_box(dst, &tm_w, vt * T_BN + bx * 64, kb * T_BK, &full[s]);
+            else
+              tma_box_multicast(dst, &tm_w, vt * T_BN + bx * 64, kb * T_BK,
+                                &full[s], uint16_t((1u << C) - 1));
+          }
+        }
+      }
+      // the last `stages` positions released everywhere: no CTA arrives on
+      // this one's barriers once it may have exited
+      if (C > 1)
+        for (int i = 0; i < stages; ++i, ++g)
+          mbar_wait(&empty[g % stages], ((g / stages) & 1) ^ 1);
+    }
+  } else {
+    // consumers: warpgroup wg takes rows wg*64.. of every tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int warp = (threadIdx.x >> 5) & 3;
+    float d[128];
+    int g = 0;
+    for (int p = cl; p < n_groups; p += clusters) {
+      const int rb = (p % n_rbg) * C + rank;
+      const int vt = p / n_rbg;
+      fence_acc(d);
+      for (int kb = 0; kb < n_k; ++kb, ++g) {
+        const int s = g % stages;
+        mbar_wait(&full[s], (g / stages) & 1);
+        const uint32_t a = smem_addr(ring + s * T_STAGE) + wg * 64 * 128;
+        const uint32_t b = smem_addr(ring + s * T_STAGE) + T_A_BYTES;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < T_BK / 16; ++kk)
+          // A: K-major, 8-row groups 1024 bytes apart, 16 deep = 32 bytes
+          // on; B: MN-major, 64-column boxes 8192 bytes apart, 8-deep
+          // groups 1024 apart, 16 deep = 2048 bytes on
+          wgmma_m64n256k16(d, sw128_desc(a + kk * 32, 16, 1024),
+                           sw128_desc(b + kk * 2048, T_B_BOX, 1024),
+                           (kb | kk) != 0);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done
+        if (kb > 0 && lane == 0)
+          release<C>(&empty[(g - 1) % stages], rank);
+      }
+      wgmma_wait<0>();
+      fence_acc(d);
+      if (lane == 0) release<C>(&empty[(g - 1) % stages], rank);
+
+      const int v0 = vt * T_BN;
+      // the bias, once per column pair of this lane (V a multiple of 8)
+#pragma unroll
+      for (int c = 0; c < 32; ++c) {
+        const int col = v0 + c * 8 + (lane & 3) * 2;
+        const float b0 = col < V ? __ldg(bias + col) : 0.f;
+        const float b1 = col < V ? __ldg(bias + col + 1) : 0.f;
+        d[c * 4] += b0;
+        d[c * 4 + 1] += b1;
+        d[c * 4 + 2] += b0;
+        d[c * 4 + 3] += b1;
+      }
+      fold_tile_tma(d, lane, rb * T_BM + wg * 64 + warp * 16 + (lane >> 2),
+                    v0, vt, n_vt, V, rows, k, part_vals, part_ids, part_m,
+                    part_s);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
-vocab_merge_kernel(int rows, int k, int n_tiles,
+vocab_merge_kernel(int rows, int k, int n_tiles, int by_row,
                    const float* __restrict__ part_vals,
                    const int* __restrict__ part_ids,
                    const float* __restrict__ part_m,
@@ -572,7 +998,8 @@ vocab_merge_kernel(int rows, int k, int n_tiles,
   }
   float m = -INFINITY, s = 0.f;
   for (int t = lane; t < n_tiles; t += 32) {
-    const size_t prow = (size_t)t * rows + r;
+    const size_t prow =
+        by_row ? (size_t)r * n_tiles + t : (size_t)t * rows + r;
     lse_combine(m, s, part_m[prow], part_s[prow]);
     for (int q = 0; q < k; ++q) {
       int xk = order_key(part_vals[prow * k + q]);
@@ -613,13 +1040,15 @@ vocab_merge_kernel(int rows, int k, int n_tiles,
   if (lane == 0) lse[r] = lse_final(m, s);
 }
 
-// stage 2 (both operand types)
-cudaError_t merge(int rows, int k, int n_tiles, const float* part_vals,
-                  const int* part_ids, const float* part_m,
-                  const float* part_s, float* vals, int* ids, float* lse,
-                  cudaStream_t stream) {
+// stage 2 (both operand types): partials (tile, row) or, `by_row`, (row,
+// tile)
+cudaError_t merge(int rows, int k, int n_tiles, bool by_row,
+                  const float* part_vals, const int* part_ids,
+                  const float* part_m, const float* part_s, float* vals,
+                  int* ids, float* lse, cudaStream_t stream) {
   vocab_merge_kernel<<<(rows + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
-      rows, k, n_tiles, part_vals, part_ids, part_m, part_s, vals, ids, lse);
+      rows, k, n_tiles, by_row, part_vals, part_ids, part_m, part_s, vals,
+      ids, lse);
   return cudaGetLastError();
 }
 
@@ -635,28 +1064,93 @@ cudaError_t launch(const float* h2, const void* w, const float* bias,
       part_m, part_s);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return merge(rows, k, n_tiles, part_vals, part_ids, part_m, part_s, vals,
-               ids, lse, stream);
+  return merge(rows, k, n_tiles, false, part_vals, part_ids, part_m, part_s,
+               vals, ids, lse, stream);
 }
 
-template <bool VEC>
-cudaError_t launch_bf16(const __nv_bfloat16* h2, const __nv_bfloat16* w,
-                        const float* bias, int rows, int R, int V, int k,
-                        float* part_vals, int* part_ids, float* part_m,
-                        float* part_s, float* vals, int* ids, float* lse,
-                        cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      vocab_tile_bf16_kernel<VEC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, BF16_SMEM);
-  if (e != cudaSuccess) return e;
-  const int n_tiles = (V + TV - 1) / TV;
-  const dim3 grid1(n_tiles, (rows + TR - 1) / TR);
-  vocab_tile_bf16_kernel<VEC><<<grid1, kThreads, BF16_SMEM, stream>>>(
+// the bf16 entry point's two routes (ops/vocab_topk.py::
+// vocab_bf16_launch_plan); each returns the launch's error
+cudaError_t launch_bf16_mma_sync(const __nv_bfloat16* h2,
+                                 const __nv_bfloat16* w, const float* bias,
+                                 int rows, int R, int V, int k,
+                                 float* part_vals, int* part_ids,
+                                 float* part_m, float* part_s,
+                                 cudaStream_t stream) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        vocab_tile_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        BF16_SMEM);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  const dim3 grid1((V + TV - 1) / TV, (rows + TR - 1) / TR);
+  vocab_tile_bf16_kernel<<<grid1, kThreads, BF16_SMEM, stream>>>(
       h2, w, bias, rows, R, V, k, part_vals, part_ids, part_m, part_s);
-  e = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+// the cluster launch of the TMA route's kernel: C CTAs a cluster
+template <int C>
+cudaLaunchConfig_t tma_config(int grid, int smem, cudaStream_t stream,
+                              cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3(T_THREADS);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int C>
+cudaError_t set_tma_smem(int smem) {
+  static int smem_set = 0;
+  if (smem > smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        vocab_tma_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return e;
+    smem_set = smem;
+  }
+  return cudaSuccess;
+}
+
+// clusters of C CTAs of `smem` dynamic shared bytes the card holds at once
+template <int C>
+cudaError_t tma_clusters(int smem, int* out) {
+  cudaError_t e = set_tma_smem<C>(smem);
   if (e != cudaSuccess) return e;
-  return merge(rows, k, n_tiles, part_vals, part_ids, part_m, part_s, vals,
-               ids, lse, stream);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = tma_config<C>(C, smem, 0, &attr);
+  return cudaOccupancyMaxActiveClusters(out, vocab_tma_kernel<C>, &cfg);
+}
+
+template <int C>
+cudaError_t launch_bf16_tma(const __nv_bfloat16* h2, const __nv_bfloat16* w,
+                            const float* bias, int rows, int R, int V, int k,
+                            int stages, int grid, int smem, float* part_vals,
+                            int* part_ids, float* part_m, float* part_s,
+                            cudaStream_t stream) {
+  cudaError_t e = set_tma_smem<C>(smem);
+  if (e != cudaSuccess) return e;
+  CUtensorMap tm_h2, tm_w;
+  if (!encode_2d(&tm_h2, h2, 2, rows, R, T_BM, T_BK,
+                 CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_2d(&tm_w, w, 2, R, V, T_BK, 64, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = tma_config<C>(grid, smem, stream, &attr);
+  e = cudaLaunchKernelEx(&cfg, vocab_tma_kernel<C>, tm_h2, tm_w, bias, rows,
+                         R, V, k, stages, part_vals, part_ids, part_m,
+                         part_s);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -689,27 +1183,77 @@ extern "C" int vsrcic_vocab_topk(const void* h2, const void* w,
   return (int)e;
 }
 
-// bf16 h2 (rows, R) and bf16 W_t (R, V); the rest as vsrcic_vocab_topk
+// bf16 h2 (rows, R) and bf16 W_t (R, V) by the route of
+// ops/vocab_topk.py::vocab_bf16_launch_plan: route 1 (TMA and wgmma; R and
+// V multiples of 8, h2 and W_t 16-byte aligned; tiles of T_BN columns)
+// with `stages` ring slots on `grid` persistent CTAs in clusters of
+// `cluster` (1 or 2) along the rows, `smem` dynamic shared bytes a CTA;
+// route 0 (mma.sync; tiles of TV columns) with the grid and shared bytes
+// it fixes and no cluster; a plan that differs is refused. `tile_n` is the
+// route's vocab columns per tile (partials per row: ceil(V / tile_n)). The
+// rest as vsrcic_vocab_topk.
 extern "C" int vsrcic_vocab_topk_bf16(const void* h2, const void* w,
                                       const void* bias, int rows, int R,
-                                      int V, int k, void* part_vals,
+                                      int V, int k, int route, int tile_n,
+                                      int stages, int cluster, int grid,
+                                      int smem, void* part_vals,
                                       void* part_ids, void* part_m,
                                       void* part_s, void* vals, void* ids,
                                       void* lse, void* stream) {
   cudaGetLastError();  // a stale error must not be reported as this launch's
-  if (k < 1 || k > K_MAX || k > V || rows < 1 || R < 1)
+  if (k < 1 || k > K_MAX || k > V || rows < 1 || R < 1 ||
+      (route != 0 && route != 1) || tile_n != (route ? T_BN : TV))
+    return (int)cudaErrorInvalidValue;
+  const int n_rb = (rows + TR - 1) / TR;
+  const int n_vt = (V + tile_n - 1) / tile_n;
+  static_assert(T_BM == TR, "both routes tile 128 rows");
+  const bool tma_ok = R % 8 == 0 && V % 8 == 0 &&
+                      reinterpret_cast<uintptr_t>(h2) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  if ((route == 1 &&
+       (!tma_ok || stages < T_MIN_STAGES || stages > T_MAX_STAGES ||
+        (cluster != 1 && cluster != 2) || grid < cluster ||
+        grid % cluster != 0 ||
+        grid / cluster > (n_rb + cluster - 1) / cluster * n_vt ||
+        smem != tma_smem_bytes(stages))) ||
+      (route == 0 &&
+       (grid != n_rb * n_vt || smem != BF16_SMEM || cluster != 1)))
     return (int)cudaErrorInvalidValue;
   auto bh2 = static_cast<const __nv_bfloat16*>(h2);
   auto bw = static_cast<const __nv_bfloat16*>(w);
-  const bool vec = R % 8 == 0 && V % 8 == 0 &&
-                   reinterpret_cast<uintptr_t>(h2) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  auto fn = vec ? launch_bf16<true> : launch_bf16<false>;
-  return (int)fn(bh2, bw, static_cast<const float*>(bias), rows, R, V, k,
-                 static_cast<float*>(part_vals), static_cast<int*>(part_ids),
-                 static_cast<float*>(part_m), static_cast<float*>(part_s),
-                 static_cast<float*>(vals), static_cast<int*>(ids),
-                 static_cast<float*>(lse), static_cast<cudaStream_t>(stream));
+  auto fb = static_cast<const float*>(bias);
+  auto pv = static_cast<float*>(part_vals);
+  auto pi = static_cast<int*>(part_ids);
+  auto pm = static_cast<float*>(part_m);
+  auto ps = static_cast<float*>(part_s);
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (route == 0)
+    e = launch_bf16_mma_sync(bh2, bw, fb, rows, R, V, k, pv, pi, pm, ps, s);
+  else if (cluster == 1)
+    e = launch_bf16_tma<1>(bh2, bw, fb, rows, R, V, k, stages, grid, smem,
+                           pv, pi, pm, ps, s);
+  else
+    e = launch_bf16_tma<2>(bh2, bw, fb, rows, R, V, k, stages, grid, smem,
+                           pv, pi, pm, ps, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)merge(rows, k, n_vt, route == 1, pv, pi, pm, ps,
+                    static_cast<float*>(vals), static_cast<int*>(ids),
+                    static_cast<float*>(lse), s);
+}
+
+// the clusters of `cluster` TMA-route CTAs of `smem` dynamic shared bytes
+// that the card holds at once (the launch plan's grid)
+extern "C" int vsrcic_vocab_tma_clusters(int cluster, int smem, int* out) {
+  cudaGetLastError();
+  const int stages = (smem - 1024) / (T_STAGE + 16);
+  if (stages < T_MIN_STAGES || stages > T_MAX_STAGES ||
+      smem != tma_smem_bytes(stages))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cluster == 1   ? tma_clusters<1>(smem, out)
+                  : cluster == 2 ? tma_clusters<2>(smem, out)
+                                 : cudaErrorInvalidValue;
+  return (int)e;
 }
 
 extern "C" const char* vsrcic_error_string(int err) {

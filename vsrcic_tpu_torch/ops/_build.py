@@ -45,7 +45,9 @@ SIGNATURES = {
                                I, I, I, I, I, I, I, I, I, I, I, I, I,
                                I, I, P, P, P],
     "vsrcic_vocab_topk": [P, P, P, I, I, I, I, I, P, P, P, P, P, P, P, P],
-    "vsrcic_vocab_topk_bf16": [P, P, P, I, I, I, I, P, P, P, P, P, P, P, P],
+    "vsrcic_vocab_topk_bf16": [P, P, P, I, I, I, I, I, I, I, I, I, I,
+                               P, P, P, P, P, P, P, P],
+    "vsrcic_vocab_tma_clusters": [I, I, P],
     "vsrcic_sinkhorn": [P, I, I, I, F, F, P, P],
 }
 
@@ -96,10 +98,12 @@ def _stamp(parts, sources) -> str:
 
 
 def source_hash(compiler: str) -> str:
-    """The CUDA library's stamp, given `compiler_identity(nvcc)`."""
+    """The CUDA library's stamp, given `compiler_identity(nvcc)`: the
+    sources and the headers they include (`csrc/*.cuh`)."""
     import torch
     return _stamp([" ".join(NVCC_FLAGS), compiler, platform.machine(),
-                   str(torch.version.cuda)], _sources())
+                   str(torch.version.cuda)],
+                  _sources() + sorted(CSRC.glob("*.cuh")))
 
 
 def write_stamp(stamp: Path, digest: str) -> None:
@@ -202,6 +206,13 @@ def library() -> ctypes.CDLL:
     lib.vsrcic_error_string.argtypes = [ctypes.c_int]
     lib.vsrcic_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA device (launch plans)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(err: int, name: str) -> None:

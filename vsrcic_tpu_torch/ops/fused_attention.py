@@ -196,7 +196,7 @@ def fused_group_attention(item, ctrl, ha, sent_w, sent_mask, fc_sentinel,
     aligned = all(t.data_ptr() % 16 == 0 for t in (
         ha, fc_sentinel, det_groups, groups_proj))
     plan = fused_launch_plan(rows, m, d, a, det_groups.element_size(),
-                             aligned, _sms(dev))
+                             aligned, _build.sm_count(dev))
     _launch(plan, item, ctrl, ha, sent_w, sent_mask, fc_sentinel, att_a_vec,
             det_groups, groups_proj, out, gsum)
     fused_group_attention.launches += 1
@@ -204,11 +204,6 @@ def fused_group_attention(item, ctrl, ha, sent_w, sent_mask, fc_sentinel,
 
 
 fused_group_attention.launches = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(dev):
-    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _launch(plan, item, ctrl, ha, sent_w, sent_mask, fc_sentinel, att_a_vec,

@@ -100,7 +100,7 @@ def child(repo, sweep):
                 "bound_ms": bound, "ok": ok}
             continue
         recs = []
-        sms = fa._sms(args[2].device)
+        sms = _build.sm_count(args[2].device)
         for plan in _sweep_plans(fa, rows, m, 2, sms):
             got = (torch.empty_like(want[0]), torch.empty_like(want[1]))
 
