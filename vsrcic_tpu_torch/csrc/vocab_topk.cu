@@ -650,11 +650,6 @@ __device__ __forceinline__ float ex2_ftz(float x) {
 }
 
 // quad (4 lanes sharing a row of the wgmma fragment) reductions
-__device__ __forceinline__ int quad_max(int key) {
-  key = max(key, __shfl_xor_sync(0xffffffffu, key, 1));
-  return max(key, __shfl_xor_sync(0xffffffffu, key, 2));
-}
-
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
@@ -715,6 +710,8 @@ __device__ __forceinline__ int select8(int g, F f) {
   return b2 ? c1 : c0;
 }
 
+// FULL: every column of the tile is below V (all tiles but the last)
+template <bool FULL>
 __device__ __forceinline__ void fold_tile_tma(
     float (&d)[128], int lane, int row0, int v0, int vt, int n_vt, int V,
     int rows, int k, float* __restrict__ part_vals,
@@ -723,38 +720,40 @@ __device__ __forceinline__ void fold_tile_tma(
   const int lc = (lane & 3) * 2;  // this lane's first column of a chunk
   // chunks j < live hold columns below V (V is a multiple of 8, so a chunk
   // of 8 columns is all in or all out)
-  const int live = min(32, (V - v0) / 8);
-  // each row's max key; every step is branch free, so the rows' chains
-  // interleave
+  const int live = FULL ? 32 : min(32, (V - v0) / 8);
+  // each row's (max, sum of exp): the max ignores a NaN (fmaxf), which
+  // reaches the sum instead and then makes m NaN too
   float m[2], s[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    int mk = KEY_LOW;
+    float mx = -INFINITY;
 #pragma unroll
     for (int i = 0; i < 64; ++i)
-      mk = max(mk, (i >> 1) < live ? order_key(TILE_VAL(r, i)) : KEY_LOW);
-    // a sum's NaN is the card's canonical one (sign clear): the largest
-    // key, so m is NaN if any value is
-    m[r] = key_value(quad_max(mk));
+      mx = fmaxf(mx, FULL || (i >> 1) < live ? TILE_VAL(r, i) : -INFINITY);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    m[r] = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
   }
+  constexpr float kLog2e = 1.4426950408889634f;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const float sh = lse_shift(m[r]);
+    const float shl = lse_shift(m[r]) * kLog2e;
     float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
-      const float e = ex2_ftz((TILE_VAL(r, i) - sh) * 1.4426950408889634f);
-      part[i & 3] += (i >> 1) < live ? e : 0.f;
+      const float e = ex2_ftz(fmaf(TILE_VAL(r, i), kLog2e, -shl));
+      part[i & 3] += FULL || (i >> 1) < live ? e : 0.f;
     }
     s[r] = quad_sum((part[0] + part[1]) + (part[2] + part[3]));
+    if (s[r] != s[r]) m[r] = s[r];
   }
   // keys in place, KEY_LOW past V
 #pragma unroll
   for (int r = 0; r < 2; ++r)
 #pragma unroll
     for (int i = 0; i < 64; ++i)
-      TILE_VAL(r, i) = __int_as_float(
-          (i >> 1) < live ? order_key(TILE_VAL(r, i)) : KEY_LOW);
+      TILE_VAL(r, i) = __int_as_float(FULL || (i >> 1) < live
+                                          ? order_key(TILE_VAL(r, i))
+                                          : KEY_LOW);
   const bool lead = (lane & 3) == 0;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -972,9 +971,13 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
         d[c * 4 + 2] += b0;
         d[c * 4 + 3] += b1;
       }
-      fold_tile_tma(d, lane, rb * T_BM + wg * 64 + warp * 16 + (lane >> 2),
-                    v0, vt, n_vt, V, rows, k, part_vals, part_ids, part_m,
-                    part_s);
+      const int row0 = rb * T_BM + wg * 64 + warp * 16 + (lane >> 2);
+      if (v0 + T_BN <= V)
+        fold_tile_tma<true>(d, lane, row0, v0, vt, n_vt, V, rows, k,
+                            part_vals, part_ids, part_m, part_s);
+      else
+        fold_tile_tma<false>(d, lane, row0, v0, vt, n_vt, V, rows, k,
+                             part_vals, part_ids, part_m, part_s);
     }
   }
 }
