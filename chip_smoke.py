@@ -36,8 +36,14 @@ Phases (any failure raises and the script exits non-zero):
      CLI's 100 rows (held stream, beside an empty kernel's time). The vocab
      head's bf16-operand kernel (bf16 h2 and table, tensor cores) is held
      to its plain version on the tie cases (ids exact), at ragged shapes
-     and at full width (ids equal save near ties), and timed beside its
-     tensor-core bound and a cuBLAS bf16 product + topk + logsumexp;
+     and at full width (ids equal save near ties), each check asserting
+     its route (TMA or mma.sync) by the launch counts, and timed beside
+     its tensor-core bound, a cuBLAS bf16 product + topk + logsumexp and
+     the product alone, split by the profiler into its two stages, at k 5
+     and k 1. Both vocab entry points and both bf16 routes are held to the
+     plain version on non-finite logits (0/0 rows made on the card, +-inf
+     products, an all -inf row, a NaN column, a +inf bias): NaN and +-inf
+     where it has them, ids exact on those rows, none outside [0, V);
   4. replay the beam's golden fixtures (JAX results) through the kernel
      path: golden_beam.npz, and golden_beam_bf16.npz's four paths
      (VSRCIC_VOCAB_LHS_BF16=1 on bf16 and f32 tables, decode_dtype=bfloat16
@@ -48,7 +54,7 @@ Phases (any failure raises and the script exits non-zero):
      count reset just before and read just after;
  5b. the same beam under VSRCIC_VOCAB_LHS_BF16=1 (the vocab head's bf16
      kernel): one warm-up and three timed batches, 20 bf16 launches a
-     batch; its captions (each item's best beam) equal a checked run's
+     batch, all on the TMA route; its captions (each item's best beam) equal a checked run's
      save vocab near ties (every kernel call held to its plain version,
      the vocab op's plain result going on); the share of phase 5's
      captions it keeps;

@@ -101,30 +101,30 @@ def test_constants_match_the_cuda_source():
     assert (_const("T_BM"), _const("T_BN")) == (vt.TILE_M, vt.TMA_TILE_V)
     assert _const("T_BK") == vt.TMA_DEPTH
     assert _const("T_MAX_STAGES") >= vt.TMA_STAGES
+    assert _const("T_CLUSTER") == vt.TMA_CLUSTER
     assert _const("K_MAX") == vt.K_MAX
     tr, tv, bk = _const("TR"), _const("TV"), _const("BK")
     pipe = 2 * (tr * (bk + 8) + bk * (tv + 8)) * 2
     assert max(pipe, tr * (tv + 4) * 4) == vt.MMA_SYNC_SMEM
 
 
-@pytest.mark.parametrize("cluster", [1, 2])
+@pytest.mark.parametrize("stages", [2, 3, 4])
 @pytest.mark.parametrize("shape", [BEAM, (7, 1000, 10000, 16),
                                    (257, 1000, 392, 3), (130, 64, 136, 5),
                                    (1, 8, 8, 8)])
-def test_clusters_cover_every_tile_once(shape, cluster):
-    """Every cluster size of the sweep (tools/ab_vocab.py): whole
-    clusters, no more than the card holds or the groups need, every tile
-    once (a group's row blocks past the rows are not listed)."""
+def test_ring_depths_cover_every_tile_once(shape, stages):
+    """Every ring depth of the sweep (tools/ab_vocab.py): whole clusters,
+    no more than the card holds or the groups need, every tile once (a
+    group's row blocks past the rows are not listed)."""
     rows, r, v, k = shape
-    plan = vt._plan(rows, r, v, k, True, 132, cluster=cluster)
-    assert plan.cluster == cluster
+    plan = vt._plan(rows, r, v, k, True, 132, stages=stages)
+    assert (plan.cluster, plan.stages) == (vt.TMA_CLUSTER, stages)
     assert plan.grid % plan.cluster == 0 and 1 <= plan.grid <= 132
     walk = vt.tile_walk(plan, rows, v)
     seen = collections.Counter(t for cta in walk for t in cta)
     n_rb, n_vt = math.ceil(rows / 128), math.ceil(v / 256)
     assert set(seen) == {(rb, c) for rb in range(n_rb) for c in range(n_vt)}
     assert set(seen.values()) == {1}
-    with pytest.raises(ValueError):
-        vt._plan(rows, r, v, k, True, 132, cluster=4)
-    with pytest.raises(ValueError):
-        vt._plan(rows, r, v, k, True, 132, stages=5)
+    for bad in (1, 5):
+        with pytest.raises(ValueError):
+            vt._plan(rows, r, v, k, True, 132, stages=bad)

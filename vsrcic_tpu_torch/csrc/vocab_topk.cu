@@ -539,6 +539,7 @@ constexpr int T_B_BOX = T_BK * 64 * 2;        // W_t box (64 deep x 64)
 constexpr int T_B_BOXES = T_BN / 64;          // W_t boxes per stage
 constexpr int T_STAGE = T_A_BYTES + T_B_BOXES * T_B_BOX;
 constexpr int T_THREADS = 384;  // consumer warpgroups 0, 1; producer 2
+constexpr int T_CLUSTER = 2;    // CTAs of a cluster, along the rows
 constexpr int T_MIN_STAGES = 2;
 constexpr int T_MAX_STAGES = 4;
 
@@ -834,22 +835,19 @@ __device__ __forceinline__ void fold_tile_tma(
 }
 #undef TILE_VAL
 
-// a consumer warp's release of a slot: to every CTA of its cluster, whose
-// producers all write into it
-template <int C>
+// a consumer warp's release of a slot: to both CTAs of its cluster, whose
+// producers both write into it
 __device__ __forceinline__ void release(uint64_t* bar, int rank) {
   mbar_arrive(bar);
-#pragma unroll
-  for (int i = 0; i < C; ++i)
-    if (i != rank) mbar_arrive_remote(bar, i);
+  mbar_arrive_remote(bar, rank ^ 1);
 }
 
-// bf16 stage 1, TMA route. Persistent clusters of C CTAs (1 or 2) walk the
-// (row block, vocab tile) list in groups of C row blocks of one vocab
-// tile: group p of n_rbg * n_vt is vocab tile p / n_rbg, row group p %
-// n_rbg; cluster c takes p = c, c + clusters, ...; its CTA of rank m takes
-// row block rbg * C + m (a block past the rows is computed on TMA's zero
-// fill and not written). Warpgroup 2's first thread fills a ring of
+// bf16 stage 1, TMA route. Persistent clusters of T_CLUSTER CTAs walk the
+// (row block, vocab tile) list in groups of T_CLUSTER row blocks of one
+// vocab tile: group p of n_rbg * n_vt is vocab tile p / n_rbg, row group p
+// % n_rbg; cluster c takes p = c, c + clusters, ...; its CTA of rank m
+// takes row block rbg * T_CLUSTER + m (a block past the rows is computed
+// on TMA's zero fill and not written). Warpgroup 2's first thread fills a ring of
 // `stages` slots with 64-deep stages: the tile's h2 box (128 rows x 64)
 // and its four W_t boxes (64 deep x 64 columns), each W_t box copied by
 // one CTA of the cluster and multicast to all, so the cluster reads it
@@ -858,7 +856,6 @@ __device__ __forceinline__ void release(uint64_t* bar, int rank) {
 // 1 compute rows 0-63 and 64-127 of the 128 x 256 tile, one m64n256k16
 // product per 16 of depth each, then fold their halves from their
 // registers while the producer fills the ring with the next tile.
-template <int C>
 __global__ void __launch_bounds__(T_THREADS, 1)
 vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
                  const __grid_constant__ CUtensorMap tm_w,
@@ -872,13 +869,14 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * T_STAGE);
   uint64_t* empty = full + stages;
   const int n_rb = (rows + T_BM - 1) / T_BM;
+  constexpr int C = T_CLUSTER;
   const int n_rbg = (n_rb + C - 1) / C;
   const int n_vt = (V + T_BN - 1) / T_BN;
   const int n_groups = n_rbg * n_vt;
   const int n_k = (R + T_BK - 1) / T_BK;
   const int clusters = gridDim.x / C;
   const int cl = blockIdx.x / C;
-  const int rank = C > 1 ? (int)cluster_rank() : 0;
+  const int rank = (int)cluster_rank();
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x & 31;
 
@@ -889,10 +887,7 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (C > 1)
-    cluster_sync();  // every CTA's barriers exist before any copy or arrival
-  else
-    __syncthreads();
+  cluster_sync();  // every CTA's barriers exist before any copy or arrival
 
   if (wg == 2) {
     // producer: one thread keeps the ring full
@@ -911,20 +906,16 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
 #pragma unroll
           for (int i = 0; i < T_B_BOXES / C; ++i) {
             const int bx = rank * (T_B_BOXES / C) + i;
-            unsigned char* dst = a + T_A_BYTES + bx * T_B_BOX;
-            if (C == 1)
-              tma_box(dst, &tm_w, vt * T_BN + bx * 64, kb * T_BK, &full[s]);
-            else
-              tma_box_multicast(dst, &tm_w, vt * T_BN + bx * 64, kb * T_BK,
-                                &full[s], uint16_t((1u << C) - 1));
+            tma_box_multicast(a + T_A_BYTES + bx * T_B_BOX, &tm_w,
+                              vt * T_BN + bx * 64, kb * T_BK, &full[s],
+                              uint16_t((1u << C) - 1));
           }
         }
       }
       // the last `stages` positions released everywhere: no CTA arrives on
       // this one's barriers once it may have exited
-      if (C > 1)
-        for (int i = 0; i < stages; ++i, ++g)
-          mbar_wait(&empty[g % stages], ((g / stages) & 1) ^ 1);
+      for (int i = 0; i < stages; ++i, ++g)
+        mbar_wait(&empty[g % stages], ((g / stages) & 1) ^ 1);
     }
   } else {
     // consumers: warpgroup wg takes rows wg*64.. of every tile
@@ -953,11 +944,11 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
         wgmma_commit();
         wgmma_wait<1>();  // the previous stage's products are done
         if (kb > 0 && lane == 0)
-          release<C>(&empty[(g - 1) % stages], rank);
+          release(&empty[(g - 1) % stages], rank);
       }
       wgmma_wait<0>();
       fence_acc(d);
-      if (lane == 0) release<C>(&empty[(g - 1) % stages], rank);
+      if (lane == 0) release(&empty[(g - 1) % stages], rank);
 
       const int v0 = vt * T_BN;
       // the bias, once per column pair of this lane (V a multiple of 8)
@@ -1093,8 +1084,7 @@ cudaError_t launch_bf16_mma_sync(const __nv_bfloat16* h2,
   return cudaGetLastError();
 }
 
-// the cluster launch of the TMA route's kernel: C CTAs a cluster
-template <int C>
+// the cluster launch of the TMA route's kernel
 cudaLaunchConfig_t tma_config(int grid, int smem, cudaStream_t stream,
                               cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
@@ -1103,7 +1093,7 @@ cudaLaunchConfig_t tma_config(int grid, int smem, cudaStream_t stream,
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = (unsigned)C;
+  attr->val.clusterDim.x = (unsigned)T_CLUSTER;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -1111,36 +1101,23 @@ cudaLaunchConfig_t tma_config(int grid, int smem, cudaStream_t stream,
   return cfg;
 }
 
-template <int C>
 cudaError_t set_tma_smem(int smem) {
   static int smem_set = 0;
   if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        vocab_tma_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        vocab_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     smem_set = smem;
   }
   return cudaSuccess;
 }
 
-// clusters of C CTAs of `smem` dynamic shared bytes the card holds at once
-template <int C>
-cudaError_t tma_clusters(int smem, int* out) {
-  cudaError_t e = set_tma_smem<C>(smem);
-  if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = tma_config<C>(C, smem, 0, &attr);
-  return cudaOccupancyMaxActiveClusters(out, vocab_tma_kernel<C>, &cfg);
-}
-
-template <int C>
 cudaError_t launch_bf16_tma(const __nv_bfloat16* h2, const __nv_bfloat16* w,
                             const float* bias, int rows, int R, int V, int k,
                             int stages, int grid, int smem, float* part_vals,
                             int* part_ids, float* part_m, float* part_s,
                             cudaStream_t stream) {
-  cudaError_t e = set_tma_smem<C>(smem);
+  cudaError_t e = set_tma_smem(smem);
   if (e != cudaSuccess) return e;
   CUtensorMap tm_h2, tm_w;
   if (!encode_2d(&tm_h2, h2, 2, rows, R, T_BM, T_BK,
@@ -1148,10 +1125,9 @@ cudaError_t launch_bf16_tma(const __nv_bfloat16* h2, const __nv_bfloat16* w,
       !encode_2d(&tm_w, w, 2, R, V, T_BK, 64, CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = tma_config<C>(grid, smem, stream, &attr);
-  e = cudaLaunchKernelEx(&cfg, vocab_tma_kernel<C>, tm_h2, tm_w, bias, rows,
-                         R, V, k, stages, part_vals, part_ids, part_m,
-                         part_s);
+  const cudaLaunchConfig_t cfg = tma_config(grid, smem, stream, &attr);
+  e = cudaLaunchKernelEx(&cfg, vocab_tma_kernel, tm_h2, tm_w, bias, rows, R,
+                         V, k, stages, part_vals, part_ids, part_m, part_s);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -1190,9 +1166,9 @@ extern "C" int vsrcic_vocab_topk(const void* h2, const void* w,
 // ops/vocab_topk.py::vocab_bf16_launch_plan: route 1 (TMA and wgmma; R and
 // V multiples of 8, h2 and W_t 16-byte aligned; tiles of T_BN columns)
 // with `stages` ring slots on `grid` persistent CTAs in clusters of
-// `cluster` (1 or 2) along the rows, `smem` dynamic shared bytes a CTA;
+// `cluster` = T_CLUSTER along the rows, `smem` dynamic shared bytes a CTA;
 // route 0 (mma.sync; tiles of TV columns) with the grid and shared bytes
-// it fixes and no cluster; a plan that differs is refused. `tile_n` is the
+// it fixes and no cluster (1); a plan that differs is refused. `tile_n` is the
 // route's vocab columns per tile (partials per row: ceil(V / tile_n)). The
 // rest as vsrcic_vocab_topk.
 extern "C" int vsrcic_vocab_topk_bf16(const void* h2, const void* w,
@@ -1215,7 +1191,7 @@ extern "C" int vsrcic_vocab_topk_bf16(const void* h2, const void* w,
                       reinterpret_cast<uintptr_t>(w) % 16 == 0;
   if ((route == 1 &&
        (!tma_ok || stages < T_MIN_STAGES || stages > T_MAX_STAGES ||
-        (cluster != 1 && cluster != 2) || grid < cluster ||
+        cluster != T_CLUSTER || grid < cluster ||
         grid % cluster != 0 ||
         grid / cluster > (n_rb + cluster - 1) / cluster * n_vt ||
         smem != tma_smem_bytes(stages))) ||
@@ -1233,30 +1209,28 @@ extern "C" int vsrcic_vocab_topk_bf16(const void* h2, const void* w,
   cudaError_t e;
   if (route == 0)
     e = launch_bf16_mma_sync(bh2, bw, fb, rows, R, V, k, pv, pi, pm, ps, s);
-  else if (cluster == 1)
-    e = launch_bf16_tma<1>(bh2, bw, fb, rows, R, V, k, stages, grid, smem,
-                           pv, pi, pm, ps, s);
   else
-    e = launch_bf16_tma<2>(bh2, bw, fb, rows, R, V, k, stages, grid, smem,
-                           pv, pi, pm, ps, s);
+    e = launch_bf16_tma(bh2, bw, fb, rows, R, V, k, stages, grid, smem, pv,
+                        pi, pm, ps, s);
   if (e != cudaSuccess) return (int)e;
   return (int)merge(rows, k, n_vt, route == 1, pv, pi, pm, ps,
                     static_cast<float*>(vals), static_cast<int*>(ids),
                     static_cast<float*>(lse), s);
 }
 
-// the clusters of `cluster` TMA-route CTAs of `smem` dynamic shared bytes
+// the clusters of T_CLUSTER TMA-route CTAs of `smem` dynamic shared bytes
 // that the card holds at once (the launch plan's grid)
-extern "C" int vsrcic_vocab_tma_clusters(int cluster, int smem, int* out) {
+extern "C" int vsrcic_vocab_tma_clusters(int smem, int* out) {
   cudaGetLastError();
   const int stages = (smem - 1024) / (T_STAGE + 16);
   if (stages < T_MIN_STAGES || stages > T_MAX_STAGES ||
       smem != tma_smem_bytes(stages))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cluster == 1   ? tma_clusters<1>(smem, out)
-                  : cluster == 2 ? tma_clusters<2>(smem, out)
-                                 : cudaErrorInvalidValue;
-  return (int)e;
+  cudaError_t e = set_tma_smem(smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = tma_config(T_CLUSTER, smem, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(out, vocab_tma_kernel, &cfg);
 }
 
 extern "C" const char* vsrcic_error_string(int err) {

@@ -47,7 +47,7 @@ SIGNATURES = {
     "vsrcic_vocab_topk": [P, P, P, I, I, I, I, I, P, P, P, P, P, P, P, P],
     "vsrcic_vocab_topk_bf16": [P, P, P, I, I, I, I, I, I, I, I, I, I,
                                P, P, P, P, P, P, P, P],
-    "vsrcic_vocab_tma_clusters": [I, I, P],
+    "vsrcic_vocab_tma_clusters": [I, P],
     "vsrcic_sinkhorn": [P, I, I, I, F, F, P, P],
 }
 

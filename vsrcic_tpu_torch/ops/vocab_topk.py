@@ -48,7 +48,7 @@ SMEM_MAX = 232_448       # dynamic shared bytes one block may use
 TMA_DEPTH = 64           # depth of a TMA stage (csrc T_BK): 128 bytes
 TMA_STAGE_BYTES = 2 * TILE_M * TMA_DEPTH + 2 * TMA_DEPTH * TMA_TILE_V
 TMA_STAGES = 4           # ring slots of the TMA route (csrc allows 2-4)
-TMA_CLUSTER = 2          # CTAs of a TMA-route cluster (sharing W_t boxes)
+TMA_CLUSTER = 2          # CTAs of a TMA-route cluster (csrc T_CLUSTER)
 MMA_SYNC_SMEM = 67_584   # the mma.sync route's shared bytes (csrc BF16_SMEM)
 _FLOATS = (torch.float32, torch.bfloat16)
 
@@ -86,10 +86,9 @@ def vocab_bf16_launch_plan(rows, r, v, k, aligned=True, sms=SMS,
     return _plan(rows, r, v, k, aligned, sms, resident=resident)
 
 
-def _plan(rows, r, v, k, aligned, sms, cluster=None, stages=None,
-          resident=None):
-    """`vocab_bf16_launch_plan`, or with the TMA route's cluster or ring
-    depth fixed (tools/ab_vocab.py's sweep)."""
+def _plan(rows, r, v, k, aligned, sms, stages=None, resident=None):
+    """`vocab_bf16_launch_plan`, or with the TMA route's ring depth fixed
+    (tools/ab_vocab.py's sweep)."""
     if (min(rows, r, v, sms) < 1 or not 1 <= k <= min(v, K_MAX)
             or not isinstance(aligned, bool)
             or (resident is not None and resident < 1)):
@@ -100,11 +99,10 @@ def _plan(rows, r, v, k, aligned, sms, cluster=None, stages=None,
     if not (r % 8 == 0 and v % 8 == 0 and aligned):
         return VocabPlan("mma_sync", TILE_M, TILE_V, 2, 1,
                          n_rb * math.ceil(v / TILE_V), MMA_SYNC_SMEM)
-    c = cluster or TMA_CLUSTER
+    c = TMA_CLUSTER
     stages = stages or TMA_STAGES
-    if c not in (1, 2) or not 2 <= stages <= 4:
-        raise ValueError("vocab_bf16_launch_plan: cluster %s, %s stages"
-                         % (c, stages))
+    if not 2 <= stages <= 4:
+        raise ValueError("vocab_bf16_launch_plan: %s stages" % stages)
     groups = math.ceil(n_rb / c) * math.ceil(v / TMA_TILE_V)
     clusters = min(resident or sms // c, sms // c, groups)
     smem = _tma_smem(stages)
@@ -114,13 +112,13 @@ def _plan(rows, r, v, k, aligned, sms, cluster=None, stages=None,
 
 
 @functools.lru_cache(maxsize=None)
-def resident_clusters(device, cluster, stages):
-    """The TMA route's clusters of `cluster` CTAs with `stages` ring slots
+def resident_clusters(device, stages):
+    """The TMA route's clusters (TMA_CLUSTER CTAs with `stages` ring slots)
     that `device` holds at once (cudaOccupancyMaxActiveClusters: a GPC
     whose SMs do not divide by the cluster size leaves some idle)."""
     out = ctypes.c_int(0)
     _build.check(_build.library().vsrcic_vocab_tma_clusters(
-        cluster, _tma_smem(stages), ctypes.byref(out)),
+        _tma_smem(stages), ctypes.byref(out)),
         "vocab_topk_lse (cluster occupancy)")
     return out.value
 
@@ -197,7 +195,7 @@ def vocab_topk_lse(h2, w_t, bias, k: int):
         aligned = h2.data_ptr() % 16 == 0 and w_t.data_ptr() % 16 == 0
         plan = vocab_bf16_launch_plan(
             rows, r, v, k, aligned, _build.sm_count(dev),
-            resident_clusters(dev, TMA_CLUSTER, TMA_STAGES))
+            resident_clusters(dev, TMA_STAGES))
     out = _launch(plan, h2, w_t, bias, k)
     vocab_topk_lse.launches += 1
     if plan:

@@ -22,8 +22,8 @@ checkout, so it builds and loads that checkout's kernels (into its own
 repeated `--rounds` times; with more, each round runs them in order and
 then in reverse. `--sweep` times this checkout's bf16 kernel at the
 beam's shape under TMA-route plans beside the one `vocab_bf16_launch_plan`
-picks (clusters of SWEEP_CLUSTERS CTAs, SWEEP_STAGES ring slots), each
-also split by the profiler into its two stages; its launches
+picks (SWEEP_STAGES ring slots), each also split by the profiler into its
+two stages; its launches
 go through the private `_launch`, which the wrapper's counts do not see.
 Every measurement prints one JSON line; all of them go to
 `chiprun_out/ab_vocab.json` (the sweep's to `ab_vocab_sweep.json`) beside
@@ -41,7 +41,6 @@ REPO = os.path.dirname(os.path.dirname(HERE))
 # (name, h2 dtype, k): the timed calls
 CALLS = (("f32", "float32", 5), ("bf16", "bfloat16", 5),
          ("bf16_k1", "bfloat16", 1))
-SWEEP_CLUSTERS = (1, 2)
 SWEEP_STAGES = (2, 3, 4)
 
 
@@ -98,11 +97,11 @@ def child(repo, sweep):
     sms = _build.sm_count(lhs.device)
     picked = vt.vocab_bf16_launch_plan(
         rows, r, v, k, True, sms,
-        vt.resident_clusters(lhs.device, vt.TMA_CLUSTER, vt.TMA_STAGES))
+        vt.resident_clusters(lhs.device, vt.TMA_STAGES))
     plans = [picked] + [
-        vt._plan(rows, r, v, k, True, sms, cluster=c, stages=st,
-                 resident=vt.resident_clusters(lhs.device, c, st))
-        for c in SWEEP_CLUSTERS for st in SWEEP_STAGES]
+        vt._plan(rows, r, v, k, True, sms, stages=st,
+                 resident=vt.resident_clusters(lhs.device, st))
+        for st in SWEEP_STAGES]
     recs = []
     for plan in dict.fromkeys(plans):
         def call():
