@@ -11,6 +11,7 @@
     python3 chip_smoke.py --train-cli  # phases 1-2 and 14
     python3 chip_smoke.py --parallel   # phases 1-2 and 15
     python3 chip_smoke.py --vocab-bf16 # phases 1-2, 3's vocab checks, 5-5c
+                                       # (both vocab entry points)
 
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi), and the TF32 settings
@@ -34,6 +35,15 @@ Phases (any failure raises and the script exits non-zero):
      (NaN, the neighbours exact), and timed at its four path shapes: the
      beam, SCST's decode, the eval CLI's first step and the SCST train
      CLI's 100 rows (held stream, beside an empty kernel's time). The vocab
+     head's f32 entry point (f32 h2) is held on f32 tables (the SGEMM) and
+     on bf16 tables, where V a multiple of 8 takes the split route: its
+     split pass gives split_bf16x3_plain's planes bit for bit (every kind
+     of entry, ragged R, unaligned), the route holds the plain version on
+     the tie cases (ids exact), at ragged R and at full width (its worst
+     error printed), each check asserting its route by the launch counts;
+     timed at the beam's shape beside its bound (three bf16 passes over
+     the tensor cores' rate) and the CUDA cores' f32 bound, the SGEMM on
+     the same values, the library trio, and the split pass alone. The vocab
      head's bf16-operand kernel (bf16 h2 and table, tensor cores) is held
      to its plain version on the tie cases (ids exact), at ragged shapes
      and at full width (ids equal save near ties), each check asserting
@@ -51,7 +61,11 @@ Phases (any failure raises and the script exits non-zero):
   5. drive the beam, `ControllableCaptioner.beam_search_v` at the bench.py
      shapes (batch 1024, beam 5, fused attention, vocab top-k, bf16
      tables): one warm-up and three timed batches, with every kernel's launch
-     count reset just before and read just after;
+     count reset just before and read just after; every vocab launch on the
+     split route, after its split pass (20 of 20 a batch); its captions
+     (each item's best beam) equal a checked run's save vocab near ties
+     (every vocab call held to its plain version, the plain result going
+     on);
  5b. the same beam under VSRCIC_VOCAB_LHS_BF16=1 (the vocab head's bf16
      kernel): one warm-up and three timed batches, 20 bf16 launches a
      batch, all on the TMA route; its captions (each item's best beam) equal a checked run's
@@ -70,7 +84,7 @@ Phases (any failure raises and the script exits non-zero):
      hidden 512 with 2662 verbs, the 2352-d Sinkhorn net, the phase-5
      captioner): one warm-up and three timed batches through run_stream and
      one through run_batch, each with the launch counts reset just before
-     and read just after; the plan and beam times of one batch; the same
+     and read just after (every vocab launch on the split route); the plan and beam times of one batch; the same
      batch through the plain versions on the card, compared;
   9. replay the trainers' golden fixture (JAX losses, gradients and greedy
      words) on the card: the XE trainer's step-1 gradients and three
@@ -582,22 +596,96 @@ def hold_vocab(h2, w, b, k, exact_ids, worst):
     return vocab_near_ties(h2, w, b, got, want)
 
 
+def vocab_split_bound(rows, r, v, k):
+    """(ms, by): the split route's function, the exact f32 x bf16 product
+    taken as three bf16 passes over the tensor cores' bf16 rate, or its
+    bytes (f32 h2, bf16 table, f32 bias, outputs; the planes are the
+    route's own) over the HBM rate."""
+    flops = 3 * 2.0 * rows * r * v
+    nbytes = rows * r * 4 + r * v * 2 + v * 4 + rows * (2 * k + 1) * 4
+    t_ops, t_bytes = flops / BF16_TENSOR_FLOPS, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def split_values(gen, rows, r):
+    """f32 h2 with every kind of entry the split pass meets, made on the
+    card: magnitudes 2^-126 .. 2^127 of both signs, subnormals, +-0,
+    +-inf, NaNs of both signs."""
+    import torch
+    e = torch.rand((rows, r), generator=gen, device="cuda") * 253 - 126
+    x = (torch.rand((rows, r), generator=gen, device="cuda") + 1) * torch.exp2(
+        e) * torch.where(torch.rand((rows, r), generator=gen,
+                                    device="cuda") < 0.5, -1.0, 1.0)
+    flat = x.view(-1)
+    flat[:8] = torch.tensor([0.0, -0.0, math.inf, -math.inf, 1e-40, -3e-42,
+                             3.4e38, -1e-45], device="cuda")
+    zero = torch.zeros((), device="cuda")
+    flat[8] = zero / zero
+    flat[9] = -(zero / zero)
+    return x
+
+
+def check_vocab_split(gen, h2):
+    """The split pass (csrc vocab_split_kernel) against split_bf16x3_plain
+    on the card, bit for bit: at the beam's h2, on every kind of entry at
+    ragged R, and from an unaligned base (element loads)."""
+    import torch
+    from vsrcic_tpu_torch.ops.vocab_topk import (split_bf16x3,
+                                                 split_bf16x3_plain)
+    cases = [("full", h2), ("special", split_values(gen, 37, 1001)),
+             ("special_r1", split_values(gen, 16, 1))]
+    off = torch.empty(130 * 64 + 1, device="cuda")[1:].view(130, 64)
+    cases.append(("unaligned", off.copy_(split_values(gen, 130, 64))))
+    for name, x in cases:
+        got = split_bf16x3(x)
+        torch.cuda.synchronize()
+        want = split_bf16x3_plain(x)
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError("split pass %s rows=%d R=%d: planes differ "
+                                 "from split_bf16x3_plain" % ((name,)
+                                                              + x.shape))
+        log("  vocab split pass %s rows=%d R=%d: planes equal "
+            "split_bf16x3_plain bit for bit" % ((name,) + tuple(x.shape)))
+
+
 def check_vocab(gen, report):
+    """Phase 3 for the f32 entry point (f32 h2) on f32 and bf16 tables:
+    the SGEMM route, and on a bf16 table with V a multiple of 8 the split
+    route (its split pass held bit for bit). The tie cases with ids exact,
+    ragged and full-width shapes with ids equal save near ties, all at
+    rtol 1e-5 / atol 1e-6, each check asserting its route by the launch
+    counts; then the times at the beam's shape, where the beam runs the
+    split route."""
     import torch
     from vsrcic_tpu_torch.ops.vocab_topk import (
-        vocab_topk_lse as kern, vocab_topk_lse_plain as plain)
-    worst = {"abs": 0.0, "rel": 0.0}
+        split_bf16x3, split_bf16x3_plain, vocab_topk_lse as kern,
+        vocab_topk_lse_plain as plain)
+    worst = {route: {"abs": 0.0, "rel": 0.0} for route in ("sgemm", "split")}
+    routes = {}
 
     def compare(h2, w, b, k, exact_ids):
-        return hold_vocab(h2, w, b, k, exact_ids, worst)
+        route = ("split" if w.dtype == torch.bfloat16 and w.shape[1] % 8 == 0
+                 else "sgemm")
+        before = kern.launches_split
+        n = hold_vocab(h2, w, b, k, exact_ids, worst[route])
+        if kern.launches_split != before + (route == "split"):
+            raise AssertionError("vocab top-k R=%d V=%d %s table: not on "
+                                 "the %s route" % (w.shape[0], w.shape[1],
+                                                   w.dtype, route))
+        routes[route] = routes.get(route, 0) + 1
+        return n
 
     for i, (h2, w, b, k) in enumerate(vocab_tie_cases(gen)):
         for table in (torch.float32, torch.bfloat16):
             compare(h2, w.to(table).contiguous(), b, k, exact_ids=True)
         log("  vocab_topk tie case %d rows=%d R=%d V=%d k=%d: ids exact"
             % (i, h2.shape[0], h2.shape[1], w.shape[1], k))
+    # ragged: the SGEMM's edges; ragged R (zero-padded planes), rows and k
+    # on the split route
     for rows, r, v, k in ((37, 77, 1001, 5), (3, 1000, 130, 1),
-                          (101, 129, 257, 16)):
+                          (101, 129, 257, 16), (37, 1001, 1000, 5),
+                          (130, 77, 136, 16), (3, 1000, 136, 1)):
         h2 = torch.randn((rows, r), generator=gen, device="cuda")
         w = torch.randn((r, v), generator=gen, device="cuda") / r ** 0.5
         b = torch.randn((v,), generator=gen, device="cuda")
@@ -619,30 +707,52 @@ def check_vocab(gen, report):
         log("  vocab_topk full rows=%d R=%d V=%d k=%d %s: near-tie rows %d"
             % (ROWS, RNN, VOCAB, BEAM, str(table).split(".")[1],
                near[str(table)]))
+    log("  vocab_topk worst error by route: %s (checks by route: %s)"
+        % ({r: "%.3g absolute, %.3g relative" % (e["abs"], e["rel"])
+            for r, e in worst.items()}, routes))
+    check_vocab_split(gen, h2)
     wt = tables[torch.bfloat16]
     ms = cuda_ms(lambda: kern(h2, wt, b, BEAM))
     plain_ms = cuda_ms(lambda: plain(h2, wt, b, BEAM), iters=5)
     wf = wt.float()
+    # PR 1's SGEMM on the same values (the f32 copy of the bf16 table)
+    sgemm_ms = cuda_ms(lambda: kern(h2, wf, b, BEAM))
 
     def library():  # one product, top-k and logsumexp (timed only)
         logits = torch.addmm(b, h2, wf)
         return torch.topk(logits, BEAM), torch.logsumexp(logits, -1)
     library_ms = cuda_ms(library)
     flops = 2.0 * ROWS * RNN * VOCAB
-    nbytes = (ROWS * RNN * 4 + RNN * VOCAB * wt.element_size() + VOCAB * 4
-              + ROWS * (2 * BEAM + 1) * 4)
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
-    bound_ms = 1e3 * max(t_ops, t_bytes)
+    core_bound_ms, _ = vocab_bound(ROWS, RNN, VOCAB, BEAM, 2)
+    bound_ms, bound_by = vocab_split_bound(ROWS, RNN, VOCAB, BEAM)
     split = kernel_split(lambda: kern(h2, wt, b, BEAM), "vocab")
-    log("  vocab_topk at rows=%d bf16: %.4f ms (plain %.4f ms, library "
-        "%.4f ms, bound %.4f ms by operations, %.1f f32 TFLOP/s); "
-        "profiler split %s"
-        % (ROWS, ms, plain_ms, library_ms, bound_ms, flops / ms / 1e9,
-           fmt_split(split)))
+    log("  vocab_topk at rows=%d bf16 table, split route: %.4f ms (plain "
+        "%.4f ms, library %.4f ms, bound %.4f ms by %s: three bf16 passes; "
+        "the CUDA cores' f32 bound %.4f ms; %.1f f32-product TFLOP/s; the "
+        "SGEMM on the same values %.4f ms); profiler split %s"
+        % (ROWS, ms, plain_ms, library_ms, bound_ms, bound_by, core_bound_ms,
+           flops / ms / 1e9, sgemm_ms, fmt_split(split)))
     report["vocab_topk"] = dict(
-        max_abs_err=worst["abs"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        max_abs_err=max(e["abs"] for e in worst.values()),
+        max_rel_err=max(e["rel"] for e in worst.values()),
+        worst_by_route=worst, checks_by_route=routes, route="split", ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        cuda_core_bound_ms=core_bound_ms, sgemm_ms=sgemm_ms,
         library_ms=library_ms, near_tie_rows=near, split_ms=split)
+    # the split pass alone (4 bytes read and 6 written an entry), a few
+    # microseconds: timed on a held stream, as the Sinkhorn kernel is
+    split_ms = held_ms(lambda: split_bf16x3(h2))[0]
+    split_plain_ms = cuda_ms(lambda: split_bf16x3_plain(h2), iters=5)
+    nbytes = ROWS * RNN * (4 + 3 * 2)
+    split_bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    log("  vocab split pass at rows=%d R=%d: %.4f ms on the held stream "
+        "(plain %.4f ms, bound "
+        "%.4f ms by bytes, %.2f TB/s; no single library call)"
+        % (ROWS, RNN, split_ms, split_plain_ms, split_bound_ms,
+           nbytes / split_ms / 1e9))
+    report["vocab_split"] = dict(
+        max_abs_err=0.0, ms=split_ms, plain_ms=split_plain_ms,
+        bound_ms=split_bound_ms, bound_by="bytes", library_ms=None)
 
 
 def vocab_bf16_bound(rows, r, v, k):
@@ -787,8 +897,9 @@ def vocab_nonfinite_inputs(gen, rows, r, v, case):
 
 
 def check_vocab_nonfinite(gen, report):
-    """The vocab kernels on non-finite logits (ROADMAP §3 item 2): every
-    entry point and route against its plain version, which ranks as
+    """The vocab kernels on non-finite logits (closed in PR 11): every
+    entry point and route (the f32 one's split route on the bf16 table at
+    V 10000, SGEMM elsewhere) against its plain version, which ranks as
     jax.lax.top_k and sums as jax.nn.logsumexp. Values and lse at phase
     3's bar, NaN and +-inf exactly where the plain version has them; ids
     exact on the rows with a non-finite logit, equal save near ties on the
@@ -809,7 +920,15 @@ def check_vocab_nonfinite(gen, report):
                     got = expect_route(name[5:],
                                        lambda: kern(lhs, table, b, BEAM))
                 else:
+                    before = kern.launches_split
                     got = kern(lhs, table, b, BEAM)
+                    split = table.dtype == bf16 and v % 8 == 0
+                    if kern.launches_split != before + split:
+                        raise AssertionError("vocab top-k %s %s V=%d: not "
+                                             "on the %s route" % (
+                                                 name, case, v, "split"
+                                                 if split else "sgemm"))
+                    name += "_split" if split else "_sgemm"
                 torch.cuda.synchronize()
                 want = plain(lhs, table, b, BEAM)
                 ids = got[1]
@@ -1059,9 +1178,12 @@ def run_main_path(report):
     log("  main path: %d batches of %d captions (beam %d) in %.3f s: %.1f "
         "captions/s; launches %s" % (n_batches, BATCH, BEAM, dt, caps,
                                      launches))
-    want = {"fused_attention": SEQ_LEN * n_batches,
-            "vocab_topk": SEQ_LEN * n_batches, "vocab_topk_bf16": 0,
-            "vocab_topk_bf16_tma": 0}
+    # every vocab launch on the split route (f32 h2, bf16 table), after
+    # its split pass
+    n = SEQ_LEN * n_batches
+    want = {"fused_attention": n, "vocab_topk": n, "vocab_topk_bf16": 0,
+            "vocab_topk_bf16_tma": 0, "vocab_topk_split": n,
+            "vocab_split": n}
     if launches != want:
         raise AssertionError("launches %s in %d batches, expected %s"
                              % (launches, n_batches, want))
@@ -1073,6 +1195,27 @@ def run_main_path(report):
                                batches=n_batches, launches=launches,
                                peak_mem_gb=torch.cuda.max_memory_allocated()
                                / 1e9)
+    # the checked run: every vocab call held to its plain version, the plain
+    # result going on (the fused kernel's own: phases 3 and 6 hold it), so
+    # that the runs differ by the split route's sums alone; each caption
+    # that differs needs a vocab near-tie row
+    check = PlainCheck(plain_on=("vocab_topk",))
+    with call_sites(check):
+        checked = run(fast)
+    torch.cuda.synchronize()
+    differ = int(round((1 - caption_share(outs[0], checked)) * BATCH))
+    log("  checked run: calls %s, max_abs_err %s, vocab near-tie rows %d; "
+        "captions differing from it %d"
+        % (check.calls, {k: "%.3g" % v for k, v in check.err.items()},
+           check.near_tie_rows, differ))
+    if differ > check.near_tie_rows:
+        raise AssertionError("phase 5: %d captions differ between the vocab "
+                             "kernel and its plain version, with %d near-tie "
+                             "rows to explain them"
+                             % (differ, check.near_tie_rows))
+    report["main_path"].update(
+        checked_calls=check.calls, checked_max_abs_err=check.err,
+        near_tie_rows=check.near_tie_rows, differ_from_checked=differ)
 
     # phase 6: the same batch through the plain versions on the card
     plain = main_captioner("plain", params=fast.params)
@@ -1108,7 +1251,7 @@ def timed_batches(cap, inputs, n_batches=3):
     result checked: (outputs, seconds, launches)."""
     import torch
     from vsrcic_tpu_torch.ops.fused_attention import fused_group_attention
-    from vsrcic_tpu_torch.ops.vocab_topk import vocab_topk_lse
+    from vsrcic_tpu_torch.ops.vocab_topk import split_bf16x3, vocab_topk_lse
     detections, det_groups, verb_list = inputs
 
     def run():
@@ -1120,6 +1263,8 @@ def timed_batches(cap, inputs, n_batches=3):
     vocab_topk_lse.launches = 0
     vocab_topk_lse.launches_bf16 = 0
     vocab_topk_lse.launches_bf16_tma = 0
+    vocab_topk_lse.launches_split = 0
+    split_bf16x3.launches = 0
     t0 = time.perf_counter()
     outs = [run() for _ in range(n_batches)]
     torch.cuda.synchronize()
@@ -1127,7 +1272,9 @@ def timed_batches(cap, inputs, n_batches=3):
     launches = {"fused_attention": fused_group_attention.launches,
                 "vocab_topk": vocab_topk_lse.launches,
                 "vocab_topk_bf16": vocab_topk_lse.launches_bf16,
-                "vocab_topk_bf16_tma": vocab_topk_lse.launches_bf16_tma}
+                "vocab_topk_bf16_tma": vocab_topk_lse.launches_bf16_tma,
+                "vocab_topk_split": vocab_topk_lse.launches_split,
+                "vocab_split": split_bf16x3.launches}
     for res in outs:
         check_result(res)
     return outs, dt, launches
@@ -1147,7 +1294,10 @@ def run_bf16_paths(report, fast, inputs, ref):
         log("  5b lhs bf16: %d batches in %.3f s: %.1f captions/s (phase 5: "
             "%.1f); launches %s" % (n_batches, dt, caps, base, launches))
         # every vocab launch a bf16 one, on the TMA route
-        want = {k: SEQ_LEN * n_batches for k in launches}
+        n = SEQ_LEN * n_batches
+        want = {"fused_attention": n, "vocab_topk": n, "vocab_topk_bf16": n,
+                "vocab_topk_bf16_tma": n, "vocab_topk_split": 0,
+                "vocab_split": 0}
         if launches != want:
             raise AssertionError("5b launches %s, expected %s" % (launches,
                                                                   want))
@@ -1183,7 +1333,8 @@ def run_bf16_paths(report, fast, inputs, ref):
         caps = BATCH * n_batches / dt
         want = SEQ_LEN * n_batches if mode else 0
         if launches != {"fused_attention": want, "vocab_topk": want,
-                        "vocab_topk_bf16": 0, "vocab_topk_bf16_tma": 0}:
+                        "vocab_topk_bf16": 0, "vocab_topk_bf16_tma": 0,
+                        "vocab_topk_split": want, "vocab_split": want}:
             raise AssertionError("5c %s launches %s" % (name, launches))
         kept = caption_share(outs[0], ref)
         log("  5c decode_dtype=bfloat16 %s: %d batches in %.3f s: %.1f "
@@ -1359,10 +1510,10 @@ def pipeline_launches():
     call_sites put in the Sinkhorn wrapper's place."""
     from vsrcic_tpu_torch.ops.fused_attention import fused_group_attention
     from vsrcic_tpu_torch.ops.sinkhorn import sinkhorn_normalize
-    from vsrcic_tpu_torch.ops.vocab_topk import vocab_topk_lse
+    from vsrcic_tpu_torch.ops.vocab_topk import split_bf16x3, vocab_topk_lse
     return {"sinkhorn": sinkhorn_normalize,
             "fused_attention": fused_group_attention,
-            "vocab_topk": vocab_topk_lse}
+            "vocab_topk": vocab_topk_lse, "vocab_split": split_bf16x3}
 
 
 def counted(fn):
@@ -1381,7 +1532,10 @@ def counted(fn):
 
 
 def check_pipeline_launches(launches, n_batches, what):
-    want = {"sinkhorn": 1, "fused_attention": SEQ_LEN, "vocab_topk": SEQ_LEN}
+    """The pipeline's kernels per batch; every vocab launch on the split
+    route (the phase-5 captioner: f32 h2, bf16 table at V 10000)."""
+    want = {"sinkhorn": 1, "fused_attention": SEQ_LEN, "vocab_topk": SEQ_LEN,
+            "vocab_split": SEQ_LEN}
     for name, per_batch in want.items():
         if launches[name] != per_batch * n_batches:
             raise AssertionError("%s: %s launched %d times in %d batches, "
@@ -2742,7 +2896,8 @@ def p15_beam(mesh):
             lambda: sharded_beam_search_v(cap, mesh, det, grp, vl, **kw))
     p15_watched(watch, "sharded beam")
     expect_launches("rank %d: sharded beam" % mesh.rank, launches,
-                    {"fused_attention": SEQ_LEN, "vocab_topk": SEQ_LEN})
+                    {"fused_attention": SEQ_LEN, "vocab_topk": SEQ_LEN,
+                     "vocab_split": SEQ_LEN})
     check_result(res)
     lo, hi = mesh.bounds(BATCH)
     own = cap.beam_search_v(det[lo:hi], grp[lo:hi], vl[lo:hi], **kw)
@@ -3129,8 +3284,11 @@ def main():
         report["kernels"] = kernels
         write_report(report)
         print(card)
-        print(json.dumps({k: report[k] for k in ("lhs_bf16", "decode_bf16")}
-                         | {"vocab_topk_bf16": kernels["vocab_topk_bf16"]}))
+        print(json.dumps({k: report[k] for k in ("main_path", "lhs_bf16",
+                                                  "decode_bf16")}
+                         | {k: kernels[k] for k in ("vocab_topk",
+                                                    "vocab_split",
+                                                    "vocab_topk_bf16")}))
         print_device_line()
         return 0
     if "--fused" in sys.argv[1:]:
@@ -3267,6 +3425,14 @@ def main():
                "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
         row.update({f: v for f, v in k.items()
                     if f.startswith(("beam1_", "eval_", "rows100_"))})
+        if name == "vocab_topk":
+            # ms, bound: the beam's shape, where it takes the split route
+            # (the CLI's V 30: the SGEMM, cli_ms)
+            row.update(kernel_route=k["route"],
+                       cuda_core_bound_ms=k["cuda_core_bound_ms"],
+                       sgemm_ms=k["sgemm_ms"], launches_split_by_path={
+                           p: n.get("vocab_split", 0)
+                           for p, n in by_path.items()})
         row.update({"cli_" + f: v for f, v in
                     report["eval_cli_kernels"][name].items()})
         row.update({"train_cli_" + f: v for f, v in
@@ -3287,6 +3453,20 @@ def main():
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         "library_kind": k["library_kind"]})
+    # the split pass runs inside every split-route vocab launch: the beam
+    # (phase 5), the pipeline and the sharded beam
+    k = kernels["vocab_split"]
+    rows.append({
+        "name": "vocab_split", "route": "cuda", "kernel_route": "split",
+        "source": "vsrcic_tpu_torch/csrc/vocab_topk.cu",
+        "replaces": "vsrcic_tpu/ops/vocab_topk.py:47 (its f32 h2, split "
+                    "exactly into three bf16 planes)",
+        "launches": beam_launches["vocab_split"],
+        "launches_by_path": {p: n.get("vocab_split", 0)
+                             for p, n in by_path.items()},
+        "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
+        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
     report["kernels"] = kernels
     write_report(report)
     print(card)

@@ -16,7 +16,10 @@ from vsrcic_tpu_torch.ops.fused_attention import (
 from vsrcic_tpu_torch.ops.sinkhorn import (MAX_N, sinkhorn_normalize,
                                            sinkhorn_normalize_in_order,
                                            sinkhorn_normalize_plain)
-from vsrcic_tpu_torch.ops.vocab_topk import (vocab_bf16_launch_plan,
+from vsrcic_tpu_torch.ops import vocab_topk as vt
+from vsrcic_tpu_torch.ops.vocab_topk import (split_bf16x3,
+                                             split_bf16x3_plain,
+                                             vocab_launch_plan,
                                              vocab_topk_lse,
                                              vocab_topk_lse_plain)
 
@@ -290,25 +293,34 @@ def test_vocab_topk_bf16_lhs_on_f32_table(cuda_device):
         assert torch.equal(g, w)
 
 
-def _bf16_route(h2, w_t, k):
-    aligned = h2.data_ptr() % 16 == 0 and w_t.data_ptr() % 16 == 0
-    return vocab_bf16_launch_plan(h2.shape[0], h2.shape[1], w_t.shape[1], k,
-                                  aligned, _build.sm_count(h2.device)).route
+def _route(h2, w_t, k):
+    """The route vocab_topk_lse takes on these operands."""
+    tensor_cores = h2.dtype == w_t.dtype == torch.bfloat16
+    aligned = w_t.data_ptr() % 16 == 0 and (
+        h2.data_ptr() % 16 == 0 or not tensor_cores)
+    lhs = h2.dtype if tensor_cores else torch.float32
+    return vocab_launch_plan(h2.shape[0], h2.shape[1], w_t.shape[1], k, lhs,
+                             w_t.dtype, aligned,
+                             _build.sm_count(h2.device)).route
 
 
 def _counted_call(h2, w_t, b, k):
     """vocab_topk_lse, asserting its launch counts: one launch; on bf16
-    operands one bf16 launch, a TMA one exactly on the TMA route."""
+    operands one bf16 launch, a TMA one exactly on the TMA route; a split
+    one (and one split pass) exactly on the split route."""
     tensor_cores = h2.dtype == w_t.dtype == torch.bfloat16
-    route = _bf16_route(h2, w_t, k) if tensor_cores else None
+    route = _route(h2, w_t, k)
     before = (vocab_topk_lse.launches, vocab_topk_lse.launches_bf16,
-              vocab_topk_lse.launches_bf16_tma)
+              vocab_topk_lse.launches_bf16_tma,
+              vocab_topk_lse.launches_split, split_bf16x3.launches)
     got = vocab_topk_lse(h2, w_t, b, k)
     torch.cuda.synchronize()
+    split = route == "split"
     assert (vocab_topk_lse.launches, vocab_topk_lse.launches_bf16,
-            vocab_topk_lse.launches_bf16_tma) == (
+            vocab_topk_lse.launches_bf16_tma,
+            vocab_topk_lse.launches_split, split_bf16x3.launches) == (
         before[0] + 1, before[1] + tensor_cores,
-        before[2] + (route == "tma"))
+        before[2] + (route == "tma"), before[3] + split, before[4] + split)
     return got, route
 
 
@@ -344,7 +356,8 @@ def test_vocab_topk_nonfinite_matches_plain(cuda_device, shape, case,
                                             operands):
     """Non-finite logits (ROADMAP §3 item 2) through every entry point and
     both bf16 routes (TMA at the first two shapes, mma.sync at the ragged
-    third): ids exact on the rows holding them, NaN and +-inf where the
+    third) and the f32 entry point's split route (f32 h2 on a bf16 table
+    at the first two) and SGEMM (the rest): ids exact on the rows holding them, NaN and +-inf where the
     plain version has them, the finite rows around them at the bar; no id
     outside [0, V)."""
     rows, r, v = shape
@@ -356,6 +369,8 @@ def test_vocab_topk_nonfinite_matches_plain(cuda_device, shape, case,
     got, route = _counted_call(h2, w_t, b, 5)
     if operands == "bf16":
         assert route == ("mma_sync" if r % 8 else "tma")
+    if operands == "f32_bf16table":
+        assert route == ("sgemm" if v % 8 else "split")
     want = vocab_topk_lse_plain(h2, w_t, b, 5)
     assert 0 <= int(got[1].min()) and int(got[1].max()) < v
     bad = ~torch.isfinite(h2.float() @ w_t.float() + b).all(1)
@@ -422,6 +437,106 @@ def test_vocab_topk_bf16_tma_ties(cuda_device):
             torch.from_numpy(b).to(cuda_device))
     got, route = _counted_call(*args, k)
     assert route == "tma"
+    want = vocab_topk_lse_plain(*args, k)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-6)
+
+
+def _split_values(device, rows, r, seed):
+    """f32 h2 with every kind of entry the split pass meets: magnitudes
+    2^-126 .. 2^127 of both signs, subnormals, +-0, +-inf and NaNs of both
+    signs."""
+    rng = np.random.RandomState(seed)
+    e = rng.uniform(-126, 127, (rows, r))
+    x = rng.choice([-1.0, 1.0], (rows, r)) * rng.uniform(1, 2, (rows, r))
+    x = (x * 2.0 ** e).astype(np.float32)
+    flat = x.reshape(-1)
+    flat[:8] = [0.0, -0.0, np.inf, -np.inf, 1e-40, -3e-42, 3.4e38, -1e-45]
+    h2 = torch.from_numpy(x).to(device)
+    zero = torch.zeros((), device=device)
+    h2.view(-1)[8] = zero / zero
+    h2.view(-1)[9] = -(zero / zero)
+    return h2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,r,offset", [(5120, 1000, 0), (37, 1001, 0),
+                                           (3, 77, 0), (130, 64, 1),
+                                           (12, 1, 0)])
+def test_vocab_split_planes_match_plain(cuda_device, rows, r, offset):
+    """The card's split pass gives split_bf16x3_plain's planes bit for bit
+    (on the card and on the CPU), ragged R zero-padded to R8, from aligned
+    and unaligned (element-load) bases, on non-finite and subnormal
+    entries too."""
+    h2 = _split_values(cuda_device, rows, r, rows + r)
+    if offset:
+        h2 = torch.empty(rows * r + offset, device=cuda_device)[
+            offset:].view(rows, r).copy_(h2)
+    before = split_bf16x3.launches
+    got = split_bf16x3(h2)
+    torch.cuda.synchronize()
+    assert split_bf16x3.launches == before + 1
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (
+        3, rows, r + -r % 8)
+    for want in (split_bf16x3_plain(h2), split_bf16x3_plain(h2.cpu())):
+        assert torch.equal(got.view(torch.int16).cpu(),
+                           want.view(torch.int16).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5120, 1000, 10000, 5),
+                                   (37, 1001, 1000, 5), (130, 77, 136, 16),
+                                   (300, 64, 10000, 1), (1, 8, 8, 8)])
+@pytest.mark.parametrize("ring", ["plan", "two_slots"])
+def test_vocab_topk_split_route(cuda_device, shape, ring):
+    """f32 h2 on a bf16 table: the split route, counted, at the beam's
+    shape, ragged R (zero-padded planes), rows past a tile and an odd
+    vocab tile count; the plan's ring and the sweep's shallower one;
+    values and lse at phase 3's bar, ids equal save near ties."""
+    rows, r, v, k = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + r + v)
+    h2 = torch.tanh(torch.randn((rows, r), generator=gen,
+                                device=cuda_device))
+    w_t = (torch.randn((r, v), generator=gen, device=cuda_device)
+           / r ** 0.5).bfloat16()
+    b = 0.01 * torch.randn((v,), generator=gen, device=cuda_device)
+    if ring == "plan":
+        got, route = _counted_call(h2, w_t, b, k)
+        assert route == "split"
+    else:
+        plan = vt._split_plan(rows, r, v, k, True,
+                              _build.sm_count(cuda_device), stages=2)
+        got = vt._launch(plan, h2, w_t, b, k)
+        torch.cuda.synchronize()
+    want = vocab_topk_lse_plain(h2, w_t, b, k)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-6)
+    assert _near_ties(h2, w_t, b, got, want, 1e-5) <= rows // 100 + 1
+
+
+@pytest.mark.cuda
+def test_vocab_topk_split_ties(cuda_device):
+    """Duplicated columns on the split route (f32 h2, bf16 table, V a
+    multiple of 8, R 77): within a tile, across tiles and across the
+    quad's lanes; ids exact."""
+    rng = np.random.RandomState(11)
+    rows, r, v, k = 40, 77, 392, 5
+    h2 = rng.randn(rows, r).astype(np.float32)
+    w_t = rng.randn(r, v).astype(np.float32)
+    b = rng.randn(v).astype(np.float32)
+    for a, c in ((3, 10), (42, 170), (5, 7), (130, 390), (200, 201)):
+        w_t[:, c] = w_t[:, a]
+        b[c] = b[a]
+    top = (h2 @ w_t + b).argmax(1)
+    for i in range(0, rows, 3):   # ties at rank 0 on some rows
+        w_t[:, (top[i] + 129) % v] = w_t[:, top[i]]
+        b[(top[i] + 129) % v] = b[top[i]]
+    args = (torch.from_numpy(h2).to(cuda_device),
+            torch.from_numpy(w_t).to(cuda_device, torch.bfloat16),
+            torch.from_numpy(b).to(cuda_device))
+    got, route = _counted_call(*args, k)
+    assert route == "split"
     want = vocab_topk_lse_plain(*args, k)
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)

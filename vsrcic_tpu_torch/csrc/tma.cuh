@@ -19,12 +19,8 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-// a (rows, cols) row-major table of `tb`-byte elements (2: bf16, 4: f32),
-// box (box_rows, box_cols), shared-memory swizzle `swizzle`; elements of a
-// box past the table's edges are zero-filled. false if the driver refuses it
-bool encode_2d(CUtensorMap* map, const void* base, int tb, long long rows,
-               int cols, int box_rows, int box_cols,
-               CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
+// cuTensorMapEncodeTiled itself, looked up once; null if the driver lacks it
+EncodeTiled encoder() {
   static EncodeTiled encode = nullptr;
   if (!encode) {
     cudaDriverEntryPointQueryResult q;
@@ -32,20 +28,44 @@ bool encode_2d(CUtensorMap* map, const void* base, int tb, long long rows,
     if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
                                 cudaEnableDefault, &q) != cudaSuccess ||
         q != cudaDriverEntryPointSuccess || !fn)
-      return false;
+      return nullptr;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * tb};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
+  return encode;
+}
+
+// `planes` row-major (rows, cols) tables of `tb`-byte elements (2: bf16, 4:
+// f32) one after another, box (box_rows, box_cols) of one plane,
+// shared-memory swizzle `swizzle`; elements of a box past the table's
+// edges are zero-filled. A map of one plane is 2-D, of more 3-D (column,
+// row, plane). false if the driver refuses it
+bool encode_planes(CUtensorMap* map, const void* base, int tb, int planes,
+                   long long rows, int cols, int box_rows, int box_cols,
+                   CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * tb,
+                                 (cuuint64_t)rows * cols * tb};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map,
                 tb == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                         : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                2, const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                planes > 1 ? 3 : 2, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a (rows, cols) row-major table of `tb`-byte elements, box (box_rows,
+// box_cols), as encode_planes with one plane
+bool encode_2d(CUtensorMap* map, const void* base, int tb, long long rows,
+               int cols, int box_rows, int box_cols,
+               CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
+  return encode_planes(map, base, tb, 1, rows, cols, box_rows, box_cols,
+                       swizzle);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -101,6 +121,21 @@ __device__ __forceinline__ void tma_box_multicast(void* dst,
       "::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
           smem_addr(dst)),
       "l"(map), "r"(x), "r"(y), "r"(smem_addr(bar)), "h"(mask) : "memory");
+}
+
+// one (rows, cols) box of plane z of a 3-D tensor map at column x, row y,
+// multicast as tma_box_multicast
+__device__ __forceinline__ void tma_box_3d_multicast(void* dst,
+                                                     const CUtensorMap* map,
+                                                     int x, int y, int z,
+                                                     uint64_t* bar,
+                                                     uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(
+          smem_addr(dst)),
+      "l"(map), "r"(x), "r"(y), "r"(z), "r"(smem_addr(bar)), "h"(mask)
+      : "memory");
 }
 
 __device__ __forceinline__ uint32_t cluster_rank() {

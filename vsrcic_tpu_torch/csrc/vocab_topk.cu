@@ -5,17 +5,48 @@
 // (make_vocab_topk_lse :47: `kernel` :116 and the default two-stage
 // `kernel2` :159, pallas_call :220), in both of its operand configurations:
 //
-//   vsrcic_vocab_topk: f32 h2 (lhs_dtype=float32, the default). What bounds
-//     it on the H100: f32 operations. The product is 2*rows*R*V flops
-//     (102 GFLOP at rows 5120, R 1000, V 10000) against ~40 MB of operands,
-//     and it must run in full f32 on the CUDA cores: the JAX path multiplies
-//     the f32 h2 by the upcast weights with f32 accumulation, and TF32 or a
-//     bf16 rounding of h2 would change the numbers. A tiled SGEMM (8-deep
-//     slices through double-buffered shared memory, an 8x8 register tile
-//     per thread, bf16 weights upcast on load), folded from the registers.
-//   vsrcic_vocab_topk_bf16: bf16 h2 and bf16 W_t (make_vocab_topk_lse
-//     (lhs_dtype=jnp.bfloat16), selected by VSRCIC_VOCAB_LHS_BF16=1 on bf16
-//     tables), products accumulated in f32. What bounds it: tensor-core
+//   f32 h2 (lhs_dtype=float32, the default): the JAX path multiplies the
+//     f32 h2 by the upcast weights with f32 accumulation (:132-133), 102
+//     GFLOP at rows 5120, R 1000, V 10000. Two routes, chosen by
+//     ops/vocab_topk.py::vocab_launch_plan:
+//     * split (bf16 table, V a multiple of 8, W_t 16-byte aligned: the
+//       beam's default). Every entry of a bf16 table is exact in bf16, and
+//       an f32 h2 splits exactly into three bf16 planes, hi + mid + lo, 8
+//       significant bits each (vocab_split_kernel: hi and mid rounded
+//       toward zero, lo the exact rest; a non-finite entry whole in hi).
+//       A bf16 x bf16 product is exact in f32, so the three planes' products
+//       with W_t, summed in f32, are the f32 product itself up to the
+//       order of the f32 sums, which every route
+//       here takes the freedom of (an infinite weight is the exception: it
+//       meets the zeros of mid and lo, 0 x inf = NaN, where the f32 product
+//       gives +-inf). What bounds it: tensor-core operations, three bf16
+//       passes (3 x 0.1035 ms) against ~41 MB over 3.35 TB/s. Stage 1 is
+//       the bf16 route's TMA kernel on the planes, redesigned for them
+//       where measuring asked (PERF.md §6):
+//       - the tensor cores' f32 sums truncate at the accumulator's scale,
+//         so one accumulator over the whole depth drifts: 3.15e-6 worst,
+//         2.4x the SGEMM's distance from cuBLAS, and phase 6's share of
+//         captions equal to the plain path fell to 0.9889, below its 0.99.
+//         So each 64-deep stage is summed into 64 fresh accumulators and
+//         added to a running total with f32 adds: 2.0e-6. Two sets of 128
+//         do not fit, so tiles are 128 x 128 (a second set of stage sums,
+//         to add one while the next is multiplied, slowed the products);
+//       - a stage holds the three planes' boxes (lo first) beside one
+//         depth of W_t, three slots of 64 KB: W_t is copied once, not once
+//         a plane;
+//       - the planes are the larger share of a stage, so a cluster of two
+//         CTAs takes two vocab tiles of one row block and multicasts them
+//         (each copies half the rows of every box), its W_t boxes alone.
+//     * SGEMM (anything else: f32 tables, V 30 of the eval CLI's synthetic
+//       world, a bf16 h2 upcast for an f32 table): f32 operations on the
+//       CUDA cores, 102 GFLOP over 67 TFLOP/s. A tiled SGEMM (8-deep slices
+//       through double-buffered shared memory, an 8x8 register tile per
+//       thread, bf16 weights upcast on load), folded from the registers
+//       (vsrcic_vocab_topk).
+//   bf16 h2 and bf16 W_t (make_vocab_topk_lse(lhs_dtype=jnp.bfloat16),
+//     selected by VSRCIC_VOCAB_LHS_BF16=1 on bf16 tables; the entry point
+//     vsrcic_vocab_topk_bf16, which also runs the split route's planes),
+//     products accumulated in f32. What bounds it: tensor-core
 //     operations, the same 102 GFLOP over 989 TFLOP/s (0.1035 ms) against
 //     ~30 MB over 3.35 TB/s (0.009 ms). A bf16 x bf16 product is exact in
 //     f32, so this is the f32-operand function of the bf16-rounded h2; only
@@ -41,9 +72,10 @@
 //       kernel's register layout and fold (vocab_tile_bf16_kernel).
 //
 // The TPU grid carried running top-k/lse state from one vocab tile to the
-// next; CUDA blocks run in no order, so the work is split in two launches.
-// Stage 1 folds each row of each logits tile (128 x 128; 128 x 256 on the
-// TMA route) into that tile's partial top-k and (max, sum of exp) pair;
+// next; CUDA blocks run in no order, so the work is split in two launches
+// (three on the split route, after its split pass). Stage 1 folds each row
+// of each logits tile (128 x 128; 128 x 256 on the TMA route) into that
+// tile's partial top-k and (max, sum of exp) pair;
 // stage 2 (one warp per row) merges the partials of all vocab tiles.
 // Every comparison orders by (XLA's total-order key descending, vocab id
 // ascending), which is jax.lax.top_k's rule: NaN above +inf, +0 above -0;
@@ -533,20 +565,31 @@ vocab_tile_bf16_kernel(const __nv_bfloat16* __restrict__ h2,
 // ---------------------------------------------------------------------------
 constexpr int T_BM = 128;                     // rows per tile
 constexpr int T_BN = 256;                     // vocab columns per tile
+constexpr int T_BN_SPLIT = 128;               // the split route's
 constexpr int T_BK = 64;                      // depth per stage: 128 bytes
 constexpr int T_A_BYTES = T_BM * T_BK * 2;    // h2 box (128 rows x 64)
 constexpr int T_B_BOX = T_BK * 64 * 2;        // W_t box (64 deep x 64)
-constexpr int T_B_BOXES = T_BN / 64;          // W_t boxes per stage
-constexpr int T_STAGE = T_A_BYTES + T_B_BOXES * T_B_BOX;
 constexpr int T_THREADS = 384;  // consumer warpgroups 0, 1; producer 2
-constexpr int T_CLUSTER = 2;    // CTAs of a cluster, along the rows
+constexpr int T_CLUSTER = 2;    // CTAs of a cluster
 constexpr int T_MIN_STAGES = 2;
 constexpr int T_MAX_STAGES = 4;
+constexpr int T_PLANES = 3;     // bf16 planes of the split f32 h2
+
+// the TMA kernel's tile width on P planes of h2: T_BN on one, T_BN_SPLIT
+// on the split's three
+__host__ __device__ constexpr int tma_tile_n(int p) {
+  return p == 1 ? T_BN : T_BN_SPLIT;
+}
+
+// bytes of a stage: the h2 box of each of p planes and one depth of W_t
+__host__ __device__ constexpr int tma_stage_bytes(int p) {
+  return p * T_A_BYTES + tma_tile_n(p) / 64 * T_B_BOX;
+}
 
 // dynamic shared bytes: 1024 of slack to align the ring, the stages, a
-// full and an empty mbarrier per stage (vocab_bf16_launch_plan's figure)
-constexpr int tma_smem_bytes(int stages) {
-  return 1024 + stages * T_STAGE + 2 * 8 * stages;
+// full and an empty mbarrier per stage (ops/vocab_topk.py::_tma_smem)
+constexpr int tma_smem_bytes(int stages, int p) {
+  return 1024 + stages * tma_stage_bytes(p) + 2 * 8 * stages;
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand (the
@@ -574,9 +617,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // keep the compiler from moving accumulator reads or writes across the
 // asynchronous products
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 256, f32) = (scale ? d : 0) + A (64 x 16, K-major) * B (16 x 256,
@@ -642,6 +686,56 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
       : "l"(desc_a), "l"(desc_b), "r"(scale));
 }
 
+// d (64 x 128, f32) = (scale ? d : 0) + A (64 x 16, K-major) * B (16 x 128,
+// MN-major), as wgmma_m64n256k16
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                                 uint64_t desc_a,
+                                                 uint64_t desc_b, int scale) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale));
+}
+
+// the product of the tile's width: 256 or 128 columns
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2],
+                                           uint64_t desc_a, uint64_t desc_b,
+                                           int scale) {
+  if constexpr (BN == 256)
+    wgmma_m64n256k16(d, desc_a, desc_b, scale);
+  else
+    wgmma_m64n128k16(d, desc_a, desc_b, scale);
+}
+
 // 2^x on the special-function unit, subnormal results flushed to zero
 // (~2 ulp; the logsumexp's sums only)
 __device__ __forceinline__ float ex2_ftz(float x) {
@@ -668,13 +762,14 @@ __device__ __forceinline__ void quad_best(int& key, int& col) {
   }
 }
 
-// The fold of a consumer warpgroup's 64 x 256 half of a tile, read in
-// place from its wgmma accumulators (bias added). Thread (warp w, lane l)
-// holds two rows, r = 0, 1: rows w*16 + l/4 + 8*r of the half, each as 64
-// values, index i = j*2 + e (j < 32, e < 2) at tile column j*8 + e +
-// (l % 4)*2, in d[j*4 + r*2 + e]. The four lanes of a quad hold a row's
-// 256 columns. Every pass is branch free and the two rows go side by side,
-// so the fold issues independent instructions.
+// The fold of a consumer warpgroup's 64 x BN half of a tile (BN = 8 * NC
+// columns: 256, or the split route's 128), read in place from its
+// accumulators (bias added). Thread (warp w, lane l) holds two rows, r =
+// 0, 1: rows w*16 + l/4 + 8*r of the half, each as 2 * NC values, index
+// i = j*2 + e (j < NC, e < 2) at tile column j*8 + e + (l % 4)*2, in
+// d[j*4 + r*2 + e] (the wgmma fragment). The four lanes of a quad hold a
+// row's BN columns. Every pass is branch free and the two rows go side by
+// side, so the fold issues independent instructions.
 #define TILE_VAL(r, i) d[((i) >> 1) * 4 + (r) * 2 + ((i)&1)]
 
 // best (key, index) of the 2^L leaves B.. in index order: a higher key
@@ -701,27 +796,38 @@ struct TreeBest<0, B> {
   }
 };
 
-// f(g) for a runtime g < 8, by a tree of selects (no indexed registers)
-template <typename F>
-__device__ __forceinline__ int select8(int g, F f) {
-  const bool b0 = g & 1, b1 = g & 2, b2 = g & 4;
+// f(g) for a runtime g < NG (8 or 4), by a tree of selects (no indexed
+// registers)
+template <int NG, typename F>
+__device__ __forceinline__ int select_group(int g, F f) {
+  const bool b0 = g & 1, b1 = g & 2;
   const int a0 = b0 ? f(1) : f(0), a1 = b0 ? f(3) : f(2);
-  const int a2 = b0 ? f(5) : f(4), a3 = b0 ? f(7) : f(6);
-  const int c0 = b1 ? a1 : a0, c1 = b1 ? a3 : a2;
-  return b2 ? c1 : c0;
+  if constexpr (NG == 4) {
+    return b1 ? a1 : a0;
+  } else {
+    const bool b2 = g & 4;
+    const int a2 = b0 ? f(5) : f(4), a3 = b0 ? f(7) : f(6);
+    const int c0 = b1 ? a1 : a0, c1 = b1 ? a3 : a2;
+    return b2 ? c1 : c0;
+  }
 }
 
 // FULL: every column of the tile is below V (all tiles but the last)
-template <bool FULL>
+template <bool FULL, int NC>
 __device__ __forceinline__ void fold_tile_tma(
-    float (&d)[128], int lane, int row0, int v0, int vt, int n_vt, int V,
+    float (&d)[NC * 4], int lane, int row0, int v0, int vt, int n_vt, int V,
     int rows, int k, float* __restrict__ part_vals,
     int* __restrict__ part_ids, float* __restrict__ part_m,
     float* __restrict__ part_s) {
+  constexpr int NV = 2 * NC;     // values of a row in a lane
+  constexpr int NG = NV / 8;     // groups of 8 of them
+  constexpr int LG = NG == 8 ? 3 : 2;
+  constexpr int NW = NV / 32;    // words of a taken mask
+  static_assert(NC == 32 || NC == 16, "tiles of 256 or 128 columns");
   const int lc = (lane & 3) * 2;  // this lane's first column of a chunk
   // chunks j < live hold columns below V (V is a multiple of 8, so a chunk
   // of 8 columns is all in or all out)
-  const int live = FULL ? 32 : min(32, (V - v0) / 8);
+  const int live = FULL ? NC : min(NC, (V - v0) / 8);
   // each row's (max, sum of exp): the max ignores a NaN (fmaxf), which
   // reaches the sum instead and then makes m NaN too
   float m[2], s[2];
@@ -729,7 +835,7 @@ __device__ __forceinline__ void fold_tile_tma(
   for (int r = 0; r < 2; ++r) {
     float mx = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < 64; ++i)
+    for (int i = 0; i < NV; ++i)
       mx = fmaxf(mx, FULL || (i >> 1) < live ? TILE_VAL(r, i) : -INFINITY);
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     m[r] = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -740,7 +846,7 @@ __device__ __forceinline__ void fold_tile_tma(
     const float shl = lse_shift(m[r]) * kLog2e;
     float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < NV; ++i) {
       const float e = ex2_ftz(fmaf(TILE_VAL(r, i), kLog2e, -shl));
       part[i & 3] += FULL || (i >> 1) < live ? e : 0.f;
     }
@@ -751,7 +857,7 @@ __device__ __forceinline__ void fold_tile_tma(
 #pragma unroll
   for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int i = 0; i < 64; ++i)
+    for (int i = 0; i < NV; ++i)
       TILE_VAL(r, i) = __int_as_float(FULL || (i >> 1) < live
                                           ? order_key(TILE_VAL(r, i))
                                           : KEY_LOW);
@@ -766,16 +872,20 @@ __device__ __forceinline__ void fold_tile_tma(
   }
   // k rounds: each takes the best (key, lowest column) left in the quad.
   // A lane keeps the best of each group of 8 of its values (gk, gi) and a
-  // mask of the values taken; a round runs the tree over the 8 group
+  // mask of the values taken; a round runs the tree over the NG group
   // bests, and the lane that held the winner marks it taken and recomputes
   // only its group. A winner of KEY_LOW is no candidate (a column past V:
   // no sum gives a sign-set NaN).
-  int gk[2][8], gi[2][8];
-  uint32_t taken[2][2] = {{0u, 0u}, {0u, 0u}};
+  int gk[2][NG], gi[2][NG];
+  uint32_t taken[2][NW];
 #pragma unroll
   for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int g = 0; g < 8; ++g)
+    for (int w = 0; w < NW; ++w) taken[r][w] = 0u;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
       TreeBest<3, 0>::run(
           [&](int p, int& key, int& idx) {
             key = __float_as_int(TILE_VAL(r, g * 8 + p));
@@ -787,7 +897,7 @@ __device__ __forceinline__ void fold_tile_tma(
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       int bi;
-      TreeBest<3, 0>::run(
+      TreeBest<LG, 0>::run(
           [&](int g, int& key, int& idx) {
             key = gk[r][g];
             idx = gi[r][g];
@@ -809,15 +919,16 @@ __device__ __forceinline__ void fold_tile_tma(
       const bool mine = c >= 0 && (c & 7) < 2;
       const int i = (c >> 3) * 2 + (c & 7);
       if (mine && i < 32) taken[r][0] |= 1u << i;
-      if (mine && i >= 32) taken[r][1] |= 1u << (i - 32);
+      if (NW == 2 && mine && i >= 32) taken[r][NW - 1] |= 1u << (i - 32);
       // its group, recomputed from the values not taken
       const int g = mine ? i >> 3 : 0;
-      const uint32_t byte =
-          (((g & 4) ? taken[r][1] : taken[r][0]) >> ((g & 3) * 8)) & 0xffu;
+      const uint32_t word = NW == 1 || !(g & 4) ? taken[r][0]
+                                                : taken[r][NW - 1];
+      const uint32_t byte = (word >> ((g & 3) * 8)) & 0xffu;
       int nk, ni;
       TreeBest<3, 0>::run(
           [&](int p, int& key, int& idx) {
-            const int v = select8(g, [&](int h) {
+            const int v = select_group<NG>(g, [&](int h) {
               return __float_as_int(TILE_VAL(r, h * 8 + p));
             });
             key = (byte >> p) & 1u ? KEY_LOW : v;
@@ -825,7 +936,7 @@ __device__ __forceinline__ void fold_tile_tma(
           },
           nk, ni);
 #pragma unroll
-      for (int h = 0; h < 8; ++h)
+      for (int h = 0; h < NG; ++h)
         if (mine && h == g) {
           gk[r][h] = nk;
           gi[r][h] = h * 8 + ni;
@@ -835,6 +946,34 @@ __device__ __forceinline__ void fold_tile_tma(
 }
 #undef TILE_VAL
 
+// a tile's logits (without bias) in a consumer thread's accumulators: the
+// bias added, once per column pair of this lane (V a multiple of 8), then
+// the fold
+template <int BN>
+__device__ __forceinline__ void finish_tile(
+    float (&acc)[BN / 2], const float* __restrict__ bias, int lane,
+    int row0, int vt, int n_vt, int V, int rows, int k,
+    float* __restrict__ part_vals, int* __restrict__ part_ids,
+    float* __restrict__ part_m, float* __restrict__ part_s) {
+  const int v0 = vt * BN;
+#pragma unroll
+  for (int c = 0; c < BN / 8; ++c) {
+    const int col = v0 + c * 8 + (lane & 3) * 2;
+    const float b0 = col < V ? __ldg(bias + col) : 0.f;
+    const float b1 = col < V ? __ldg(bias + col + 1) : 0.f;
+    acc[c * 4] += b0;
+    acc[c * 4 + 1] += b1;
+    acc[c * 4 + 2] += b0;
+    acc[c * 4 + 3] += b1;
+  }
+  if (v0 + BN <= V)
+    fold_tile_tma<true, BN / 8>(acc, lane, row0, v0, vt, n_vt, V, rows, k,
+                                part_vals, part_ids, part_m, part_s);
+  else
+    fold_tile_tma<false, BN / 8>(acc, lane, row0, v0, vt, n_vt, V, rows, k,
+                                 part_vals, part_ids, part_m, part_s);
+}
+
 // a consumer warp's release of a slot: to both CTAs of its cluster, whose
 // producers both write into it
 __device__ __forceinline__ void release(uint64_t* bar, int rank) {
@@ -842,20 +981,37 @@ __device__ __forceinline__ void release(uint64_t* bar, int rank) {
   mbar_arrive_remote(bar, rank ^ 1);
 }
 
-// bf16 stage 1, TMA route. Persistent clusters of T_CLUSTER CTAs walk the
-// (row block, vocab tile) list in groups of T_CLUSTER row blocks of one
-// vocab tile: group p of n_rbg * n_vt is vocab tile p / n_rbg, row group p
-// % n_rbg; cluster c takes p = c, c + clusters, ...; its CTA of rank m
-// takes row block rbg * T_CLUSTER + m (a block past the rows is computed
-// on TMA's zero fill and not written). Warpgroup 2's first thread fills a ring of
-// `stages` slots with 64-deep stages: the tile's h2 box (128 rows x 64)
-// and its four W_t boxes (64 deep x 64 columns), each W_t box copied by
-// one CTA of the cluster and multicast to all, so the cluster reads it
-// from L2 once. A slot is refilled once every CTA it is written into has
+// Stage 1, TMA route, on P planes of h2 (tm_h2, (rows, depth) each): 1
+// (bf16 h2) or T_PLANES (hi, mid, lo of a split f32 h2, which all
+// multiply the same W_t). Persistent clusters of T_CLUSTER CTAs walk the
+// (row block, vocab tile) list in groups of T_CLUSTER tiles; cluster c
+// takes groups p = c, c + clusters, ... Warpgroup 2's first thread fills a
+// ring of `stages` slots with 64-deep stages, each the h2 box (128 rows x
+// 64) of every plane, lo first, and one depth of the tile's W_t (BN / 64
+// boxes of 64 columns). One plane (BN 256): a group is T_CLUSTER row
+// blocks of one vocab tile (group p of n_rbg * n_vt is vocab tile p /
+// n_rbg, row group p % n_rbg; rank m takes row block rbg * T_CLUSTER +
+// m), and each W_t box is copied by one CTA and multicast to all. Three
+// planes (BN 128): a group is T_CLUSTER vocab tiles of one row block
+// (group p of n_rb * n_vtg is row block p % n_rb, vocab tiles (p / n_rb)
+// * T_CLUSTER + m), and each CTA copies half the rows of every h2 box and
+// multicasts it, its own W_t boxes alone: the planes are the larger share
+// of a stage. Either way the cluster reads what it shares from L2 once; a
+// block past the rows or a tile past V is computed on TMA's zero fill and
+// not written. A slot is refilled once every CTA it is written into has
 // released it (empty: all eight consumer warps of each). Warpgroups 0 and
-// 1 compute rows 0-63 and 64-127 of the 128 x 256 tile, one m64n256k16
-// product per 16 of depth each, then fold their halves from their
+// 1 compute rows 0-63 and 64-127 of the 128 x BN tile, P m64nBNk16
+// products per 16 of depth each, then fold their halves from their
 // registers while the producer fills the ring with the next tile.
+//
+// The tensor cores' f32 sums truncate at the accumulator's scale, so a
+// long sum into one accumulator drifts (toward zero, a fraction of its
+// last place every product; PERF.md §6). BN 256 (bf16 h2) sums the whole
+// depth into its 128 accumulators. BN 128 (the split planes, held to the
+// f32 product) sums each stage into 64 fresh accumulators and adds them
+// to a running total of 64 more with f32 adds, which round to nearest:
+// each truncation is then at a 64-deep partial's scale, not the logit's.
+template <int P>
 __global__ void __launch_bounds__(T_THREADS, 1)
 vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
                  const __grid_constant__ CUtensorMap tm_w,
@@ -863,16 +1019,21 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
                  int k, int stages, float* __restrict__ part_vals,
                  int* __restrict__ part_ids, float* __restrict__ part_m,
                  float* __restrict__ part_s) {
+  constexpr int BN = tma_tile_n(P);
+  constexpr int STAGE = tma_stage_bytes(P);
+  constexpr int NB = BN / 64;          // W_t boxes of a stage
+  constexpr int NACC = BN / 2;         // accumulators a thread
+  constexpr bool TOTAL = P > 1;        // a running total (the split)
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * T_STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * STAGE);
   uint64_t* empty = full + stages;
   const int n_rb = (rows + T_BM - 1) / T_BM;
   constexpr int C = T_CLUSTER;
   const int n_rbg = (n_rb + C - 1) / C;
-  const int n_vt = (V + T_BN - 1) / T_BN;
-  const int n_groups = n_rbg * n_vt;
+  const int n_vt = (V + BN - 1) / BN;
+  const int n_groups = TOTAL ? n_rb * ((n_vt + C - 1) / C) : n_rbg * n_vt;
   const int n_k = (R + T_BK - 1) / T_BK;
   const int clusters = gridDim.x / C;
   const int cl = blockIdx.x / C;
@@ -895,20 +1056,35 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
     if (threadIdx.x == 256) {
       int g = 0;  // ring position: slot g % stages, pass g / stages
       for (int p = cl; p < n_groups; p += clusters) {
-        const int rb = (p % n_rbg) * C + rank;
-        const int vt = p / n_rbg;
+        const int rb = TOTAL ? p % n_rb : (p % n_rbg) * C + rank;
+        const int vt = TOTAL ? p / n_rb * C + rank : p / n_rbg;
         for (int kb = 0; kb < n_k; ++kb, ++g) {
           const int s = g % stages;
           mbar_wait(&empty[s], ((g / stages) & 1) ^ 1);
-          mbar_expect_tx(&full[s], T_STAGE);
-          unsigned char* a = ring + s * T_STAGE;
-          tma_box(a, &tm_h2, kb * T_BK, rb * T_BM, &full[s]);
+          mbar_expect_tx(&full[s], STAGE);
+          unsigned char* a = ring + s * STAGE;
+          constexpr uint16_t all = (1u << C) - 1;
+          if constexpr (TOTAL) {
+            // rows rank * 64.. of each plane's box (64-row boxes: the
+            // 128-byte swizzle repeats every 8 rows), lo first, to both
 #pragma unroll
-          for (int i = 0; i < T_B_BOXES / C; ++i) {
-            const int bx = rank * (T_B_BOXES / C) + i;
-            tma_box_multicast(a + T_A_BYTES + bx * T_B_BOX, &tm_w,
-                              vt * T_BN + bx * 64, kb * T_BK, &full[s],
-                              uint16_t((1u << C) - 1));
+            for (int j = 0; j < P; ++j)
+              tma_box_3d_multicast(a + j * T_A_BYTES + rank * T_A_BYTES / C,
+                                   &tm_h2, kb * T_BK,
+                                   rb * T_BM + rank * T_BM / C, P - 1 - j,
+                                   &full[s], all);
+#pragma unroll
+            for (int x = 0; x < NB; ++x)
+              tma_box(a + P * T_A_BYTES + x * T_B_BOX, &tm_w,
+                      vt * BN + x * 64, kb * T_BK, &full[s]);
+          } else {
+            tma_box(a, &tm_h2, kb * T_BK, rb * T_BM, &full[s]);
+#pragma unroll
+            for (int x = 0; x < NB / C; ++x) {
+              const int bx = rank * (NB / C) + x;
+              tma_box_multicast(a + P * T_A_BYTES + bx * T_B_BOX, &tm_w,
+                                vt * BN + bx * 64, kb * T_BK, &full[s], all);
+            }
           }
         }
       }
@@ -921,55 +1097,126 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
     // consumers: warpgroup wg takes rows wg*64.. of every tile
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     const int warp = (threadIdx.x >> 5) & 3;
-    float d[128];
+    float d[NACC];              // the tile's sums, or (TOTAL) the stage's
+    float t[TOTAL ? NACC : 1];  // the tile's running total (TOTAL)
     int g = 0;
     for (int p = cl; p < n_groups; p += clusters) {
-      const int rb = (p % n_rbg) * C + rank;
-      const int vt = p / n_rbg;
+      const int rb = TOTAL ? p % n_rb : (p % n_rbg) * C + rank;
+      const int vt = TOTAL ? p / n_rb * C + rank : p / n_rbg;
+      if constexpr (TOTAL) {
+#pragma unroll
+        for (int c = 0; c < NACC; ++c) t[c] = 0.f;
+      }
       fence_acc(d);
       for (int kb = 0; kb < n_k; ++kb, ++g) {
         const int s = g % stages;
         mbar_wait(&full[s], (g / stages) & 1);
-        const uint32_t a = smem_addr(ring + s * T_STAGE) + wg * 64 * 128;
-        const uint32_t b = smem_addr(ring + s * T_STAGE) + T_A_BYTES;
+        const uint32_t a = smem_addr(ring + s * STAGE) + wg * 64 * 128;
+        const uint32_t b = smem_addr(ring + s * STAGE) + P * T_A_BYTES;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < T_BK / 16; ++kk)
-          // A: K-major, 8-row groups 1024 bytes apart, 16 deep = 32 bytes
-          // on; B: MN-major, 64-column boxes 8192 bytes apart, 8-deep
-          // groups 1024 apart, 16 deep = 2048 bytes on
-          wgmma_m64n256k16(d, sw128_desc(a + kk * 32, 16, 1024),
-                           sw128_desc(b + kk * 2048, T_B_BOX, 1024),
-                           (kb | kk) != 0);
-        wgmma_commit();
-        wgmma_wait<1>();  // the previous stage's products are done
-        if (kb > 0 && lane == 0)
-          release(&empty[(g - 1) % stages], rank);
-      }
-      wgmma_wait<0>();
-      fence_acc(d);
-      if (lane == 0) release(&empty[(g - 1) % stages], rank);
-
-      const int v0 = vt * T_BN;
-      // the bias, once per column pair of this lane (V a multiple of 8)
+        for (int j = 0; j < P; ++j)
 #pragma unroll
-      for (int c = 0; c < 32; ++c) {
-        const int col = v0 + c * 8 + (lane & 3) * 2;
-        const float b0 = col < V ? __ldg(bias + col) : 0.f;
-        const float b1 = col < V ? __ldg(bias + col + 1) : 0.f;
-        d[c * 4] += b0;
-        d[c * 4 + 1] += b1;
-        d[c * 4 + 2] += b0;
-        d[c * 4 + 3] += b1;
+          for (int kk = 0; kk < T_BK / 16; ++kk)
+            // A: K-major, 8-row groups 1024 bytes apart, 16 deep = 32
+            // bytes on; B: MN-major, 64-column boxes 8192 bytes apart,
+            // 8-deep groups 1024 apart, 16 deep = 2048 bytes on
+            wgmma_tile<BN>(d,
+                           sw128_desc(a + j * T_A_BYTES + kk * 32, 16, 1024),
+                           sw128_desc(b + kk * 2048, T_B_BOX, 1024),
+                           ((TOTAL ? 0 : kb) | j | kk) != 0);
+        wgmma_commit();
+        if constexpr (TOTAL) {
+          wgmma_wait<0>();  // this stage's products are done
+          fence_acc(d);
+          if (lane == 0) release(&empty[s], rank);
+#pragma unroll
+          for (int c = 0; c < NACC; ++c) t[c] += d[c];
+        } else {
+          wgmma_wait<1>();  // the previous stage's products are done
+          if (kb > 0 && lane == 0)
+            release(&empty[(g - 1) % stages], rank);
+        }
       }
       const int row0 = rb * T_BM + wg * 64 + warp * 16 + (lane >> 2);
-      if (v0 + T_BN <= V)
-        fold_tile_tma<true>(d, lane, row0, v0, vt, n_vt, V, rows, k,
-                            part_vals, part_ids, part_m, part_s);
-      else
-        fold_tile_tma<false>(d, lane, row0, v0, vt, n_vt, V, rows, k,
-                             part_vals, part_ids, part_m, part_s);
+      if constexpr (TOTAL) {
+        if (vt < n_vt)
+          finish_tile<BN>(t, bias, lane, row0, vt, n_vt, V, rows, k,
+                          part_vals, part_ids, part_m, part_s);
+      } else {
+        wgmma_wait<0>();
+        fence_acc(d);
+        if (lane == 0) release(&empty[(g - 1) % stages], rank);
+        finish_tile<BN>(d, bias, lane, row0, vt, n_vt, V, rows, k, part_vals,
+                        part_ids, part_m, part_s);
+      }
     }
+  }
+}
+
+// The exact split of an f32 value x into three bf16 values, x = hi + mid +
+// lo (ops/vocab_topk.py::split_bf16x3_plain does the same bit for bit):
+// hi is x rounded toward zero (its top 16 bits: never overflows), mid the
+// same of x - hi, lo x - hi - mid rounded to nearest even. Both differences
+// are exact in f32, and lo has at most 8 significant bits, so it is exact
+// in bf16 wherever its exponent fits (|x| >= 2^-100; below, x loses less
+// than 2^-133). A non-finite x goes whole into hi (a NaN stays a NaN, its
+// sign kept), mid and lo 0. Returns the three bf16 bit patterns.
+__device__ __forceinline__ void split3(float x, uint32_t& h, uint32_t& m,
+                                       uint32_t& l) {
+  const uint32_t u = __float_as_uint(x);
+  if (!isfinite(x)) {
+    h = (u >> 16) | (x != x ? 0x40u : 0u);
+    m = l = 0u;
+    return;
+  }
+  const float r1 = x - __uint_as_float(u & 0xffff0000u);
+  const uint32_t u1 = __float_as_uint(r1);
+  const uint32_t u2 = __float_as_uint(r1 - __uint_as_float(u1 & 0xffff0000u));
+  h = u >> 16;
+  m = u1 >> 16;
+  l = (u2 + 0x7fffu + ((u2 >> 16) & 1u)) >> 16;
+}
+
+// f32 h2 (rows, R) -> bf16 planes (T_PLANES, rows, R8), R8 = R rounded up
+// to 8, columns R..R8 zero: one thread a run of 8 columns of a row (two
+// 16-byte loads where `vec`: R a multiple of 8, h2 16-byte aligned; one
+// 16-byte store into each plane). Bound by bytes: 4 read and 6 written an
+// entry.
+__global__ void __launch_bounds__(kThreads)
+vocab_split_kernel(const float* __restrict__ h2, int rows, int R, int R8,
+                   bool vec, uint4* __restrict__ planes) {
+  const int runs = R8 / 8;
+  const size_t n = (size_t)rows * runs;
+  const size_t plane = n;  // uint4 per plane
+  for (size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x; t < n;
+       t += (size_t)gridDim.x * blockDim.x) {
+    const int r = (int)(t / runs);
+    const int c0 = (int)(t % runs) * 8;
+    const float* row = h2 + (size_t)r * R;
+    float x[8];
+    if (vec) {
+      const float4 x0 = *reinterpret_cast<const float4*>(row + c0);
+      const float4 x1 = *reinterpret_cast<const float4*>(row + c0 + 4);
+      x[0] = x0.x, x[1] = x0.y, x[2] = x0.z, x[3] = x0.w;
+      x[4] = x1.x, x[5] = x1.y, x[6] = x1.z, x[7] = x1.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = c0 + e < R ? row[c0 + e] : 0.f;
+    }
+    uint32_t hv[4], mv[4], lv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint32_t h0, m0, l0, h1, m1, l1;
+      split3(x[2 * e], h0, m0, l0);
+      split3(x[2 * e + 1], h1, m1, l1);
+      hv[e] = h0 | (h1 << 16);
+      mv[e] = m0 | (m1 << 16);
+      lv[e] = l0 | (l1 << 16);
+    }
+    planes[t] = make_uint4(hv[0], hv[1], hv[2], hv[3]);
+    planes[plane + t] = make_uint4(mv[0], mv[1], mv[2], mv[3]);
+    planes[2 * plane + t] = make_uint4(lv[0], lv[1], lv[2], lv[3]);
   }
 }
 
@@ -1101,33 +1348,42 @@ cudaLaunchConfig_t tma_config(int grid, int smem, cudaStream_t stream,
   return cfg;
 }
 
+template <int P>
 cudaError_t set_tma_smem(int smem) {
   static int smem_set = 0;
   if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        vocab_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        vocab_tma_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (e != cudaSuccess) return e;
     smem_set = smem;
   }
   return cudaSuccess;
 }
 
-cudaError_t launch_bf16_tma(const __nv_bfloat16* h2, const __nv_bfloat16* w,
-                            const float* bias, int rows, int R, int V, int k,
-                            int stages, int grid, int smem, float* part_vals,
-                            int* part_ids, float* part_m, float* part_s,
-                            cudaStream_t stream) {
-  cudaError_t e = set_tma_smem(smem);
+// h2: P (rows, R8) bf16 planes (R8 = R on one plane, R rounded up to 8 on
+// the split's three)
+template <int P>
+cudaError_t launch_tma(const __nv_bfloat16* h2, const __nv_bfloat16* w,
+                       const float* bias, int rows, int R, int V, int k,
+                       int stages, int grid, int smem, float* part_vals,
+                       int* part_ids, float* part_m, float* part_s,
+                       cudaStream_t stream) {
+  cudaError_t e = set_tma_smem<P>(smem);
   if (e != cudaSuccess) return e;
   CUtensorMap tm_h2, tm_w;
-  if (!encode_2d(&tm_h2, h2, 2, rows, R, T_BM, T_BK,
-                 CU_TENSOR_MAP_SWIZZLE_128B) ||
+  const int R8 = P == 1 ? R : (R + 7) / 8 * 8;
+  // the split's planes: each CTA of a cluster copies half of a box's rows
+  if (!encode_planes(&tm_h2, h2, 2, P, rows, R8,
+                     P == 1 ? T_BM : T_BM / T_CLUSTER, T_BK,
+                     CU_TENSOR_MAP_SWIZZLE_128B) ||
       !encode_2d(&tm_w, w, 2, R, V, T_BK, 64, CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = tma_config(grid, smem, stream, &attr);
-  e = cudaLaunchKernelEx(&cfg, vocab_tma_kernel, tm_h2, tm_w, bias, rows, R,
-                         V, k, stages, part_vals, part_ids, part_m, part_s);
+  e = cudaLaunchKernelEx(&cfg, vocab_tma_kernel<P>, tm_h2, tm_w, bias, rows,
+                         R, V, k, stages, part_vals, part_ids, part_m,
+                         part_s);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -1162,39 +1418,63 @@ extern "C" int vsrcic_vocab_topk(const void* h2, const void* w,
   return (int)e;
 }
 
-// bf16 h2 (rows, R) and bf16 W_t (R, V) by the route of
-// ops/vocab_topk.py::vocab_bf16_launch_plan: route 1 (TMA and wgmma; R and
-// V multiples of 8, h2 and W_t 16-byte aligned; tiles of T_BN columns)
-// with `stages` ring slots on `grid` persistent CTAs in clusters of
-// `cluster` = T_CLUSTER along the rows, `smem` dynamic shared bytes a CTA;
-// route 0 (mma.sync; tiles of TV columns) with the grid and shared bytes
-// it fixes and no cluster (1); a plan that differs is refused. `tile_n` is the
-// route's vocab columns per tile (partials per row: ceil(V / tile_n)). The
-// rest as vsrcic_vocab_topk.
+// f32 h2 (rows, R) -> bf16 planes (3, rows, R8), R8 = R rounded up to 8
+// (vocab_split_kernel); `planes` 16-byte aligned
+extern "C" int vsrcic_vocab_split(const void* h2, int rows, int R,
+                                  void* planes, void* stream) {
+  cudaGetLastError();  // a stale error must not be reported as this launch's
+  if (rows < 1 || R < 1 || reinterpret_cast<uintptr_t>(planes) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int R8 = (R + 7) / 8 * 8;
+  const size_t runs = (size_t)rows * (R8 / 8);
+  const size_t blocks = (runs + kThreads - 1) / kThreads;
+  vocab_split_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192), kThreads,
+                       0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(h2), rows, R, R8,
+      R % 8 == 0 && reinterpret_cast<uintptr_t>(h2) % 16 == 0,
+      static_cast<uint4*>(planes));
+  return (int)cudaGetLastError();
+}
+
+// bf16 operands and W_t (R, V) by the route of ops/vocab_topk.py::
+// vocab_launch_plan: route 1 (TMA and wgmma; V a multiple of 8, W_t
+// 16-byte aligned) on `planes` bf16 planes of h2: 1 (bf16 h2 (rows, R); R
+// a multiple of 8, h2 16-byte aligned; tiles of T_BN columns) or T_PLANES
+// (the split of an f32 h2, vsrcic_vocab_split's (3, rows, R8); tiles of
+// T_BN_SPLIT columns), with `stages` ring slots on `grid` persistent CTAs
+// in clusters of `cluster` = T_CLUSTER, `smem` dynamic shared bytes a
+// CTA; route 0 (mma.sync, one plane; tiles of TV columns) with the grid
+// and shared bytes it fixes and no cluster (1); a plan that differs is
+// refused. `tile_n` is the route's vocab columns per tile (partials per
+// row: ceil(V / tile_n)). The rest as vsrcic_vocab_topk.
 extern "C" int vsrcic_vocab_topk_bf16(const void* h2, const void* w,
                                       const void* bias, int rows, int R,
                                       int V, int k, int route, int tile_n,
-                                      int stages, int cluster, int grid,
-                                      int smem, void* part_vals,
+                                      int planes, int stages, int cluster,
+                                      int grid, int smem, void* part_vals,
                                       void* part_ids, void* part_m,
                                       void* part_s, void* vals, void* ids,
                                       void* lse, void* stream) {
   cudaGetLastError();  // a stale error must not be reported as this launch's
   if (k < 1 || k > K_MAX || k > V || rows < 1 || R < 1 ||
-      (route != 0 && route != 1) || tile_n != (route ? T_BN : TV))
+      (route != 0 && route != 1) || (planes != 1 && planes != T_PLANES) ||
+      (route == 0 && planes != 1) ||
+      tile_n != (route ? tma_tile_n(planes) : TV))
     return (int)cudaErrorInvalidValue;
   const int n_rb = (rows + TR - 1) / TR;
   const int n_vt = (V + tile_n - 1) / tile_n;
   static_assert(T_BM == TR, "both routes tile 128 rows");
-  const bool tma_ok = R % 8 == 0 && V % 8 == 0 &&
+  const bool tma_ok = (planes > 1 || R % 8 == 0) && V % 8 == 0 &&
                       reinterpret_cast<uintptr_t>(h2) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  // the groups of `cluster` tiles: row blocks of one vocab tile on one
+  // plane, vocab tiles of one row block on three
+  const int groups = planes == 1 ? (n_rb + cluster - 1) / cluster * n_vt
+                                 : n_rb * ((n_vt + cluster - 1) / cluster);
   if ((route == 1 &&
        (!tma_ok || stages < T_MIN_STAGES || stages > T_MAX_STAGES ||
-        cluster != T_CLUSTER || grid < cluster ||
-        grid % cluster != 0 ||
-        grid / cluster > (n_rb + cluster - 1) / cluster * n_vt ||
-        smem != tma_smem_bytes(stages))) ||
+        cluster != T_CLUSTER || grid < cluster || grid % cluster != 0 ||
+        grid / cluster > groups || smem != tma_smem_bytes(stages, planes))) ||
       (route == 0 &&
        (grid != n_rb * n_vt || smem != BF16_SMEM || cluster != 1)))
     return (int)cudaErrorInvalidValue;
@@ -1209,28 +1489,38 @@ extern "C" int vsrcic_vocab_topk_bf16(const void* h2, const void* w,
   cudaError_t e;
   if (route == 0)
     e = launch_bf16_mma_sync(bh2, bw, fb, rows, R, V, k, pv, pi, pm, ps, s);
+  else if (planes == 1)
+    e = launch_tma<1>(bh2, bw, fb, rows, R, V, k, stages, grid, smem, pv, pi,
+                      pm, ps, s);
   else
-    e = launch_bf16_tma(bh2, bw, fb, rows, R, V, k, stages, grid, smem, pv,
-                        pi, pm, ps, s);
+    e = launch_tma<T_PLANES>(bh2, bw, fb, rows, R, V, k, stages, grid, smem,
+                             pv, pi, pm, ps, s);
   if (e != cudaSuccess) return (int)e;
   return (int)merge(rows, k, n_vt, route == 1, pv, pi, pm, ps,
                     static_cast<float*>(vals), static_cast<int*>(ids),
                     static_cast<float*>(lse), s);
 }
 
-// the clusters of T_CLUSTER TMA-route CTAs of `smem` dynamic shared bytes
-// that the card holds at once (the launch plan's grid)
-extern "C" int vsrcic_vocab_tma_clusters(int smem, int* out) {
+// the clusters of T_CLUSTER TMA-kernel CTAs of `smem` dynamic shared
+// bytes on `planes` h2 planes that the card holds at once (the launch
+// plan's grid)
+extern "C" int vsrcic_vocab_tma_clusters(int smem, int planes, int* out) {
   cudaGetLastError();
-  const int stages = (smem - 1024) / (T_STAGE + 16);
+  if (planes != 1 && planes != T_PLANES) return (int)cudaErrorInvalidValue;
+  const int stages = (smem - 1024) / (tma_stage_bytes(planes) + 16);
   if (stages < T_MIN_STAGES || stages > T_MAX_STAGES ||
-      smem != tma_smem_bytes(stages))
+      smem != tma_smem_bytes(stages, planes))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = set_tma_smem(smem);
-  if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = tma_config(T_CLUSTER, smem, 0, &attr);
-  return (int)cudaOccupancyMaxActiveClusters(out, vocab_tma_kernel, &cfg);
+  cudaError_t e = planes == 1 ? set_tma_smem<1>(smem)
+                              : set_tma_smem<T_PLANES>(smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)(planes == 1
+                   ? cudaOccupancyMaxActiveClusters(out, vocab_tma_kernel<1>,
+                                                    &cfg)
+                   : cudaOccupancyMaxActiveClusters(
+                         out, vocab_tma_kernel<T_PLANES>, &cfg));
 }
 
 extern "C" const char* vsrcic_error_string(int err) {

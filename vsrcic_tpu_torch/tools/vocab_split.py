@@ -1,4 +1,4 @@
-"""Split the bf16 vocab kernel's TMA route into its parts on one card.
+"""Split the vocab kernel's TMA routes into their parts on one card.
 
     python3 vsrcic_tpu_torch/tools/vocab_split.py
 
@@ -6,7 +6,10 @@ Builds variants of `csrc/vocab_topk.cu`'s `vocab_tma_kernel` from edited
 copies of the source (each with nvcc, `_build.NVCC_FLAGS`, into
 `vsrcic_tpu_torch/build/split/`) and times stage 1 of each under the
 profiler (`chip_smoke.kernel_split`) at the beam's shape (rows 5120, R
-1000, V 10000, k 5) with the launch plan the wrapper picks:
+1000, V 10000, k 5) on both of its routes, with the launch plans the
+wrapper picks for "bf16" (bf16 h2 and table, `VSRCIC_VOCAB_LHS_BF16=1`)
+and "split" (an f32 h2 on the bf16 table, the beam's default: the three
+bf16 planes of `split_bf16x3`, made once by the checkout's own split pass):
 
   full        the kernel as it is
   no_rounds   the fold without its top-k rounds (max, sum, keys)
@@ -32,11 +35,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(HERE))
 SRC = os.path.join(REPO, "vsrcic_tpu_torch", "csrc", "vocab_topk.cu")
 
-FOLD = ("      if (v0 + T_BN <= V)\n"
-        "        fold_tile_tma<true>(")
+FOLD = ("  if (v0 + BN <= V)\n"
+        "    fold_tile_tma<true, BN / 8>(")
 ROUNDS = "  for (int q = 0; q < k; ++q) {\n    int bk[2], bc[2];"
-MMA = "          wgmma_m64n256k16(d, sw128_desc(a + kk * 32, 16, 1024),"
-LOAD_FROM = "          mbar_expect_tx(&full[s], T_STAGE);"
+MMA = "            wgmma_tile<BN>(d,\n"
+LOAD_FROM = "          mbar_expect_tx(&full[s], STAGE);"
 LOAD_TO = "        }\n      }\n      // the last `stages` positions"
 
 
@@ -49,14 +52,14 @@ def _edit(src, old, new):
 
 def variants(src):
     # keep d live without folding: the products must not be optimised away
-    no_fold = _edit(src, FOLD, "      if (lane == 0 && d[0] == 12345.f) "
-                    "part_m[0] = d[3];\n      if (0)\n" + FOLD)
+    no_fold = _edit(src, FOLD, "  if (lane == 0 && acc[0] == 12345.f) "
+                    "part_m[0] = acc[3];\n  if (0)\n" + FOLD)
     i, j = no_fold.index(LOAD_FROM), no_fold.index(LOAD_TO)
     return {
         "full": src,
         "no_rounds": _edit(src, ROUNDS, ROUNDS.replace("q < k", "q < 0")),
         "no_fold": no_fold,
-        "loads_only": _edit(no_fold, MMA, "          if (0)\n" + MMA),
+        "loads_only": _edit(no_fold, MMA, "            if (0)\n" + MMA),
         "mma_only": (no_fold[:i] + "          mbar_expect_tx(&full[s], 0);\n"
                      + no_fold[j:]),
     }
@@ -103,46 +106,57 @@ def main():
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(1)
     rows, r, v, k = smoke.ROWS, smoke.RNN, smoke.VOCAB, smoke.BEAM
-    h2 = torch.tanh(torch.randn((rows, r), generator=gen,
-                                device=dev)).bfloat16()
+    h2 = torch.tanh(torch.randn((rows, r), generator=gen, device=dev))
     w = (torch.randn((r, v), generator=gen, device=dev)
          * (2.0 / (r + v)) ** 0.5).bfloat16()
     b = 0.01 * torch.randn((v,), generator=gen, device=dev)
-    plan = vt.vocab_bf16_launch_plan(
-        rows, r, v, k, True, _build.sm_count(dev),
-        vt.resident_clusters(dev, vt.TMA_STAGES))
-    n_t = math.ceil(v / plan.tile_n)
-    f32 = torch.float32
-    bufs = [torch.empty((rows, n_t, k), dtype=f32, device=dev),
-            torch.empty((rows, n_t, k), dtype=torch.int32, device=dev),
-            torch.empty((rows, n_t), dtype=f32, device=dev),
-            torch.empty((rows, n_t), dtype=f32, device=dev),
-            torch.empty((rows, k), dtype=f32, device=dev),
-            torch.empty((rows, k), dtype=torch.int32, device=dev),
-            torch.empty((rows, 1), dtype=f32, device=dev)]
-    want = vt.vocab_topk_lse_plain(h2, w, b, k)
-    out = {"card": card, "shape": [rows, r, v, k],
-           "plan": {"stages": plan.stages, "cluster": plan.cluster,
-                    "grid": plan.grid}, "stage1_ms": {}}
-    for name, fn in fns.items():
-        def call():
-            err = fn(h2.data_ptr(), w.data_ptr(), b.data_ptr(), rows, r, v,
-                     k, 1, plan.tile_n, plan.stages, plan.cluster,
-                     plan.grid, plan.smem_bytes,
-                     *[t.data_ptr() for t in bufs],
-                     torch.cuda.current_stream(dev).cuda_stream)
-            if err:
-                raise SystemExit("vocab_split: %s refused: %d" % (name, err))
-        call()
-        torch.cuda.synchronize()
-        if name == "full" and not all(
-                torch.allclose(g, w_, rtol=1e-5, atol=1e-6)
-                for g, w_ in ((bufs[4], want[0]), (bufs[6], want[2]))):
-            raise SystemExit("vocab_split: the full kernel disagrees with "
-                             "the plain version")
-        ms = smoke.kernel_split(call, "vocab_tma").get("vocab_tma_kernel")
-        out["stage1_ms"][name] = ms
-        print("  %-10s stage 1 %.4f ms" % (name, ms), flush=True)
+    sms = _build.sm_count(dev)
+    f32, bf16 = torch.float32, torch.bfloat16
+    plans = {
+        "bf16": (h2.bfloat16(), vt.vocab_launch_plan(
+            rows, r, v, k, bf16, bf16, True, sms,
+            vt.resident_clusters(dev, vt.TMA_STAGES))),
+        "split": (h2, vt.vocab_launch_plan(
+            rows, r, v, k, f32, bf16, True, sms,
+            vt.resident_clusters(dev, vt.SPLIT_STAGES, vt.SPLIT_PLANES)))}
+    out = {"card": card, "shape": [rows, r, v, k], "plans": {},
+           "stage1_ms": {}}
+    for route, (lhs, plan) in plans.items():
+        ops = vt.split_bf16x3(lhs) if plan.route == "split" else lhs
+        n_t = math.ceil(v / plan.tile_n)
+        bufs = [torch.empty((rows, n_t, k), dtype=f32, device=dev),
+                torch.empty((rows, n_t, k), dtype=torch.int32, device=dev),
+                torch.empty((rows, n_t), dtype=f32, device=dev),
+                torch.empty((rows, n_t), dtype=f32, device=dev),
+                torch.empty((rows, k), dtype=f32, device=dev),
+                torch.empty((rows, k), dtype=torch.int32, device=dev),
+                torch.empty((rows, 1), dtype=f32, device=dev)]
+        want = vt.vocab_topk_lse_plain(lhs, w, b, k)
+        out["plans"][route] = {"stages": plan.stages,
+                               "cluster": plan.cluster, "grid": plan.grid}
+        out["stage1_ms"][route] = {}
+        for name, fn in fns.items():
+            def call():
+                err = fn(ops.data_ptr(), w.data_ptr(), b.data_ptr(), rows, r,
+                         v, k, 1, plan.tile_n, plan.planes, plan.stages,
+                         plan.cluster, plan.grid, plan.smem_bytes,
+                         *[t.data_ptr() for t in bufs],
+                         torch.cuda.current_stream(dev).cuda_stream)
+                if err:
+                    raise SystemExit("vocab_split: %s %s refused: %d"
+                                     % (route, name, err))
+            call()
+            torch.cuda.synchronize()
+            if name == "full" and not all(
+                    torch.allclose(g, w_, rtol=1e-5, atol=1e-6)
+                    for g, w_ in ((bufs[4], want[0]), (bufs[6], want[2]))):
+                raise SystemExit("vocab_split: the full %s kernel disagrees "
+                                 "with the plain version" % route)
+            ms = smoke.kernel_split(call, "vocab_tma").get(
+                "vocab_tma_kernel")
+            out["stage1_ms"][route][name] = ms
+            print("  %-16s %-10s stage 1 %.4f ms" % (route, name, ms),
+                  flush=True)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "vocab_split.json"),
               "w") as f:
