@@ -10,8 +10,8 @@
     python3 chip_smoke.py --eval       # phases 1-2 and 13
     python3 chip_smoke.py --train-cli  # phases 1-2 and 14
     python3 chip_smoke.py --parallel   # phases 1-2 and 15
-    python3 chip_smoke.py --vocab-bf16 # phases 1-2, 3's vocab checks, 5-5c
-                                       # (both vocab entry points)
+    python3 chip_smoke.py --vocab-bf16 # phases 1-2, 3's vocab checks, 5-5d
+                                       # (every vocab route)
 
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi), and the TF32 settings
@@ -35,25 +35,31 @@ Phases (any failure raises and the script exits non-zero):
      (NaN, the neighbours exact), and timed at its four path shapes: the
      beam, SCST's decode, the eval CLI's first step and the SCST train
      CLI's 100 rows (held stream, beside an empty kernel's time). The vocab
-     head's f32 entry point (f32 h2) is held on f32 tables (the SGEMM) and
-     on bf16 tables, where V a multiple of 8 takes the split route: its
-     split pass gives split_bf16x3_plain's planes bit for bit (every kind
-     of entry, ragged R, unaligned), the route holds the plain version on
-     the tie cases (ids exact), at ragged R and at full width (its worst
-     error printed), each check asserting its route by the launch counts;
-     timed at the beam's shape beside its bound (three bf16 passes over
-     the tensor cores' rate) and the CUDA cores' f32 bound, the SGEMM on
-     the same values, the library trio, and the split pass alone. The vocab
+     head's f32 product is held on every table layout the facade makes
+     (padded to a pitch of V rounded up to 8, an f32 table's planes made
+     once) and contiguous: "split9" (f32 h2 and table: nine bf16 plane
+     products), "split_w" (bf16 h2, f32 table: three), "split" (f32 h2,
+     bf16 table: three) wherever TMA can read W_t, the SGEMM only where it
+     cannot; the split pass gives split_bf16x3_plain's planes bit for bit
+     (every kind of entry, ragged R, unaligned; W_t's rows too), each
+     route holds the plain version on the tie cases (ids exact), at ragged
+     R and V and at full width (V 10000 and, padded, 9999; its worst error
+     printed), each check asserting its route by the launch counts; timed
+     at the beam's shape beside its bound (its bf16 passes over the tensor
+     cores' rate) and the CUDA cores' f32 bound, the SGEMM on the same
+     values through an unaligned view, the library trio on the bf16 and
+     the f32 table, and the split pass alone. The vocab
      head's bf16-operand kernel (bf16 h2 and table, tensor cores) is held
      to its plain version on the tie cases (ids exact), at ragged shapes
      and at full width (ids equal save near ties), each check asserting
      its route (TMA or mma.sync) by the launch counts, and timed beside
      its tensor-core bound, a cuBLAS bf16 product + topk + logsumexp and
      the product alone, split by the profiler into its two stages, at k 5
-     and k 1. Both vocab entry points and both bf16 routes are held to the
-     plain version on non-finite logits (0/0 rows made on the card, +-inf
-     products, an all -inf row, a NaN column, a +inf bias): NaN and +-inf
-     where it has them, ids exact on those rows, none outside [0, V);
+     and k 1. Every vocab route is held to its plain version on non-finite
+     logits (0/0 rows made on the card, +-inf products, an all -inf row, a
+     NaN column, a +inf bias; an f32 table's routes to vocab_planes_plain,
+     whose infinite entries meet zero planes as the kernel's do): NaN and
+     +-inf where it has them, ids exact on those rows, none outside [0, V);
   4. replay the beam's golden fixtures (JAX results) through the kernel
      path: golden_beam.npz, and golden_beam_bf16.npz's four paths
      (VSRCIC_VOCAB_LHS_BF16=1 on bf16 and f32 tables, decode_dtype=bfloat16
@@ -75,6 +81,11 @@ Phases (any failure raises and the script exits non-zero):
  5c. the same beam with decode_dtype=torch.bfloat16, strict (no kernel)
      and fast: one warm-up and three timed batches each, every beam
      valid, the share of phase 5's captions each keeps;
+ 5d. the same beam on f32 tables (table_dtype None): one warm-up and three
+     timed batches, every vocab launch on the nine-plane route (20 of 20 a
+     batch), its captions equal a checked run's save vocab near ties and
+     >= 0.99 of them the plain path's; then one batch under
+     VSRCIC_VOCAB_LHS_BF16=1, every vocab launch on "split_w";
   6. run phase 5's batch through the plain versions on the card and
      compare;
   7. replay the eval pipeline's golden fixture (JAX plans and words) through
@@ -117,8 +128,9 @@ Phases (any failure raises and the script exits non-zero):
      times: no flag (strict), checked (the fast flags, every kernel call
      held to its plain version on the same inputs, the plain result going
      on), --fused --vocab_topk (f32 tables) and the fast flags; launch
-     counts reset just before each run and read just after, the fused
-     kernel's item/ctrl watched for writes; the fast run's captions must
+     counts reset just before each run and read just after (the vocab op
+     on the split routes of the padded V 30 tables, no SGEMM launch), the
+     fused kernel's item/ctrl watched for writes; the fast run's captions must
      equal the checked run's save for vocab near ties, and keep
      F32_KERNELS_BAR / BF16_TABLES_BAR of the strict run's; each kernel
      timed on the fast run's first inputs; the host's field time per
@@ -569,16 +581,16 @@ def vocab_near_ties(h2, w, b, got, want):
     return int(rows.numel())
 
 
-def hold_vocab(h2, w, b, k, exact_ids, worst):
-    """One input of phase 3's vocab checks: the wrapper's kernel against
-    its plain version, values and lse within rtol 1e-5 / atol 1e-6, ids
-    exact (tie cases) or equal save near ties. `worst` keeps the largest
-    absolute ("abs") and relative ("rel") errors seen. Returns the count of
-    near-tie rows."""
+def hold_vocab(h2, w, b, k, exact_ids, worst, w_planes=None):
+    """One input of phase 3's vocab checks: the wrapper's kernel (given an
+    f32 table's `w_planes`, or making them) against its plain version,
+    values and lse within rtol 1e-5 / atol 1e-6, ids exact (tie cases) or
+    equal save near ties. `worst` keeps the largest absolute ("abs") and
+    relative ("rel") errors seen. Returns the count of near-tie rows."""
     import torch
     from vsrcic_tpu_torch.ops.vocab_topk import (
         vocab_topk_lse as kern, vocab_topk_lse_plain as plain)
-    got = kern(h2, w, b, k)
+    got = kern(h2, w, b, k, w_planes=w_planes)
     torch.cuda.synchronize()
     want = plain(h2, w, b, k)
     for g, wnt, name in ((got[0], want[0], "vals"),
@@ -596,13 +608,16 @@ def hold_vocab(h2, w, b, k, exact_ids, worst):
     return vocab_near_ties(h2, w, b, got, want)
 
 
-def vocab_split_bound(rows, r, v, k):
-    """(ms, by): the split route's function, the exact f32 x bf16 product
-    taken as three bf16 passes over the tensor cores' bf16 rate, or its
-    bytes (f32 h2, bf16 table, f32 bias, outputs; the planes are the
-    route's own) over the HBM rate."""
-    flops = 3 * 2.0 * rows * r * v
-    nbytes = rows * r * 4 + r * v * 2 + v * 4 + rows * (2 * k + 1) * 4
+def vocab_planes_bound(rows, r, v, k, h2_bytes, table_bytes):
+    """(ms, by): a TMA route's function, the exact f32 product taken as
+    bf16 plane products (three planes for an f32 operand, one for a bf16:
+    "tma" 1 pass, "split" and "split_w" 3, "split9" 9) over the tensor
+    cores' bf16 rate, or its bytes (h2, the table, f32 bias, outputs; the
+    planes are the route's own) over the HBM rate."""
+    passes = (3 if h2_bytes == 4 else 1) * (3 if table_bytes == 4 else 1)
+    flops = passes * 2.0 * rows * r * v
+    nbytes = (rows * r * h2_bytes + r * v * table_bytes + v * 4
+              + rows * (2 * k + 1) * 4)
     t_ops, t_bytes = flops / BF16_TENSOR_FLOPS, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -626,13 +641,16 @@ def split_values(gen, rows, r):
     return x
 
 
-def check_vocab_split(gen, h2):
+def check_vocab_split(gen, h2, w_t):
     """The split pass (csrc vocab_split_kernel) against split_bf16x3_plain
     on the card, bit for bit: at the beam's h2, on every kind of entry at
-    ragged R, and from an unaligned base (element loads)."""
+    ragged R, and from an unaligned base (element loads); and on W_t's
+    rows as `table_planes` splits them, once per table: the beam's f32
+    table and every kind of entry at ragged R and V, padded."""
     import torch
-    from vsrcic_tpu_torch.ops.vocab_topk import (split_bf16x3,
-                                                 split_bf16x3_plain)
+    from vsrcic_tpu_torch.ops.vocab_topk import (padded_table, split_bf16x3,
+                                                 split_bf16x3_plain,
+                                                 table_planes)
     cases = [("full", h2), ("special", split_values(gen, 37, 1001)),
              ("special_r1", split_values(gen, 16, 1))]
     off = torch.empty(130 * 64 + 1, device="cuda")[1:].view(130, 64)
@@ -647,98 +665,226 @@ def check_vocab_split(gen, h2):
                                                               + x.shape))
         log("  vocab split pass %s rows=%d R=%d: planes equal "
             "split_bf16x3_plain bit for bit" % ((name,) + tuple(x.shape)))
+    for name, w in (("table", w_t), ("special_table",
+                                     split_values(gen, 77, 1001)),
+                    ("special_v30", split_values(gen, 1000, 30))):
+        got = table_planes(padded_table(w))
+        torch.cuda.synchronize()
+        want = split_bf16x3_plain(w)
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError("W_t's planes %s R=%d V=%d differ from "
+                                 "split_bf16x3_plain" % ((name,) + w.shape))
+        log("  vocab W_t planes %s R=%d V=%d (padded to %d): equal "
+            "split_bf16x3_plain bit for bit" % ((name,) + tuple(w.shape)
+                                                + (got.shape[2],)))
+
+
+# the vocab op's routes, each with its launch count's attribute on
+# vocab_topk_lse
+VOCAB_ROUTES = {"sgemm": "launches_sgemm", "split": "launches_split",
+                "split9": "launches_split9", "split_w": "launches_split_w",
+                "tma": "launches_bf16_tma", "mma_sync": None}
+
+
+def vocab_route(h2, w, k):
+    """The route vocab_topk_lse takes on the card for these operands (its
+    own reading of their types and layout, ops/vocab_topk.py)."""
+    import torch
+    from vsrcic_tpu_torch.ops import _build
+    from vsrcic_tpu_torch.ops.vocab_topk import vocab_launch_plan
+    lhs = h2.dtype
+    if lhs == torch.bfloat16 and w.dtype == torch.float32 and \
+            h2.data_ptr() % 16:
+        lhs = torch.float32
+    aligned = w.data_ptr() % 16 == 0 and (lhs == torch.float32
+                                          or h2.data_ptr() % 16 == 0)
+    r, v = w.shape
+    return vocab_launch_plan(h2.shape[0], h2.shape[1], v, k, lhs, w.dtype,
+                             aligned, _build.sm_count(h2.device),
+                             ldw=w.stride(0) if r > 1 else v + -v % 8).route
+
+
+def expect_route(route, call):
+    """call() (one vocab_topk_lse), asserting it was one launch, counted
+    on `route` alone (bf16 launches: "tma" and "mma_sync")."""
+    from vsrcic_tpu_torch.ops.vocab_topk import vocab_topk_lse as kern
+    attrs = ["launches", "launches_bf16"] + [a for a in VOCAB_ROUTES.values()
+                                             if a]
+    before = [getattr(kern, a) for a in attrs]
+    out = call()
+    want = {"launches": 1, "launches_bf16": route in ("tma", "mma_sync"),
+            VOCAB_ROUTES[route]: 1}
+    got = {a: getattr(kern, a) - n for a, n in zip(attrs, before)}
+    if any(got[a] != want.get(a, 0) for a in attrs):
+        raise AssertionError("vocab top-k: launches %s, not one on the %s "
+                             "route" % (got, route))
+    return out
+
+
+def vocab_tables(w):
+    """The layouts phase 3 holds the vocab op on, of the f32 values w (R,
+    V): {name: (table, w_planes)}: f32 and bf16, each contiguous and as the
+    facade stores it (padded to a pitch of V rounded up to 8; the f32
+    table's planes made once)."""
+    import torch
+    from vsrcic_tpu_torch.ops.vocab_topk import padded_table, table_planes
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        out[name] = (w.to(dt).contiguous(), None)
+        if w.shape[1] % 8 or dt == torch.float32:
+            wp = padded_table(w, dt)
+            out[name + "_padded"] = (
+                wp, table_planes(wp) if dt == torch.float32 else None)
+    return out
 
 
 def check_vocab(gen, report):
-    """Phase 3 for the f32 entry point (f32 h2) on f32 and bf16 tables:
-    the SGEMM route, and on a bf16 table with V a multiple of 8 the split
-    route (its split pass held bit for bit). The tie cases with ids exact,
-    ragged and full-width shapes with ids equal save near ties, all at
-    rtol 1e-5 / atol 1e-6, each check asserting its route by the launch
-    counts; then the times at the beam's shape, where the beam runs the
-    split route."""
+    """Phase 3 for the f32 product's routes (f32 h2 on f32 and bf16
+    tables, bf16 h2 on f32 tables): on every table layout the facade makes
+    (padded to a pitch of V rounded up to 8, an f32 table's planes made
+    once) and contiguous: "split9" (f32 h2 and table), "split_w" (bf16 h2,
+    f32 table), "split" (f32 h2, bf16 table) wherever TMA can read W_t,
+    the SGEMM where it cannot (contiguous at V no multiple of 8). The tie
+    cases with ids exact, ragged and full-width shapes (V 10000 and 9999)
+    with ids equal save near ties, all at rtol 1e-5 / atol 1e-6, each
+    check asserting its route by the launch counts; the split passes held
+    bit for bit; then the times at the beam's shape of every route beside
+    its bound, the SGEMM on the same values through an unaligned view, and
+    the library trio."""
     import torch
     from vsrcic_tpu_torch.ops.vocab_topk import (
-        split_bf16x3, split_bf16x3_plain, vocab_topk_lse as kern,
-        vocab_topk_lse_plain as plain)
-    worst = {route: {"abs": 0.0, "rel": 0.0} for route in ("sgemm", "split")}
+        padded_table, split_bf16x3, split_bf16x3_plain, vocab_topk_lse as
+        kern, vocab_topk_lse_plain as plain)
+    bf16 = torch.bfloat16
+    worst = {route: {"abs": 0.0, "rel": 0.0}
+             for route in ("sgemm", "split", "split9", "split_w")}
     routes = {}
 
-    def compare(h2, w, b, k, exact_ids):
-        route = ("split" if w.dtype == torch.bfloat16 and w.shape[1] % 8 == 0
-                 else "sgemm")
-        before = kern.launches_split
-        n = hold_vocab(h2, w, b, k, exact_ids, worst[route])
-        if kern.launches_split != before + (route == "split"):
-            raise AssertionError("vocab top-k R=%d V=%d %s table: not on "
-                                 "the %s route" % (w.shape[0], w.shape[1],
-                                                   w.dtype, route))
+    def compare(h2, w, b, k, exact_ids, planes=None):
+        route = vocab_route(h2, w, k)
+        n = expect_route(route, lambda: hold_vocab(
+            h2, w, b, k, exact_ids, worst[route], planes))
         routes[route] = routes.get(route, 0) + 1
         return n
 
+    def each_table(h2, w, b, k, exact_ids):
+        """compare() on every layout of w, f32 h2; bf16 h2 on the f32
+        ones: {layout: near-tie rows}."""
+        out = {}
+        for name, (wt, planes) in vocab_tables(w).items():
+            out[name] = compare(h2, wt, b, k, exact_ids, planes)
+            if wt.dtype == torch.float32:
+                out["bf16_h2_" + name] = compare(h2.to(bf16), wt, b, k,
+                                                 exact_ids, planes)
+        return out
+
     for i, (h2, w, b, k) in enumerate(vocab_tie_cases(gen)):
-        for table in (torch.float32, torch.bfloat16):
-            compare(h2, w.to(table).contiguous(), b, k, exact_ids=True)
-        log("  vocab_topk tie case %d rows=%d R=%d V=%d k=%d: ids exact"
-            % (i, h2.shape[0], h2.shape[1], w.shape[1], k))
-    # ragged: the SGEMM's edges; ragged R (zero-padded planes), rows and k
-    # on the split route
+        each_table(h2, w, b, k, exact_ids=True)
+        log("  vocab_topk tie case %d rows=%d R=%d V=%d k=%d: ids exact on "
+            "every layout (routes so far: %s)"
+            % (i, h2.shape[0], h2.shape[1], w.shape[1], k, routes))
+    # ragged: the SGEMM's edges; ragged R (zero-padded planes), V, rows and
+    # k on the split routes
     for rows, r, v, k in ((37, 77, 1001, 5), (3, 1000, 130, 1),
                           (101, 129, 257, 16), (37, 1001, 1000, 5),
                           (130, 77, 136, 16), (3, 1000, 136, 1)):
         h2 = torch.randn((rows, r), generator=gen, device="cuda")
         w = torch.randn((r, v), generator=gen, device="cuda") / r ** 0.5
         b = torch.randn((v,), generator=gen, device="cuda")
-        for table in (torch.float32, torch.bfloat16):
-            n = compare(h2, w.to(table).contiguous(), b, k, exact_ids=False)
-            log("  vocab_topk ragged rows=%d R=%d V=%d k=%d %s: near-tie "
-                "rows %d" % (rows, r, v, k, str(table).split(".")[1], n))
-    # full width: h2 like the LSTM's output, out_fc weights xavier-normal
+        n = each_table(h2, w, b, k, exact_ids=False)
+        log("  vocab_topk ragged rows=%d R=%d V=%d k=%d: near-tie rows %s"
+            % (rows, r, v, k, n))
+    # full width: h2 like the LSTM's output, out_fc weights xavier-normal;
+    # V 10000 and V 9999 (a ragged vocabulary, padded)
     h2 = torch.tanh(torch.randn((ROWS, RNN), generator=gen, device="cuda"))
     w = torch.randn((RNN, VOCAB), generator=gen, device="cuda") * (
         2.0 / (RNN + VOCAB)) ** 0.5
     b = 0.01 * torch.randn((VOCAB,), generator=gen, device="cuda")
-    near = {}
-    tables = {}
-    for table in (torch.float32, torch.bfloat16):
-        wt = w.to(table).contiguous()
-        tables[table] = wt
-        near[str(table)] = compare(h2, wt, b, BEAM, exact_ids=False)
-        log("  vocab_topk full rows=%d R=%d V=%d k=%d %s: near-tie rows %d"
-            % (ROWS, RNN, VOCAB, BEAM, str(table).split(".")[1],
-               near[str(table)]))
+    near = each_table(h2, w, b, BEAM, exact_ids=False)
+    log("  vocab_topk full rows=%d R=%d V=%d k=%d: near-tie rows %s"
+        % (ROWS, RNN, VOCAB, BEAM, near))
+    w9999 = padded_table(w[:, :VOCAB - 1], bf16)
+    b9999 = b[:VOCAB - 1].contiguous()
+    near["bfloat16_v9999"] = compare(h2, w9999, b9999, BEAM, False)
+    log("  vocab_topk full V=%d bf16 table padded to %d: near-tie rows %d"
+        % (VOCAB - 1, w9999.stride(0), near["bfloat16_v9999"]))
     log("  vocab_topk worst error by route: %s (checks by route: %s)"
         % ({r: "%.3g absolute, %.3g relative" % (e["abs"], e["rel"])
             for r, e in worst.items()}, routes))
-    check_vocab_split(gen, h2)
-    wt = tables[torch.bfloat16]
-    ms = cuda_ms(lambda: kern(h2, wt, b, BEAM))
-    plain_ms = cuda_ms(lambda: plain(h2, wt, b, BEAM), iters=5)
-    wf = wt.float()
-    # PR 1's SGEMM on the same values (the f32 copy of the bf16 table)
-    sgemm_ms = cuda_ms(lambda: kern(h2, wf, b, BEAM))
+    for route in ("split9", "split_w", "split", "sgemm"):
+        if not routes.get(route):
+            raise AssertionError("phase 3 took no vocab call on the %s route"
+                                 % route)
+    tables = vocab_tables(w)
+    check_vocab_split(gen, h2, w)
 
-    def library():  # one product, top-k and logsumexp (timed only)
-        logits = torch.addmm(b, h2, wf)
-        return torch.topk(logits, BEAM), torch.logsumexp(logits, -1)
-    library_ms = cuda_ms(library)
+    # times at the beam's shape
+    wb, _ = tables["bfloat16"]
+    wf, planes = tables["float32_padded"]
+    # the SGEMM on the same values: an f32 table TMA cannot read (its base
+    # 4 bytes off 16)
+    unaligned = torch.zeros(RNN * VOCAB + 1, device="cuda")[1:].view(
+        RNN, VOCAB).copy_(w)
+    h2b = h2.to(bf16)
+    calls = {"split": (h2, wb, None), "split9": (h2, wf, planes),
+             "split_w": (h2b, wf, planes), "sgemm": (h2, unaligned, None),
+             "split_v9999": (h2, w9999, None)}
+    timed = {}
+    for name, (lhs, wt, pl) in calls.items():
+        bb = b9999 if name == "split_v9999" else b
+        expect_route(name.split("_v")[0], lambda: kern(lhs, wt, bb, BEAM,
+                                                       w_planes=pl))
+        timed[name] = held_ms(lambda: kern(lhs, wt, bb, BEAM,
+                                           w_planes=pl))[0]
+    ms = cuda_ms(lambda: kern(h2, wb, b, BEAM))
+    plain_ms = cuda_ms(lambda: plain(h2, wb, b, BEAM), iters=5)
+    plain_f32_ms = cuda_ms(lambda: plain(h2, wf, b, BEAM), iters=5)
+
+    def library(table):  # one product, top-k and logsumexp (timed only)
+        def call():
+            logits = torch.addmm(b, h2, table)
+            return torch.topk(logits, BEAM), torch.logsumexp(logits, -1)
+        return call
+    library_ms = cuda_ms(library(wb.float()))
+    library_f32_ms = cuda_ms(library(w))
     flops = 2.0 * ROWS * RNN * VOCAB
     core_bound_ms, _ = vocab_bound(ROWS, RNN, VOCAB, BEAM, 2)
-    bound_ms, bound_by = vocab_split_bound(ROWS, RNN, VOCAB, BEAM)
-    split = kernel_split(lambda: kern(h2, wt, b, BEAM), "vocab")
-    log("  vocab_topk at rows=%d bf16 table, split route: %.4f ms (plain "
-        "%.4f ms, library %.4f ms, bound %.4f ms by %s: three bf16 passes; "
-        "the CUDA cores' f32 bound %.4f ms; %.1f f32-product TFLOP/s; the "
-        "SGEMM on the same values %.4f ms); profiler split %s"
-        % (ROWS, ms, plain_ms, library_ms, bound_ms, bound_by, core_bound_ms,
-           flops / ms / 1e9, sgemm_ms, fmt_split(split)))
+    core_bound_f32_ms, _ = vocab_bound(ROWS, RNN, VOCAB, BEAM, 4)
+    bounds = {"split": vocab_planes_bound(ROWS, RNN, VOCAB, BEAM, 4, 2),
+              "split9": vocab_planes_bound(ROWS, RNN, VOCAB, BEAM, 4, 4),
+              "split_w": vocab_planes_bound(ROWS, RNN, VOCAB, BEAM, 2, 4)}
+    bound_ms, bound_by = bounds["split"]
+    split = kernel_split(lambda: kern(h2, wb, b, BEAM), "vocab")
+    split9 = kernel_split(lambda: kern(h2, wf, b, BEAM, w_planes=planes),
+                          "vocab")
+    log("  vocab_topk at rows=%d bf16 table, split route: %.4f ms (held "
+        "%.4f; plain %.4f ms, library %.4f ms, bound %.4f ms by %s: three "
+        "bf16 passes; the CUDA cores' f32 bound %.4f ms; %.1f f32-product "
+        "TFLOP/s); V %d padded: held %.4f ms; profiler split %s"
+        % (ROWS, ms, timed["split"], plain_ms, library_ms, bound_ms, bound_by,
+           core_bound_ms, flops / ms / 1e9, VOCAB - 1, timed["split_v9999"],
+           fmt_split(split)))
+    log("  vocab_topk at rows=%d f32 table: split9 held %.4f ms (bound %.4f "
+        "ms by %s: nine bf16 passes; the CUDA cores' %.4f ms), split_w (bf16 "
+        "h2) held %.4f ms (bound %.4f ms), the SGEMM on the same values "
+        "held %.4f ms; plain %.4f ms, library (addmm + topk + logsumexp on "
+        "the f32 table) %.4f ms; split9's profiler split %s"
+        % (ROWS, timed["split9"], bounds["split9"][0], bounds["split9"][1],
+           core_bound_f32_ms, timed["split_w"], bounds["split_w"][0],
+           timed["sgemm"], plain_f32_ms, library_f32_ms, fmt_split(split9)))
     report["vocab_topk"] = dict(
         max_abs_err=max(e["abs"] for e in worst.values()),
         max_rel_err=max(e["rel"] for e in worst.values()),
         worst_by_route=worst, checks_by_route=routes, route="split", ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        cuda_core_bound_ms=core_bound_ms, sgemm_ms=sgemm_ms,
-        library_ms=library_ms, near_tie_rows=near, split_ms=split)
+        held_ms=timed, plain_ms=plain_ms, plain_f32_ms=plain_f32_ms,
+        bound_ms=bound_ms, bound_by=bound_by,
+        bounds_by_route={k: v[0] for k, v in bounds.items()},
+        bound_by_route={k: v[1] for k, v in bounds.items()},
+        cuda_core_bound_ms=core_bound_ms,
+        cuda_core_bound_f32_ms=core_bound_f32_ms, sgemm_ms=timed["sgemm"],
+        library_ms=library_ms, library_f32_ms=library_f32_ms,
+        near_tie_rows=near, split_ms=split, split9_ms=split9)
     # the split pass alone (4 bytes read and 6 written an entry), a few
     # microseconds: timed on a held stream, as the Sinkhorn kernel is
     split_ms = held_ms(lambda: split_bf16x3(h2))[0]
@@ -753,40 +899,6 @@ def check_vocab(gen, report):
     report["vocab_split"] = dict(
         max_abs_err=0.0, ms=split_ms, plain_ms=split_plain_ms,
         bound_ms=split_bound_ms, bound_by="bytes", library_ms=None)
-
-
-def vocab_bf16_bound(rows, r, v, k):
-    """(ms, by): the bf16 kernel's product over the tensor cores' bf16 rate,
-    or its bytes (bf16 h2 and table, f32 bias, outputs) over the HBM
-    rate."""
-    flops = 2.0 * rows * r * v
-    nbytes = rows * r * 2 + r * v * 2 + v * 4 + rows * (2 * k + 1) * 4
-    t_ops, t_bytes = flops / BF16_TENSOR_FLOPS, nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
-def vocab_route(h2, w, k):
-    """The route vocab_topk_lse takes for bf16 h2 and table on the card:
-    "tma" or "mma_sync" (ops/vocab_topk.py::vocab_bf16_launch_plan)."""
-    from vsrcic_tpu_torch.ops import _build
-    from vsrcic_tpu_torch.ops.vocab_topk import vocab_bf16_launch_plan
-    aligned = h2.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    return vocab_bf16_launch_plan(h2.shape[0], h2.shape[1], w.shape[1], k,
-                                  aligned, _build.sm_count(h2.device)).route
-
-
-def expect_route(route, call):
-    """call() (one vocab_topk_lse on bf16 operands), asserting it was one
-    bf16 launch and a TMA one exactly when `route` is "tma"."""
-    from vsrcic_tpu_torch.ops.vocab_topk import vocab_topk_lse as kern
-    before = (kern.launches_bf16, kern.launches_bf16_tma)
-    out = call()
-    if (kern.launches_bf16, kern.launches_bf16_tma) != (
-            before[0] + 1, before[1] + (route == "tma")):
-        raise AssertionError("bf16 operands did not launch the bf16 kernel "
-                             "on its %s route" % route)
-    return out
 
 
 def check_vocab_bf16(gen, report):
@@ -854,7 +966,7 @@ def check_vocab_bf16(gen, report):
     k1_ms = cuda_ms(lambda: kern(h2, wt, b, 1))
     split = kernel_split(lambda: kern(h2, wt, b, BEAM), "vocab")
     split_k1 = kernel_split(lambda: kern(h2, wt, b, 1), "vocab")
-    bound_ms, bound_by = vocab_bf16_bound(ROWS, RNN, VOCAB, BEAM)
+    bound_ms, bound_by = vocab_planes_bound(ROWS, RNN, VOCAB, BEAM, 2, 2)
     log("  vocab_topk_bf16 at rows=%d: %.4f ms (plain %.4f ms, library "
         "%.4f ms [%s + bias, topk, logsumexp], bound %.4f ms by %s, %.1f "
         "bf16 TFLOP/s)" % (ROWS, ms, plain_ms, library_ms, kind, bound_ms,
@@ -897,39 +1009,40 @@ def vocab_nonfinite_inputs(gen, rows, r, v, case):
 
 
 def check_vocab_nonfinite(gen, report):
-    """The vocab kernels on non-finite logits (closed in PR 11): every
-    entry point and route (the f32 one's split route on the bf16 table at
-    V 10000, SGEMM elsewhere) against its plain version, which ranks as
-    jax.lax.top_k and sums as jax.nn.logsumexp. Values and lse at phase
-    3's bar, NaN and +-inf exactly where the plain version has them; ids
-    exact on the rows with a non-finite logit, equal save near ties on the
-    finite rows around them; no id outside [0, V)."""
+    """The vocab kernels on non-finite logits (ROADMAP §3): every route
+    against its plain version, which ranks as jax.lax.top_k and sums as
+    jax.nn.logsumexp: "split9" (f32 h2 and table), "split_w" (bf16 h2, f32
+    table), "split" (f32 h2, bf16 table), "tma" (bf16) at V 10000 and, padded,
+    at V 1001; the SGEMM and mma.sync on the contiguous V 1001. An f32
+    table's routes are held to `vocab_planes_plain` (their function: an
+    infinite h2 entry meets W_t's zero planes, 0 x inf = NaN where the f32
+    product gives +-inf; ROADMAP §3). Values and lse at phase 3's bar, NaN
+    and +-inf exactly where the plain version has them; ids exact on the
+    rows with a non-finite logit, equal save near ties on the finite rows
+    around them; no id outside [0, V)."""
     import torch
     from vsrcic_tpu_torch.ops.vocab_topk import (
-        vocab_topk_lse as kern, vocab_topk_lse_plain as plain)
+        padded_table, vocab_planes_plain, vocab_topk_lse as kern,
+        vocab_topk_lse_plain)
     bf16 = torch.bfloat16
     out = {}
-    for rows, r, v in ((300, RNN, VOCAB), (37, 77, 1001)):
+    for rows, r, v, pad in ((300, RNN, VOCAB, False), (37, 77, 1001, False),
+                            (37, 80, 1001, True)):
         for case in ("rows", "columns"):
             h2, w, b = vocab_nonfinite_inputs(gen, rows, r, v, case)
-            for name, lhs, table in (("f32", h2, w),
-                                     ("f32_bf16table", h2, w.to(bf16)),
-                                     ("bf16", h2.to(bf16), w.to(bf16))):
-                if name == "bf16":
-                    name = "bf16_" + vocab_route(lhs, table, BEAM)
-                    got = expect_route(name[5:],
-                                       lambda: kern(lhs, table, b, BEAM))
-                else:
-                    before = kern.launches_split
-                    got = kern(lhs, table, b, BEAM)
-                    split = table.dtype == bf16 and v % 8 == 0
-                    if kern.launches_split != before + split:
-                        raise AssertionError("vocab top-k %s %s V=%d: not "
-                                             "on the %s route" % (
-                                                 name, case, v, "split"
-                                                 if split else "sgemm"))
-                    name += "_split" if split else "_sgemm"
+            layout = padded_table if pad else (lambda x, dt: x.to(dt))
+            for name, lhs, table in (
+                    ("f32", h2, layout(w, torch.float32)),
+                    ("f32_bf16table", h2, layout(w, bf16)),
+                    ("bf16", h2.to(bf16), layout(w, bf16)),
+                    ("bf16_f32table", h2.to(bf16),
+                     layout(w, torch.float32))):
+                route = vocab_route(lhs, table, BEAM)
+                got = expect_route(route, lambda: kern(lhs, table, b, BEAM))
+                name += "_" + route
                 torch.cuda.synchronize()
+                plain = (vocab_planes_plain if route in ("split9", "split_w")
+                         else vocab_topk_lse_plain)
                 want = plain(lhs, table, b, BEAM)
                 ids = got[1]
                 if int(ids.min()) < 0 or int(ids.max()) >= v:
@@ -954,13 +1067,14 @@ def check_vocab_nonfinite(gen, report):
                 near = vocab_near_ties(
                     lhs[fin], table, b, (got[0][fin], ids[fin]),
                     (want[0][fin], want[1][fin]))
-                key = "%s_%s_r%d_v%d" % (name, case, r, v)
+                key = "%s_%s_r%d_v%d%s" % (name, case, r, v,
+                                           "_padded" if pad else "")
                 out[key] = dict(nonfinite_rows=int(bad.sum()),
                                 near_tie_rows=near)
-                log("  vocab_topk non-finite %-14s %-7s rows=%d R=%d V=%d: "
+                log("  vocab_topk non-finite %-22s %-7s rows=%d R=%d V=%d%s: "
                     "%d non-finite rows exact, %d finite rows (near ties "
-                    "%d)" % (name, case, rows, r, v, int(bad.sum()),
-                             int(fin.numel()), near))
+                    "%d)" % (name, case, rows, r, v, " padded" if pad else "",
+                             int(bad.sum()), int(fin.numel()), near))
     report["vocab_nonfinite"] = out
 
 
@@ -1145,17 +1259,19 @@ MAIN_CFG = dict(seq_len=SEQ_LEN, vocab_size=VOCAB, bos_idx=2,
 VERBS = {str(i): [5 + i, 40 + i] for i in range(1, 200)}
 
 
-def main_captioner(mode=True, params=None, decode_dtype=None):
+def main_captioner(mode=True, params=None, decode_dtype=None, bf16=True):
     """The bench.py configuration, weights from seed 0 unless `params`;
-    mode True runs the kernels, "plain" their plain versions (same bf16
-    tables), False neither (the strict beam)."""
+    mode True runs the kernels, "plain" their plain versions (same
+    tables), False neither (the strict beam); bf16 tables, or f32 ones
+    (table_dtype None) unless `bf16`."""
     import torch
     from vsrcic_tpu_torch.models.api import ControllableCaptioner
     from vsrcic_tpu_torch.models.captioner import CaptionerConfig
     return ControllableCaptioner(
         CaptionerConfig(**MAIN_CFG), params=params, seed=0,
         verb_2_vob_all=VERBS, use_fused_attention=mode, use_vocab_topk=mode,
-        table_dtype=torch.bfloat16, device="cuda", decode_dtype=decode_dtype)
+        table_dtype=torch.bfloat16 if bf16 else None, device="cuda",
+        decode_dtype=decode_dtype)
 
 
 def run_main_path(report):
@@ -1180,10 +1296,7 @@ def run_main_path(report):
                                      launches))
     # every vocab launch on the split route (f32 h2, bf16 table), after
     # its split pass
-    n = SEQ_LEN * n_batches
-    want = {"fused_attention": n, "vocab_topk": n, "vocab_topk_bf16": 0,
-            "vocab_topk_bf16_tma": 0, "vocab_topk_split": n,
-            "vocab_split": n}
+    want = expected_launches(SEQ_LEN * n_batches, "split", splits=1)
     if launches != want:
         raise AssertionError("launches %s in %d batches, expected %s"
                              % (launches, n_batches, want))
@@ -1237,6 +1350,74 @@ def run_main_path(report):
     return launches, fast, inputs, outs[0]
 
 
+def run_f32_tables(report, fast, inputs):
+    """Phase 5d: phase 5's beam on f32 tables (table_dtype None, as the
+    eval CLI's --fused --vocab_topk without --bf16_tables): three timed
+    batches, every vocab launch on the nine-plane route ("split9", after
+    h2's split pass; W_t's planes made once, with the tables); its captions
+    equal a checked run's (the vocab op's plain result going on) save
+    vocab near ties, and >= 0.99 of them the plain path's (phase 6's bar);
+    then one batch under VSRCIC_VOCAB_LHS_BF16=1 on the same tables, every
+    vocab launch on "split_w" (bf16 h2, W_t's planes). Returns the launch
+    counts of both."""
+    import torch
+    from vsrcic_tpu_torch.tools.golden_bf16 import lhs_bf16
+    cap = main_captioner(params=fast.params, bf16=False)
+    n_batches = 3
+    outs, dt, launches = timed_batches(cap, inputs, n_batches)
+    caps = BATCH * n_batches / dt
+    base = report["main_path"]["captions_per_s"]
+    log("  5d f32 tables: %d batches in %.3f s: %.1f captions/s (phase 5, "
+        "bf16 tables: %.1f); launches %s" % (n_batches, dt, caps, base,
+                                             launches))
+    want = expected_launches(SEQ_LEN * n_batches, "split9", splits=1)
+    if launches != want:
+        raise AssertionError("5d launches %s, expected %s" % (launches,
+                                                              want))
+    check = PlainCheck(plain_on=("vocab_topk",))
+    detections, det_groups, verb_list = inputs
+
+    def run(c):
+        return c.beam_search_v(detections, det_groups, verb_list,
+                               eos_word=3, beam_size=BEAM)
+    with call_sites(check):
+        checked = run(cap)
+    torch.cuda.synchronize()
+    differ = int(round((1 - caption_share(outs[0], checked)) * BATCH))
+    ref = run(main_captioner("plain", params=fast.params, bf16=False))
+    torch.cuda.synchronize()
+    check_result(ref)
+    same = ((outs[0].words == ref.words).all(-1)
+            & (outs[0].gates == ref.gates).all(-1))
+    share = float(same.float().mean())
+    log("  5d checked run: calls %s, max_abs_err %s, vocab near-tie rows %d; "
+        "captions differing from it %d; identical to the plain path's %.4f"
+        % (check.calls, {k: "%.3g" % v for k, v in check.err.items()},
+           check.near_tie_rows, differ, share))
+    if differ > check.near_tie_rows:
+        raise AssertionError("5d: %d captions differ between the vocab "
+                             "kernel and its plain version, with %d near-tie "
+                             "rows to explain them"
+                             % (differ, check.near_tie_rows))
+    if share < 0.99:
+        raise AssertionError("5d: only %.4f of captions match the plain path"
+                             % share)
+    with lhs_bf16(True):
+        _, dt_w, launches_w = timed_batches(cap, inputs, 1)
+    log("  5d under VSRCIC_VOCAB_LHS_BF16=1: 1 batch in %.3f s: %.1f "
+        "captions/s; launches %s" % (dt_w, BATCH / dt_w, launches_w))
+    if launches_w != expected_launches(SEQ_LEN, "split_w"):
+        raise AssertionError("5d lhs bf16 launches %s" % launches_w)
+    report["f32_tables"] = dict(
+        captions_per_s=caps, seconds=dt, batches=n_batches,
+        launches=launches, checked_calls=check.calls,
+        checked_max_abs_err=check.err, near_tie_rows=check.near_tie_rows,
+        differ_from_checked=differ, identical_share=share,
+        lhs_bf16=dict(captions_per_s=BATCH / dt_w, seconds=dt_w,
+                      launches=launches_w))
+    return launches, launches_w
+
+
 def caption_share(res, ref):
     """The share of items whose caption, the best beam's words and gates
     (what the eval CLI dumps), equals ref's."""
@@ -1245,13 +1426,47 @@ def caption_share(res, ref):
     return float(same.float().mean())
 
 
+def beam_counters():
+    """{name: (wrapper, attribute)}: the beam's launch counts, the vocab
+    op's by route."""
+    from vsrcic_tpu_torch.ops.fused_attention import fused_group_attention
+    from vsrcic_tpu_torch.ops.vocab_topk import split_bf16x3, vocab_topk_lse
+    out = {"fused_attention": (fused_group_attention, "launches")}
+    for name, attr in (("vocab_topk", "launches"),
+                       ("vocab_topk_bf16", "launches_bf16"),
+                       ("vocab_topk_bf16_tma", "launches_bf16_tma"),
+                       ("vocab_topk_split", "launches_split"),
+                       ("vocab_topk_split9", "launches_split9"),
+                       ("vocab_topk_split_w", "launches_split_w"),
+                       ("vocab_topk_sgemm", "launches_sgemm")):
+        out[name] = (vocab_topk_lse, attr)
+    out["vocab_split"] = (split_bf16x3, "launches")
+    return out
+
+
+def expected_launches(n, route=None, splits=0):
+    """The launch counts of `n` beam steps with the kernels: one fused and
+    one vocab launch a step, on `route` (a vocab route of
+    ops/vocab_topk.py), with `splits` split passes a step; with route None
+    no kernel."""
+    bf16 = route in ("tma", "mma_sync")
+    want = {name: 0 for name in beam_counters()}
+    if route is not None:
+        want.update({"fused_attention": n, "vocab_topk": n,
+                     "vocab_topk_bf16": n if bf16 else 0,
+                     "vocab_split": n * splits})
+        key = {"tma": "vocab_topk_bf16_tma"}.get(route,
+                                                 "vocab_topk_" + route)
+        if key in want:
+            want[key] = n
+    return want
+
+
 def timed_batches(cap, inputs, n_batches=3):
     """One warm-up batch of `inputs` (main_inputs()), then n_batches timed
     with the launch counts reset just before and read just after, every
     result checked: (outputs, seconds, launches)."""
     import torch
-    from vsrcic_tpu_torch.ops.fused_attention import fused_group_attention
-    from vsrcic_tpu_torch.ops.vocab_topk import split_bf16x3, vocab_topk_lse
     detections, det_groups, verb_list = inputs
 
     def run():
@@ -1259,22 +1474,15 @@ def timed_batches(cap, inputs, n_batches=3):
                                  eos_word=3, beam_size=BEAM)
     run()
     torch.cuda.synchronize()
-    fused_group_attention.launches = 0
-    vocab_topk_lse.launches = 0
-    vocab_topk_lse.launches_bf16 = 0
-    vocab_topk_lse.launches_bf16_tma = 0
-    vocab_topk_lse.launches_split = 0
-    split_bf16x3.launches = 0
+    counters = beam_counters()
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
     t0 = time.perf_counter()
     outs = [run() for _ in range(n_batches)]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"fused_attention": fused_group_attention.launches,
-                "vocab_topk": vocab_topk_lse.launches,
-                "vocab_topk_bf16": vocab_topk_lse.launches_bf16,
-                "vocab_topk_bf16_tma": vocab_topk_lse.launches_bf16_tma,
-                "vocab_topk_split": vocab_topk_lse.launches_split,
-                "vocab_split": split_bf16x3.launches}
+    launches = {name: getattr(obj, attr)
+                for name, (obj, attr) in counters.items()}
     for res in outs:
         check_result(res)
     return outs, dt, launches
@@ -1294,10 +1502,7 @@ def run_bf16_paths(report, fast, inputs, ref):
         log("  5b lhs bf16: %d batches in %.3f s: %.1f captions/s (phase 5: "
             "%.1f); launches %s" % (n_batches, dt, caps, base, launches))
         # every vocab launch a bf16 one, on the TMA route
-        n = SEQ_LEN * n_batches
-        want = {"fused_attention": n, "vocab_topk": n, "vocab_topk_bf16": n,
-                "vocab_topk_bf16_tma": n, "vocab_topk_split": 0,
-                "vocab_split": 0}
+        want = expected_launches(SEQ_LEN * n_batches, "tma")
         if launches != want:
             raise AssertionError("5b launches %s, expected %s" % (launches,
                                                                   want))
@@ -1331,10 +1536,8 @@ def run_bf16_paths(report, fast, inputs, ref):
                              decode_dtype=torch.bfloat16)
         outs, dt, launches = timed_batches(cap, inputs, n_batches)
         caps = BATCH * n_batches / dt
-        want = SEQ_LEN * n_batches if mode else 0
-        if launches != {"fused_attention": want, "vocab_topk": want,
-                        "vocab_topk_bf16": 0, "vocab_topk_bf16_tma": 0,
-                        "vocab_topk_split": want, "vocab_split": want}:
+        if launches != expected_launches(SEQ_LEN * n_batches,
+                                     "split" if mode else None, splits=1):
             raise AssertionError("5c %s launches %s" % (name, launches))
         kept = caption_share(outs[0], ref)
         log("  5c decode_dtype=bfloat16 %s: %d batches in %.3f s: %.1f "
@@ -1506,14 +1709,17 @@ def pipeline_batch(pipe):
 
 
 def pipeline_launches():
-    """{kernel: what holds its launch count}: its wrapper, or what
-    call_sites put in the Sinkhorn wrapper's place."""
+    """{kernel: (what holds its launch count, the count's attribute)}: its
+    wrapper, or what call_sites put in the Sinkhorn wrapper's place; and
+    the vocab op's SGEMM launches, which no path of the facade makes."""
     from vsrcic_tpu_torch.ops.fused_attention import fused_group_attention
     from vsrcic_tpu_torch.ops.sinkhorn import sinkhorn_normalize
     from vsrcic_tpu_torch.ops.vocab_topk import split_bf16x3, vocab_topk_lse
-    return {"sinkhorn": sinkhorn_normalize,
-            "fused_attention": fused_group_attention,
-            "vocab_topk": vocab_topk_lse, "vocab_split": split_bf16x3}
+    return {"sinkhorn": (sinkhorn_normalize, "launches"),
+            "fused_attention": (fused_group_attention, "launches"),
+            "vocab_topk": (vocab_topk_lse, "launches"),
+            "vocab_split": (split_bf16x3, "launches"),
+            "vocab_sgemm": (vocab_topk_lse, "launches_sgemm")}
 
 
 def counted(fn):
@@ -1522,13 +1728,14 @@ def counted(fn):
     import torch
     kernels = pipeline_launches()
     torch.cuda.synchronize()
-    for k in kernels.values():
-        k.launches = 0
+    for obj, attr in kernels.values():
+        setattr(obj, attr, 0)
     t0 = time.perf_counter()
     res = fn()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    return res, dt, {name: k.launches for name, k in kernels.items()}
+    return res, dt, {name: getattr(obj, attr)
+                     for name, (obj, attr) in kernels.items()}
 
 
 def check_pipeline_launches(launches, n_batches, what):
@@ -2184,6 +2391,10 @@ EVAL_FLICKR = ["--synthetic", "--dataset", "flickr", "--synthetic_images",
 EVAL_FAST = ["--fused", "--vocab_topk", "--bf16_tables"]
 EVAL_MIN_CAPTIONS = 1024
 ALL_KERNELS = ("sinkhorn", "fused_attention", "vocab_topk")
+# what a CLI run with the kernels launches: the three, and h2's split pass
+# (the vocab op's split routes on the padded tables at any V; never the
+# SGEMM, which check_cli_launches holds at 0)
+CLI_KERNELS = ALL_KERNELS + ("vocab_split",)
 # shares of the strict run's captions that 13b's runs must keep: the
 # kernels on f32 tables, and the plain versions on bf16 tables, whose
 # rounding flips 0.0195 of them at the synthetic world's V 30 (PERF.md §6;
@@ -2249,8 +2460,11 @@ class IndexWatch:
     def __call__(self, name, fn):
         def watched(*args, **kw):
             if name not in self.first:
+                # copies in the same layout (the padded vocab table's rows
+                # stay a pitch of V8 apart)
                 self.first[name] = (
-                    [a.clone() if hasattr(a, "clone") else a for a in args],
+                    [a.new_empty_strided(a.shape, a.stride()).copy_(a)
+                     if hasattr(a, "clone") else a for a in args],
                     dict(kw))
             if name != "fused_attention":
                 return fn(*args, **kw)
@@ -2372,19 +2586,21 @@ def time_cli_kernels(first):
                                                  vocab_topk_lse_plain)
     out = {"fused_attention": time_fused(first["fused_attention"][0])}
     (h2, w, b), kw = first["vocab_topk"]
-    k = kw["k"]
-    bound, by = vocab_bound(h2.shape[0], h2.shape[1], w.shape[1], k,
-                            w.element_size())
+    k, planes = kw["k"], kw.get("w_planes")
+    route = vocab_route(h2, w, k)
+    bound, by = vocab_planes_bound(h2.shape[0], h2.shape[1], w.shape[1], k,
+                                   h2.element_size(), w.element_size())
     wf = w.float()
 
     def library():
         logits = torch.addmm(b, h2, wf)
         return torch.topk(logits, k), torch.logsumexp(logits, -1)
     out["vocab_topk"] = dict(
-        shape="rows %d, R %d, V %d, k %d, %s" % (
-            h2.shape[0], h2.shape[1], w.shape[1], k,
-            str(w.dtype).split(".")[1]),
-        ms=cuda_ms(lambda: vocab_topk_lse(h2, w, b, k)),
+        shape="rows %d, R %d, V %d (W_t rows %d apart), k %d, %s, %s route"
+        % (h2.shape[0], h2.shape[1], w.shape[1], w.stride(0), k,
+           str(w.dtype).split(".")[1], route),
+        route=route,
+        ms=held_ms(lambda: vocab_topk_lse(h2, w, b, k, w_planes=planes))[0],
         plain_ms=cuda_ms(lambda: vocab_topk_lse_plain(h2, w, b, k),
                          iters=5), bound_ms=bound, bound_by=by,
         library_ms=cuda_ms(library))
@@ -2429,7 +2645,7 @@ def replay_golden_eval_cli(report, tmp):
                                      "differ from JAX's:\n%s" % (
                                          ds, mode, "\n".join(res["metrics"])))
             check_cli_launches(launches, "golden eval CLI %s %s" % (ds, mode),
-                               ALL_KERNELS if extra else ("sinkhorn",))
+                               CLI_KERNELS if extra else ("sinkhorn",))
             log("  golden eval CLI %s %s: %d captions and the metric table "
                 "identical to JAX's; launches %s" % (ds, mode, res["n"],
                                                      launches))
@@ -2495,7 +2711,7 @@ def run_eval_cli(report, tmp):
             raise AssertionError("the %s CLI run decoded %d captions"
                                  % (name, res["n"]))
         check_cli_launches(launches, "eval CLI " + name,
-                           ALL_KERNELS if extra else ("sinkhorn",))
+                           CLI_KERNELS if extra else ("sinkhorn",))
         if changed:
             raise AssertionError("the fused kernel changed %d item/ctrl "
                                  "entries in the CLI run" % changed)
@@ -2551,7 +2767,7 @@ def run_eval_cli(report, tmp):
             os.path.join(tmp, "flickr.jsonl")))
     log("  flickr --det --gt fast: %s; launches %s; item/ctrl changed %s"
         % (res["decoded"], launches, int(watch.changed)))
-    check_cli_launches(launches, "eval CLI flickr", ALL_KERNELS)
+    check_cli_launches(launches, "eval CLI flickr", CLI_KERNELS)
     if int(watch.changed) or res["n"] == 0:
         raise AssertionError("the Flickr CLI run failed its checks")
     for r in list(runs.values()) + [res]:
@@ -2778,7 +2994,7 @@ def run_train_clis(report, tmp):
             TRAIN_CLI_FULL + ["--limit", "64"] + ckpt + EVAL_FAST,
             os.path.join(tmp, "train_cli_eval.jsonl")))
     check_cli_launches(launches, "eval CLI from the trained checkpoints",
-                       ALL_KERNELS)
+                       CLI_KERNELS)
     if int(watch.changed) or res["n"] < 64 or not math.isfinite(
             res["cider"]):
         raise AssertionError("the eval CLI from the trained checkpoints "
@@ -3281,11 +3497,14 @@ def main():
         _, fast, inputs, ref = run_main_path(report)
         log("[5b-5c] the beam's bf16 modes")
         run_bf16_paths(report, fast, inputs, ref)
+        log("[5d] the beam on f32 tables")
+        run_f32_tables(report, fast, inputs)
         report["kernels"] = kernels
         write_report(report)
         print(card)
         print(json.dumps({k: report[k] for k in ("main_path", "lhs_bf16",
-                                                  "decode_bf16")}
+                                                  "decode_bf16",
+                                                  "f32_tables")}
                          | {k: kernels[k] for k in ("vocab_topk",
                                                     "vocab_split",
                                                     "vocab_topk_bf16")}))
@@ -3371,6 +3590,8 @@ def main():
     beam_launches, fast, inputs, ref = run_main_path(report)
     log("[5b-5c] the beam's bf16 modes")
     bf16_launches = run_bf16_paths(report, fast, inputs, ref)
+    log("[5d] the beam on f32 tables")
+    f32_launches, f32_lhs_launches = run_f32_tables(report, fast, inputs)
     del fast, inputs, ref
 
     # phase 7
@@ -3396,6 +3617,8 @@ def main():
     # phase 13: the slice's main path, the eval CLI
     cli_launches = run_phase13(report)
     by_path = {"beam": beam_launches, "beam_lhs_bf16": bf16_launches,
+               "beam_f32_tables": f32_launches,
+               "beam_f32_tables_lhs_bf16": f32_lhs_launches,
                "pipeline": launches,
                "train_scst": train_launches, "train_sinkhorn": sink_launches,
                "eval_cli": cli_launches}
@@ -3427,7 +3650,7 @@ def main():
                     if f.startswith(("beam1_", "eval_", "rows100_"))})
         if name == "vocab_topk":
             # ms, bound: the beam's shape, where it takes the split route
-            # (the CLI's V 30: the SGEMM, cli_ms)
+            # (the CLI's V 30 too, through its padded table: cli_ms)
             row.update(kernel_route=k["route"],
                        cuda_core_bound_ms=k["cuda_core_bound_ms"],
                        sgemm_ms=k["sgemm_ms"], launches_split_by_path={
@@ -3467,6 +3690,29 @@ def main():
         "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+    # the f32 tables' routes: the beam on f32 tables (phase 5d) and under
+    # VSRCIC_VOCAB_LHS_BF16=1 on them, their main paths; the eval CLI's
+    # --fused --vocab_topk run takes "split9" too (13b); times held at the
+    # beam's shape beside the SGEMM on the same values
+    k = kernels["vocab_topk"]
+    for route, lhs, n in (("split9", "float32", f32_launches),
+                          ("split_w", "bfloat16", f32_lhs_launches)):
+        key = "vocab_topk_" + route
+        rows.append({
+            "name": key, "route": "cuda", "kernel_route": route,
+            "source": "vsrcic_tpu_torch/csrc/vocab_topk.cu",
+            "replaces": "vsrcic_tpu/ops/vocab_topk.py:47 (table_dtype="
+                        "float32, lhs_dtype=%s)" % lhs,
+            "launches": n[key],
+            "launches_by_path": {p: c.get(key, 0)
+                                 for p, c in by_path.items()},
+            "max_abs_err": k["worst_by_route"][route]["abs"],
+            "max_err": k["worst_by_route"][route]["abs"],
+            "ms": k["held_ms"][route], "plain_ms": k["plain_f32_ms"],
+            "bound_ms": k["bounds_by_route"][route],
+            "bound_by": k["bound_by_route"][route],
+            "library_ms": k["library_f32_ms"], "sgemm_ms": k["sgemm_ms"],
+            "cuda_core_bound_ms": k["cuda_core_bound_f32_ms"]})
     report["kernels"] = kernels
     write_report(report)
     print(card)

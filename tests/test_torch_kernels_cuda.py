@@ -17,9 +17,11 @@ from vsrcic_tpu_torch.ops.sinkhorn import (MAX_N, sinkhorn_normalize,
                                            sinkhorn_normalize_in_order,
                                            sinkhorn_normalize_plain)
 from vsrcic_tpu_torch.ops import vocab_topk as vt
-from vsrcic_tpu_torch.ops.vocab_topk import (split_bf16x3,
+from vsrcic_tpu_torch.ops.vocab_topk import (padded_table, split_bf16x3,
                                              split_bf16x3_plain,
+                                             table_planes,
                                              vocab_launch_plan,
+                                             vocab_planes_plain,
                                              vocab_topk_lse,
                                              vocab_topk_lse_plain)
 
@@ -277,50 +279,66 @@ def test_vocab_topk_bf16_kernel_ragged(cuda_device, shape):
 
 @pytest.mark.cuda
 def test_vocab_topk_bf16_lhs_on_f32_table(cuda_device):
-    """bf16 h2 on an f32 table: h2 upcast, the f32 kernel (not counted as
-    a bf16 launch), the same bits as the f32 kernel on the upcast h2."""
+    """bf16 h2 on an f32 table (padded to a pitch of 304): the "split_w"
+    route (W_t's three planes, not counted as a bf16 launch), ids exact on
+    the tie case, values and lse at phase 3's bar of the plain version
+    (the f32 product of the upcast h2)."""
     h2, w_t, b, k, _ = vocab_case("ties")
     h2 = torch.from_numpy(h2).to(cuda_device, torch.bfloat16)
-    w_t = torch.from_numpy(w_t).to(cuda_device)
+    w_t = padded_table(torch.from_numpy(w_t).to(cuda_device))   # V 300
     b = torch.from_numpy(b).to(cuda_device)
-    before = (vocab_topk_lse.launches, vocab_topk_lse.launches_bf16)
+    before = (vocab_topk_lse.launches, vocab_topk_lse.launches_bf16,
+              vocab_topk_lse.launches_split_w)
     got = vocab_topk_lse(h2, w_t, b, k)
-    assert (vocab_topk_lse.launches, vocab_topk_lse.launches_bf16) == (
-        before[0] + 1, before[1])
-    want = vocab_topk_lse(h2.float(), w_t, b, k)
+    assert (vocab_topk_lse.launches, vocab_topk_lse.launches_bf16,
+            vocab_topk_lse.launches_split_w) == (
+        before[0] + 1, before[1], before[2] + 1)
+    want = vocab_topk_lse_plain(h2.float(), w_t, b, k)
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-6)
+
+
+ROUTE_COUNTS = ("launches", "launches_bf16", "launches_bf16_tma",
+                "launches_split", "launches_split9", "launches_split_w",
+                "launches_sgemm")
 
 
 def _route(h2, w_t, k):
-    """The route vocab_topk_lse takes on these operands."""
-    tensor_cores = h2.dtype == w_t.dtype == torch.bfloat16
+    """The route vocab_topk_lse takes on these operands (its own
+    reading of their types and layout)."""
+    lhs = h2.dtype
+    if lhs == torch.bfloat16 and w_t.dtype == torch.float32 and \
+            h2.data_ptr() % 16:
+        lhs = torch.float32
     aligned = w_t.data_ptr() % 16 == 0 and (
-        h2.data_ptr() % 16 == 0 or not tensor_cores)
-    lhs = h2.dtype if tensor_cores else torch.float32
-    return vocab_launch_plan(h2.shape[0], h2.shape[1], w_t.shape[1], k, lhs,
-                             w_t.dtype, aligned,
-                             _build.sm_count(h2.device)).route
+        lhs == torch.float32 or h2.data_ptr() % 16 == 0)
+    r, v = w_t.shape
+    return vocab_launch_plan(h2.shape[0], h2.shape[1], v, k, lhs,
+                             w_t.dtype, aligned, _build.sm_count(h2.device),
+                             ldw=w_t.stride(0) if r > 1 else v + -v % 8
+                             ).route
 
 
-def _counted_call(h2, w_t, b, k):
-    """vocab_topk_lse, asserting its launch counts: one launch; on bf16
-    operands one bf16 launch, a TMA one exactly on the TMA route; a split
-    one (and one split pass) exactly on the split route."""
-    tensor_cores = h2.dtype == w_t.dtype == torch.bfloat16
+def _counted_call(h2, w_t, b, k, w_planes=None):
+    """vocab_topk_lse, asserting its launch counts: one launch, counted on
+    its route alone (bf16 launches: "tma" and "mma_sync"), and the split
+    passes it makes: h2's on "split" and "split9", W_t's where its route
+    takes W_t's planes and none were given."""
     route = _route(h2, w_t, k)
-    before = (vocab_topk_lse.launches, vocab_topk_lse.launches_bf16,
-              vocab_topk_lse.launches_bf16_tma,
-              vocab_topk_lse.launches_split, split_bf16x3.launches)
-    got = vocab_topk_lse(h2, w_t, b, k)
+    before = [getattr(vocab_topk_lse, c) for c in ROUTE_COUNTS]
+    passes = split_bf16x3.launches
+    got = vocab_topk_lse(h2, w_t, b, k, w_planes=w_planes)
     torch.cuda.synchronize()
-    split = route == "split"
-    assert (vocab_topk_lse.launches, vocab_topk_lse.launches_bf16,
-            vocab_topk_lse.launches_bf16_tma,
-            vocab_topk_lse.launches_split, split_bf16x3.launches) == (
-        before[0] + 1, before[1] + tensor_cores,
-        before[2] + (route == "tma"), before[3] + split, before[4] + split)
+    want = [1, route in ("tma", "mma_sync"), route == "tma",
+            route == "split", route == "split9", route == "split_w",
+            route == "sgemm"]
+    assert [getattr(vocab_topk_lse, c) - n
+            for c, n in zip(ROUTE_COUNTS, before)] == want, route
+    assert split_bf16x3.launches - passes == (
+        (route in ("split", "split9"))
+        + (route in ("split9", "split_w") and w_planes is None))
     return got, route
 
 
@@ -348,30 +366,38 @@ def _nonfinite_inputs(device, rows, r, v, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("operands", ["f32", "f32_bf16table", "bf16"])
+@pytest.mark.parametrize("operands", ["f32", "f32_bf16table", "bf16",
+                                      "bf16_f32table"])
 @pytest.mark.parametrize("case", ["rows", "columns"])
 @pytest.mark.parametrize("shape", [(300, 1000, 10000), (130, 64, 136),
                                    (37, 77, 1001)])
 def test_vocab_topk_nonfinite_matches_plain(cuda_device, shape, case,
                                             operands):
-    """Non-finite logits (ROADMAP §3 item 2) through every entry point and
-    both bf16 routes (TMA at the first two shapes, mma.sync at the ragged
-    third) and the f32 entry point's split route (f32 h2 on a bf16 table
-    at the first two) and SGEMM (the rest): ids exact on the rows holding them, NaN and +-inf where the
-    plain version has them, the finite rows around them at the bar; no id
+    """Non-finite logits (ROADMAP §3 item 2) through every route: at the
+    first two shapes "tma" (bf16), "split" (f32 h2, bf16 table), "split9"
+    (f32 h2 and table) and "split_w" (bf16 h2, f32 table); at the ragged
+    third (V 1001, unpadded) mma.sync and the SGEMM. Each against its plain
+    version (the split routes on an f32 table against `vocab_planes_plain`,
+    whose infinite h2 entries meet W_t's zero planes as the kernel's do):
+    ids exact on the rows holding them, NaN and +-inf where the plain
+    version has them, the finite rows around them at the bar; no id
     outside [0, V)."""
     rows, r, v = shape
     h2, w_t, b = _nonfinite_inputs(cuda_device, rows, r, v, case)
-    if operands != "f32":
+    if operands in ("f32_bf16table", "bf16"):
         w_t = w_t.bfloat16()
-    if operands == "bf16":
+    if operands.startswith("bf16"):
         h2 = h2.bfloat16()
     got, route = _counted_call(h2, w_t, b, 5)
-    if operands == "bf16":
-        assert route == ("mma_sync" if r % 8 else "tma")
-    if operands == "f32_bf16table":
-        assert route == ("sgemm" if v % 8 else "split")
-    want = vocab_topk_lse_plain(h2, w_t, b, 5)
+    want_route = {"bf16": "mma_sync" if r % 8 else "tma",
+                  "f32_bf16table": "split", "f32": "split9",
+                  "bf16_f32table": "split_w"}[operands]
+    if v % 8:   # a contiguous W_t of V 1001: TMA cannot describe it
+        want_route = "mma_sync" if operands == "bf16" else "sgemm"
+    assert route == want_route
+    plain = (vocab_planes_plain if route in ("split9", "split_w")
+             else vocab_topk_lse_plain)
+    want = plain(h2, w_t, b, 5)
     assert 0 <= int(got[1].min()) and int(got[1].max()) < v
     bad = ~torch.isfinite(h2.float() @ w_t.float() + b).all(1)
     assert int(bad.sum()) == (3 if case == "rows" else rows)
@@ -541,6 +567,201 @@ def test_vocab_topk_split_ties(cuda_device):
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-6)
+
+
+# (rows, R, V, k) of the padded tables' checks: the beam's shape, ragged R
+# and V, V past one tile by one column, the CLI's V 30 and V 9999 (one
+# column short of the beam's, rows 5 apart from a multiple of 8)
+PLANE_SHAPES = [(5120, 1000, 10000, 5), (37, 1001, 1000, 5),
+                (130, 77, 136, 16), (300, 64, 10000, 1), (1, 8, 8, 8),
+                (2560, 1000, 30, 5), (64, 1000, 9999, 5), (40, 64, 129, 5)]
+# the route each operand pair takes on a padded table (R a multiple of 8;
+# ragged R: "split_w" -> "split9", "tma" -> "mma_sync")
+PADDED_ROUTES = {"f32": "split9", "bf16_f32table": "split_w",
+                 "f32_bf16table": "split", "bf16": "tma"}
+
+
+def _vocab_operands(device, shape, operands):
+    """(h2, w_t, bias, k, w_planes) as the captioner facade hands them
+    over: h2 like the LSTM's output, an xavier-scaled table in a buffer of
+    pitch V rounded up to 8 (`padded_table`), an f32 table's planes made
+    once (`table_planes`)."""
+    rows, r, v, k = shape
+    gen = torch.Generator(device=device).manual_seed(rows + r + v)
+    h2 = torch.tanh(torch.randn((rows, r), generator=gen, device=device))
+    w = torch.randn((r, v), generator=gen, device=device) / r ** 0.5
+    b = 0.01 * torch.randn((v,), generator=gen, device=device)
+    table = (torch.bfloat16 if operands in ("f32_bf16table", "bf16")
+             else torch.float32)
+    w_t = padded_table(w, table)
+    assert w_t.stride(0) == v + -v % 8 and w_t.data_ptr() % 16 == 0
+    lhs = h2.bfloat16() if operands.startswith("bf16") else h2
+    planes = table_planes(w_t) if table == torch.float32 else None
+    return lhs, w_t, b, k, planes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operands", list(PADDED_ROUTES))
+@pytest.mark.parametrize("shape", PLANE_SHAPES)
+def test_vocab_topk_padded_table_routes(cuda_device, shape, operands):
+    """Every operand pair on a padded table takes its TMA route at any V
+    (V 30 and 129: one tile, or one column past it; clusters of one CTA
+    along the vocab at V <= 128), counted; ragged R moves "split_w" to
+    "split9" and "tma" to mma.sync. Values and lse at phase 3's bar of the
+    plain version, ids equal save near ties."""
+    h2, w_t, b, k, planes = _vocab_operands(cuda_device, shape, operands)
+    got, route = _counted_call(h2, w_t, b, k, w_planes=planes)
+    want_route = PADDED_ROUTES[operands]
+    if shape[1] % 8:
+        want_route = {"split_w": "split9", "tma": "mma_sync"}.get(
+            want_route, want_route)
+    assert route == want_route
+    want = vocab_topk_lse_plain(h2, w_t, b, k)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-6)
+    assert _near_ties(h2, w_t, b, got, want, 1e-5) <= shape[0] // 100 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operands", ["f32", "bf16_f32table",
+                                      "f32_bf16table"])
+def test_vocab_topk_planes_ties(cuda_device, operands):
+    """Duplicated columns on the split routes at a ragged V (390, padded):
+    within a tile, across tiles and across the quad's lanes; ids exact."""
+    rng = np.random.RandomState(11)
+    rows, r, v, k = 40, 64, 390, 5
+    h2 = rng.randn(rows, r).astype(np.float32)
+    w = rng.randn(r, v).astype(np.float32)
+    b = rng.randn(v).astype(np.float32)
+    for a, c in ((3, 10), (42, 170), (5, 7), (130, 389), (200, 201)):
+        w[:, c] = w[:, a]
+        b[c] = b[a]
+    top = (h2 @ w + b).argmax(1)
+    for i in range(0, rows, 3):   # ties at rank 0 on some rows
+        w[:, (top[i] + 129) % v] = w[:, top[i]]
+        b[(top[i] + 129) % v] = b[top[i]]
+    table = torch.bfloat16 if operands == "f32_bf16table" else torch.float32
+    lhs = torch.from_numpy(h2).to(cuda_device)
+    if operands == "bf16_f32table":
+        lhs = lhs.bfloat16()
+    w_t = padded_table(torch.from_numpy(w).to(cuda_device), table)
+    b = torch.from_numpy(b).to(cuda_device)
+    got, route = _counted_call(lhs, w_t, b, k)
+    assert route == PADDED_ROUTES[operands]
+    want = vocab_topk_lse_plain(lhs, w_t, b, k)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,v", [(1000, 10000), (77, 1001), (1000, 30),
+                                 (5, 9)])
+def test_table_planes_match_plain(cuda_device, r, v):
+    """An f32 table's planes on the card (the split pass on a padded
+    table's rows) equal split_bf16x3_plain's bit for bit, on every kind of
+    entry, zero past V."""
+    w = _split_values(cuda_device, r, v, r + v)
+    before = split_bf16x3.launches
+    got = table_planes(padded_table(w))
+    torch.cuda.synchronize()
+    assert split_bf16x3.launches == before + 1
+    assert tuple(got.shape) == (3, r, v + -v % 8)
+    want = split_bf16x3_plain(w.cpu())
+    assert torch.equal(got.view(torch.int16).cpu(), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", [torch.float32, torch.bfloat16])
+def test_vocab_topk_sgemm_only_where_tma_cannot_read(cuda_device, table):
+    """f32 h2 on a table takes the SGEMM only where TMA cannot read it: a
+    contiguous W_t at V 1001 (rows 1001 apart) or an unaligned base; the
+    same values padded take the split route of the table's type. All at
+    phase 3's bar of the plain version, ids equal save near ties."""
+    rows, r, v, k = 64, 77, 1001, 5
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    h2 = torch.tanh(torch.randn((rows, r), generator=gen,
+                                device=cuda_device))
+    w = (torch.randn((r, v), generator=gen, device=cuda_device)
+         / r ** 0.5).to(table)
+    b = 0.01 * torch.randn((v,), generator=gen, device=cuda_device)
+    pitch = v + -v % 8
+    unaligned = torch.zeros(r * pitch + 1, dtype=table,
+                            device=cuda_device)[1:].as_strided(
+                                (r, v), (pitch, 1))
+    unaligned.copy_(w)
+    split = "split9" if table == torch.float32 else "split"
+    for w_t, want_route in ((w, "sgemm"), (unaligned, "sgemm"),
+                            (padded_table(w), split)):
+        got, route = _counted_call(h2, w_t, b, k)
+        assert route == want_route
+        want = vocab_topk_lse_plain(h2, w_t, b, k)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-6)
+        assert _near_ties(h2, w_t, b, got, want, 1e-5) <= 1
+
+
+@pytest.mark.cuda
+def test_vocab_topk_infinite_weight_meets_zero_planes(cuda_device):
+    """The nine-plane route's documented difference (ROADMAP §3): an
+    infinite f32 weight goes whole into W_t's hi plane and meets the zero
+    mid and lo planes of an h2 exact in bf16: 0 x inf = NaN, where the f32
+    product gives +-inf. The kernel gives vocab_planes_plain's NaN."""
+    rows, r, v, k = 8, 64, 136, 5
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    h2 = torch.randn((rows, r), generator=gen, device=cuda_device)
+    h2[:, 3] = h2[:, 3].abs() + 0.5   # every row meets the weight: +inf
+    h2 = h2.bfloat16().float()
+    w = torch.randn((r, v), generator=gen, device=cuda_device) / 8
+    w[3, 7] = float("inf")
+    b = torch.zeros((v,), device=cuda_device)
+    w_t = padded_table(w)
+    got, route = _counted_call(h2, w_t, b, k)
+    assert route == "split9"
+    f32 = vocab_topk_lse_plain(h2, w_t, b, k)
+    replay = vocab_planes_plain(h2, w_t, b, k)
+    assert torch.isinf(f32[2]).all() and torch.isnan(replay[2]).all()
+    assert torch.isnan(got[2]).all()
+    torch.testing.assert_close(got[1], replay[1], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", [None, torch.bfloat16])
+@pytest.mark.parametrize("v", [29, 30])
+def test_facade_beam_takes_no_sgemm(cuda_device, table, v):
+    """The facade's beam with the kernels on f32 and bf16 tables at V 29
+    and 30 (the tables padded once, an f32 table's planes made once): every
+    vocab launch on the split route of its tables, no SGEMM; words and
+    gates those of the plain versions' beam."""
+    from vsrcic_tpu_torch.models.api import ControllableCaptioner
+    from vsrcic_tpu_torch.models.captioner import (CaptionerConfig,
+                                                   init_captioner_params)
+    cfg = CaptionerConfig(seq_len=tp.T, vocab_size=v, bos_idx=tp.BOS,
+                          det_feat_size=tp.D, input_encoding_size=tp.E,
+                          rnn_size=tp.R, att_size=tp.A)
+    params = init_captioner_params(torch.Generator().manual_seed(0), cfg)
+    det, groups, verb_list = tp.inputs(3)
+    res = {}
+    for mode in (True, "plain"):
+        cap = ControllableCaptioner(
+            cfg, params=params, verb_2_vob_all=tp.VERB_TABLE,
+            use_fused_attention=mode, use_vocab_topk=mode, table_dtype=table,
+            device=cuda_device)
+        before = [getattr(vocab_topk_lse, c) for c in ROUTE_COUNTS]
+        res[mode] = cap.beam_search_v(det, groups, verb_list,
+                                      eos_word=tp.EOS, beam_size=5)
+        torch.cuda.synchronize()
+        counts = dict(zip(ROUTE_COUNTS, [
+            getattr(vocab_topk_lse, c) - n
+            for c, n in zip(ROUTE_COUNTS, before)]))
+        w_t, _ = cap._vocab_tables
+        assert w_t.stride(0) == v + -v % 8 and w_t.data_ptr() % 16 == 0
+        split = "launches_split" if table else "launches_split9"
+        want = tp.T if mode is True else 0
+        assert counts == {c: want if c in ("launches", split) else 0
+                          for c in ROUTE_COUNTS}
+    for f in ("words", "gates"):
+        assert torch.equal(getattr(res[True], f), getattr(res["plain"], f))
 
 
 @pytest.mark.cuda

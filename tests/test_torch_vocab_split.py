@@ -123,8 +123,8 @@ ROUTES = [
     ("ragged_r", 37, 1001, 1000, 5, F32, BF16, True, "split"),
     ("tiny", 1, 1, 8, 8, F32, BF16, True, "split"),
     ("cli_v30", 2560, 1000, 30, 5, F32, BF16, True, "sgemm"),
-    ("f32_table", *BEAM, F32, F32, True, "sgemm"),
-    ("bf16_h2_f32_table", *BEAM, BF16, F32, True, "sgemm"),
+    ("f32_table", *BEAM, F32, F32, True, "split9"),
+    ("bf16_h2_f32_table", *BEAM, BF16, F32, True, "split_w"),
     ("unaligned_w", *BEAM, F32, BF16, False, "sgemm"),
     ("ragged_v", 37, 77, 1001, 5, F32, BF16, True, "sgemm"),
     ("bf16_operands", *BEAM, BF16, BF16, True, "tma"),
@@ -139,7 +139,9 @@ def test_route_plan(case):
     if route == "split":
         assert (plan.planes, plan.stages, plan.tile_n) == (
             vt.SPLIT_PLANES, vt.SPLIT_STAGES, vt.SPLIT_TILE_V)
-        assert plan.cluster == vt.TMA_CLUSTER and plan.grid <= 132
+        # clusters of two along the vocab, one where V is one tile
+        assert plan.cluster == (vt.TMA_CLUSTER if v > vt.SPLIT_TILE_V
+                                else 1) and plan.grid <= 132
         assert plan.smem_bytes <= vt.SMEM_MAX
     if route == "sgemm":
         assert plan.grid == math.ceil(rows / 128) * math.ceil(v / 128)

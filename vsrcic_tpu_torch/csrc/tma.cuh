@@ -35,19 +35,21 @@ EncodeTiled encoder() {
 }
 
 // `planes` row-major (rows, cols) tables of `tb`-byte elements (2: bf16, 4:
-// f32) one after another, box (box_rows, box_cols) of one plane,
-// shared-memory swizzle `swizzle`; elements of a box past the table's
-// edges are zero-filled. A map of one plane is 2-D, of more 3-D (column,
-// row, plane). false if the driver refuses it
+// f32) one after another, rows `pitch` elements apart (0: cols; a multiple
+// of 16 bytes), box (box_rows, box_cols) of one plane, shared-memory
+// swizzle `swizzle`; elements of a box past the table's edges (columns
+// past `cols` too) are zero-filled. A map of one plane is 2-D, of more 3-D
+// (column, row, plane). false if cuTensorMapEncodeTiled refuses it
 bool encode_planes(CUtensorMap* map, const void* base, int tb, int planes,
                    long long rows, int cols, int box_rows, int box_cols,
-                   CUtensorMapSwizzle swizzle) {
+                   CUtensorMapSwizzle swizzle, long long pitch = 0) {
   const EncodeTiled encode = encoder();
   if (!encode) return false;
+  if (pitch == 0) pitch = cols;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * tb,
-                                 (cuuint64_t)rows * cols * tb};
+  const cuuint64_t strides[2] = {(cuuint64_t)pitch * tb,
+                                 (cuuint64_t)rows * pitch * tb};
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map,
@@ -63,9 +65,10 @@ bool encode_planes(CUtensorMap* map, const void* base, int tb, int planes,
 // box_cols), as encode_planes with one plane
 bool encode_2d(CUtensorMap* map, const void* base, int tb, long long rows,
                int cols, int box_rows, int box_cols,
-               CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
+               CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE,
+               long long pitch = 0) {
   return encode_planes(map, base, tb, 1, rows, cols, box_rows, box_cols,
-                       swizzle);
+                       swizzle, pitch);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -123,6 +126,16 @@ __device__ __forceinline__ void tma_box_multicast(void* dst,
       "l"(map), "r"(x), "r"(y), "r"(smem_addr(bar)), "h"(mask) : "memory");
 }
 
+// one (rows, cols) box of plane z of a 3-D tensor map at column x, row y
+__device__ __forceinline__ void tma_box_3d(void* dst, const CUtensorMap* map,
+                                           int x, int y, int z,
+                                           uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(map), "r"(x), "r"(y), "r"(z), "r"(smem_addr(bar)) : "memory");
+}
+
 // one (rows, cols) box of plane z of a 3-D tensor map at column x, row y,
 // multicast as tma_box_multicast
 __device__ __forceinline__ void tma_box_3d_multicast(void* dst,
@@ -142,6 +155,12 @@ __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
   return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
 }
 
 // every thread of every CTA of the cluster

@@ -3,79 +3,81 @@
 //
 // Replaces the TPU kernel vsrcic_tpu/ops/vocab_topk.py
 // (make_vocab_topk_lse :47: `kernel` :116 and the default two-stage
-// `kernel2` :159, pallas_call :220), in both of its operand configurations:
+// `kernel2` :159, pallas_call :220), in all of its operand configurations
+// (lhs_dtype f32 or bf16, table_dtype f32 or bf16). JAX multiplies h2 by
+// the upcast table with f32 accumulation (:132-133), 102 GFLOP at rows
+// 5120, R 1000, V 10000. The route is chosen by the operands' types and
+// layout (ops/vocab_topk.py::vocab_launch_plan):
 //
-//   f32 h2 (lhs_dtype=float32, the default): the JAX path multiplies the
-//     f32 h2 by the upcast weights with f32 accumulation (:132-133), 102
-//     GFLOP at rows 5120, R 1000, V 10000. Two routes, chosen by
-//     ops/vocab_topk.py::vocab_launch_plan:
-//     * split (bf16 table, V a multiple of 8, W_t 16-byte aligned: the
-//       beam's default). Every entry of a bf16 table is exact in bf16, and
-//       an f32 h2 splits exactly into three bf16 planes, hi + mid + lo, 8
-//       significant bits each (vocab_split_kernel: hi and mid rounded
-//       toward zero, lo the exact rest; a non-finite entry whole in hi).
-//       A bf16 x bf16 product is exact in f32, so the three planes' products
-//       with W_t, summed in f32, are the f32 product itself up to the
-//       order of the f32 sums, which every route
-//       here takes the freedom of (an infinite weight is the exception: it
-//       meets the zeros of mid and lo, 0 x inf = NaN, where the f32 product
-//       gives +-inf). What bounds it: tensor-core operations, three bf16
-//       passes (3 x 0.1035 ms) against ~41 MB over 3.35 TB/s. Stage 1 is
-//       the bf16 route's TMA kernel on the planes, redesigned for them
-//       where measuring asked (PERF.md §6):
-//       - the tensor cores' f32 sums truncate at the accumulator's scale,
-//         so one accumulator over the whole depth drifts: 3.15e-6 worst,
-//         2.4x the SGEMM's distance from cuBLAS, and phase 6's share of
-//         captions equal to the plain path fell to 0.9889, below its 0.99.
-//         So each 64-deep stage is summed into 64 fresh accumulators and
-//         added to a running total with f32 adds: 2.0e-6. Two sets of 128
-//         do not fit, so tiles are 128 x 128 (a second set of stage sums,
-//         to add one while the next is multiplied, slowed the products);
-//       - a stage holds the three planes' boxes (lo first) beside one
-//         depth of W_t, three slots of 64 KB: W_t is copied once, not once
-//         a plane;
-//       - the planes are the larger share of a stage, so a cluster of two
-//         CTAs takes two vocab tiles of one row block and multicasts them
-//         (each copies half the rows of every box), its W_t boxes alone.
-//     * SGEMM (anything else: f32 tables, V 30 of the eval CLI's synthetic
-//       world, a bf16 h2 upcast for an f32 table): f32 operations on the
-//       CUDA cores, 102 GFLOP over 67 TFLOP/s. A tiled SGEMM (8-deep slices
-//       through double-buffered shared memory, an 8x8 register tile per
-//       thread, bf16 weights upcast on load), folded from the registers
-//       (vsrcic_vocab_topk).
-//   bf16 h2 and bf16 W_t (make_vocab_topk_lse(lhs_dtype=jnp.bfloat16),
-//     selected by VSRCIC_VOCAB_LHS_BF16=1 on bf16 tables; the entry point
-//     vsrcic_vocab_topk_bf16, which also runs the split route's planes),
-//     products accumulated in f32. What bounds it: tensor-core
-//     operations, the same 102 GFLOP over 989 TFLOP/s (0.1035 ms) against
-//     ~30 MB over 3.35 TB/s (0.009 ms). A bf16 x bf16 product is exact in
-//     f32, so this is the f32-operand function of the bf16-rounded h2; only
-//     the order of the f32 sums differs from a sequential loop. Two routes,
-//     chosen by ops/vocab_topk.py::vocab_bf16_launch_plan:
-//     * TMA (R and V multiples of 8, 16-byte aligned bases: the beam's
-//       shapes). What holds it back is not the tensor cores: every tile's
-//       operands stream from L2 (1.6 GB a call at R 1000 for 128 x 128
-//       tiles), at ~5-6 TB/s (PERF.md §6). So: 128 x 256 tiles (24 bytes
-//       into shared memory an output, not 32); persistent CTAs, one an
-//       SM, in clusters of 2 along the rows that multicast each W_t box to
-//       both (16 bytes from L2 an output); wgmma m64n256k16 (f32
+//   TMA routes (W_t's rows a multiple of 16 bytes apart, its base 16-byte
+//   aligned; bf16 h2 the same: every table the captioner facade builds,
+//   padded once to a pitch of V rounded up to 8). Every operand is taken
+//   as bf16 planes: a bf16 tensor is one plane, an f32 one three, hi + mid
+//   + lo, 8 significant bits each, summing to it exactly
+//   (vocab_split_kernel: hi and mid rounded toward zero, lo the exact
+//   rest; a non-finite entry whole in hi). A bf16 x bf16 product is exact
+//   in f32, so the planes' products, summed in f32, are the f32 product
+//   itself up to the order of the f32 sums, which every route here takes
+//   the freedom of. The exception is an infinite entry: it meets the other
+//   operand's zero planes, 0 x inf = NaN where the f32 product gives +-inf.
+//   vocab_tma_kernel<PA, PB> on PA planes of h2 and PB of W_t:
+//     * <1, 1> "tma": bf16 h2 and table (VSRCIC_VOCAB_LHS_BF16=1 on bf16
+//       tables). Bound: 102 GFLOP over 989 TFLOP/s (0.1035 ms) against ~30
+//       MB over 3.35 TB/s. What holds it back is not the tensor cores:
+//       every tile's operands stream from L2 (1.6 GB a call at R 1000 for
+//       128 x 128 tiles), at ~5-6 TB/s (PERF.md §6). So: 128 x 256 tiles
+//       (24 bytes into shared memory an output, not 32); persistent CTAs,
+//       one an SM, in clusters of 2 along the rows that multicast each W_t
+//       box to both (16 bytes from L2 an output); wgmma m64n256k16 (f32
 //       accumulators) fed by TMA (128-byte-swizzled 64-deep boxes in a
 //       ring of mbarrier-guarded stages, one producer thread); both
 //       consumer warpgroups on one tile, each folding its 64 x 256 half
 //       straight from its accumulators while the producer fills the ring
 //       with the next tile: no round trip of the tile through shared
 //       memory, branch-free passes, top-k rounds over per-lane group
-//       maxima (vocab_tma_kernel).
-//     * mma.sync (any other shape): mma.sync.m16n8k16 fed by ldmatrix from
-//       32-deep slices (element loads, zero-filled past R, rows and V), the
-//       128 x 128 accumulator tile through shared memory into the f32
-//       kernel's register layout and fold (vocab_tile_bf16_kernel).
+//       maxima.
+//     * <3, 1> "split": f32 h2 on a bf16 table (the beam's default), three
+//       bf16 passes (3 x 0.1035 ms);
+//       <3, 3> "split9": f32 h2 on an f32 table, nine (0.932 ms);
+//       <1, 3> "split_w": bf16 h2 on an f32 table, three. W_t's planes
+//       are made once per table (vsrcic_vocab_split on its rows), h2's on
+//       every call. Redesigned for the planes where measuring asked
+//       (PERF.md §6):
+//       - the tensor cores' f32 sums truncate at the accumulator's scale,
+//         so one accumulator over the whole depth drifts: 3.15e-6 worst,
+//         2.4x the SGEMM's distance from cuBLAS, and phase 6's share of
+//         captions equal to the plain path fell to 0.9889, below its 0.99.
+//         So each 64-deep stage's products, the lightest first, are summed
+//         into 64 fresh accumulators and added to a running total with f32
+//         adds: 2.0e-6. Two sets of 128 do not fit, so tiles are 128 x 128
+//         (a second set of stage sums, to add one while the next is
+//         multiplied, slowed the products);
+//       - a stage holds every plane's boxes of both operands (<3, 3>: 96
+//         KB, two slots; the others 64 KB, three): each box is copied
+//         once, not once a product;
+//       - where h2 has three planes they are the larger share of a stage
+//         (or an equal one), so a cluster of two CTAs takes two vocab
+//         tiles of one row block and multicasts them (each copies half the
+//         rows of every box), its W_t boxes alone; where V is one tile the
+//         cluster is one CTA. On one plane of h2 W_t's planes are shared,
+//         by clusters along the rows as on <1, 1>.
+//   mma.sync (bf16 h2 and table TMA cannot describe): mma.sync.m16n8k16
+//     fed by ldmatrix from 32-deep slices (element loads, zero-filled past
+//     R, rows and V), the 128 x 128 accumulator tile through shared memory
+//     into the SGEMM's register layout and fold (vocab_tile_bf16_kernel).
+//   SGEMM (f32 h2, or bf16 h2 upcast, on a table TMA cannot describe: an
+//     unaligned base, or rows not a multiple of 8 apart; only callers that
+//     pass their own tables): f32 operations on the CUDA cores, 102 GFLOP
+//     over 67 TFLOP/s. A tiled SGEMM (8-deep slices through
+//     double-buffered shared memory, an 8x8 register tile per thread, bf16
+//     weights upcast on load), folded from the registers
+//     (vsrcic_vocab_topk).
 //
 // The TPU grid carried running top-k/lse state from one vocab tile to the
 // next; CUDA blocks run in no order, so the work is split in two launches
-// (three on the split route, after its split pass). Stage 1 folds each row
-// of each logits tile (128 x 128; 128 x 256 on the TMA route) into that
-// tile's partial top-k and (max, sum of exp) pair;
+// (three on the split routes, after h2's split pass). Stage 1 folds each
+// row of each logits tile (128 x 128; 128 x 256 on the "tma" route) into
+// that tile's partial top-k and (max, sum of exp) pair;
 // stage 2 (one warp per row) merges the partials of all vocab tiles.
 // Every comparison orders by (XLA's total-order key descending, vocab id
 // ascending), which is jax.lax.top_k's rule: NaN above +inf, +0 above -0;
@@ -91,6 +93,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tma.cuh"
 
@@ -290,7 +294,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 vocab_tile_kernel(const float* __restrict__ h2, const T* __restrict__ w,
                   const float* __restrict__ bias, int rows, int R, int V,
-                  int k, float* __restrict__ part_vals,
+                  int ldw, int k, float* __restrict__ part_vals,
                   int* __restrict__ part_ids, float* __restrict__ part_m,
                   float* __restrict__ part_s) {
   // two slices in flight: the loop computes on one while the next one's
@@ -320,7 +324,7 @@ vocab_tile_kernel(const float* __restrict__ h2, const T* __restrict__ w,
     for (int l = 0; l < B_PER; ++l) {
       const int gk = k0 + tid / 32;
       const int gc = v0 + (tid % 32) * B_PER + l;
-      rb[l] = (gk < R && gc < V) ? to_f32(w[(size_t)gk * V + gc]) : 0.f;
+      rb[l] = (gk < R && gc < V) ? to_f32(w[(size_t)gk * ldw + gc]) : 0.f;
     }
   };
   auto store = [&](int buf) {
@@ -402,11 +406,12 @@ __device__ __forceinline__ void load8(__nv_bfloat16* dst,
 }
 
 // one slice: h2 rows row0.., depth k0..k0+BK; W_t depth k0.., columns v0..
-// (element loads: rows need not be 16-byte aligned on this route)
+// (W_t's rows ldw apart; element loads: rows need not be 16-byte aligned
+// on this route)
 __device__ __forceinline__ void load_slice(
     __nv_bfloat16* as, __nv_bfloat16* bs, const __nv_bfloat16* h2,
     const __nv_bfloat16* w, int row0, int v0, int k0, int rows, int R, int V,
-    int tid) {
+    int ldw, int tid) {
 #pragma unroll
   for (int l = 0; l < 2; ++l) {
     const int c = tid + l * kThreads;
@@ -422,7 +427,7 @@ __device__ __forceinline__ void load_slice(
     const int kr = c >> 4, nc = (c & 15) * 8;
     const int gk = k0 + kr;
     load8(bs + kr * B_PITCH + nc,
-          reinterpret_cast<const unsigned short*>(w) + (size_t)gk * V,
+          reinterpret_cast<const unsigned short*>(w) + (size_t)gk * ldw,
           v0 + nc, gk < R ? V : 0);
   }
 }
@@ -460,7 +465,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 vocab_tile_bf16_kernel(const __nv_bfloat16* __restrict__ h2,
                        const __nv_bfloat16* __restrict__ w,
                        const float* __restrict__ bias, int rows, int R, int V,
-                       int k, float* __restrict__ part_vals,
+                       int ldw, int k, float* __restrict__ part_vals,
                        int* __restrict__ part_ids,
                        float* __restrict__ part_m,
                        float* __restrict__ part_s) {
@@ -486,12 +491,12 @@ vocab_tile_bf16_kernel(const __nv_bfloat16* __restrict__ h2,
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
   const int n_k = (R + BK - 1) / BK;
-  load_slice(As, Bs, h2, w, row0, v0, 0, rows, R, V, tid);
+  load_slice(As, Bs, h2, w, row0, v0, 0, rows, R, V, ldw, tid);
   for (int t = 0; t < n_k; ++t) {
     const int buf = t & 1;
     if (t + 1 < n_k)
       load_slice(As + (buf ^ 1) * A_STAGE, Bs + (buf ^ 1) * B_STAGE, h2, w,
-                 row0, v0, (t + 1) * BK, rows, R, V, tid);
+                 row0, v0, (t + 1) * BK, rows, R, V, ldw, tid);
     __syncthreads();  // slice t is in place
     const __nv_bfloat16* as = As + buf * A_STAGE;
     const __nv_bfloat16* bs = Bs + buf * B_STAGE;
@@ -560,8 +565,9 @@ vocab_tile_bf16_kernel(const __nv_bfloat16* __restrict__ h2,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 stage 1 on the TMA route: wgmma fed by TMA (R and V multiples of 8,
-// 16-byte aligned bases; ops/vocab_topk.py::vocab_bf16_launch_plan)
+// stage 1 on the TMA routes: wgmma fed by TMA on bf16 planes of h2 and W_t
+// (rows of 16 bytes' multiples, 16-byte aligned bases;
+// ops/vocab_topk.py::vocab_launch_plan)
 // ---------------------------------------------------------------------------
 constexpr int T_BM = 128;                     // rows per tile
 constexpr int T_BN = 256;                     // vocab columns per tile
@@ -573,23 +579,46 @@ constexpr int T_THREADS = 384;  // consumer warpgroups 0, 1; producer 2
 constexpr int T_CLUSTER = 2;    // CTAs of a cluster
 constexpr int T_MIN_STAGES = 2;
 constexpr int T_MAX_STAGES = 4;
-constexpr int T_PLANES = 3;     // bf16 planes of the split f32 h2
+constexpr int T_PLANES = 3;     // bf16 planes of a split f32 h2 or W_t
 
-// the TMA kernel's tile width on P planes of h2: T_BN on one, T_BN_SPLIT
-// on the split's three
-__host__ __device__ constexpr int tma_tile_n(int p) {
-  return p == 1 ? T_BN : T_BN_SPLIT;
+// the TMA kernel's tile width on pa planes of h2 and pb of W_t: T_BN on
+// one of each, T_BN_SPLIT where either is split
+__host__ __device__ constexpr int tma_tile_n(int pa, int pb) {
+  return pa * pb == 1 ? T_BN : T_BN_SPLIT;
 }
 
-// bytes of a stage: the h2 box of each of p planes and one depth of W_t
-__host__ __device__ constexpr int tma_stage_bytes(int p) {
-  return p * T_A_BYTES + tma_tile_n(p) / 64 * T_B_BOX;
+// bytes of a stage: the h2 box of each of pa planes and one depth of the
+// tile's W_t on each of pb planes
+__host__ __device__ constexpr int tma_stage_bytes(int pa, int pb) {
+  return pa * T_A_BYTES + pb * (tma_tile_n(pa, pb) / 64) * T_B_BOX;
 }
 
 // dynamic shared bytes: 1024 of slack to align the ring, the stages, a
 // full and an empty mbarrier per stage (ops/vocab_topk.py::_tma_smem)
-constexpr int tma_smem_bytes(int stages, int p) {
-  return 1024 + stages * tma_stage_bytes(p) + 2 * 8 * stages;
+constexpr int tma_smem_bytes(int stages, int pa, int pb) {
+  return 1024 + stages * tma_stage_bytes(pa, pb) + 2 * 8 * stages;
+}
+
+// The order in which a stage sums the (h2 plane, W_t plane) products:
+// plane 0 is hi, 1 mid, 2 lo, so a product weighs about 2^-8 (h + w) of
+// hi x hi; the lightest come first, so that the sums stay small while
+// they are small (PERF.md §6: lo before hi).
+struct ProductOrder {
+  int h[T_PLANES * T_PLANES], w[T_PLANES * T_PLANES];
+};
+
+__host__ __device__ constexpr ProductOrder product_order(int pa,
+                                                          int pb) {
+  ProductOrder o{};
+  int q = 0;
+  for (int sum = pa + pb - 2; sum >= 0; --sum)
+    for (int h = pa - 1; h >= 0; --h)
+      if (sum - h >= 0 && sum - h < pb) {
+        o.h[q] = h;
+        o.w[q] = sum - h;
+        ++q;
+      }
+  return o;
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand (the
@@ -825,9 +854,10 @@ __device__ __forceinline__ void fold_tile_tma(
   constexpr int NW = NV / 32;    // words of a taken mask
   static_assert(NC == 32 || NC == 16, "tiles of 256 or 128 columns");
   const int lc = (lane & 3) * 2;  // this lane's first column of a chunk
-  // chunks j < live hold columns below V (V is a multiple of 8, so a chunk
-  // of 8 columns is all in or all out)
-  const int live = FULL ? NC : min(NC, (V - v0) / 8);
+  // value i, at tile column (i / 2) * 8 + i % 2 + lc, is below V (always on
+  // a FULL tile)
+  const int lim = V - v0 - lc;
+  auto in = [&](int i) { return FULL || (i >> 1) * 8 + (i & 1) < lim; };
   // each row's (max, sum of exp): the max ignores a NaN (fmaxf), which
   // reaches the sum instead and then makes m NaN too
   float m[2], s[2];
@@ -836,7 +866,7 @@ __device__ __forceinline__ void fold_tile_tma(
     float mx = -INFINITY;
 #pragma unroll
     for (int i = 0; i < NV; ++i)
-      mx = fmaxf(mx, FULL || (i >> 1) < live ? TILE_VAL(r, i) : -INFINITY);
+      mx = fmaxf(mx, in(i) ? TILE_VAL(r, i) : -INFINITY);
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     m[r] = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
   }
@@ -848,7 +878,7 @@ __device__ __forceinline__ void fold_tile_tma(
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const float e = ex2_ftz(fmaf(TILE_VAL(r, i), kLog2e, -shl));
-      part[i & 3] += FULL || (i >> 1) < live ? e : 0.f;
+      part[i & 3] += in(i) ? e : 0.f;
     }
     s[r] = quad_sum((part[0] + part[1]) + (part[2] + part[3]));
     if (s[r] != s[r]) m[r] = s[r];
@@ -858,9 +888,8 @@ __device__ __forceinline__ void fold_tile_tma(
   for (int r = 0; r < 2; ++r)
 #pragma unroll
     for (int i = 0; i < NV; ++i)
-      TILE_VAL(r, i) = __int_as_float(FULL || (i >> 1) < live
-                                          ? order_key(TILE_VAL(r, i))
-                                          : KEY_LOW);
+      TILE_VAL(r, i) = __int_as_float(in(i) ? order_key(TILE_VAL(r, i))
+                                            : KEY_LOW);
   const bool lead = (lane & 3) == 0;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -946,9 +975,26 @@ __device__ __forceinline__ void fold_tile_tma(
 }
 #undef TILE_VAL
 
+// the bias added to a tile's logits in a consumer thread's accumulators,
+// once per column pair of this lane; FULL: every column below V
+template <bool FULL, int BN>
+__device__ __forceinline__ void add_bias(float (&acc)[BN / 2],
+                                         const float* __restrict__ bias,
+                                         int lane, int v0, int V) {
+#pragma unroll
+  for (int c = 0; c < BN / 8; ++c) {
+    const int col = v0 + c * 8 + (lane & 3) * 2;
+    const float b0 = FULL || col < V ? __ldg(bias + col) : 0.f;
+    const float b1 = FULL || col + 1 < V ? __ldg(bias + col + 1) : 0.f;
+    acc[c * 4] += b0;
+    acc[c * 4 + 1] += b1;
+    acc[c * 4 + 2] += b0;
+    acc[c * 4 + 3] += b1;
+  }
+}
+
 // a tile's logits (without bias) in a consumer thread's accumulators: the
-// bias added, once per column pair of this lane (V a multiple of 8), then
-// the fold
+// bias added, then the fold
 template <int BN>
 __device__ __forceinline__ void finish_tile(
     float (&acc)[BN / 2], const float* __restrict__ bias, int lane,
@@ -956,62 +1002,58 @@ __device__ __forceinline__ void finish_tile(
     float* __restrict__ part_vals, int* __restrict__ part_ids,
     float* __restrict__ part_m, float* __restrict__ part_s) {
   const int v0 = vt * BN;
-#pragma unroll
-  for (int c = 0; c < BN / 8; ++c) {
-    const int col = v0 + c * 8 + (lane & 3) * 2;
-    const float b0 = col < V ? __ldg(bias + col) : 0.f;
-    const float b1 = col < V ? __ldg(bias + col + 1) : 0.f;
-    acc[c * 4] += b0;
-    acc[c * 4 + 1] += b1;
-    acc[c * 4 + 2] += b0;
-    acc[c * 4 + 3] += b1;
-  }
-  if (v0 + BN <= V)
+  if (v0 + BN <= V) {
+    add_bias<true, BN>(acc, bias, lane, v0, V);
     fold_tile_tma<true, BN / 8>(acc, lane, row0, v0, vt, n_vt, V, rows, k,
                                 part_vals, part_ids, part_m, part_s);
-  else
+  } else {
+    add_bias<false, BN>(acc, bias, lane, v0, V);
     fold_tile_tma<false, BN / 8>(acc, lane, row0, v0, vt, n_vt, V, rows, k,
                                  part_vals, part_ids, part_m, part_s);
+  }
 }
 
-// a consumer warp's release of a slot: to both CTAs of its cluster, whose
-// producers both write into it
-__device__ __forceinline__ void release(uint64_t* bar, int rank) {
+// a consumer warp's release of a slot: to every CTA of its cluster (of C,
+// 1 or 2), whose producers all write into it
+__device__ __forceinline__ void release(uint64_t* bar, int rank, int C) {
   mbar_arrive(bar);
-  mbar_arrive_remote(bar, rank ^ 1);
+  if (C > 1) mbar_arrive_remote(bar, rank ^ 1);
 }
 
-// Stage 1, TMA route, on P planes of h2 (tm_h2, (rows, depth) each): 1
-// (bf16 h2) or T_PLANES (hi, mid, lo of a split f32 h2, which all
-// multiply the same W_t). Persistent clusters of T_CLUSTER CTAs walk the
-// (row block, vocab tile) list in groups of T_CLUSTER tiles; cluster c
-// takes groups p = c, c + clusters, ... Warpgroup 2's first thread fills a
-// ring of `stages` slots with 64-deep stages, each the h2 box (128 rows x
-// 64) of every plane, lo first, and one depth of the tile's W_t (BN / 64
-// boxes of 64 columns). One plane (BN 256): a group is T_CLUSTER row
-// blocks of one vocab tile (group p of n_rbg * n_vt is vocab tile p /
-// n_rbg, row group p % n_rbg; rank m takes row block rbg * T_CLUSTER +
-// m), and each W_t box is copied by one CTA and multicast to all. Three
-// planes (BN 128): a group is T_CLUSTER vocab tiles of one row block
-// (group p of n_rb * n_vtg is row block p % n_rb, vocab tiles (p / n_rb)
-// * T_CLUSTER + m), and each CTA copies half the rows of every h2 box and
-// multicasts it, its own W_t boxes alone: the planes are the larger share
-// of a stage. Either way the cluster reads what it shares from L2 once; a
-// block past the rows or a tile past V is computed on TMA's zero fill and
-// not written. A slot is refilled once every CTA it is written into has
-// released it (empty: all eight consumer warps of each). Warpgroups 0 and
-// 1 compute rows 0-63 and 64-127 of the 128 x BN tile, P m64nBNk16
-// products per 16 of depth each, then fold their halves from their
-// registers while the producer fills the ring with the next tile.
+// Stage 1, TMA routes, on PA bf16 planes of h2 (tm_h2, (rows, depth)
+// each) and PB of W_t (tm_w, (depth, V) each): PA 1 (bf16 h2) or T_PLANES
+// (hi, mid, lo of a split f32 h2); PB 1 (a bf16 table) or T_PLANES (the
+// split of an f32 table). Persistent clusters of C CTAs walk the (row
+// block, vocab tile) list in groups of C tiles; cluster c takes groups p =
+// c, c + clusters, ... Warpgroup 2's first thread fills a ring of
+// `stages` slots with 64-deep stages, each the h2 box (128 rows x 64) of
+// every plane and one depth of the tile's W_t (BN / 64 boxes of 64
+// columns) on every plane, plane i of each in slot i. One plane of h2
+// (C = T_CLUSTER): a group is C row blocks of one vocab tile (group p of
+// n_rbg * n_vt is vocab tile p / n_rbg, row group p % n_rbg; rank m takes
+// row block rbg * C + m), and each W_t box is copied by one CTA and
+// multicast to all. Three planes of h2 (C = T_CLUSTER, or 1 where V is one
+// tile): a group is C vocab tiles of one row block (group p of n_rb *
+// n_vtg is row block p % n_rb, vocab tiles (p / n_rb) * C + m), and each
+// CTA copies its share of the rows of every h2 box and multicasts it, its
+// own W_t boxes alone: the h2 planes are the larger share of a stage, or
+// an equal one. Either way the cluster reads what it shares from L2 once;
+// a block past the rows or a tile past V is computed on TMA's zero fill
+// and not written. A slot is refilled once every CTA it is written into
+// has released it (empty: all eight consumer warps of each). Warpgroups 0
+// and 1 compute rows 0-63 and 64-127 of the 128 x BN tile, PA x PB
+// m64nBNk16 products per 16 of depth each, then fold their halves from
+// their registers while the producer fills the ring with the next tile.
 //
 // The tensor cores' f32 sums truncate at the accumulator's scale, so a
 // long sum into one accumulator drifts (toward zero, a fraction of its
-// last place every product; PERF.md §6). BN 256 (bf16 h2) sums the whole
-// depth into its 128 accumulators. BN 128 (the split planes, held to the
-// f32 product) sums each stage into 64 fresh accumulators and adds them
-// to a running total of 64 more with f32 adds, which round to nearest:
-// each truncation is then at a 64-deep partial's scale, not the logit's.
-template <int P>
+// last place every product; PERF.md §6). BN 256 (bf16 h2 and table) sums
+// the whole depth into its 128 accumulators. BN 128 (split planes, held to
+// the f32 product) sums each stage's PA x PB products, the lightest first
+// (product_order), into 64 fresh accumulators and adds them to a running
+// total of 64 more with f32 adds, which round to nearest: each truncation
+// is then at a 64-deep partial's scale, not the logit's.
+template <int PA, int PB>
 __global__ void __launch_bounds__(T_THREADS, 1)
 vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
                  const __grid_constant__ CUtensorMap tm_w,
@@ -1019,21 +1061,23 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
                  int k, int stages, float* __restrict__ part_vals,
                  int* __restrict__ part_ids, float* __restrict__ part_m,
                  float* __restrict__ part_s) {
-  constexpr int BN = tma_tile_n(P);
-  constexpr int STAGE = tma_stage_bytes(P);
-  constexpr int NB = BN / 64;          // W_t boxes of a stage
+  constexpr int BN = tma_tile_n(PA, PB);
+  constexpr int STAGE = tma_stage_bytes(PA, PB);
+  constexpr int NB = BN / 64;          // W_t boxes of a plane a stage
   constexpr int NACC = BN / 2;         // accumulators a thread
-  constexpr bool TOTAL = P > 1;        // a running total (the split)
+  constexpr bool TOTAL = PA * PB > 1;  // a running total (split planes)
+  constexpr bool ALONG_V = PA > 1;     // clusters along the vocab
+  constexpr ProductOrder ORD = product_order(PA, PB);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * STAGE);
   uint64_t* empty = full + stages;
   const int n_rb = (rows + T_BM - 1) / T_BM;
-  constexpr int C = T_CLUSTER;
+  const int C = ALONG_V ? (int)cluster_size() : T_CLUSTER;
   const int n_rbg = (n_rb + C - 1) / C;
   const int n_vt = (V + BN - 1) / BN;
-  const int n_groups = TOTAL ? n_rb * ((n_vt + C - 1) / C) : n_rbg * n_vt;
+  const int n_groups = ALONG_V ? n_rb * ((n_vt + C - 1) / C) : n_rbg * n_vt;
   const int n_k = (R + T_BK - 1) / T_BK;
   const int clusters = gridDim.x / C;
   const int cl = blockIdx.x / C;
@@ -1054,36 +1098,56 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
     // producer: one thread keeps the ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x == 256) {
+      const uint16_t all = (1u << C) - 1;
       int g = 0;  // ring position: slot g % stages, pass g / stages
       for (int p = cl; p < n_groups; p += clusters) {
-        const int rb = TOTAL ? p % n_rb : (p % n_rbg) * C + rank;
-        const int vt = TOTAL ? p / n_rb * C + rank : p / n_rbg;
+        const int rb = ALONG_V ? p % n_rb : (p % n_rbg) * C + rank;
+        const int vt = ALONG_V ? p / n_rb * C + rank : p / n_rbg;
         for (int kb = 0; kb < n_k; ++kb, ++g) {
           const int s = g % stages;
           mbar_wait(&empty[s], ((g / stages) & 1) ^ 1);
           mbar_expect_tx(&full[s], STAGE);
           unsigned char* a = ring + s * STAGE;
-          constexpr uint16_t all = (1u << C) - 1;
-          if constexpr (TOTAL) {
-            // rows rank * 64.. of each plane's box (64-row boxes: the
-            // 128-byte swizzle repeats every 8 rows), lo first, to both
+          unsigned char* b = a + PA * T_A_BYTES;
+          if constexpr (ALONG_V) {
+            // rows rank * 64.. of each plane's box to both CTAs (64-row
+            // boxes: the 128-byte swizzle repeats every 8 rows), or the
+            // whole box in a cluster of one (rank 0)
 #pragma unroll
-            for (int j = 0; j < P; ++j)
-              tma_box_3d_multicast(a + j * T_A_BYTES + rank * T_A_BYTES / C,
-                                   &tm_h2, kb * T_BK,
-                                   rb * T_BM + rank * T_BM / C, P - 1 - j,
-                                   &full[s], all);
+            for (int i = 0; i < PA; ++i) {
+              void* dst = a + i * T_A_BYTES + rank * (T_A_BYTES / T_CLUSTER);
+              const int y = rb * T_BM + rank * (T_BM / T_CLUSTER);
+              if (C == 1)
+                tma_box_3d(dst, &tm_h2, kb * T_BK, y, i, &full[s]);
+              else
+                tma_box_3d_multicast(dst, &tm_h2, kb * T_BK, y, i, &full[s],
+                                     all);
+            }
 #pragma unroll
-            for (int x = 0; x < NB; ++x)
-              tma_box(a + P * T_A_BYTES + x * T_B_BOX, &tm_w,
-                      vt * BN + x * 64, kb * T_BK, &full[s]);
+            for (int j = 0; j < PB; ++j)
+#pragma unroll
+              for (int x = 0; x < NB; ++x) {
+                void* dst = b + (j * NB + x) * T_B_BOX;
+                if constexpr (PB == 1)
+                  tma_box(dst, &tm_w, vt * BN + x * 64, kb * T_BK, &full[s]);
+                else
+                  tma_box_3d(dst, &tm_w, vt * BN + x * 64, kb * T_BK, j,
+                             &full[s]);
+              }
           } else {
             tma_box(a, &tm_h2, kb * T_BK, rb * T_BM, &full[s]);
+            // box bx of the PB * NB: plane bx / NB, columns (bx % NB) * 64..
+            constexpr int SHARE = PB * NB / T_CLUSTER;
 #pragma unroll
-            for (int x = 0; x < NB / C; ++x) {
-              const int bx = rank * (NB / C) + x;
-              tma_box_multicast(a + P * T_A_BYTES + bx * T_B_BOX, &tm_w,
-                                vt * BN + bx * 64, kb * T_BK, &full[s], all);
+            for (int x = 0; x < SHARE; ++x) {
+              const int bx = rank * SHARE + x;
+              void* dst = b + bx * T_B_BOX;
+              const int col = vt * BN + (bx % NB) * 64;
+              if constexpr (PB == 1)
+                tma_box_multicast(dst, &tm_w, col, kb * T_BK, &full[s], all);
+              else
+                tma_box_3d_multicast(dst, &tm_w, col, kb * T_BK, bx / NB,
+                                     &full[s], all);
             }
           }
         }
@@ -1101,8 +1165,8 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
     float t[TOTAL ? NACC : 1];  // the tile's running total (TOTAL)
     int g = 0;
     for (int p = cl; p < n_groups; p += clusters) {
-      const int rb = TOTAL ? p % n_rb : (p % n_rbg) * C + rank;
-      const int vt = TOTAL ? p / n_rb * C + rank : p / n_rbg;
+      const int rb = ALONG_V ? p % n_rb : (p % n_rbg) * C + rank;
+      const int vt = ALONG_V ? p / n_rb * C + rank : p / n_rbg;
       if constexpr (TOTAL) {
 #pragma unroll
         for (int c = 0; c < NACC; ++c) t[c] = 0.f;
@@ -1112,30 +1176,31 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
         const int s = g % stages;
         mbar_wait(&full[s], (g / stages) & 1);
         const uint32_t a = smem_addr(ring + s * STAGE) + wg * 64 * 128;
-        const uint32_t b = smem_addr(ring + s * STAGE) + P * T_A_BYTES;
+        const uint32_t b = smem_addr(ring + s * STAGE) + PA * T_A_BYTES;
         wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < P; ++j)
+        for (int q = 0; q < PA * PB; ++q)
 #pragma unroll
           for (int kk = 0; kk < T_BK / 16; ++kk)
             // A: K-major, 8-row groups 1024 bytes apart, 16 deep = 32
             // bytes on; B: MN-major, 64-column boxes 8192 bytes apart,
             // 8-deep groups 1024 apart, 16 deep = 2048 bytes on
-            wgmma_tile<BN>(d,
-                           sw128_desc(a + j * T_A_BYTES + kk * 32, 16, 1024),
-                           sw128_desc(b + kk * 2048, T_B_BOX, 1024),
-                           ((TOTAL ? 0 : kb) | j | kk) != 0);
+            wgmma_tile<BN>(
+                d, sw128_desc(a + ORD.h[q] * T_A_BYTES + kk * 32, 16, 1024),
+                sw128_desc(b + ORD.w[q] * NB * T_B_BOX + kk * 2048, T_B_BOX,
+                           1024),
+                ((TOTAL ? 0 : kb) | q | kk) != 0);
         wgmma_commit();
         if constexpr (TOTAL) {
           wgmma_wait<0>();  // this stage's products are done
           fence_acc(d);
-          if (lane == 0) release(&empty[s], rank);
+          if (lane == 0) release(&empty[s], rank, C);
 #pragma unroll
           for (int c = 0; c < NACC; ++c) t[c] += d[c];
         } else {
           wgmma_wait<1>();  // the previous stage's products are done
           if (kb > 0 && lane == 0)
-            release(&empty[(g - 1) % stages], rank);
+            release(&empty[(g - 1) % stages], rank, C);
         }
       }
       const int row0 = rb * T_BM + wg * 64 + warp * 16 + (lane >> 2);
@@ -1146,7 +1211,7 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
       } else {
         wgmma_wait<0>();
         fence_acc(d);
-        if (lane == 0) release(&empty[(g - 1) % stages], rank);
+        if (lane == 0) release(&empty[(g - 1) % stages], rank, C);
         finish_tile<BN>(d, bias, lane, row0, vt, n_vt, V, rows, k, part_vals,
                         part_ids, part_m, part_s);
       }
@@ -1295,25 +1360,25 @@ cudaError_t merge(int rows, int k, int n_tiles, bool by_row,
 
 template <typename T>
 cudaError_t launch(const float* h2, const void* w, const float* bias,
-                   int rows, int R, int V, int k, float* part_vals,
+                   int rows, int R, int V, int ldw, int k, float* part_vals,
                    int* part_ids, float* part_m, float* part_s, float* vals,
                    int* ids, float* lse, cudaStream_t stream) {
   const int n_tiles = (V + TV - 1) / TV;
   const dim3 grid1(n_tiles, (rows + TR - 1) / TR);
   vocab_tile_kernel<T><<<grid1, kThreads, 0, stream>>>(
-      h2, static_cast<const T*>(w), bias, rows, R, V, k, part_vals, part_ids,
-      part_m, part_s);
+      h2, static_cast<const T*>(w), bias, rows, R, V, ldw, k, part_vals,
+      part_ids, part_m, part_s);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return merge(rows, k, n_tiles, false, part_vals, part_ids, part_m, part_s,
                vals, ids, lse, stream);
 }
 
-// the bf16 entry point's two routes (ops/vocab_topk.py::
-// vocab_bf16_launch_plan); each returns the launch's error
+// the bf16 entry point's mma.sync route (ops/vocab_topk.py::
+// vocab_launch_plan); returns the launch's error
 cudaError_t launch_bf16_mma_sync(const __nv_bfloat16* h2,
                                  const __nv_bfloat16* w, const float* bias,
-                                 int rows, int R, int V, int k,
+                                 int rows, int R, int V, int ldw, int k,
                                  float* part_vals, int* part_ids,
                                  float* part_m, float* part_s,
                                  cudaStream_t stream) {
@@ -1327,12 +1392,13 @@ cudaError_t launch_bf16_mma_sync(const __nv_bfloat16* h2,
   }
   const dim3 grid1((V + TV - 1) / TV, (rows + TR - 1) / TR);
   vocab_tile_bf16_kernel<<<grid1, kThreads, BF16_SMEM, stream>>>(
-      h2, w, bias, rows, R, V, k, part_vals, part_ids, part_m, part_s);
+      h2, w, bias, rows, R, V, ldw, k, part_vals, part_ids, part_m, part_s);
   return cudaGetLastError();
 }
 
-// the cluster launch of the TMA route's kernel
-cudaLaunchConfig_t tma_config(int grid, int smem, cudaStream_t stream,
+// the cluster launch of the TMA routes' kernel: clusters of `cluster` CTAs
+cudaLaunchConfig_t tma_config(int grid, int cluster, int smem,
+                              cudaStream_t stream,
                               cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)grid);
@@ -1340,7 +1406,7 @@ cudaLaunchConfig_t tma_config(int grid, int smem, cudaStream_t stream,
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = (unsigned)T_CLUSTER;
+  attr->val.clusterDim.x = (unsigned)cluster;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -1348,12 +1414,12 @@ cudaLaunchConfig_t tma_config(int grid, int smem, cudaStream_t stream,
   return cfg;
 }
 
-template <int P>
+template <int PA, int PB>
 cudaError_t set_tma_smem(int smem) {
   static int smem_set = 0;
   if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        vocab_tma_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        vocab_tma_kernel<PA, PB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (e != cudaSuccess) return e;
     smem_set = smem;
@@ -1361,28 +1427,42 @@ cudaError_t set_tma_smem(int smem) {
   return cudaSuccess;
 }
 
-// h2: P (rows, R8) bf16 planes (R8 = R on one plane, R rounded up to 8 on
-// the split's three)
-template <int P>
+// f(integral_constant PA, integral_constant PB) for the kernel's four
+// instances (pa, pb in {1, T_PLANES})
+template <typename F>
+cudaError_t on_planes(int pa, int pb, F f) {
+  using One = std::integral_constant<int, 1>;
+  using Three = std::integral_constant<int, T_PLANES>;
+  if (pa == 1) return pb == 1 ? f(One{}, One{}) : f(One{}, Three{});
+  return pb == 1 ? f(Three{}, One{}) : f(Three{}, Three{});
+}
+
+// h2: PA (rows, R8) bf16 planes (R8 = R on one plane, R rounded up to 8 on
+// the split's three); w: PB (R, V) bf16 planes, rows ldw apart (one plane:
+// a table's rows; three: vsrcic_vocab_split's (3, R, ldw) of an f32 table)
+template <int PA, int PB>
 cudaError_t launch_tma(const __nv_bfloat16* h2, const __nv_bfloat16* w,
-                       const float* bias, int rows, int R, int V, int k,
-                       int stages, int grid, int smem, float* part_vals,
-                       int* part_ids, float* part_m, float* part_s,
-                       cudaStream_t stream) {
-  cudaError_t e = set_tma_smem<P>(smem);
+                       const float* bias, int rows, int R, int V, int ldw,
+                       int k, int stages, int cluster, int grid, int smem,
+                       float* part_vals, int* part_ids, float* part_m,
+                       float* part_s, cudaStream_t stream) {
+  cudaError_t e = set_tma_smem<PA, PB>(smem);
   if (e != cudaSuccess) return e;
   CUtensorMap tm_h2, tm_w;
-  const int R8 = P == 1 ? R : (R + 7) / 8 * 8;
-  // the split's planes: each CTA of a cluster copies half of a box's rows
-  if (!encode_planes(&tm_h2, h2, 2, P, rows, R8,
-                     P == 1 ? T_BM : T_BM / T_CLUSTER, T_BK,
+  const int R8 = PA == 1 ? R : (R + 7) / 8 * 8;
+  // the split's planes: each CTA of a cluster copies its share of a box's
+  // rows
+  if (!encode_planes(&tm_h2, h2, 2, PA, rows, R8,
+                     PA == 1 ? T_BM : T_BM / cluster, T_BK,
                      CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !encode_2d(&tm_w, w, 2, R, V, T_BK, 64, CU_TENSOR_MAP_SWIZZLE_128B))
+      !encode_planes(&tm_w, w, 2, PB, R, V, T_BK, 64,
+                     CU_TENSOR_MAP_SWIZZLE_128B, ldw))
     return cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = tma_config(grid, smem, stream, &attr);
-  e = cudaLaunchKernelEx(&cfg, vocab_tma_kernel<P>, tm_h2, tm_w, bias, rows,
-                         R, V, k, stages, part_vals, part_ids, part_m,
+  const cudaLaunchConfig_t cfg = tma_config(grid, cluster, smem, stream,
+                                            &attr);
+  e = cudaLaunchKernelEx(&cfg, vocab_tma_kernel<PA, PB>, tm_h2, tm_w, bias,
+                         rows, R, V, k, stages, part_vals, part_ids, part_m,
                          part_s);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
@@ -1390,14 +1470,17 @@ cudaError_t launch_tma(const __nv_bfloat16* h2, const __nv_bfloat16* w,
 
 }  // namespace
 
+// f32 h2 (rows, R) and W_t (R, V) of bf16 or f32 (`table_bf16`), rows ldw
+// apart: the SGEMM (ops/vocab_topk.py::vocab_launch_plan's "sgemm", for
+// operands TMA cannot describe)
 extern "C" int vsrcic_vocab_topk(const void* h2, const void* w,
                                  const void* bias, int table_bf16, int rows,
-                                 int R, int V, int k, void* part_vals,
-                                 void* part_ids, void* part_m, void* part_s,
-                                 void* vals, void* ids, void* lse,
-                                 void* stream) {
+                                 int R, int V, int ldw, int k,
+                                 void* part_vals, void* part_ids,
+                                 void* part_m, void* part_s, void* vals,
+                                 void* ids, void* lse, void* stream) {
   cudaGetLastError();  // a stale error must not be reported as this launch's
-  if (k < 1 || k > K_MAX || k > V || rows < 1 || R < 1)
+  if (k < 1 || k > K_MAX || k > V || rows < 1 || R < 1 || ldw < V)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto fh2 = static_cast<const float*>(h2);
@@ -1411,10 +1494,10 @@ extern "C" int vsrcic_vocab_topk(const void* h2, const void* w,
   auto ol = static_cast<float*>(lse);
   cudaError_t e =
       table_bf16
-          ? launch<__nv_bfloat16>(fh2, w, fb, rows, R, V, k, pv, pi, pm, ps,
-                                  ov, oi, ol, s)
-          : launch<float>(fh2, w, fb, rows, R, V, k, pv, pi, pm, ps, ov, oi,
-                          ol, s);
+          ? launch<__nv_bfloat16>(fh2, w, fb, rows, R, V, ldw, k, pv, pi, pm,
+                                  ps, ov, oi, ol, s)
+          : launch<float>(fh2, w, fb, rows, R, V, ldw, k, pv, pi, pm, ps, ov,
+                          oi, ol, s);
   return (int)e;
 }
 
@@ -1436,45 +1519,54 @@ extern "C" int vsrcic_vocab_split(const void* h2, int rows, int R,
   return (int)cudaGetLastError();
 }
 
-// bf16 operands and W_t (R, V) by the route of ops/vocab_topk.py::
-// vocab_launch_plan: route 1 (TMA and wgmma; V a multiple of 8, W_t
-// 16-byte aligned) on `planes` bf16 planes of h2: 1 (bf16 h2 (rows, R); R
-// a multiple of 8, h2 16-byte aligned; tiles of T_BN columns) or T_PLANES
-// (the split of an f32 h2, vsrcic_vocab_split's (3, rows, R8); tiles of
-// T_BN_SPLIT columns), with `stages` ring slots on `grid` persistent CTAs
-// in clusters of `cluster` = T_CLUSTER, `smem` dynamic shared bytes a
-// CTA; route 0 (mma.sync, one plane; tiles of TV columns) with the grid
-// and shared bytes it fixes and no cluster (1); a plan that differs is
-// refused. `tile_n` is the route's vocab columns per tile (partials per
-// row: ceil(V / tile_n)). The rest as vsrcic_vocab_topk.
+// bf16 planes of h2 and W_t (R, V), W_t's rows ldw apart, by the route of
+// ops/vocab_topk.py::vocab_launch_plan: route 1 (TMA and wgmma; W_t's
+// rows a multiple of 8 apart, its base 16-byte aligned) on `planes` bf16
+// planes of h2 and `w_planes` of W_t, each 1 or T_PLANES: h2 a bf16 (rows,
+// R) (R a multiple of 8, 16-byte aligned) or the split of an f32 h2,
+// vsrcic_vocab_split's (3, rows, R8); W_t a bf16 table or the split of an
+// f32 one, (3, R, ldw); tiles of T_BN columns on one plane of each, else
+// T_BN_SPLIT; `stages` ring slots on `grid` persistent CTAs in clusters of
+// `cluster` (T_CLUSTER; 1 also on three planes of h2), `smem` dynamic
+// shared bytes a CTA; route 0 (mma.sync, one plane of each; tiles of TV
+// columns) with the grid and shared bytes it fixes and no cluster (1); a
+// plan that differs is refused. `tile_n` is the route's vocab columns per
+// tile (partials per row: ceil(V / tile_n)). The rest as
+// vsrcic_vocab_topk.
 extern "C" int vsrcic_vocab_topk_bf16(const void* h2, const void* w,
                                       const void* bias, int rows, int R,
-                                      int V, int k, int route, int tile_n,
-                                      int planes, int stages, int cluster,
-                                      int grid, int smem, void* part_vals,
+                                      int V, int ldw, int k, int route,
+                                      int tile_n, int planes, int w_planes,
+                                      int stages, int cluster, int grid,
+                                      int smem, void* part_vals,
                                       void* part_ids, void* part_m,
                                       void* part_s, void* vals, void* ids,
                                       void* lse, void* stream) {
   cudaGetLastError();  // a stale error must not be reported as this launch's
-  if (k < 1 || k > K_MAX || k > V || rows < 1 || R < 1 ||
-      (route != 0 && route != 1) || (planes != 1 && planes != T_PLANES) ||
-      (route == 0 && planes != 1) ||
-      tile_n != (route ? tma_tile_n(planes) : TV))
+  auto valid = [](int p) { return p == 1 || p == T_PLANES; };
+  if (k < 1 || k > K_MAX || k > V || rows < 1 || R < 1 || ldw < V ||
+      (route != 0 && route != 1) || !valid(planes) || !valid(w_planes) ||
+      (route == 0 && planes * w_planes != 1) ||
+      tile_n != (route ? tma_tile_n(planes, w_planes) : TV))
     return (int)cudaErrorInvalidValue;
   const int n_rb = (rows + TR - 1) / TR;
   const int n_vt = (V + tile_n - 1) / tile_n;
   static_assert(T_BM == TR, "both routes tile 128 rows");
-  const bool tma_ok = (planes > 1 || R % 8 == 0) && V % 8 == 0 &&
+  const bool tma_ok = (planes > 1 || R % 8 == 0) && ldw % 8 == 0 &&
                       reinterpret_cast<uintptr_t>(h2) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(w) % 16 == 0;
   // the groups of `cluster` tiles: row blocks of one vocab tile on one
-  // plane, vocab tiles of one row block on three
-  const int groups = planes == 1 ? (n_rb + cluster - 1) / cluster * n_vt
-                                 : n_rb * ((n_vt + cluster - 1) / cluster);
+  // plane of h2 (clusters of T_CLUSTER), vocab tiles of one row block on
+  // three (clusters of T_CLUSTER or 1)
+  const bool along_v = planes > 1;
+  const bool cluster_ok = cluster == T_CLUSTER || (along_v && cluster == 1);
+  const int groups = along_v ? n_rb * ((n_vt + cluster - 1) / cluster)
+                             : (n_rb + cluster - 1) / cluster * n_vt;
   if ((route == 1 &&
        (!tma_ok || stages < T_MIN_STAGES || stages > T_MAX_STAGES ||
-        cluster != T_CLUSTER || grid < cluster || grid % cluster != 0 ||
-        grid / cluster > groups || smem != tma_smem_bytes(stages, planes))) ||
+        !cluster_ok || grid < cluster || grid % cluster != 0 ||
+        grid / cluster > groups ||
+        smem != tma_smem_bytes(stages, planes, w_planes))) ||
       (route == 0 &&
        (grid != n_rb * n_vt || smem != BF16_SMEM || cluster != 1)))
     return (int)cudaErrorInvalidValue;
@@ -1488,13 +1580,14 @@ extern "C" int vsrcic_vocab_topk_bf16(const void* h2, const void* w,
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (route == 0)
-    e = launch_bf16_mma_sync(bh2, bw, fb, rows, R, V, k, pv, pi, pm, ps, s);
-  else if (planes == 1)
-    e = launch_tma<1>(bh2, bw, fb, rows, R, V, k, stages, grid, smem, pv, pi,
-                      pm, ps, s);
+    e = launch_bf16_mma_sync(bh2, bw, fb, rows, R, V, ldw, k, pv, pi, pm, ps,
+                             s);
   else
-    e = launch_tma<T_PLANES>(bh2, bw, fb, rows, R, V, k, stages, grid, smem,
-                             pv, pi, pm, ps, s);
+    e = on_planes(planes, w_planes, [&](auto pa, auto pb) {
+      return launch_tma<decltype(pa)::value, decltype(pb)::value>(
+          bh2, bw, fb, rows, R, V, ldw, k, stages, cluster, grid, smem, pv,
+          pi, pm, ps, s);
+    });
   if (e != cudaSuccess) return (int)e;
   return (int)merge(rows, k, n_vt, route == 1, pv, pi, pm, ps,
                     static_cast<float*>(vals), static_cast<int*>(ids),
@@ -1502,25 +1595,29 @@ extern "C" int vsrcic_vocab_topk_bf16(const void* h2, const void* w,
 }
 
 // the clusters of T_CLUSTER TMA-kernel CTAs of `smem` dynamic shared
-// bytes on `planes` h2 planes that the card holds at once (the launch
-// plan's grid)
-extern "C" int vsrcic_vocab_tma_clusters(int smem, int planes, int* out) {
+// bytes on `planes` h2 planes and `w_planes` W_t planes that the card holds
+// at once (the launch plan's grid)
+extern "C" int vsrcic_vocab_tma_clusters(int smem, int planes, int w_planes,
+                                         int* out) {
   cudaGetLastError();
-  if (planes != 1 && planes != T_PLANES) return (int)cudaErrorInvalidValue;
-  const int stages = (smem - 1024) / (tma_stage_bytes(planes) + 16);
+  if ((planes != 1 && planes != T_PLANES) ||
+      (w_planes != 1 && w_planes != T_PLANES))
+    return (int)cudaErrorInvalidValue;
+  const int stages =
+      (smem - 1024) / (tma_stage_bytes(planes, w_planes) + 16);
   if (stages < T_MIN_STAGES || stages > T_MAX_STAGES ||
-      smem != tma_smem_bytes(stages, planes))
+      smem != tma_smem_bytes(stages, planes, w_planes))
     return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = tma_config(T_CLUSTER, smem, 0, &attr);
-  cudaError_t e = planes == 1 ? set_tma_smem<1>(smem)
-                              : set_tma_smem<T_PLANES>(smem);
-  if (e != cudaSuccess) return (int)e;
-  return (int)(planes == 1
-                   ? cudaOccupancyMaxActiveClusters(out, vocab_tma_kernel<1>,
-                                                    &cfg)
-                   : cudaOccupancyMaxActiveClusters(
-                         out, vocab_tma_kernel<T_PLANES>, &cfg));
+  const cudaLaunchConfig_t cfg = tma_config(T_CLUSTER, T_CLUSTER, smem, 0,
+                                            &attr);
+  return (int)on_planes(planes, w_planes, [&](auto pa, auto pb) {
+    constexpr int PA = decltype(pa)::value, PB = decltype(pb)::value;
+    cudaError_t e = set_tma_smem<PA, PB>(smem);
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveClusters(out, vocab_tma_kernel<PA, PB>,
+                                          &cfg);
+  });
 }
 
 extern "C" const char* vsrcic_error_string(int err) {

@@ -50,7 +50,8 @@ from vsrcic_tpu_torch.models.captioner import (
     image_descriptor_f32, init_captioner_params, init_state, precompute_statics)
 from vsrcic_tpu_torch.ops.fused_attention import (
     fused_group_attention, fused_group_attention_plain)
-from vsrcic_tpu_torch.ops.vocab_topk import (vocab_topk_lse,
+from vsrcic_tpu_torch.ops.vocab_topk import (padded_table, table_planes,
+                                             vocab_topk_lse,
                                              vocab_topk_lse_plain)
 from vsrcic_tpu_torch.utils.device import as_tensor, resolve_device, to_device
 from vsrcic_tpu_torch.utils.params import flatten, unflatten
@@ -104,6 +105,7 @@ class ControllableCaptioner:
                                                    device=self.device)
                             if verb_2_vob_all is not None else None)
         self._vocab_tables = None
+        self._w_planes = None
 
     # -- impls ---------------------------------------------------------------
     def _cast(self, a):
@@ -141,22 +143,29 @@ class ControllableCaptioner:
     def _vocab_fn_and_tables(self, k):
         """The vocab op and its out_fc tables (w_t (R, V) in table_dtype or
         f32, bias (V,) f32), made from the decode params once per
-        captioner. With use_vocab_topk True, VSRCIC_VOCAB_LHS_BF16=1 (read
-        on every call, as JAX reads it on every trace) makes the op round
-        h2 to bf16 first, as JAX's `make_vocab_topk_lse(lhs_dtype=
-        bfloat16)` does; "plain" ignores it, as JAX's "xla" path does."""
+        captioner, as JAX's `prepare_tables` pads its tables once: w_t is
+        the [:, :V] view of a zero-filled buffer of pitch V rounded up to 8
+        (`padded_table`, which TMA reads at any V), and the kernel's op
+        gets an f32 w_t's three bf16 planes (`table_planes`), made here.
+        With use_vocab_topk True, VSRCIC_VOCAB_LHS_BF16=1 (read on every
+        call, as JAX reads it on every trace) makes the op round h2 to bf16
+        first, as JAX's `make_vocab_topk_lse(lhs_dtype=bfloat16)` does;
+        "plain" ignores it, as JAX's "xla" path does."""
         if self._vocab_tables is None:
             out_fc = self.decode_params["out_fc"]
-            w_t = out_fc["weight"].T.to(self.table_dtype or torch.float32)
-            self._vocab_tables = (w_t.contiguous(),
-                                  out_fc["bias"].float().contiguous())
+            w_t = padded_table(out_fc["weight"].T,
+                               self.table_dtype or torch.float32)
+            self._vocab_tables = (w_t, out_fc["bias"].float().contiguous())
+            if self.use_vocab_topk is True and w_t.dtype == torch.float32:
+                self._w_planes = table_planes(w_t)
         if self.use_vocab_topk is not True:
             return partial(vocab_topk_lse_plain, k=k), self._vocab_tables
+        op = (partial(vocab_topk_lse, k=k) if self._w_planes is None else
+              partial(vocab_topk_lse, k=k, w_planes=self._w_planes))
         if os.environ.get("VSRCIC_VOCAB_LHS_BF16", "0") == "1":
-            return (lambda h2, w_t, b: vocab_topk_lse(h2.to(torch.bfloat16),
-                                                      w_t, b, k=k),
+            return (lambda h2, w_t, b: op(h2.to(torch.bfloat16), w_t, b),
                     self._vocab_tables)
-        return partial(vocab_topk_lse, k=k), self._vocab_tables
+        return op, self._vocab_tables
 
     @torch.no_grad()
     def _greedy_impl(self, params, detections, det_groups):

@@ -44,11 +44,12 @@ SIGNATURES = {
     "vsrcic_fused_attention": [P, P, P, P, P, P, P, P, P, I,
                                I, I, I, I, I, I, I, I, I, I, I, I, I,
                                I, I, P, P, P],
-    "vsrcic_vocab_topk": [P, P, P, I, I, I, I, I, P, P, P, P, P, P, P, P],
-    "vsrcic_vocab_topk_bf16": [P, P, P, I, I, I, I, I, I, I, I, I, I, I,
-                               P, P, P, P, P, P, P, P],
+    "vsrcic_vocab_topk": [P, P, P, I, I, I, I, I, I,
+                          P, P, P, P, P, P, P, P],
+    "vsrcic_vocab_topk_bf16": [P, P, P, I, I, I, I, I, I, I, I, I, I, I, I,
+                               I, P, P, P, P, P, P, P, P],
     "vsrcic_vocab_split": [P, I, I, P, P],
-    "vsrcic_vocab_tma_clusters": [I, I, P],
+    "vsrcic_vocab_tma_clusters": [I, I, I, P],
     "vsrcic_sinkhorn": [P, I, I, I, F, F, P, P],
 }
 

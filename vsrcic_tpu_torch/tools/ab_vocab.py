@@ -2,20 +2,26 @@
 card.
 
     python3 vsrcic_tpu_torch/tools/ab_vocab.py OLD_DIR NEW_DIR [MORE_DIR ...]
-        [--rounds 2]
+        [--rounds 2] [--beam]
     python3 vsrcic_tpu_torch/tools/ab_vocab.py --sweep
 
-Both entry points of `csrc/vocab_topk.cu` at the beam's shape (rows 5120,
-R 1000, V 10000, k 5; `chip_smoke.py`'s ROWS, RNN, VOCAB, BEAM): the f32
-one (f32 h2, bf16 table, as the beam calls it on bf16 tables: the split
-route since it has one, PR 1's SGEMM before) and the bf16-operand one
-(bf16 h2 and table, `VSRCIC_VOCAB_LHS_BF16=1`), plus the bf16 one at k 1.
-Inputs and timing are `chip_smoke.py`'s, loaded from each checkout: each
+The vocab op at the beam's shape (rows 5120, R 1000, V 10000, k 5;
+`chip_smoke.py`'s ROWS, RNN, VOCAB, BEAM) on every operand pair, as each
+checkout routes it: "f32" (f32 h2, bf16 table, as the beam calls it on
+bf16 tables), "bf16" (bf16 h2 and table, `VSRCIC_VOCAB_LHS_BF16=1`) and
+"bf16_k1" (the same at k 1), "f32_table" (f32 h2 and table),
+"bf16_h2_f32_table" and "ragged_v" (f32 h2 on a bf16 table at V 9999).
+A checkout with `padded_table` gets its tables as the captioner facade
+makes them (padded to a pitch of V rounded up to 8, an f32 table's planes
+made once); an older one gets them contiguous, as its facade did.
+Inputs and timing are `chip_smoke.py`'s, loaded from this checkout: each
 time is the device ms per call over 100 launches enqueued while a spin
 kernel holds the stream (`held_ms`), beside each stage's device time under
 the profiler (`kernel_split`), and every call's result is first held to
 the plain version (values and lse within rtol 1e-5 / atol 1e-6, ids equal
-save near ties; the worst relative error is recorded).
+save near ties; the worst relative error is recorded). `--beam` times the
+beam instead (`chip_smoke.timed_batches`: one warm-up and three batches of
+phase 5's inputs), on bf16 and on f32 tables, in captions/s.
 
 Each measurement runs in a subprocess whose `sys.path` starts with one
 checkout, so it builds and loads that checkout's kernels (into its own
@@ -23,8 +29,9 @@ checkout, so it builds and loads that checkout's kernels (into its own
 repeated `--rounds` times; with more, each round runs them in order and
 then in reverse. `--sweep` times this checkout's kernels at the
 beam's shape under other plans beside the ones the wrapper picks: the bf16
-route's TMA plans at SWEEP_STAGES ring slots and the split route's at
-SPLIT_SWEEP_STAGES, each also split by the profiler into its stages and
+route's TMA plans at SWEEP_STAGES ring slots and the split routes' at
+SPLIT_SWEEP_STAGES ("split9": two, all that fit), each also split by the
+profiler into its stages and
 held to the plain version on randn inputs too (logits ~30, where the
 tensor cores' truncating sums drift the most); its launches go through
 the private `_launch`, which the wrapper's counts do not see.
@@ -41,9 +48,14 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(HERE))
-# (name, h2 dtype, k): the timed calls
-CALLS = (("f32", "float32", 5), ("bf16", "bfloat16", 5),
-         ("bf16_k1", "bfloat16", 1))
+# (name, h2 dtype, table dtype, V, k): the timed calls
+CALLS = (("f32", "float32", "bfloat16", 10000, 5),
+         ("bf16", "bfloat16", "bfloat16", 10000, 5),
+         ("bf16_k1", "bfloat16", "bfloat16", 10000, 1),
+         ("f32_table", "float32", "float32", 10000, 5),
+         ("bf16_h2_f32_table", "bfloat16", "float32", 10000, 5),
+         ("ragged_v", "float32", "bfloat16", 9999, 5))
+BEAM_CALLS = ("beam_bf16_tables", "beam_f32_tables")
 SWEEP_STAGES = (2, 3, 4)
 SPLIT_SWEEP_STAGES = (2, 3)
 
@@ -54,6 +66,15 @@ def _smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _tables(vt, w, dtype):
+    """(table, planes) as the checkout's facade makes them."""
+    import torch
+    if not hasattr(vt, "padded_table"):
+        return w.to(dtype).contiguous(), None
+    wt = vt.padded_table(w, dtype)
+    return wt, vt.table_planes(wt) if dtype == torch.float32 else None
 
 
 def _held(smoke, lhs, wt, b, k, call):
@@ -76,7 +97,7 @@ def _held(smoke, lhs, wt, b, k, call):
             "near_tie_rows": near, "max_rel_err": rel}
 
 
-def _randn_err(plan, dtype, k, rows=512, r=1000, v=10000):
+def _randn_err(plan, dtype, table, k, rows=512, r=1000, v=10000):
     """The worst relative error of `plan` against the plain version on
     phase 3's fourth tie case's kind of input (randn h2, weights and bias:
     logits ~30), where the tensor cores' f32 sums, which truncate at the
@@ -85,66 +106,94 @@ def _randn_err(plan, dtype, k, rows=512, r=1000, v=10000):
     from vsrcic_tpu_torch.ops import vocab_topk as vt
     gen = torch.Generator(device="cuda").manual_seed(2)
     h2 = torch.randn((rows, r), generator=gen, device="cuda").to(dtype)
-    wt = torch.randn((r, v), generator=gen,
-                     device="cuda").to(torch.bfloat16)
+    wt, planes = _tables(vt, torch.randn((r, v), generator=gen,
+                                         device="cuda"), table)
     b = torch.randn((v,), generator=gen, device="cuda")
     if plan.route != "mma_sync":
         plan = vt._tma_plan(plan.route, rows, v, plan.grid, plan.stages,
-                            None, plan.planes)
-    got = vt._launch(plan, h2, wt, b, k)
+                            None, plan.planes, plan.w_planes)
+    got = vt._launch(plan, h2, wt, b, k, planes)
     want = vt.vocab_topk_lse_plain(h2, wt, b, k)
     return max(float(((g - w).abs() / w.abs().clamp_min(1e-30)).max())
                for g, w in ((got[0], want[0]), (got[2], want[2])))
 
 
-def child(repo, sweep):
+def _beam(smoke):
+    """Phase 5's beam (chip_smoke.timed_batches) with the kernels on bf16
+    and on f32 tables: {call: captions/s, seconds, launches}."""
+    out = {}
+    inputs = smoke.main_inputs()
+    for name in BEAM_CALLS:
+        cap = smoke.main_captioner(bf16=name == "beam_bf16_tables")
+        _, dt, launches = smoke.timed_batches(cap, inputs, 3)
+        out[name] = {"captions_per_s": 3 * smoke.BATCH / dt,
+                     "seconds": dt, "launches": launches, "ok": True}
+        del cap
+    return out
+
+
+def child(repo, sweep, beam=False):
     sys.path.insert(0, repo)
     smoke = _smoke()
     import torch
     from vsrcic_tpu_torch.ops import _build
     from vsrcic_tpu_torch.ops import vocab_topk as vt
     _build.library()
+    out = {"repo": repo}
+    if beam:
+        out.update(_beam(smoke))
+        print(json.dumps(out), flush=True)
+        return
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows, r, v = smoke.ROWS, smoke.RNN, smoke.VOCAB
     h2 = torch.tanh(torch.randn((rows, r), generator=gen, device="cuda"))
-    wt = (torch.randn((r, v), generator=gen, device="cuda")
-          * (2.0 / (r + v)) ** 0.5).to(torch.bfloat16)
+    w = (torch.randn((r, v), generator=gen, device="cuda")
+         * (2.0 / (r + v)) ** 0.5)
     b = 0.01 * torch.randn((v,), generator=gen, device="cuda")
-    out = {"repo": repo}
+    f32, bf16 = torch.float32, torch.bfloat16
     if not sweep:
-        for name, dtype, k in CALLS:
+        for name, dtype, table, vv, k in CALLS:
             lhs = h2.to(getattr(torch, dtype))
-            out[name] = _held(smoke, lhs, wt, b, k,
-                              lambda: vt.vocab_topk_lse(lhs, wt, b, k))
+            wt, planes = _tables(vt, w[:, :vv], getattr(torch, table))
+            bb = b[:vv].contiguous()
+            kw = {} if planes is None else {"w_planes": planes}
+            out[name] = _held(smoke, lhs, wt, bb, k,
+                              lambda: vt.vocab_topk_lse(lhs, wt, bb, k, **kw))
             out[name]["split_ms"] = smoke.kernel_split(
-                lambda: vt.vocab_topk_lse(lhs, wt, b, k), "vocab")
+                lambda: vt.vocab_topk_lse(lhs, wt, bb, k, **kw), "vocab")
         print(json.dumps(out), flush=True)
         return
     k, dev = smoke.BEAM, h2.device
     sms = _build.sm_count(dev)
-    f32, bf16 = torch.float32, torch.bfloat16
-    runs = []   # (h2, picked plan, other plans)
+    runs = []   # (h2, table dtype, picked plan, other plans)
     picked = vt.vocab_launch_plan(rows, r, v, k, bf16, bf16, True, sms,
                                   vt.resident_clusters(dev, vt.TMA_STAGES))
-    runs.append((h2.to(bf16), picked, [
+    runs.append((h2.to(bf16), bf16, picked, [
         vt._plan(rows, r, v, k, True, sms, stages=st,
                  resident=vt.resident_clusters(dev, st))
         for st in SWEEP_STAGES]))
-    picked = vt.vocab_launch_plan(rows, r, v, k, f32, bf16, True, sms,
-                                  vt.resident_clusters(
-                                      dev, vt.SPLIT_STAGES, vt.SPLIT_PLANES))
-    runs.append((h2, picked, [
-        vt._split_plan(rows, r, v, k, True, sms, stages=st,
-                       resident=vt.resident_clusters(dev, st,
-                                                     vt.SPLIT_PLANES))
-        for st in SPLIT_SWEEP_STAGES]))
+    for lhs, table, route, depths in (
+            (h2, bf16, "split", SPLIT_SWEEP_STAGES),
+            (h2, f32, "split9", (vt.SPLIT9_STAGES,)),
+            (h2.to(bf16), f32, "split_w", SPLIT_SWEEP_STAGES)):
+        planes = vt.PLANES[route]
+        picked = vt.vocab_launch_plan(
+            rows, r, v, k, lhs.dtype, table, True, sms, vt.resident_clusters(
+                dev, vt._split_plan(rows, r, v, k, True, sms,
+                                    route=route).stages, *planes))
+        runs.append((lhs, table, picked, [
+            vt._split_plan(rows, r, v, k, True, sms, stages=st,
+                           resident=vt.resident_clusters(dev, st, *planes),
+                           route=route)
+            for st in depths]))
     recs = []
-    for lhs, picked, others in runs:
+    for lhs, table, picked, others in runs:
+        wt, wp = _tables(vt, w, table)
         for plan in dict.fromkeys([picked] + others):
             def call():
-                return vt._launch(plan, lhs, wt, b, k)
+                return vt._launch(plan, lhs, wt, b, k, wp)
             rec = _held(smoke, lhs, wt, b, k, call)
-            rec["max_rel_err_randn"] = _randn_err(plan, lhs.dtype, k)
+            rec["max_rel_err_randn"] = _randn_err(plan, lhs.dtype, table, k)
             rec.update(route=plan.route, cluster=plan.cluster,
                        stages=plan.stages, grid=plan.grid,
                        picked=plan == picked,
@@ -174,11 +223,12 @@ def card():
         check=True).stdout.strip().splitlines()[0]
 
 
-def run_child(repo, sweep=False):
+def run_child(repo, sweep=False, beam=False):
     t0 = time.perf_counter()
     res = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--child", repo]
-        + (["--sweep"] if sweep else []), capture_output=True, text=True)
+        + (["--sweep"] if sweep else []) + (["--beam"] if beam else []),
+        capture_output=True, text=True)
     sys.stderr.write(res.stderr)
     if res.returncode:
         sys.stderr.write(res.stdout)
@@ -191,7 +241,8 @@ def run_child(repo, sweep=False):
 def main():
     args = sys.argv[1:]
     if args and args[0] == "--child":
-        return child(os.path.abspath(args[1]), "--sweep" in args)
+        return child(os.path.abspath(args[1]), "--sweep" in args,
+                     "--beam" in args)
     if args == ["--sweep"]:
         name = card()
         print(name, flush=True)
@@ -210,6 +261,10 @@ def main():
         i = args.index("--rounds")
         rounds = int(args[i + 1])
         del args[i:i + 2]
+    beam = "--beam" in args
+    if beam:
+        args.remove("--beam")
+    calls = BEAM_CALLS if beam else [c[0] for c in CALLS]
     if len(args) < 2:
         raise SystemExit(__doc__)
     name = card()
@@ -221,21 +276,25 @@ def main():
     runs = []
     for _ in range(rounds):
         for which, repo in order + order[::-1]:
-            rec = run_child(repo)
+            rec = run_child(repo, beam=beam)
             rec["which"] = which
             print(json.dumps(rec), flush=True)
             runs.append(rec)
-    for call, *_ in CALLS:
+    for call in calls:
         for which in names:
             recs = [r[call] for r in runs if r["which"] == which]
-            print("%-8s %-8s held ms: %s%s; profiler: %s" % (
+            if beam:
+                print("%-18s %-8s captions/s: %s" % (call, which, " ".join(
+                    "%.1f" % x["captions_per_s"] for x in recs)), flush=True)
+                continue
+            print("%-18s %-8s held ms: %s%s; profiler: %s" % (
                 call, which, " ".join("%.4f" % x["held_ms"] for x in recs),
                 "" if all(x["ok"] for x in recs) else "  MISMATCH",
                 " | ".join(smoke_split(x) for x in recs)), flush=True)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "ab_vocab.json"), "w") as f:
         json.dump({"card": name, "runs": runs}, f, indent=1)
-    if not all(r[c]["ok"] for r in runs for c, *_ in CALLS):
+    if not all(r[c]["ok"] for r in runs for c in calls):
         raise SystemExit("ab_vocab: a kernel disagrees with its plain "
                          "version")
 

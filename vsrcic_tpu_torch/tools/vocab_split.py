@@ -6,10 +6,12 @@ Builds variants of `csrc/vocab_topk.cu`'s `vocab_tma_kernel` from edited
 copies of the source (each with nvcc, `_build.NVCC_FLAGS`, into
 `vsrcic_tpu_torch/build/split/`) and times stage 1 of each under the
 profiler (`chip_smoke.kernel_split`) at the beam's shape (rows 5120, R
-1000, V 10000, k 5) on both of its routes, with the launch plans the
-wrapper picks for "bf16" (bf16 h2 and table, `VSRCIC_VOCAB_LHS_BF16=1`)
-and "split" (an f32 h2 on the bf16 table, the beam's default: the three
-bf16 planes of `split_bf16x3`, made once by the checkout's own split pass):
+1000, V 10000, k 5) on each of its routes, with the launch plans the
+wrapper picks for "bf16" (bf16 h2 and table, `VSRCIC_VOCAB_LHS_BF16=1`),
+"split" (an f32 h2 on the bf16 table, the beam's default: the three bf16
+planes of `split_bf16x3`, made once by the checkout's own split pass),
+"split9" (the f32 h2 on the f32 table: h2's planes times W_t's, made once
+by `table_planes`) and "split_w" (bf16 h2 on the f32 table):
 
   full        the kernel as it is
   no_rounds   the fold without its top-k rounds (max, sum, keys)
@@ -35,10 +37,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(HERE))
 SRC = os.path.join(REPO, "vsrcic_tpu_torch", "csrc", "vocab_topk.cu")
 
-FOLD = ("  if (v0 + BN <= V)\n"
-        "    fold_tile_tma<true, BN / 8>(")
+FOLD = ("  if (v0 + BN <= V) {\n"
+        "    add_bias<true, BN>(")
 ROUNDS = "  for (int q = 0; q < k; ++q) {\n    int bk[2], bc[2];"
-MMA = "            wgmma_tile<BN>(d,\n"
+MMA = "            wgmma_tile<BN>(\n"
 LOAD_FROM = "          mbar_expect_tx(&full[s], STAGE);"
 LOAD_TO = "        }\n      }\n      // the last `stages` positions"
 
@@ -107,22 +109,28 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(1)
     rows, r, v, k = smoke.ROWS, smoke.RNN, smoke.VOCAB, smoke.BEAM
     h2 = torch.tanh(torch.randn((rows, r), generator=gen, device=dev))
-    w = (torch.randn((r, v), generator=gen, device=dev)
-         * (2.0 / (r + v)) ** 0.5).bfloat16()
+    wf = (torch.randn((r, v), generator=gen, device=dev)
+          * (2.0 / (r + v)) ** 0.5)
+    w = wf.bfloat16()
+    w_planes = vt.table_planes(wf)
     b = 0.01 * torch.randn((v,), generator=gen, device=dev)
     sms = _build.sm_count(dev)
     f32, bf16 = torch.float32, torch.bfloat16
-    plans = {
-        "bf16": (h2.bfloat16(), vt.vocab_launch_plan(
-            rows, r, v, k, bf16, bf16, True, sms,
-            vt.resident_clusters(dev, vt.TMA_STAGES))),
-        "split": (h2, vt.vocab_launch_plan(
-            rows, r, v, k, f32, bf16, True, sms,
-            vt.resident_clusters(dev, vt.SPLIT_STAGES, vt.SPLIT_PLANES)))}
+    plans = {}
+    for route, lhs, table in (("bf16", h2.bfloat16(), w),
+                              ("split", h2, w), ("split9", h2, wf),
+                              ("split_w", h2.bfloat16(), wf)):
+        plan = vt.vocab_launch_plan(rows, r, v, k, lhs.dtype, table.dtype,
+                                    True, sms)
+        plans[route] = (lhs, table, vt.vocab_launch_plan(
+            rows, r, v, k, lhs.dtype, table.dtype, True, sms,
+            vt.resident_clusters(dev, plan.stages, plan.planes,
+                                 plan.w_planes)))
     out = {"card": card, "shape": [rows, r, v, k], "plans": {},
            "stage1_ms": {}}
-    for route, (lhs, plan) in plans.items():
-        ops = vt.split_bf16x3(lhs) if plan.route == "split" else lhs
+    for route, (lhs, table, plan) in plans.items():
+        ops = vt.split_bf16x3(lhs) if plan.planes > 1 else lhs
+        rhs = w_planes if plan.w_planes > 1 else table
         n_t = math.ceil(v / plan.tile_n)
         bufs = [torch.empty((rows, n_t, k), dtype=f32, device=dev),
                 torch.empty((rows, n_t, k), dtype=torch.int32, device=dev),
@@ -131,15 +139,17 @@ def main():
                 torch.empty((rows, k), dtype=f32, device=dev),
                 torch.empty((rows, k), dtype=torch.int32, device=dev),
                 torch.empty((rows, 1), dtype=f32, device=dev)]
-        want = vt.vocab_topk_lse_plain(lhs, w, b, k)
+        want = vt.vocab_topk_lse_plain(lhs, table, b, k)
         out["plans"][route] = {"stages": plan.stages,
-                               "cluster": plan.cluster, "grid": plan.grid}
+                               "cluster": plan.cluster, "grid": plan.grid,
+                               "planes": [plan.planes, plan.w_planes]}
         out["stage1_ms"][route] = {}
         for name, fn in fns.items():
             def call():
-                err = fn(ops.data_ptr(), w.data_ptr(), b.data_ptr(), rows, r,
-                         v, k, 1, plan.tile_n, plan.planes, plan.stages,
-                         plan.cluster, plan.grid, plan.smem_bytes,
+                err = fn(ops.data_ptr(), rhs.data_ptr(), b.data_ptr(), rows,
+                         r, v, rhs.shape[-1], k, 1, plan.tile_n, plan.planes,
+                         plan.w_planes, plan.stages, plan.cluster, plan.grid,
+                         plan.smem_bytes,
                          *[t.data_ptr() for t in bufs],
                          torch.cuda.current_stream(dev).cuda_stream)
                 if err:
