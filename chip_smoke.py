@@ -60,6 +60,10 @@ Phases (any failure raises and the script exits non-zero):
      NaN column, a +inf bias; an f32 table's routes to vocab_planes_plain,
      whose infinite entries meet zero planes as the kernel's do): NaN and
      +-inf where it has them, ids exact on those rows, none outside [0, V);
+     the captioner facade on an out_fc table with a -inf weight (bf16 and
+     f32 tables, the beam's shape) reads the table as non-finite and sends
+     its f32 h2 to the SGEMM, one launch and no split pass, with the plain
+     version's +-inf, NaN and ids, timed beside the CUDA cores' bound;
   4. replay the beam's golden fixtures (JAX results) through the kernel
      path: golden_beam.npz, and golden_beam_bf16.npz's four paths
      (VSRCIC_VOCAB_LHS_BF16=1 on bf16 and f32 tables, decode_dtype=bfloat16
@@ -841,13 +845,15 @@ def check_vocab(gen, report):
     plain_ms = cuda_ms(lambda: plain(h2, wb, b, BEAM), iters=5)
     plain_f32_ms = cuda_ms(lambda: plain(h2, wf, b, BEAM), iters=5)
 
-    def library(table):  # one product, top-k and logsumexp (timed only)
+    def library(table, bias=b):  # product, top-k, logsumexp (timed only)
         def call():
-            logits = torch.addmm(b, h2, table)
+            logits = torch.addmm(bias, h2, table)
             return torch.topk(logits, BEAM), torch.logsumexp(logits, -1)
         return call
     library_ms = cuda_ms(library(wb.float()))
     library_f32_ms = cuda_ms(library(w))
+    plain_v9999_ms = cuda_ms(lambda: plain(h2, w9999, b9999, BEAM), iters=5)
+    library_v9999_ms = cuda_ms(library(w9999.float(), b9999))
     flops = 2.0 * ROWS * RNN * VOCAB
     core_bound_ms, _ = vocab_bound(ROWS, RNN, VOCAB, BEAM, 2)
     core_bound_f32_ms, _ = vocab_bound(ROWS, RNN, VOCAB, BEAM, 4)
@@ -861,10 +867,11 @@ def check_vocab(gen, report):
     log("  vocab_topk at rows=%d bf16 table, split route: %.4f ms (held "
         "%.4f; plain %.4f ms, library %.4f ms, bound %.4f ms by %s: three "
         "bf16 passes; the CUDA cores' f32 bound %.4f ms; %.1f f32-product "
-        "TFLOP/s); V %d padded: held %.4f ms; profiler split %s"
+        "TFLOP/s); V %d padded: held %.4f ms (plain %.4f ms, library %.4f "
+        "ms); profiler split %s"
         % (ROWS, ms, timed["split"], plain_ms, library_ms, bound_ms, bound_by,
            core_bound_ms, flops / ms / 1e9, VOCAB - 1, timed["split_v9999"],
-           fmt_split(split)))
+           plain_v9999_ms, library_v9999_ms, fmt_split(split)))
     log("  vocab_topk at rows=%d f32 table: split9 held %.4f ms (bound %.4f "
         "ms by %s: nine bf16 passes; the CUDA cores' %.4f ms), split_w (bf16 "
         "h2) held %.4f ms (bound %.4f ms), the SGEMM on the same values "
@@ -884,6 +891,7 @@ def check_vocab(gen, report):
         cuda_core_bound_ms=core_bound_ms,
         cuda_core_bound_f32_ms=core_bound_f32_ms, sgemm_ms=timed["sgemm"],
         library_ms=library_ms, library_f32_ms=library_f32_ms,
+        plain_v9999_ms=plain_v9999_ms, library_v9999_ms=library_v9999_ms,
         near_tie_rows=near, split_ms=split, split9_ms=split9)
     # the split pass alone (4 bytes read and 6 written an entry), a few
     # microseconds: timed on a held stream, as the Sinkhorn kernel is
@@ -1076,6 +1084,98 @@ def check_vocab_nonfinite(gen, report):
                     "%d)" % (name, case, rows, r, v, " padded" if pad else "",
                              int(bad.sum()), int(fin.numel()), near))
     report["vocab_nonfinite"] = out
+    report["vocab_nonfinite_facade"] = check_facade_nonfinite(gen)
+
+
+def check_facade_nonfinite(gen, unit=3, word=20):
+    """The captioner facade's vocab head on an out_fc table with a -inf
+    weight (W_t[unit, word]), bf16 and f32 tables, at the beam's shape: the
+    facade reads once that the table is non-finite and sends the f32 h2 to
+    the SGEMM, one launch on "sgemm" and no split pass, where a finite
+    table takes "split" or "split9". h2 is exact in bf16, its `unit` column
+    > 0, 0 and < 0 by row (the word's logit -inf, NaN, +inf), so the split
+    routes' zero planes would give NaN on every row (`vocab_planes_plain`);
+    the SGEMM gives the plain version's values and logsumexp (+-inf and
+    NaN where it has them), ids exact on the rows whose top k holds a
+    non-finite value and equal save near ties on the others. Then its held
+    time beside the plain version, the library trio and the CUDA cores'
+    f32 bound. Returns {table: readings}."""
+    import torch
+    from vsrcic_tpu_torch.models.captioner import (CaptionerConfig,
+                                                   init_captioner_params)
+    from vsrcic_tpu_torch.ops.vocab_topk import (
+        split_bf16x3, vocab_planes_plain, vocab_topk_lse_plain as plain)
+    params = init_captioner_params(torch.Generator().manual_seed(0),
+                                   CaptionerConfig(**MAIN_CFG))
+    params["out_fc"]["weight"][word, unit] = -math.inf
+    h2 = torch.tanh(torch.randn((ROWS, RNN), generator=gen, device="cuda"))
+    h2[:, unit] = h2[:, unit].abs() + 0.5
+    h2[1::5, unit] = 0.0
+    h2[2::5, unit] = -h2[2::5, unit]
+    h2 = h2.bfloat16().float()
+    top_bad = torch.zeros(ROWS, dtype=torch.bool, device="cuda")
+    top_bad[1::5] = top_bad[2::5] = True
+    out = {}
+    for bf16 in (True, False):
+        name = "bfloat16" if bf16 else "float32"
+        cap = main_captioner(params=params, bf16=bf16)
+        fn, (w_t, b) = cap._vocab_fn_and_tables(BEAM)
+        if cap._finite_table is not False:
+            raise AssertionError("facade: a -inf weight in the %s table not "
+                                 "read as non-finite" % name)
+        finite_route = vocab_route(h2, w_t, BEAM)
+        passes = split_bf16x3.launches
+        got = expect_route("sgemm", lambda: fn(h2, w_t, b))
+        torch.cuda.synchronize()
+        if split_bf16x3.launches != passes:
+            raise AssertionError("facade, non-finite %s table: a split pass"
+                                 % name)
+        want = plain(h2, w_t, b, BEAM)
+        lse = want[2].flatten()
+        if not (torch.isnan(lse[1::5]).all() and torch.isposinf(
+                lse[2::5]).all() and torch.isfinite(lse[0::5]).all()):
+            raise AssertionError("facade: the inputs miss their +inf, NaN "
+                                 "and -inf rows")
+        planes_nan = int(torch.isnan(vocab_planes_plain(
+            h2, w_t, b, BEAM)[2]).sum())
+        for g, wnt, what in ((got[0], want[0], "vals"),
+                             (got[2], want[2], "lse")):
+            torch.testing.assert_close(
+                g, wnt, rtol=1e-5, atol=1e-6, equal_nan=True,
+                msg=lambda m: "facade non-finite %s table %s: %s"
+                % (name, what, m))
+        if not torch.equal(got[1][top_bad], want[1][top_bad]):
+            raise AssertionError("facade non-finite %s table: ids differ on "
+                                 "a row whose top k is non-finite" % name)
+        keep = torch.nonzero(~top_bad).flatten()
+        near = vocab_near_ties(h2[keep], w_t, b, (got[0][keep],
+                                                   got[1][keep]),
+                               (want[0][keep], want[1][keep]))
+        ms = held_ms(lambda: fn(h2, w_t, b))[0]
+        plain_ms = cuda_ms(lambda: plain(h2, w_t, b, BEAM), iters=5)
+        wf = w_t.float()
+
+        def library():  # product, top-k, logsumexp (timed only)
+            logits = torch.addmm(b, h2, wf)
+            return torch.topk(logits, BEAM), torch.logsumexp(logits, -1)
+        library_ms = cuda_ms(library)
+        bound_ms, bound_by = vocab_bound(ROWS, RNN, VOCAB, BEAM,
+                                         2 if bf16 else 4)
+        log("  vocab_topk facade, non-finite %s table (W_t[%d, %d] = -inf) "
+            "rows=%d R=%d V=%d: route sgemm (a finite table: %s), no split "
+            "pass; %d +inf and %d NaN rows exact (the planes would give %d "
+            "NaN rows), near ties %d on the rest; held %.4f ms (plain %.4f "
+            "ms, library %.4f ms, the CUDA cores' bound %.4f ms by %s)"
+            % (name, unit, word, ROWS, RNN, VOCAB, finite_route,
+               int(torch.isposinf(lse).sum()), int(torch.isnan(lse).sum()),
+               planes_nan, near, ms, plain_ms, library_ms, bound_ms,
+               bound_by))
+        out[name] = dict(route="sgemm", finite_route=finite_route,
+                         planes_nan_rows=planes_nan, near_tie_rows=near,
+                         ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+        del cap, fn, w_t, b, got, want
+    return out
 
 
 def sinkhorn_bound(s, n, iters):
@@ -3655,7 +3755,8 @@ def main():
                        cuda_core_bound_ms=k["cuda_core_bound_ms"],
                        sgemm_ms=k["sgemm_ms"], launches_split_by_path={
                            p: n.get("vocab_split", 0)
-                           for p, n in by_path.items()})
+                           for p, n in by_path.items()},
+                       nonfinite_table=kernels["vocab_nonfinite_facade"])
         row.update({"cli_" + f: v for f, v in
                     report["eval_cli_kernels"][name].items()})
         row.update({"train_cli_" + f: v for f, v in

@@ -765,6 +765,74 @@ def test_facade_beam_takes_no_sgemm(cuda_device, table, v):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("table", [None, torch.bfloat16])
+@pytest.mark.parametrize("v", [29, 30])
+def test_facade_vocab_nonfinite_table(cuda_device, table, v):
+    """A captioner whose out_fc table holds -inf: the facade reads it once
+    and sends an f32 h2 to the SGEMM on f32 and bf16 tables. On an h2 exact
+    in bf16 whose entry meets the weight (> 0, 0 and < 0 by row: -inf, NaN,
+    +inf logits, where the split routes' zero planes give NaN on every
+    row), its vocab function gives vocab_topk_lse_plain's values and
+    logsumexp (+-inf and NaN where it has them) and its ids exactly; its
+    beam launches the SGEMM alone, no split route and no split pass, and
+    gives the plain versions' words and gates."""
+    from vsrcic_tpu_torch.models.api import ControllableCaptioner
+    from vsrcic_tpu_torch.models.captioner import (CaptionerConfig,
+                                                   init_captioner_params)
+    cfg = CaptionerConfig(seq_len=tp.T, vocab_size=v, bos_idx=tp.BOS,
+                          det_feat_size=tp.D, input_encoding_size=tp.E,
+                          rnn_size=tp.R, att_size=tp.A)
+    params = tp.infinite_weight(init_captioner_params(
+        torch.Generator().manual_seed(0), cfg), tp.R)
+    caps = {mode: ControllableCaptioner(
+        cfg, params=params, verb_2_vob_all=tp.VERB_TABLE,
+        use_fused_attention=mode, use_vocab_topk=mode, table_dtype=table,
+        device=cuda_device) for mode in (True, "plain")}
+    fn, (w_t, b) = caps[True]._vocab_fn_and_tables(5)
+    assert caps[True]._finite_table is False
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    h2 = torch.randn((40, tp.R), generator=gen, device=cuda_device)
+    h2[:, 3] = h2[:, 3].abs() + 0.5
+    h2[1::5, 3] = 0.0
+    h2[2::5, 3] = -h2[2::5, 3]
+    h2 = h2.bfloat16().float()
+    before = [getattr(vocab_topk_lse, c) for c in ROUTE_COUNTS]
+    passes = split_bf16x3.launches
+    got = fn(h2, w_t, b)
+    torch.cuda.synchronize()
+    assert [getattr(vocab_topk_lse, c) - n for c, n in
+            zip(ROUTE_COUNTS, before)] == [1, 0, 0, 0, 0, 0, 1]
+    assert split_bf16x3.launches == passes
+    want = vocab_topk_lse_plain(h2, w_t, b, 5)
+    lse = want[2].flatten()
+    assert torch.isnan(lse[1::5]).all() and torch.isposinf(lse[2::5]).all()
+    assert torch.isfinite(lse[0::5]).all()
+    assert torch.isnan(vocab_planes_plain(h2, w_t, b, 5)[2]).all()
+    for g, w in ((got[0], want[0]), (got[2], want[2])):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6,
+                                   equal_nan=True)
+    assert torch.equal(got[1], want[1])
+    det, groups, verb_list = tp.inputs(3)
+    res = {}
+    for mode, cap in caps.items():
+        before = [getattr(vocab_topk_lse, c) for c in ROUTE_COUNTS]
+        passes = split_bf16x3.launches
+        res[mode] = cap.beam_search_v(det, groups, verb_list,
+                                      eos_word=tp.EOS, beam_size=5)
+        torch.cuda.synchronize()
+        counts = dict(zip(ROUTE_COUNTS, [
+            getattr(vocab_topk_lse, c) - n
+            for c, n in zip(ROUTE_COUNTS, before)]))
+        want = tp.T if mode is True else 0
+        assert counts == {c: want if c in ("launches", "launches_sgemm")
+                          else 0 for c in ROUTE_COUNTS}
+        assert split_bf16x3.launches == passes
+    for f in ("words", "gates"):
+        assert torch.equal(getattr(res[True], f), getattr(res["plain"], f))
+    assert not (res[True].words == 20).any()
+
+
+@pytest.mark.cuda
 def test_vocab_topk_refuses_what_it_cannot_take(cuda_device):
     h2 = torch.zeros((4, 16), device=cuda_device)
     w_t = torch.zeros((16, 40), device=cuda_device)

@@ -8,13 +8,25 @@ bf16 operands: the kernels multiply the bf16 values exactly in f32, so JAX
 is given the same values upcast to f32. torch's CPU cast to bf16 turns every
 NaN into a sign-set one (0xffff), so there the NaN cases rank their NaNs
 last, in both packages. The CUDA kernels are held to the
-plain version on these cases in tests/test_torch_kernels_cuda.py."""
+plain version on these cases in tests/test_torch_kernels_cuda.py.
+
+The captioner facade reads once whether its out_fc table is finite, and
+on a non-finite one passes `finite_table=False` on every call: an f32 h2
+then takes the f32 SGEMM, not a route that splits h2 into bf16 planes
+(whose zero planes meet an infinite weight, 0 x inf = NaN). Here: the flag
+and the tables made once, and a beam on a table with an infinite weight
+against JAX's."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import torch_parity as tp
 from vsrcic_tpu.ops.vocab_topk import vocab_topk_lse_xla
+from vsrcic_tpu_torch.models import api
+from vsrcic_tpu_torch.models.captioner import (CaptionerConfig,
+                                               init_captioner_params)
 from vsrcic_tpu_torch.ops.vocab_topk import vocab_topk_lse
 
 ROWS, R, V, K = 6, 16, 300, 5
@@ -103,3 +115,84 @@ def test_plain_matches_xla_on_nonfinite_logits(case, dtype):
         assert got[1][0, :4].tolist() == [21, 22, 20, 23]
     elif case == "neg_nan":
         assert not (got[1] == 13).any() and (got[1][:, 0] == 40).all()
+
+
+@pytest.mark.parametrize("table", [None, torch.bfloat16])
+@pytest.mark.parametrize("value", [np.inf, -np.inf, np.nan, None])
+def test_facade_reads_whether_its_table_is_finite(value, table, monkeypatch,
+                                                  capsys):
+    """An out_fc weight of +inf, -inf or NaN marks the captioner's table
+    non-finite, a finite one finite; a non-finite table's vocab function
+    passes finite_table=False on every call. The table is padded once, its
+    check taken with it, and an f32 table's planes made once for the
+    routes that read them: a finite f32 table's at once, a non-finite
+    one's only under VSRCIC_VOCAB_LHS_BF16=1 ("split_w", which keeps h2 as
+    one plane)."""
+    made = {"padded_table": 0, "table_planes": 0}
+    for name in made:
+        def counted(*a, _f=getattr(api, name), _n=name, **kw):
+            made[_n] += 1
+            return _f(*a, **kw)
+        monkeypatch.setattr(api, name, counted)
+    monkeypatch.delenv("VSRCIC_VOCAB_LHS_BF16", raising=False)
+    cfg = CaptionerConfig(seq_len=4, vocab_size=30, bos_idx=2,
+                          det_feat_size=8, input_encoding_size=8,
+                          rnn_size=8, att_size=8)
+    params = init_captioner_params(torch.Generator().manual_seed(0), cfg)
+    if value is not None:
+        params["out_fc"]["weight"][11, 3] = value   # W_t[3, 11]
+    cap = api.ControllableCaptioner(cfg, params=params, use_vocab_topk=True,
+                                    table_dtype=table, device="cpu")
+    finite = value is None
+    fn, tables = cap._vocab_fn_and_tables(5)
+    fn2, tables2 = cap._vocab_fn_and_tables(5)
+    assert cap._finite_table is finite
+    assert tables2[0] is tables[0] and tables2[1] is tables[1]
+    for f in (fn, fn2):   # the op's default, True, where it is finite
+        assert f.keywords.get("finite_table", True) is finite
+        assert ("w_planes" in f.keywords) == (finite and table is None)
+    planes = int(finite and table is None)
+    assert made == {"padded_table": 1, "table_planes": planes}
+    assert ("non-finite" in capsys.readouterr().err) == (not finite)
+    monkeypatch.setenv("VSRCIC_VOCAB_LHS_BF16", "1")
+    fn3, tables3 = cap._vocab_fn_and_tables(5)
+    assert tables3[0] is tables[0]
+    assert made == {"padded_table": 1, "table_planes": int(table is None)}
+    # on the CPU both calls are the plain version, the flag unread
+    h2 = torch.from_numpy(np.random.RandomState(0).randn(7, 8).astype(
+        np.float32))
+    for f, lhs in ((fn, h2), (fn3, h2.bfloat16())):
+        for a, b in zip(f(h2, *tables),
+                        api.vocab_topk_lse_plain(lhs, *tables, 5)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+def test_facade_beam_on_an_infinite_weight_matches_jax():
+    """The port's beam with its vocab op (the plain version on the CPU, the
+    table marked non-finite) on a table with a -inf weight that meets an h2
+    entry > 0 at every step, against JAX's beam on its XLA vocab top-k (the
+    f32 product): the same words and gates, scores and logprobs at
+    tests/test_torch_beam.py's bar, NaN where JAX has NaN; the -inf word
+    never emitted."""
+    from vsrcic_tpu.models.api import ControllableCaptioner as JaxCaptioner
+    from vsrcic_tpu.models.captioner import (
+        CaptionerConfig as JaxConfig, init_captioner_params as jax_init)
+    from vsrcic_tpu_torch.utils.params import params_from_jax
+    kw = dict(seq_len=tp.T, vocab_size=tp.V, bos_idx=tp.BOS,
+              det_feat_size=tp.D, input_encoding_size=tp.E, rnn_size=tp.R,
+              att_size=tp.A)
+    params = tp.infinite_weight(jax.tree_util.tree_map(
+        np.array, jax_init(jax.random.PRNGKey(4), JaxConfig(**kw))), tp.R)
+    det, groups, verb_list = tp.inputs(1)
+    want = JaxCaptioner(JaxConfig(**kw), params=params,
+                        verb_2_vob_all=tp.VERB_TABLE,
+                        use_vocab_topk="xla").beam_search_v(
+        det, groups, verb_list, eos_word=tp.EOS, beam_size=5)
+    cap = api.ControllableCaptioner(
+        CaptionerConfig(**kw), params=params_from_jax(params, "cpu"),
+        verb_2_vob_all=tp.VERB_TABLE, use_vocab_topk=True, device="cpu")
+    got = cap.beam_search_v(det, groups, verb_list, eos_word=tp.EOS,
+                            beam_size=5)
+    assert cap._finite_table is False
+    tp.assert_beams_match(got, want)
+    assert not (np.asarray(want.words) == 20).any()

@@ -1,7 +1,8 @@
 """The bf16 vocab kernel's launch plan (`ops/vocab_topk.py::
-vocab_bf16_launch_plan`), pure Python: the route each shape takes, the
-shared bytes, the tile walk, and the constants the CUDA source shares with
-it. The kernels themselves are held to their plain version on the card
+vocab_bf16_launch_plan`, and `vocab_launch_plan` on a non-finite table),
+pure Python: the route each shape takes, the shared bytes, the tile
+walk, and the constants the CUDA source shares with it. The kernels
+themselves are held to their plain version on the card
 (tests/test_torch_kernels_cuda.py, chip_smoke.py phase 3)."""
 import collections
 import math
@@ -9,6 +10,7 @@ import re
 from pathlib import Path
 
 import pytest
+import torch
 
 from vsrcic_tpu_torch.ops import vocab_topk as vt
 
@@ -128,3 +130,35 @@ def test_ring_depths_cover_every_tile_once(shape, stages):
     for bad in (1, 5):
         with pytest.raises(ValueError):
             vt._plan(rows, r, v, k, True, 132, stages=bad)
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+# (h2 dtype, table dtype, R) -> the route of a finite table; W_t padded
+# (rows 10000 apart), bases aligned
+FINITE_ROUTES = {(F32, BF16, 1000): "split", (F32, F32, 1000): "split9",
+                 (BF16, F32, 1000): "split_w", (BF16, BF16, 1000): "tma",
+                 (BF16, F32, 1001): "split9"}
+
+
+@pytest.mark.parametrize("finite", [True, False])
+@pytest.mark.parametrize("lhs,table,r", list(FINITE_ROUTES),
+                         ids=["f32_bf16", "f32_f32", "bf16_f32", "bf16_bf16",
+                              "bf16_f32_ragged_r"])
+def test_nonfinite_table_plan(lhs, table, r, finite):
+    """finite_table=False (the caller's knowledge that W_t holds a
+    non-finite entry) turns the routes that split h2 into three planes
+    ("split", "split9", the latter also for a bf16 h2 upcast at a ragged
+    R) into "sgemm", whose f32 product gives +-inf where an infinite weight
+    meets a zero plane of h2; "split_w" and "tma" keep h2 as one plane and
+    keep their plans; a finite table keeps today's routes."""
+    args = (5120, r, 9999, 5, lhs, table, True, 132)
+    plan = vt.vocab_launch_plan(*args, ldw=10000, finite_table=finite)
+    route = FINITE_ROUTES[lhs, table, r]
+    if finite or route in ("split_w", "tma"):
+        assert plan == vt.vocab_launch_plan(*args, ldw=10000)
+        assert plan.route == route
+    else:
+        assert plan == vt._sgemm_plan(5120, 9999)
+        assert (plan.route, plan.planes, plan.w_planes) == ("sgemm", 1, 1)
+    with pytest.raises(ValueError):
+        vt.vocab_launch_plan(*args, ldw=9998, finite_table=finite)

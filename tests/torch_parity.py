@@ -108,6 +108,23 @@ def fused_torch_args(args, table_dtype, device="cpu"):
     return out
 
 
+def infinite_weight(params, rnn_size, unit=3, word=20):
+    """Give captioner params (numpy arrays or torch tensors, written in
+    place) a -inf out_fc weight that every beam row meets: the second
+    LSTM's unit `unit` loses its input weights and gets positive gate
+    biases, so its h2 is > 0 at every step, and out_fc's weight from it to
+    `word` becomes -inf, so the word's logit is -inf in every row and no
+    beam emits it. Returns params."""
+    lstm = params["lstm_cell_2"]
+    rows = [unit + rnn_size * g for g in range(4)]   # its i, f, g, o rows
+    lstm["weight_ih"][rows] = 0.0
+    lstm["weight_hh"][rows] = 0.0
+    lstm["bias_ih"][rows] = 2.0
+    lstm["bias_hh"][rows] = 0.0
+    params["out_fc"]["weight"][word, unit] = -np.inf
+    return params
+
+
 def vocab_case(name):
     """(h2, w_t, bias, k, make_vocab_topk_lse kwargs) as numpy."""
     if name == "ties":

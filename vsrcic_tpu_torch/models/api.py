@@ -34,6 +34,7 @@ card raises.
 from __future__ import annotations
 
 import os
+import sys
 from functools import partial
 from typing import Dict, Optional
 
@@ -106,6 +107,7 @@ class ControllableCaptioner:
                             if verb_2_vob_all is not None else None)
         self._vocab_tables = None
         self._w_planes = None
+        self._finite_table = None
 
     # -- impls ---------------------------------------------------------------
     def _cast(self, a):
@@ -145,24 +147,40 @@ class ControllableCaptioner:
         f32, bias (V,) f32), made from the decode params once per
         captioner, as JAX's `prepare_tables` pads its tables once: w_t is
         the [:, :V] view of a zero-filled buffer of pitch V rounded up to 8
-        (`padded_table`, which TMA reads at any V), and the kernel's op
-        gets an f32 w_t's three bf16 planes (`table_planes`), made here.
-        With use_vocab_topk True, VSRCIC_VOCAB_LHS_BF16=1 (read on every
-        call, as JAX reads it on every trace) makes the op round h2 to bf16
-        first, as JAX's `make_vocab_topk_lse(lhs_dtype=bfloat16)` does;
-        "plain" ignores it, as JAX's "xla" path does."""
+        (`padded_table`, which TMA reads at any V). For the kernel's op,
+        whether w_t is finite is read back once, with the tables, and a
+        non-finite one's op passes `finite_table=False` on every call (the
+        f32 SGEMM where h2 is f32, as ops/vocab_topk.py says; a finite
+        table's op calls as before, the flag's default), and an f32 w_t's
+        three bf16 planes (`table_planes`) are made once for the routes that
+        read them. With use_vocab_topk True, VSRCIC_VOCAB_LHS_BF16=1 (read
+        on every call, as JAX reads it on every trace) makes the op round h2
+        to bf16 first, as JAX's `make_vocab_topk_lse(lhs_dtype=bfloat16)`
+        does; "plain" ignores it, as JAX's "xla" path does."""
         if self._vocab_tables is None:
             out_fc = self.decode_params["out_fc"]
             w_t = padded_table(out_fc["weight"].T,
                                self.table_dtype or torch.float32)
             self._vocab_tables = (w_t, out_fc["bias"].float().contiguous())
-            if self.use_vocab_topk is True and w_t.dtype == torch.float32:
-                self._w_planes = table_planes(w_t)
+            if self.use_vocab_topk is True:
+                self._finite_table = bool(torch.isfinite(w_t).all())
+                if not self._finite_table:
+                    print("captioner: out_fc holds a non-finite weight; "
+                          "the vocab head takes the f32 SGEMM on an f32 h2 "
+                          "(slower than the split routes, exact on +-inf)",
+                          file=sys.stderr)
         if self.use_vocab_topk is not True:
             return partial(vocab_topk_lse_plain, k=k), self._vocab_tables
-        op = (partial(vocab_topk_lse, k=k) if self._w_planes is None else
-              partial(vocab_topk_lse, k=k, w_planes=self._w_planes))
-        if os.environ.get("VSRCIC_VOCAB_LHS_BF16", "0") == "1":
+        w_t = self._vocab_tables[0]
+        lhs_bf16 = os.environ.get("VSRCIC_VOCAB_LHS_BF16", "0") == "1"
+        finite = self._finite_table is not False
+        kw = dict(k=k) if finite else dict(k=k, finite_table=False)
+        if w_t.dtype == torch.float32 and (finite or lhs_bf16):
+            if self._w_planes is None:
+                self._w_planes = table_planes(w_t)
+            kw["w_planes"] = self._w_planes
+        op = partial(vocab_topk_lse, **kw)
+        if lhs_bf16:
             return (lambda h2, w_t, b: op(h2.to(torch.bfloat16), w_t, b),
                     self._vocab_tables)
         return op, self._vocab_tables

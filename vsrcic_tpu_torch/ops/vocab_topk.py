@@ -25,6 +25,15 @@ f32 product JAX takes (`jnp.dot(h2, W_t.astype(f32))`), up to the order of
 the f32 sums, which every kernel here takes the freedom of; an infinite
 entry meets the other operand's zero planes, 0 x inf = NaN where the f32
 product gives +-inf (`vocab_planes_plain` replays the planes' function).
+An infinite weight meets them wherever h2 is split ("split", "split9"), so
+a caller that knows its W_t holds a non-finite entry passes
+`finite_table=False`, and those routes become "sgemm" below, which gives
+the f32 product's +-inf and NaN. The captioner facade checks its table once
+when it builds it and passes the flag; the op cannot check W_t on every
+call without a read-back, so a caller that passes its own non-finite table
+without the flag gets the planes' NaN. "split_w" and "tma" keep h2 as one
+plane and meet a zero plane only where h2 is 0, where the f32 product
+gives NaN too.
 Each 64-deep stage's products are summed on the TMA kernel (128 x 128
 tiles) and added to a running f32 total (csrc/vocab_topk.cu says why):
 
@@ -41,7 +50,8 @@ W_t's planes are made once per table: pass them as `w_planes`
 (`table_planes`), or the wrapper splits W_t on every call. A W_t that TMA
 cannot describe (an unaligned base, or rows not a multiple of 8 apart;
 only callers that pass their own tables) takes the f32 product on the
-CUDA cores, "sgemm" (`launches_sgemm`; a bf16 h2 upcast first).
+CUDA cores, "sgemm" (`launches_sgemm`; a bf16 h2 upcast first), as does
+a non-finite table on the routes that split h2.
 
 Non-finite logits rank as `jax.lax.top_k` ranks them (XLA's total order:
 NaN above +inf, +0 above -0) and the logsumexp is `jax.nn.logsumexp`'s
@@ -197,7 +207,7 @@ def _sgemm_plan(rows, v):
 
 @functools.lru_cache(maxsize=256)
 def vocab_launch_plan(rows, r, v, k, h2_dtype, table_dtype, aligned=True,
-                      sms=SMS, resident=None, ldw=None):
+                      sms=SMS, resident=None, ldw=None, finite_table=True):
     """The route `vocab_topk_lse` takes for h2 (rows, R) of `h2_dtype` and
     a W_t (R, V) of `table_dtype` whose rows lie `ldw` apart (default V),
     top k, on a card of `sms` SMs holding `resident` clusters of the route
@@ -207,7 +217,10 @@ def vocab_launch_plan(rows, r, v, k, h2_dtype, table_dtype, aligned=True,
     operands' types where TMA can describe W_t (ldw a multiple of 8,
     aligned; R any: h2's planes are padded to a multiple of 8, and a bf16
     h2 on an f32 table whose R is not a multiple of 8 is upcast and takes
-    "split9"), else "sgemm". Raises ValueError on shapes no route takes."""
+    "split9"), else "sgemm". `finite_table=False` (W_t holds a non-finite
+    entry) turns the routes that split h2, "split" and "split9", into
+    "sgemm" (the module's note says why). Raises ValueError on shapes no
+    route takes."""
     bf16 = torch.bfloat16
     if h2_dtype not in _FLOATS or table_dtype not in _FLOATS:
         raise ValueError("vocab launch plan: dtypes %s, %s"
@@ -219,6 +232,9 @@ def vocab_launch_plan(rows, r, v, k, h2_dtype, table_dtype, aligned=True,
         route = "split"
     else:
         route = "split_w" if h2_dtype == bf16 and r % 8 == 0 else "split9"
+    if not finite_table and route != "split_w":
+        _check(rows, r, v, k, aligned, sms, resident, ldw)
+        return _sgemm_plan(rows, v)
     return _split_plan(rows, r, v, k, aligned, sms, resident=resident,
                        ldw=ldw, route=route)
 
@@ -267,15 +283,17 @@ def tile_walk(plan, rows, v):
     return walk
 
 
-def vocab_topk_lse_plain(h2, w_t, bias, k: int, w_planes=None):
+def vocab_topk_lse_plain(h2, w_t, bias, k: int, w_planes=None,
+                         finite_table=True):
     """Plain version: materialises the logits in f32.
 
     h2: (rows, R) f32 or bf16; w_t: (R, V) bf16 or f32; bias: (V,). Both
     operands are upcast (exactly) and multiplied in f32; a bf16 x bf16
     product is exact in f32, so this is also the bf16-operand kernel's
-    function. `w_planes` is the wrapper's and is not read: the plain
-    version reads the f32 w_t. -> (vals (rows, k) f32, ids (rows, k)
-    int32, lse (rows, 1) f32)."""
+    function. `w_planes` and `finite_table` are the wrapper's and are not
+    read: the plain version reads the f32 w_t, and is the f32 product on
+    any table. -> (vals (rows, k) f32, ids (rows, k) int32, lse (rows, 1)
+    f32)."""
     logits = h2.float() @ w_t.float() + bias.float()
     return _topk_lse(logits, k)
 
@@ -389,12 +407,14 @@ def _check_table(w_t, shape, device):
                                  tuple(w_t.stride()), device, r, v))
 
 
-def vocab_topk_lse(h2, w_t, bias, k: int, w_planes=None):
+def vocab_topk_lse(h2, w_t, bias, k: int, w_planes=None, finite_table=True):
     """Plain version for CPU tensors; a CUDA kernel for CUDA tensors (see
     the module's note). Any rows, R and V; 1 <= k <= min(V, K_MAX); h2 and
     w_t float32 or bfloat16, w_t's rows contiguous, bias float32 on the
     card. `w_planes`: an f32 w_t's `table_planes`, made once, where the
-    caller keeps them (else made on each call that needs them)."""
+    caller keeps them (else made on each call that needs them).
+    `finite_table`: False where the caller knows w_t holds a non-finite
+    entry (`vocab_launch_plan`); not checked here."""
     if h2.dtype not in _FLOATS or w_t.dtype not in _FLOATS:
         raise ValueError("vocab_topk_lse: h2 and w_t must be float32 or "
                          "bfloat16, got %s and %s" % (h2.dtype, w_t.dtype))
@@ -424,12 +444,12 @@ def vocab_topk_lse(h2, w_t, bias, k: int, w_planes=None):
         h2.dtype == f32 or h2.data_ptr() % 16 == 0)
     sms = _build.sm_count(dev)
     plan = vocab_launch_plan(rows, r, v, k, h2.dtype, w_t.dtype, aligned,
-                             sms, ldw=ldw)
+                             sms, ldw=ldw, finite_table=finite_table)
     if plan.route in PLANES and plan.cluster > 1:
         plan = vocab_launch_plan(
             rows, r, v, k, h2.dtype, w_t.dtype, aligned, sms,
             resident_clusters(dev, plan.stages, plan.planes, plan.w_planes),
-            ldw)
+            ldw, finite_table)
     if h2.dtype == bf16 and plan.route in ("sgemm", "split9"):
         h2 = h2.float()   # bf16 h2 x f32 table: exact, as JAX upcasts it
     if plan.w_planes > 1:
