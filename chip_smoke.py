@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # every phase
     python3 chip_smoke.py --fused      # phases 1-2 and the fused check
+    python3 chip_smoke.py --memcheck   # phases 1-2 and the memcheck (3m)
     python3 chip_smoke.py --sinkhorn   # phases 1-2 and the Sinkhorn check
     python3 chip_smoke.py --pipeline   # phases 1-2 and 8
     python3 chip_smoke.py --train      # phases 1-2 and 9-10
@@ -17,7 +18,8 @@ Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi), and the TF32 settings
      (both off: the JAX reference runs its f32 products at 'highest');
   2. build the kernels from vsrcic_tpu_torch/csrc/ and report the build time
-     and what ptxas reports (registers, shared memory, spills); build the
+     and what ptxas reports (registers, shared memory, spills), the checked
+     build (phase 3m's) compiling beside it; build the
      native CIDEr-D scorer (csrc/cider_scorer.cpp, host C++ compiler) and
      the packed-store reader (csrc/packed_reader.cpp), the reader held to
      its numpy version;
@@ -34,7 +36,8 @@ Phases (any failure raises and the script exits non-zero):
      clusters), M 1 and 33, and rows whose item or ctrl is out of range
      (NaN, the neighbours exact), and timed at its four path shapes: the
      beam, SCST's decode, the eval CLI's first step and the SCST train
-     CLI's 100 rows (held stream, beside an empty kernel's time). The vocab
+     CLI's 100 rows (held stream, beside an empty kernel's time), and on
+     f32 tables at the beam's and the eval CLI's shapes. The vocab
      head's f32 product is held on every table layout the facade makes
      (padded to a pitch of V rounded up to 8, an f32 table's planes made
      once) and contiguous: "split9" (f32 h2 and table: nine bf16 plane
@@ -64,6 +67,15 @@ Phases (any failure raises and the script exits non-zero):
      f32 tables, the beam's shape) reads the table as non-finite and sends
      its f32 h2 to the SGEMM, one launch and no split pass, with the plain
      version's +-inf, NaN and ids, timed beside the CUDA cores' bound;
+ 3m. the memory check (vsrcic_tpu_torch/tools/memcheck.py): the checked
+     build (csrc/check.cuh: every access of every kernel tested against the
+     bound its arguments imply) over the sweep of every launch plan, on
+     guarded buffers: every fused cluster size in both copy modes, every
+     vocab route, every Sinkhorn (n, S); the beam's fused call and each
+     vocab route's full-width call 200 times. One line per CUDA kernel
+     (cases, launches, faults, guard breaches, changed inputs); any
+     non-zero count fails the run. Then each kernel at its main path's
+     shape on the default and the checked build, held stream;
   4. replay the beam's golden fixtures (JAX results) through the kernel
      path: golden_beam.npz, and golden_beam_bf16.npz's four paths
      (VSRCIC_VOCAB_LHS_BF16=1 on bf16 and f32 tables, decode_dtype=bfloat16
@@ -495,14 +507,14 @@ def check_fused(gen, report):
     from vsrcic_tpu_torch.ops.fused_attention import (
         fused_group_attention as kern, fused_group_attention_plain as plain)
     worst = 0.0
-    timed = {}
+    timed, timed_f32 = {}, {}
     for case in FUSED_CASES:
         for table in (torch.bfloat16, torch.float32):
             args, err = fused_case(gen, case[0], *case[1:6], table,
                                    *case[6:])
             worst = max(worst, err)
-            if table == torch.bfloat16:
-                timed.setdefault(case[:3] + (case[3],), args)
+            (timed if table == torch.bfloat16 else timed_f32).setdefault(
+                case[:3] + (case[3],), args)
     for table in (torch.bfloat16, torch.float32):
         for shape in ((37, 8, M_PAD, DET, ATT), (37, 8, 5, 100, 36)):
             _, err = fused_case(gen, "bad", *shape, table, shape[2], BEAM,
@@ -534,6 +546,22 @@ def check_fused(gen, report):
             % (what, ms, plain_ms, bound_ms, bound_by, groups,
                ", empty kernel %.4f ms" % out[key + "empty_ms"]
                if held else ""))
+        out.update({key + "ms": ms, key + "plain_ms": plain_ms,
+                    key + "bound_ms": bound_ms, key + "bound_by": bound_by,
+                    key + "distinct_groups": groups})
+    # f32 tables: phase 5d's beam and the eval CLI's --fused --vocab_topk
+    # (the group bytes at 4 B an element in the bound)
+    for key, args, what in (
+            ("f32_", timed_f32["full", ROWS, BATCH, M_PAD],
+             "the beam's rows=%d M=%d" % (ROWS, M_PAD)),
+            ("eval_f32_", timed_f32["shared", 2560, 512, M_REGIONS],
+             "the eval CLI's rows=2560 M=%d" % M_REGIONS)):
+        ms = held_ms(lambda: kern(*args))[0]
+        plain_ms = cuda_ms(lambda: plain(*args), iters=5)
+        bound_ms, bound_by, groups = fused_bound(args)
+        log("  fused_attention at %s f32 tables: %.4f ms held (plain %.4f "
+            "ms, bound %.4f ms by %s, %d distinct groups)"
+            % (what, ms, plain_ms, bound_ms, bound_by, groups))
         out.update({key + "ms": ms, key + "plain_ms": plain_ms,
                     key + "bound_ms": bound_ms, key + "bound_by": bound_by,
                     key + "distinct_groups": groups})
@@ -1250,6 +1278,149 @@ def check_sinkhorn(gen, report):
                               profiler_kernels=prof_kernels,
                               host_ms_per_call=host_ms,
                               ms_at_0_iters=fixed_ms)
+
+
+# ---------------------------------------------------------------------------
+# phase 3m: the memory check
+# ---------------------------------------------------------------------------
+
+# the CUDA kernels behind each row of the kernels line (its memcheck counts)
+ROW_KERNELS = {
+    "fused_attention": ("fused_attention",),
+    "vocab_topk": ("vocab_tma", "vocab_tile", "vocab_merge"),
+    "sinkhorn": ("sinkhorn_packed", "sinkhorn_block"),
+    "vocab_topk_bf16": ("vocab_tma", "vocab_tile_bf16", "vocab_merge"),
+    "vocab_split": ("vocab_split",),
+    "vocab_topk_split9": ("vocab_tma", "vocab_merge"),
+    "vocab_topk_split_w": ("vocab_tma", "vocab_merge"),
+}
+# each row's call in time_checked
+ROW_CALL = {"fused_attention": "fused_attention", "vocab_topk": "split",
+            "sinkhorn": "sinkhorn_packed", "vocab_topk_bf16": "tma",
+            "vocab_split": "split_pass", "vocab_topk_split9": "split9",
+            "vocab_topk_split_w": "split_w"}
+
+
+def time_checked(gen, lib):
+    """Each kernel's launch function at its main path's shape on the
+    default library and on the checked one `lib`, in turns on one held
+    stream: {call: {"ms", "checked_ms"}}. The fused kernel at the beam's
+    rows (bf16 tables, M 24); every vocab route at the beam's shape, h2's
+    planes made beforehand ("split", "split9"), the split pass alone;
+    the Sinkhorn kernel at the pipeline's S 1536, n 10 (packed) and at n
+    33 (one block a matrix)."""
+    import torch
+    from vsrcic_tpu_torch.ops import _build
+    from vsrcic_tpu_torch.ops import fused_attention as fa
+    from vsrcic_tpu_torch.ops import sinkhorn as sk
+    from vsrcic_tpu_torch.ops import vocab_topk as vt
+    dflt = _build.library()
+    dev = torch.device("cuda")
+    sms = _build.sm_count(dev)
+    bf16 = torch.bfloat16
+    calls = {}
+    args = fused_inputs(gen, ROWS, BATCH, M_PAD, DET, ATT, bf16, M_REGIONS)
+    plan = fa.fused_launch_plan(ROWS, M_PAD, DET, ATT, 2, True, sms)
+    out = (torch.empty((ROWS, DET), device=dev),
+           torch.empty((ROWS, 1), device=dev))
+    calls["fused_attention"] = (
+        lambda L, plan=plan: fa._launch(L, plan, *args, *out))
+    h2 = torch.tanh(torch.randn((ROWS, RNN), generator=gen, device=dev))
+    w = torch.randn((RNN, VOCAB), generator=gen, device=dev) * (
+        2.0 / (RNN + VOCAB)) ** 0.5
+    b = 0.01 * torch.randn((VOCAB,), generator=gen, device=dev)
+    wb, wf = vt.padded_table(w, bf16), vt.padded_table(w)
+    wp = vt.table_planes(wf)
+    h2_planes = vt.split_bf16x3(h2)
+    for route, lhs, wt, planes, aligned, finite in (
+            ("split", h2, wb, None, True, True),
+            ("split9", h2, wf, wp, True, True),
+            ("split_w", h2.to(bf16), wf, wp, True, True),
+            ("tma", h2.to(bf16), wb, None, True, True),
+            ("mma_sync", h2.to(bf16), wb, None, False, True),
+            ("sgemm", h2, wb, None, True, False)):
+        plan = vt.vocab_launch_plan(ROWS, RNN, VOCAB, BEAM, lhs.dtype,
+                                    wt.dtype, aligned, sms,
+                                    ldw=wt.stride(0), finite_table=finite)
+        if plan.route in vt.PLANES and plan.cluster > 1:
+            plan = vt.vocab_launch_plan(
+                ROWS, RNN, VOCAB, BEAM, lhs.dtype, wt.dtype, aligned, sms,
+                vt.resident_clusters(dev, plan.stages, plan.planes,
+                                     plan.w_planes), wt.stride(0), finite)
+        if plan.route != route:
+            raise AssertionError("time_checked: %s took %s"
+                                 % (route, plan.route))
+        outs, parts = vt.vocab_buffers(plan, ROWS, VOCAB, BEAM, dev)
+        calls[route] = (lambda L, plan=plan, lhs=lhs, wt=wt, planes=planes,
+                        outs=outs, parts=parts: vt._launch(
+                            L, plan, lhs, wt, b, BEAM, planes,
+                            h2_planes if plan.planes > 1 else None, parts,
+                            outs))
+    split_out = torch.empty_like(h2_planes)
+    calls["split_pass"] = lambda L: vt._split_launch(L, h2, split_out)
+    for name, n in (("sinkhorn_packed", SINK_N), ("sinkhorn_block", 33)):
+        x = torch.tanh(torch.randn((SINK_S, n, n), generator=gen,
+                                   device=dev))
+        calls[name] = (lambda L, x=x, o=torch.empty_like(x): sk._launch(
+            L, x, SINK_ITERS, SINK_TAU, o))
+    out_ms = {}
+    for name, call in calls.items():
+        ms = held_ms(lambda: call(dflt), iters=20)[0]
+        checked_ms = held_ms(lambda: call(lib), iters=20)[0]
+        out_ms[name] = {"ms": ms, "checked_ms": checked_ms}
+        log("  memcheck: %-16s default %.4f ms, checked %.4f ms (x%.2f), "
+            "held stream" % (name, ms, checked_ms, checked_ms / ms))
+    return out_ms
+
+
+def check_memcheck(gen, report, pending=None):
+    """Phase 3m (tools/memcheck.py): the checked build over the sweep of
+    every launch plan on guarded buffers, one line per CUDA kernel; then
+    time_checked. `pending`: the thread building the checked library since
+    phase 2, joined first. Raises on any fault, guard breach, changed
+    input or failed case, or a kernel no case launched."""
+    from vsrcic_tpu_torch.ops import _build
+    from vsrcic_tpu_torch.tools import memcheck
+    t0 = time.perf_counter()
+    if pending is not None:
+        pending.join()
+    build_s = _build.last_checked_build_seconds  # the thread's build
+    lib = _build.library(checked=True)
+    build_s = build_s or _build.last_checked_build_seconds
+    wait_s = time.perf_counter() - t0
+    log("  memcheck: checked build (-DVSRCIC_CHECKED=1 -lineinfo) in %.1f s "
+        "of nvcc beside phase 2's, ready %.1f s into phase 3m"
+        % (build_s, wait_s))
+    for line in _build.last_checked_build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log("    checked: " + line.strip())
+    t0 = time.perf_counter()
+    results, counts, failures = memcheck.sweep(lib, log=log)
+    sweep_s = time.perf_counter() - t0
+    for k, c in counts.items():
+        log("  memcheck %-16s cases %4d, launches %6d, faults %d, guard "
+            "breaches %d, changed inputs %d"
+            % (k, c["cases"], c["launches"], c["faults"], c["breaches"],
+               c["changed"]))
+    rows = {row: {"cases": sum(1 for r in results
+                               if any(k in r["launches"] for k in ks)),
+                  "launches": sum(counts[k]["launches"] for k in ks),
+                  "faults": sum(counts[k]["faults"] for k in ks),
+                  "kernels": list(ks)}
+            for row, ks in ROW_KERNELS.items()}
+    bad = {k: c for k, c in counts.items()
+           if c["faults"] or c["breaches"] or c["changed"] or not c["cases"]}
+    log("  memcheck: %d cases in %.1f s, %d failed"
+        % (len(results), sweep_s, len(failures)))
+    if failures or bad:
+        raise AssertionError("memcheck: %d cases failed (%s); kernels with "
+                             "faults, breaches, changed inputs or no case: "
+                             "%s" % (len(failures), failures[:5], bad))
+    checked = time_checked(gen, lib)
+    report["memcheck"] = dict(
+        checked_build_seconds=build_s,
+        wait_seconds=wait_s, sweep_seconds=sweep_s, cases=len(results),
+        by_kernel=counts, by_row=rows, checked_ms=checked)
 
 
 # ---------------------------------------------------------------------------
@@ -3568,7 +3739,13 @@ def main():
            torch.backends.cudnn.allow_tf32))
     report = {"card": card, "device": torch.cuda.get_device_name(0)}
 
-    # phase 2
+    # phase 2 (the checked build compiles beside it, for phase 3m)
+    pending = None
+    if not any(a.startswith("--") for a in sys.argv[1:]) or (
+            "--memcheck" in sys.argv[1:]):
+        import threading
+        pending = threading.Thread(target=_build.build, args=(True,))
+        pending.start()
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0
@@ -3608,6 +3785,16 @@ def main():
                          | {k: kernels[k] for k in ("vocab_topk",
                                                     "vocab_split",
                                                     "vocab_topk_bf16")}))
+        print_device_line()
+        return 0
+    if "--memcheck" in sys.argv[1:]:
+        log("[3m] memory check (checked build, guarded buffers, every plan)")
+        check_memcheck(gen, kernels, pending)
+        report["kernels"] = kernels
+        write_report(report)
+        print(card)
+        print(json.dumps({"memcheck": {k: kernels["memcheck"][k] for k in (
+            "by_kernel", "by_row", "checked_ms", "sweep_seconds")}}))
         print_device_line()
         return 0
     if "--fused" in sys.argv[1:]:
@@ -3680,6 +3867,10 @@ def main():
     check_vocab_nonfinite(gen, kernels)
     check_sinkhorn(gen, kernels)
 
+    # phase 3m
+    log("[3m] memory check (checked build, guarded buffers, every plan)")
+    check_memcheck(gen, kernels, pending)
+
     # phase 4
     log("[4] golden replay")
     replay_golden(report)
@@ -3747,7 +3938,7 @@ def main():
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
         row.update({f: v for f, v in k.items()
-                    if f.startswith(("beam1_", "eval_", "rows100_"))})
+                    if f.startswith(("beam1_", "eval_", "rows100_", "f32_"))})
         if name == "vocab_topk":
             # ms, bound: the beam's shape, where it takes the split route
             # (the CLI's V 30 too, through its padded table: cli_ms)
@@ -3814,6 +4005,16 @@ def main():
             "bound_by": k["bound_by_route"][route],
             "library_ms": k["library_f32_ms"], "sgemm_ms": k["sgemm_ms"],
             "cuda_core_bound_ms": k["cuda_core_bound_f32_ms"]})
+    # the memory check's counts (phase 3m) over the CUDA kernels behind
+    # each row, and the row's call on the default and the checked build
+    mc = kernels["memcheck"]
+    for row in rows:
+        row["memcheck"] = {f: mc["by_row"][row["name"]][f]
+                           for f in ("cases", "launches", "faults")}
+        row["memcheck_kernels"] = mc["by_row"][row["name"]]["kernels"]
+        timed = mc["checked_ms"][ROW_CALL[row["name"]]]
+        row["checked_ms"] = timed["checked_ms"]
+        row["default_ms_beside_checked"] = timed["ms"]
     report["kernels"] = kernels
     write_report(report)
     print(card)

@@ -17,6 +17,7 @@ from vsrcic_tpu_torch.ops.sinkhorn import (MAX_N, sinkhorn_normalize,
                                            sinkhorn_normalize_in_order,
                                            sinkhorn_normalize_plain)
 from vsrcic_tpu_torch.ops import vocab_topk as vt
+from vsrcic_tpu_torch.tools import memcheck
 from vsrcic_tpu_torch.ops.vocab_topk import (padded_table, split_bf16x3,
                                              split_bf16x3_plain,
                                              table_planes,
@@ -163,7 +164,7 @@ def test_fused_attention_refused_launch_raises(cuda_device):
     out = torch.empty((8, 2048), device=cuda_device)
     gsum = torch.empty((8, 1), device=cuda_device)
     with pytest.raises(RuntimeError):
-        fa._launch(bad, *args, out, gsum)
+        fa._launch(_build.library(), bad, *args, out, gsum)
 
 
 @pytest.mark.cuda
@@ -533,7 +534,7 @@ def test_vocab_topk_split_route(cuda_device, shape, ring):
     else:
         plan = vt._split_plan(rows, r, v, k, True,
                               _build.sm_count(cuda_device), stages=2)
-        got = vt._launch(plan, h2, w_t, b, k)
+        got = vt._run(plan, h2, w_t, b, k)
         torch.cuda.synchronize()
     want = vocab_topk_lse_plain(h2, w_t, b, k)
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
@@ -1094,3 +1095,52 @@ def test_train_cli_golden_on_the_card(cuda_device, run, tmp_path):
                 *g.golden_run(golden, run))
     assert sink.launches - before == (0 if run == "xe"
                                       else len(res["losses"]))
+
+
+# ---------------------------------------------------------------------------
+# the memory check (tools/memcheck.py, csrc/check.cuh's checked build)
+# ---------------------------------------------------------------------------
+
+MEMCHECK_CUTS = sorted(memcheck.cut_cases())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,bound", MEMCHECK_CUTS,
+                         ids=lambda v: str(v))
+def test_memcheck_cut_bound_faults(cuda_device, kernel, bound):
+    """A bound the checked build derives (or a tensor map's extent), cut
+    by one element through the checked build's setter, faults in that
+    kernel with that kind of access; the work is unchanged, guarded
+    buffers keep it from touching anything else, and once the cut is
+    restored the case runs clean."""
+    lib = _build.library(checked=True)
+    case, kind = memcheck.cut_cases(_build.sm_count(cuda_device))[
+        kernel, bound]
+    res = memcheck.run_case(case, lib,
+                            cut_bound=(memcheck.KERNELS.index(kernel), bound))
+    hits = [r for _, r in res["faults"]
+            if memcheck.KERNELS[r.kernel] == kernel and r.bound_id == bound]
+    assert hits, res
+    assert memcheck.KINDS[hits[0].kind] == kind
+    assert hits[0].index >= hits[0].bound
+    assert res["breaches"] == 0 and not res["changed"], res
+    clean = memcheck.run_case(case, lib)
+    assert clean["ok"], clean
+
+
+@pytest.mark.cuda
+def test_memcheck_sweep_subset_is_clean(cuda_device):
+    """Every 23rd case of the sweep on the checked build and guarded
+    buffers: no fault, no guard breach, no changed input, outputs at
+    phase 3's tolerances."""
+    lib = _build.library(checked=True)
+    results, counts, failures = memcheck.sweep(lib, every=23)
+    assert not failures, failures
+    assert len(results) >= 20
+
+
+@pytest.mark.cuda
+def test_default_library_has_no_checks(cuda_device):
+    """The main path's library is the default build: no check records."""
+    assert not hasattr(_build.library(), "vsrcic_check_read")
+    assert hasattr(_build.library(checked=True), "vsrcic_check_read")

@@ -48,7 +48,9 @@
 //     gate_evidence; each CTA writes its own D-slice of out.
 // tanh is 1 - 2 / (exp(2|x|) + 1) on the hardware exp and reciprocal
 // (absolute error ~1e-7); all arithmetic is f32. Any rows, M, D and A;
-// item / ctrl are only read.
+// item / ctrl are only read. Every access is tested against its bound in
+// the checked build (check.cuh); the default build's code is the plain
+// access.
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -56,6 +58,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "check.cuh"
 #include "tma.cuh"
 
 namespace cg = cooperative_groups;
@@ -213,9 +216,75 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// The memory check's bounds (check.cuh; tools/memcheck.py BOUNDS): the
+// global extents the arguments imply, the layout's regions, the window's
+// arrays, the mbarrier, the cluster's ranks and the tensor maps' extents
+enum Bound {
+  kBItem = 1,       // item, ctrl: rows
+  kBHa = 2,         // ha: rows x A
+  kBSent = 3,       // sent_w, sent_mask: rows
+  kBFc = 4,         // fc_sentinel: rows x D
+  kBAttA = 5,       // att_a: A
+  kBDet = 6,        // det: B L M x D (element copies)
+  kBProj = 7,       // proj: B L M x A (element copies)
+  kBOut = 8,        // out: rows x D
+  kBGsum = 9,       // gate evidence: rows
+  kBGroup = 10,     // a group's table rows, B L M (its TMA boxes)
+  kBLayout = 11,    // the layout's total: the dynamic shared bytes
+  kBSdet = 12,      // the layout's regions, in their elements
+  kBSproj = 13,
+  kBHaS = 14,
+  kBSc = 15,
+  kBAttaS = 16,
+  kBXbuf = 17,
+  kBRs = 18,
+  kBAtt = 19,
+  kBMask = 20,
+  kBAsent = 21,
+  kBKeys = 22,      // the window's arrays: rw keys, segment keys, valid
+  kBSegKey = 23,    // rows and segments' first rows; the scan scratch
+  kBVrow = 24,
+  kBSegFirst = 25,
+  kBScan = 26,
+  kBInts = 27,      // the window's arrays within their region
+  kBMbar = 28,      // the mbarrier within the layout
+  kBRank = 29,      // a cluster rank written through DSMEM
+  kBMapDet = 30,    // host: the tensor maps' extents
+  kBMapProj = 31,
+};
+
+#define FA_IN(kind, bound_id, lo, len, bound) \
+  VSRCIC_IN(kFusedAttention, kind, bound_id, lo, len, bound)
+#define FA_LD(kind, bound_id, lo, len, bound, expr, zero) \
+  VSRCIC_LD(FA_IN(kind, bound_id, lo, len, bound), expr, zero)
+#define FA_DO(kind, bound_id, lo, len, bound, ...) \
+  VSRCIC_DO(FA_IN(kind, bound_id, lo, len, bound), __VA_ARGS__)
+#define FA_AND(kind, bound_id, lo, len, bound) \
+  VSRCIC_AND(FA_IN(kind, bound_id, lo, len, bound))
+// each region's elements (the layout's offsets)
+#define N_SDET (lay.det / sizeof(T))
+#define N_SPROJ ((lay.ha - lay.det) / sizeof(T))
+#define N_HA ((lay.sc - lay.ha) / 4)
+#define N_SC ((lay.atta - lay.sc) / 4)
+#define N_ATTA ((lay.xbuf - lay.atta) / 4)
+#define N_XBUF ((lay.rs - lay.xbuf) / 4)
+#define N_RS ((lay.att - lay.rs) / 4)
+#define N_ATT ((lay.mask - lay.att) / 4)
+#define N_MASK ((lay.asent - lay.mask) / 4)
+#define N_ASENT ((lay.ints - lay.asent) / 4)
+#define N_SCAN (2 * kWarps + 2)
+#define N_TABLE ((long long)p.B * p.L * M)
+// the window's arrays, read through the check
+#define KEY(w) FA_LD(kShared, kBKeys, w, 1, rw, keys_s[w], 0LL)
+#define SEGKEY(k) FA_LD(kShared, kBSegKey, k, 1, rw, segkey_s[k], 0LL)
+#define VROW(j) FA_LD(kShared, kBVrow, j, 1, rw, vrow_s[j], 0)
+#define SCAN(i) FA_LD(kShared, kBScan, i, 1, N_SCAN, scan_s[i], 0)
+
 // BULK: D and A are multiples of 16 / sizeof(T), the slices start and end
 // on 16 bytes and every pointer is 16-byte aligned (the wrapper checks);
-// otherwise element-wise copies.
+// otherwise element-wise copies. Every access goes through the check
+// (FA_IN, FA_LD, FA_DO, FA_AND: check.cuh; the plain access in the
+// default build).
 template <typename T, bool BULK>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 fused_attention_kernel(const __grid_constant__ Params p) {
@@ -262,29 +331,59 @@ fused_attention_kernel(const __grid_constant__ Params p) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+#if VSRCIC_CHECKED
+  // the layout within the dynamic shared bytes, the window's arrays within
+  // their region
+  if (tid == 0) {
+    (void)FA_IN(kShared, kBLayout, 0, lay.total, vsrcic_dynamic_smem());
+    (void)FA_IN(kShared, kBInts, 0, 24LL * rw + 4 * N_SCAN,
+                lay.mbar - lay.ints);
+  }
+#endif
 
   // no CTA writes into another's shared memory before all have started
   // (the matching wait is after step 1)
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   if (tid == 0) {
-    mbar_init(bar, 1);
+    FA_DO(kMbarrier, kBMbar, lay.mbar, 8, lay.total, mbar_init(bar, 1));
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int a = tid; a < aw; a += kThreads) atta_s[a] = p.att_a[a0 + a];
+  for (int a = tid; a < aw; a += kThreads)
+    FA_DO(kShared, kBAttaS, a, 1, N_ATTA,
+          atta_s[a] = FA_LD(kGlobal, kBAttA, a0 + a, 1, A, p.att_a[a0 + a],
+                            0.f));
 
   const T* det = static_cast<const T*>(p.det);
   const T* proj = static_cast<const T*>(p.proj);
   // the TMA boxes of group `key` (table rows key * M, +M), issued by one
   // thread: it arrives on the mbarrier with their byte count (the boxes
   // past D, in the last slice, are zero-filled and counted), then issues
-  // them
+  // them (a box the check drops completes its bytes itself)
   auto issue_boxes = [&](long long key) {
     const int y = (int)(key * M);
+#if VSRCIC_CHECKED
+    (void)FA_IN(kTensorMap, kBGroup, key * M, M, N_TABLE);
+    if (!FA_IN(kMbarrier, kBMbar, lay.mbar, 8, lay.total)) return;
+#endif
     mbar_expect_tx(bar, (uint32_t)(M * sizeof(T) * (nbd * bd + nba * ba)));
-    for (int j = 0; j < nbd; ++j)
+    for (int j = 0; j < nbd; ++j) {
+#if VSRCIC_CHECKED
+      if (!FA_IN(kShared, kBSdet, j * pd, M * bd, N_SDET)) {
+        mbar_complete_tx(bar, (uint32_t)(M * bd * sizeof(T)));
+        continue;
+      }
+#endif
       tma_box(sdet + j * pd, &p.tm_det, d0 + j * bd, y, bar);
-    for (int j = 0; j < nba; ++j)
+    }
+    for (int j = 0; j < nba; ++j) {
+#if VSRCIC_CHECKED
+      if (!FA_IN(kShared, kBSproj, j * pa, M * ba, N_SPROJ)) {
+        mbar_complete_tx(bar, (uint32_t)(M * ba * sizeof(T)));
+        continue;
+      }
+#endif
       tma_box(sproj + j * pa, &p.tm_proj, a0 + j * ba, y, bar);
+    }
   };
   // the slices of group `key` into shared memory (called by every thread
   // once the previous group's readers are done)
@@ -296,11 +395,17 @@ fused_attention_kernel(const __grid_constant__ Params p) {
       // one box per slice: element (m, d) at m * bd + d
       for (int i = tid; i < M * dw; i += kThreads) {
         const int m = i / dw, d = i - m * dw;
-        sdet[m * bd + d] = det[((size_t)y + m) * D + d0 + d];
+        FA_DO(kShared, kBSdet, m * bd + d, 1, N_SDET,
+              sdet[m * bd + d] = FA_LD(
+                  kGlobal, kBDet, (y + m) * D + d0 + d, 1, N_TABLE * D,
+                  det[((size_t)y + m) * D + d0 + d], T()));
       }
       for (int i = tid; i < M * aw; i += kThreads) {
         const int m = i / aw, a = i - m * aw;
-        sproj[m * ba + a] = proj[((size_t)y + m) * A + a0 + a];
+        FA_DO(kShared, kBSproj, m * ba + a, 1, N_SPROJ,
+              sproj[m * ba + a] = FA_LD(
+                  kGlobal, kBProj, (y + m) * A + a0 + a, 1, N_TABLE * A,
+                  proj[((size_t)y + m) * A + a0 + a], T()));
       }
       __syncthreads();
     }
@@ -318,12 +423,14 @@ fused_attention_kernel(const __grid_constant__ Params p) {
   const int wn = min(p.run + E + 1, p.rows - r0 + 1);
   long long key = -1;
   if (tid < wn && r0 - 1 + tid >= 0) {
-    const int it = p.item[r0 - 1 + tid];
-    const int ct = p.ctrl[r0 - 1 + tid];
+    const int it = FA_LD(kGlobal, kBItem, r0 - 1 + tid, 1, p.rows,
+                         p.item[r0 - 1 + tid], 0);
+    const int ct = FA_LD(kGlobal, kBItem, r0 - 1 + tid, 1, p.rows,
+                         p.ctrl[r0 - 1 + tid], 0);
     if (it >= 0 && it < p.B && ct >= 0 && ct < p.L)
       key = (long long)it * p.L + ct;
   }
-  if (tid < wn) keys_s[tid] = key;
+  if (tid < wn) FA_DO(kShared, kBKeys, tid, 1, rw, keys_s[tid] = key);
   // when row r0 starts a segment (its key is valid and not row r0 - 1's),
   // that segment is the run's first: its group goes in flight at once
   const long long next = __shfl_down_sync(0xffffffffu, key, 1);
@@ -331,27 +438,30 @@ fused_attention_kernel(const __grid_constant__ Params p) {
   __syncthreads();
   if (tid == 0) {
     int skip = 0, ext = 0;
-    while (skip < E && 1 + skip < wn && keys_s[1 + skip] >= 0 &&
-           keys_s[1 + skip] == keys_s[skip])
+    while (skip < E && 1 + skip < wn && KEY(1 + skip) >= 0 &&
+           KEY(1 + skip) == KEY(skip))
       ++skip;
     const int e0 = 1 + p.run;
-    while (ext < E && e0 + ext < wn && keys_s[e0 + ext] >= 0 &&
-           keys_s[e0 + ext] == keys_s[e0 + ext - 1])
+    while (ext < E && e0 + ext < wn && KEY(e0 + ext) >= 0 &&
+           KEY(e0 + ext) == KEY(e0 + ext - 1))
       ++ext;
-    scan_s[2 * kWarps] = 1 + skip;
-    scan_s[2 * kWarps + 1] = min(wn, e0 + ext);
+    FA_DO(kShared, kBScan, 2 * kWarps, 1, N_SCAN,
+          scan_s[2 * kWarps] = 1 + skip);
+    FA_DO(kShared, kBScan, 2 * kWarps + 1, 1, N_SCAN,
+          scan_s[2 * kWarps + 1] = min(wn, e0 + ext));
   }
   __syncthreads();
-  const int lo = scan_s[2 * kWarps], hi = scan_s[2 * kWarps + 1];
+  const int lo = SCAN(2 * kWarps), hi = SCAN(2 * kWarps + 1);
   // a segment starts at an owned valid row whose predecessor is not owned,
   // invalid or on another group
   const bool valid = tid >= lo && tid < hi && key >= 0;
-  const bool start = valid && (tid == lo || keys_s[tid - 1] != key);
+  const bool start = valid && (tid == lo || KEY(tid - 1) != key);
   const unsigned bv = __ballot_sync(0xffffffffu, valid);
   const unsigned bs = __ballot_sync(0xffffffffu, start);
   if (lane == 0) {
-    scan_s[warp] = __popc(bv);
-    scan_s[kWarps + warp] = __popc(bs);
+    FA_DO(kShared, kBScan, warp, 1, N_SCAN, scan_s[warp] = __popc(bv));
+    FA_DO(kShared, kBScan, kWarps + warp, 1, N_SCAN,
+          scan_s[kWarps + warp] = __popc(bs));
   }
   __syncthreads();
   const unsigned below = (1u << lane) - 1u;
@@ -359,49 +469,64 @@ fused_attention_kernel(const __grid_constant__ Params p) {
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) {
     if (w < warp) {
-      pv += scan_s[w];
-      ps += scan_s[kWarps + w];
+      pv += SCAN(w);
+      ps += SCAN(kWarps + w);
     }
-    nv += scan_s[w];
-    nseg += scan_s[kWarps + w];
+    nv += SCAN(w);
+    nseg += SCAN(kWarps + w);
   }
-  if (valid) vrow_s[pv] = tid - 1;  // row r0 + vrow_s[j]
+  if (valid)
+    FA_DO(kShared, kBVrow, pv, 1, rw, vrow_s[pv] = tid - 1);  // r0 + it
   if (start) {
-    segkey_s[ps] = key;
-    segfirst_s[ps] = pv;
+    FA_DO(kShared, kBSegKey, ps, 1, rw, segkey_s[ps] = key);
+    FA_DO(kShared, kBSegFirst, ps, 1, rw, segfirst_s[ps] = pv);
   }
   __syncthreads();
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 
   // out-of-range rows: NaN outputs, their group never read
   for (int w = lo; w < hi; ++w) {
-    if (keys_s[w] >= 0) continue;
+    if (KEY(w) >= 0) continue;
     float* o = p.out + (size_t)(r0 - 1 + w) * D + d0;
-    for (int d = tid; d < dw; d += kThreads) o[d] = NAN;
-    if (rank == 0 && tid == 0) p.gsum[r0 - 1 + w] = NAN;
+    for (int d = tid; d < dw; d += kThreads)
+      FA_DO(kGlobal, kBOut, (long long)(r0 - 1 + w) * D + d0 + d, 1,
+            (long long)p.rows * D, o[d] = NAN);
+    if (rank == 0 && tid == 0)
+      FA_DO(kGlobal, kBGsum, r0 - 1 + w, 1, p.rows,
+            p.gsum[r0 - 1 + w] = NAN);
   }
 
   // first valid row of segment k (nv past the last)
-  auto seg_row = [&](int k) { return k < nseg ? segfirst_s[k] : nv; };
+  auto seg_row = [&](int k) {
+    return k < nseg ? FA_LD(kShared, kBSegFirst, k, 1, rw, segfirst_s[k], 0)
+                    : nv;
+  };
 
   // the ha slices and sentinel scalars of valid rows [j0, j0 + n), the
   // scalars into batch slot `slot`
   auto prefetch = [&](int j0, int n, int slot) {
     for (int r = 0; r < n; ++r) {
-      const size_t row = (size_t)(r0 + vrow_s[j0 + r]);
+      const size_t row = (size_t)(r0 + VROW(j0 + r));
       const float* ha = p.ha + row * A + a0;
       float* h = ha_s + r * ha_pitch;
       if constexpr (BULK) {
         for (int i = tid * 4; i < aw; i += kThreads * 4)
-          cp_async16(h + i, ha + i);
+          FA_DO(kGlobal, kBHa, row * A + a0 + i, 4, (long long)p.rows * A,
+                FA_DO(kShared, kBHaS, r * ha_pitch + i, 4, N_HA,
+                      cp_async16(h + i, ha + i)));
       } else {
-        for (int i = tid; i < aw; i += kThreads) cp_async4(h + i, ha + i);
+        for (int i = tid; i < aw; i += kThreads)
+          FA_DO(kGlobal, kBHa, row * A + a0 + i, 1, (long long)p.rows * A,
+                FA_DO(kShared, kBHaS, r * ha_pitch + i, 1, N_HA,
+                      cp_async4(h + i, ha + i)));
       }
     }
     if (tid < 2 * n) {
-      const size_t row = (size_t)(r0 + vrow_s[j0 + (tid >> 1)]);
-      cp_async4(sc_s + (slot * P) * 2 + tid,
-                ((tid & 1) ? p.sent_mask : p.sent_w) + row);
+      const size_t row = (size_t)(r0 + VROW(j0 + (tid >> 1)));
+      FA_DO(kGlobal, kBSent, row, 1, p.rows,
+            FA_DO(kShared, kBSc, (slot * P) * 2 + tid, 1, N_SC,
+                  cp_async4(sc_s + (slot * P) * 2 + tid,
+                            ((tid & 1) ? p.sent_mask : p.sent_w) + row)));
     }
     cp_async_commit();
   };
@@ -409,7 +534,7 @@ fused_attention_kernel(const __grid_constant__ Params p) {
   // 2. the first segment's group, unless it went ahead, and the first
   //    batch's vectors
   if (nseg > 0) {
-    if (!(BULK && lo == 1 && keys_s[1] >= 0)) issue(segkey_s[0]);
+    if (!(BULK && lo == 1 && KEY(1) >= 0)) issue(SEGKEY(0));
     prefetch(0, min(P, seg_row(1)), 0);
   }
 
@@ -418,7 +543,7 @@ fused_attention_kernel(const __grid_constant__ Params p) {
     if (k > 0) {
       // the previous segment's readers (step 5) are done with its group
       __syncthreads();
-      issue(segkey_s[k]);
+      issue(SEGKEY(k));
     }
     const int j_end = seg_row(k + 1);
     // this segment's partial row sums: [rank][region]
@@ -437,7 +562,9 @@ fused_attention_kernel(const __grid_constant__ Params p) {
       // regions here (and kIlp (row, region) pairs in step 3) at once; one
       // past the end (the test is warp-uniform) is skipped, not repeated
       if (j0 == seg_row(k)) {
-        if (BULK) mbar_wait(bar, (uint32_t)(k & 1));
+        if (BULK)
+          FA_DO(kMbarrier, kBMbar, lay.mbar, 8, lay.total,
+                mbar_wait(bar, (uint32_t)(k & 1)));
         for (int i0 = warp; i0 < M; i0 += kIlp * kWarps) {
           const T* dm[kIlp];
           float rs[kIlp];
@@ -454,7 +581,9 @@ fused_attention_kernel(const __grid_constant__ Params p) {
               for (int u = 0; u < kIlp; ++u) {
                 if (i0 + u * kWarps >= M) continue;
                 float x[VA];
-                load_vec<T, VA>(dm[u] + off + d, x);
+                VSRCIC_ZERO(x, VA);
+                FA_DO(kShared, kBSdet, dm[u] - sdet + off + d, VA, N_SDET,
+                      load_vec<T, VA>(dm[u] + off + d, x));
 #pragma unroll
                 for (int q = 0; q < VA; ++q) rs[u] += x[q];
               }
@@ -462,11 +591,15 @@ fused_attention_kernel(const __grid_constant__ Params p) {
           }
 #pragma unroll
           for (int u = 0; u < kIlp; ++u) rs[u] = warp_sum(rs[u]);
-          if (lane < C) {
+          if (lane < C FA_AND(kDsmem, kBRank, lane, 1, cluster_size())) {
             float* dst = cluster.map_shared_rank(rsb, lane) + rank * M;
 #pragma unroll
             for (int u = 0; u < kIlp; ++u)
-              if (i0 + u * kWarps < M) dst[i0 + u * kWarps] = rs[u];
+              if (i0 + u * kWarps < M FA_AND(kDsmem, kBRs,
+                                             rsb - rsx + rank * M + i0 +
+                                                 u * kWarps,
+                                             1, N_RS))
+                dst[i0 + u * kWarps] = rs[u];
           }
         }
       }
@@ -488,13 +621,19 @@ fused_attention_kernel(const __grid_constant__ Params p) {
           for (int a = lane * VA; a < min(ba, aw - j * ba); a += 32 * VA) {
             const int ag = j * ba + a;
             float at[VA];
-            load_f32<VA>(atta_s + ag, at);
+            VSRCIC_ZERO(at, VA);
+            FA_DO(kShared, kBAttaS, ag, VA, N_ATTA,
+                  load_f32<VA>(atta_s + ag, at));
 #pragma unroll
             for (int u = 0; u < kIlp; ++u) {
               if (i0 + u * kWarps >= n * M) continue;
               float x[VA], hv[VA];
-              load_vec<T, VA>(pm[u] + off + a, x);
-              load_f32<VA>(h[u] + ag, hv);
+              VSRCIC_ZERO(x, VA);
+              VSRCIC_ZERO(hv, VA);
+              FA_DO(kShared, kBSproj, pm[u] - sproj + off + a, VA, N_SPROJ,
+                    load_vec<T, VA>(pm[u] + off + a, x));
+              FA_DO(kShared, kBHaS, h[u] - ha_s + ag, VA, N_HA,
+                    load_f32<VA>(h[u] + ag, hv));
 #pragma unroll
               for (int q = 0; q < VA; ++q)
                 w[u] += fast_tanh(x[q] + hv[q]) * at[q];
@@ -505,11 +644,15 @@ fused_attention_kernel(const __grid_constant__ Params p) {
         for (int u = 0; u < kIlp; ++u) w[u] = warp_sum(w[u]);
         // pushed into every CTA (its own included) before the barrier, so
         // that after it each CTA reads only its own memory
-        if (lane < C) {
+        if (lane < C FA_AND(kDsmem, kBRank, lane, 1, cluster_size())) {
           float* dst = cluster.map_shared_rank(xb, lane) + rank * P * M;
 #pragma unroll
           for (int u = 0; u < kIlp; ++u)
-            if (i0 + u * kWarps < n * M) dst[i0 + u * kWarps] = w[u];
+            if (i0 + u * kWarps < n * M FA_AND(kDsmem, kBXbuf,
+                                               xb - xbuf + rank * P * M +
+                                                   i0 + u * kWarps,
+                                               1, N_XBUF))
+              dst[i0 + u * kWarps] = w[u];
         }
       }
       cluster.sync();
@@ -529,36 +672,48 @@ fused_attention_kernel(const __grid_constant__ Params p) {
       // 4. one warp per row: the full sums in rank order, then the masked
       //    softmax over [sentinel ; regions], renormalised
       for (int r = warp; r < n; r += kWarps) {
-        const float sw = sc[2 * r], smk = sc[2 * r + 1];
+        const float sw = FA_LD(kShared, kBSc, sc - sc_s + 2 * r, 1, N_SC,
+                               sc[2 * r], 0.f),
+                    smk = FA_LD(kShared, kBSc, sc - sc_s + 2 * r + 1, 1,
+                                N_SC, sc[2 * r + 1], 0.f);
         float* att = att_s + r * M;
         float* mask = mask_s + r * M;
         float mx = -INFINITY;
         for (int m = lane; m < M; m += 32) {
           float rs = 0.f, w = 0.f;
           for (int c = 0; c < C; ++c) {
-            rs += rsb[c * M + m];
-            w += xb[c * P * M + r * M + m];
+            rs += FA_LD(kShared, kBRs, rsb - rsx + c * M + m, 1, N_RS,
+                        rsb[c * M + m], 0.f);
+            w += FA_LD(kShared, kBXbuf, xb - xbuf + c * P * M + r * M + m,
+                       1, N_XBUF, xb[c * P * M + r * M + m], 0.f);
           }
-          att[m] = w;
-          mask[m] = (rs != 0.f) ? 1.f : 0.f;
+          FA_DO(kShared, kBAtt, r * M + m, 1, N_ATT, att[m] = w);
+          FA_DO(kShared, kBMask, r * M + m, 1, N_MASK,
+                mask[m] = (rs != 0.f) ? 1.f : 0.f);
           mx = fmaxf(mx, w);
         }
         mx = fmaxf(warp_max(mx), sw);
         float den = 0.f, ev = 0.f;
         for (int m = lane; m < M; m += 32) {
-          const float w = att[m];
-          const float e = expf(w - mx) * mask[m];
-          ev += mask[m] * w;
-          att[m] = e;
+          const float w = FA_LD(kShared, kBAtt, r * M + m, 1, N_ATT, att[m],
+                                0.f);
+          const float e = expf(w - mx) * FA_LD(kShared, kBMask, r * M + m, 1,
+                                               N_MASK, mask[m], 0.f);
+          ev += FA_LD(kShared, kBMask, r * M + m, 1, N_MASK, mask[m], 0.f) *
+                w;
+          FA_DO(kShared, kBAtt, r * M + m, 1, N_ATT, att[m] = e);
           den += e;
         }
         const float e_sent = expf(sw - mx) * smk;
         den = warp_sum(den) + e_sent;
         ev = warp_sum(ev);
-        for (int m = lane; m < M; m += 32) att[m] = att[m] / den;
+        for (int m = lane; m < M; m += 32)
+          FA_DO(kShared, kBAtt, r * M + m, 1, N_ATT, att[m] = att[m] / den);
         if (lane == 0) {
-          asent_s[r] = e_sent / den;
-          if (rank == 0) p.gsum[r0 + vrow_s[j0 + r]] = ev;
+          FA_DO(kShared, kBAsent, r, 1, N_ASENT, asent_s[r] = e_sent / den);
+          if (rank == 0)
+            FA_DO(kGlobal, kBGsum, r0 + VROW(j0 + r), 1, p.rows,
+                  p.gsum[r0 + VROW(j0 + r)] = ev);
         }
       }
       __syncthreads();
@@ -568,9 +723,11 @@ fused_attention_kernel(const __grid_constant__ Params p) {
       for (int u = tid; u < n * units; u += kThreads) {
         const int r = u / units, d = (u - r * units) * VD;
         const int jb = d / bd;
-        const size_t row = (size_t)(r0 + vrow_s[j0 + r]);
+        const size_t row = (size_t)(r0 + VROW(j0 + r));
         float fc[VD];  // loaded before the sum, which hides its latency
-        load_f32<VD>(p.fc_sent + row * D + d0 + d, fc);
+        VSRCIC_ZERO(fc, VD);
+        FA_DO(kGlobal, kBFc, row * D + d0 + d, VD, (long long)p.rows * D,
+              load_f32<VD>(p.fc_sent + row * D + d0 + d, fc));
         const T* sd = sdet + jb * pd + (d - jb * bd);
         const float* att = att_s + r * M;
         float acc[VD];
@@ -579,19 +736,25 @@ fused_attention_kernel(const __grid_constant__ Params p) {
 #pragma unroll 4
         for (int m = 0; m < M; ++m) {
           float x[VD];
-          load_vec<T, VD>(sd + (size_t)m * bd, x);
-          const float am = att[m];
+          VSRCIC_ZERO(x, VD);
+          FA_DO(kShared, kBSdet, sd - sdet + (size_t)m * bd, VD, N_SDET,
+                load_vec<T, VD>(sd + (size_t)m * bd, x));
+          const float am = FA_LD(kShared, kBAtt, r * M + m, 1, N_ATT, att[m],
+                                 0.f);
 #pragma unroll
           for (int q = 0; q < VD; ++q) acc[q] += am * x[q];
         }
-        const float a_sent = asent_s[r];
+        const float a_sent = FA_LD(kShared, kBAsent, r, 1, N_ASENT,
+                                   asent_s[r], 0.f);
         float* o = p.out + row * D + d0 + d;
         if constexpr (BULK) {
-          *reinterpret_cast<float4*>(o) =
-              make_float4(acc[0] + a_sent * fc[0], acc[1] + a_sent * fc[1],
-                          acc[2] + a_sent * fc[2], acc[3] + a_sent * fc[3]);
+          FA_DO(kGlobal, kBOut, row * D + d0 + d, VD, (long long)p.rows * D,
+                *reinterpret_cast<float4*>(o) = make_float4(
+                    acc[0] + a_sent * fc[0], acc[1] + a_sent * fc[1],
+                    acc[2] + a_sent * fc[2], acc[3] + a_sent * fc[3]));
         } else {
-          o[0] = acc[0] + a_sent * fc[0];
+          FA_DO(kGlobal, kBOut, row * D + d0 + d, VD, (long long)p.rows * D,
+                o[0] = acc[0] + a_sent * fc[0]);
         }
       }
     }
@@ -600,6 +763,27 @@ fused_attention_kernel(const __grid_constant__ Params p) {
   // touches another's shared memory after the last cluster barrier: each
   // may leave
 }
+
+#undef FA_IN
+#undef FA_LD
+#undef FA_DO
+#undef FA_AND
+#undef KEY
+#undef SEGKEY
+#undef VROW
+#undef SCAN
+#undef N_SDET
+#undef N_SPROJ
+#undef N_HA
+#undef N_SC
+#undef N_ATTA
+#undef N_XBUF
+#undef N_RS
+#undef N_ATT
+#undef N_MASK
+#undef N_ASENT
+#undef N_SCAN
+#undef N_TABLE
 
 int g_smem_set[2][2] = {{0, 0}, {0, 0}};
 
@@ -683,8 +867,10 @@ extern "C" int vsrcic_fused_attention(
   p.box_d = box_d;
   p.box_a = box_a;
   const long long table_rows = (long long)B * L * M;
-  if (bulk && (!encode_2d(&p.tm_det, det, tb, table_rows, D, M, box_d) ||
-               !encode_2d(&p.tm_proj, proj, tb, table_rows, A, M, box_a)))
+  if (bulk && (!encode_2d(&p.tm_det, det, tb, table_rows, D, M, box_d,
+                          kFusedAttention, kBMapDet, table_rows * D * tb) ||
+               !encode_2d(&p.tm_proj, proj, tb, table_rows, A, M, box_a,
+                          kFusedAttention, kBMapProj, table_rows * A * tb)))
     return (int)cudaErrorInvalidValue;
   p.out = static_cast<float*>(out);
   p.gsum = static_cast<float*>(gsum);
@@ -699,3 +885,4 @@ extern "C" int vsrcic_fused_attention(
   return (int)e;
 }
 
+VSRCIC_CHECK_RECORDS(fused)

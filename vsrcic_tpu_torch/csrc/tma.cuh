@@ -2,12 +2,16 @@
 // maps (encoded on the host through the runtime, no -lcuda), box copies
 // into shared memory that complete on an mbarrier with a transaction count,
 // and the mbarrier operations around them. Included by fused_attention.cu
-// and vocab_topk.cu; everything is internal to the including file.
+// and vocab_topk.cu; everything is internal to the including file. A map's
+// extent is checked against its caller's statement in checked builds
+// (check.cuh).
 #pragma once
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "check.cuh"
 
 namespace {
 
@@ -34,18 +38,26 @@ EncodeTiled encoder() {
   return encode;
 }
 
-// `planes` row-major (rows, cols) tables of `tb`-byte elements (2: bf16, 4:
-// f32) one after another, rows `pitch` elements apart (0: cols; a multiple
-// of 16 bytes), box (box_rows, box_cols) of one plane, shared-memory
-// swizzle `swizzle`; elements of a box past the table's edges (columns
-// past `cols` too) are zero-filled. A map of one plane is 2-D, of more 3-D
-// (column, row, plane). false if cuTensorMapEncodeTiled refuses it
+// `planes` row-major (rows, cols) tables of `tb`-byte elements one after
+// another, rows `pitch` elements apart (0: cols; a multiple of 16 bytes),
+// box (box_rows, box_cols) of one plane, shared-memory swizzle `swizzle`;
+// elements of a box past the table's edges (columns past `cols` too) are
+// zero-filled. A map of one plane is 2-D, of more 3-D (column, row,
+// plane). false if cuTensorMapEncodeTiled refuses it, or (checked builds)
+// if the bytes it spans, up to its last element, exceed `extent`, the
+// bytes its caller states for `base` (a fault of `kernel` on `bound_id`)
 bool encode_planes(CUtensorMap* map, const void* base, int tb, int planes,
                    long long rows, int cols, int box_rows, int box_cols,
+                   int kernel, int bound_id, long long extent,
                    CUtensorMapSwizzle swizzle, long long pitch = 0) {
   const EncodeTiled encode = encoder();
   if (!encode) return false;
   if (pitch == 0) pitch = cols;
+  if (!VSRCIC_IN_HOST(kernel, kTensorMap, bound_id, 0,
+                      ((planes - 1) * rows * pitch + (rows - 1) * pitch +
+                       cols) * tb,
+                      extent))
+    return false;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)planes};
   const cuuint64_t strides[2] = {(cuuint64_t)pitch * tb,
@@ -64,11 +76,12 @@ bool encode_planes(CUtensorMap* map, const void* base, int tb, int planes,
 // a (rows, cols) row-major table of `tb`-byte elements, box (box_rows,
 // box_cols), as encode_planes with one plane
 bool encode_2d(CUtensorMap* map, const void* base, int tb, long long rows,
-               int cols, int box_rows, int box_cols,
+               int cols, int box_rows, int box_cols, int kernel,
+               int bound_id, long long extent,
                CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE,
                long long pitch = 0) {
   return encode_planes(map, base, tb, 1, rows, cols, box_rows, box_cols,
-                       swizzle, pitch);
+                       kernel, bound_id, extent, swizzle, pitch);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -89,6 +102,27 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
                    smem_addr(bar)) : "memory");
+}
+
+// `bytes` of the transaction count completed without a copy: a box that
+// the memory check drops (check.cuh) still lets the barrier's phase end
+__device__ __forceinline__ void mbar_complete_tx(uint64_t* bar,
+                                                 uint32_t bytes) {
+  asm volatile(
+      "mbarrier.complete_tx.shared::cluster.relaxed.cluster.b64 [%0], %1;\n"
+      ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// the same on the mbarrier at `bar`'s offset in CTA `cta` of the cluster
+__device__ __forceinline__ void mbar_complete_tx_remote(uint64_t* bar,
+                                                        uint32_t cta,
+                                                        uint32_t bytes) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.complete_tx.shared::cluster.relaxed.cluster.b64 [ra], %2;\n"
+      "}\n" ::"r"(smem_addr(bar)), "r"(cta), "r"(bytes) : "memory");
 }
 
 // wait until the barrier's phase of parity `parity` has completed

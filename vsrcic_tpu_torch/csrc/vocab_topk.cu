@@ -87,7 +87,9 @@
 // same instruction sequence (no split along R), so duplicated weight
 // columns give bit-equal logits and tie exactly. The ragged edges of rows,
 // R and V are masked in the kernel (or zero-filled by TMA): a column past V
-// is never a candidate and adds nothing to the sum.
+// is never a candidate and adds nothing to the sum. Every access is tested
+// against its bound in the checked build (check.cuh); the default build's
+// code is the plain access.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,9 +98,38 @@
 
 #include <type_traits>
 
+#include "check.cuh"
 #include "tma.cuh"
 
 namespace {
+
+// The memory check's bounds (check.cuh; tools/memcheck.py BOUNDS), shared
+// by the file's kernels (the record names the kernel)
+enum Bound {
+  kBH2 = 1,        // h2, or its planes: rows x R (planes x rows x R8)
+  kBW = 2,         // W_t: (R - 1) x ldw + V
+  kBBias = 3,      // bias: V
+  kBPart = 4,      // part_m, part_s: tiles x rows
+  kBPartK = 5,     // part_vals, part_ids: tiles x rows x k
+  kBOutK = 6,      // vals, ids: rows x k
+  kBLse = 7,       // lse: rows
+  kBPlanes = 8,    // the split pass's planes: 3 x rows x R8 / 8 (uint4)
+  kBAs = 9,        // stage 1's h2 slices in shared memory
+  kBBs = 10,       // its W_t slices
+  kBCs = 11,       // the mma.sync route's f32 tile
+  kBSmem = 12,     // what the layout needs within the dynamic shared bytes
+  kBSlot = 13,     // a ring slot, < stages
+  kBBox = 14,      // a TMA box or a wgmma operand within the ring
+  kBRank = 15,     // the cluster rank a release arrives on
+  kBMapH2 = 16,    // host: the tensor maps' extents
+  kBMapW = 17,
+};
+
+// a shared-memory address's byte offset from `base`
+__device__ __forceinline__ long long soff(const void* p, const void* base) {
+  return static_cast<const unsigned char*>(p) -
+         static_cast<const unsigned char*>(base);
+}
 
 constexpr int TR = 128;       // rows per CTA
 constexpr int TV = 128;       // vocab columns per CTA (ops/vocab_topk.TILE_V)
@@ -224,7 +255,9 @@ __device__ __forceinline__ void fold_tile(
     float (&acc)[8][8], const float* __restrict__ bias, int tile, int v0,
     int row0, int tx, int ty, int rows, int V, int k,
     float* __restrict__ part_vals, int* __restrict__ part_ids,
-    float* __restrict__ part_m, float* __restrict__ part_s) {
+    float* __restrict__ part_m, float* __restrict__ part_s, int kid) {
+  // the partials: ceil(V / TV) tiles of every row
+#define N_PART ((long long)((V + TV - 1) / TV) * rows)
   // Every lane runs every row (the shuffles need all 32 lanes); rows past
   // the edge are computed and not written.
   int col[8];
@@ -232,7 +265,10 @@ __device__ __forceinline__ void fold_tile(
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     col[j] = v0 + ((j < 4) ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-    bcol[j] = (col[j] < V) ? bias[col[j]] : 0.f;
+    bcol[j] = (col[j] < V) VSRCIC_AND(
+                  VSRCIC_IN(kid, kGlobal, kBBias, col[j], 1, V))
+                  ? bias[col[j]]
+                  : 0.f;
   }
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -259,7 +295,7 @@ __device__ __forceinline__ void fold_tile(
     s = half_sum(s);
     const bool write = gr < rows && tx == 0;
     const size_t prow = (size_t)tile * rows + gr;
-    if (write) {
+    if (write VSRCIC_AND(VSRCIC_IN(kid, kGlobal, kBPart, prow, 1, N_PART))) {
       part_m[prow] = m;
       part_s[prow] = s;
     }
@@ -280,12 +316,14 @@ __device__ __forceinline__ void fold_tile(
           xk[j] = KEY_LOW;
           xi[j] = NO_ID;
         }
-      if (write) {
+      if (write VSRCIC_AND(VSRCIC_IN(kid, kGlobal, kBPartK, prow * k + q, 1,
+                                 N_PART * k))) {
         part_vals[prow * k + q] = key_value(bk);
         part_ids[prow * k + q] = bi;
       }
     }
   }
+#undef N_PART
 }
 
 // f32 stage 1: each thread accumulates its 8 x 8 register tile of the logits
@@ -318,25 +356,46 @@ vocab_tile_kernel(const float* __restrict__ h2, const T* __restrict__ w,
     for (int l = 0; l < A_PER; ++l) {
       const int idx = tid + l * kThreads;
       const int gr = row0 + idx / TK, gk = k0 + idx % TK;
-      ra[l] = (gr < rows && gk < R) ? h2[(size_t)gr * R + gk] : 0.f;
+      ra[l] = (gr < rows && gk < R) VSRCIC_AND(VSRCIC_IN(
+                  kVocabTile, kGlobal, kBH2, (long long)gr * R + gk, 1,
+                  (long long)rows * R))
+                  ? h2[(size_t)gr * R + gk]
+                  : 0.f;
     }
 #pragma unroll
     for (int l = 0; l < B_PER; ++l) {
       const int gk = k0 + tid / 32;
       const int gc = v0 + (tid % 32) * B_PER + l;
-      rb[l] = (gk < R && gc < V) ? to_f32(w[(size_t)gk * ldw + gc]) : 0.f;
+      rb[l] = (gk < R && gc < V) VSRCIC_AND(VSRCIC_IN(
+                  kVocabTile, kGlobal, kBW, (long long)gk * ldw + gc, 1,
+                  (long long)(R - 1) * ldw + V))
+                  ? to_f32(w[(size_t)gk * ldw + gc])
+                  : 0.f;
     }
   };
   auto store = [&](int buf) {
 #pragma unroll
     for (int l = 0; l < A_PER; ++l) {
       const int idx = tid + l * kThreads;
-      As[buf][idx % TK][idx / TK] = ra[l];
+      VSRCIC_DO(VSRCIC_IN(kVocabTile, kShared, kBAs,
+                      (buf * TK + idx % TK) * (TR + 4) + idx / TK, 1,
+                      2 * TK * (TR + 4)),
+                As[buf][idx % TK][idx / TK] = ra[l]);
     }
     static_assert(B_PER == 4, "one float4 of weights per thread");
-    *reinterpret_cast<float4*>(&Bs[buf][tid / 32][(tid % 32) * 4]) =
-        make_float4(rb[0], rb[1], rb[2], rb[3]);
+    VSRCIC_DO(VSRCIC_IN(kVocabTile, kShared, kBBs,
+                    (buf * TK + tid / 32) * (TV + 4) + (tid % 32) * 4, 4,
+                    2 * TK * (TV + 4)),
+              *reinterpret_cast<float4*>(&Bs[buf][tid / 32][(tid % 32) * 4]) =
+                  make_float4(rb[0], rb[1], rb[2], rb[3]));
   };
+  // a float4 of slice row kk at column c of As or Bs (their pitches), 0
+  // where the check drops it
+#define SLICE4(S, P, bid, c)                                               \
+  VSRCIC_LD(VSRCIC_IN(kVocabTile, kShared, bid,                            \
+                      (buf * TK + kk) * (P) + (c), 4, 2 * TK * (P)),       \
+            *reinterpret_cast<const float4*>(&S[buf][kk][c]),              \
+            make_float4(0.f, 0.f, 0.f, 0.f))
 
   float acc[8][8];
 #pragma unroll
@@ -353,12 +412,10 @@ vocab_tile_kernel(const float* __restrict__ h2, const T* __restrict__ w,
     if (t + 1 < n_k) load((t + 1) * TK);
 #pragma unroll
     for (int kk = 0; kk < TK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[buf][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + tx * 4]);
+      const float4 a0 = SLICE4(As, TR + 4, kBAs, ty * 4);
+      const float4 a1 = SLICE4(As, TR + 4, kBAs, 64 + ty * 4);
+      const float4 b0 = SLICE4(Bs, TV + 4, kBBs, tx * 4);
+      const float4 b1 = SLICE4(Bs, TV + 4, kBBs, 64 + tx * 4);
       const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
@@ -370,8 +427,10 @@ vocab_tile_kernel(const float* __restrict__ h2, const T* __restrict__ w,
     __syncthreads();
   }
 
+#undef SLICE4
+
   fold_tile(acc, bias, tile, v0, row0, tx, ty, rows, V, k, part_vals,
-            part_ids, part_m, part_s);
+            part_ids, part_m, part_s, kVocabTile);
 }
 
 // bf16 stage 1 (tensor cores): shared-memory layout. Row pitches are padded
@@ -390,28 +449,44 @@ static_assert(TR * BK / 8 == 2 * kThreads && BK * TV / 8 == 2 * kThreads,
               "two 16-byte copies of each slice per thread");
 
 // 8 bf16 elements start..start+7 of a row, those at or past `limit` zero,
-// into 16 bytes of shared memory (rows that are not 16-byte aligned)
+// into 16 bytes of shared memory (rows that are not 16-byte aligned). The
+// check: the row is element `at` of a tensor of `extent` elements (bound
+// `bid`), dst lies within the first `smem` bytes from `base`.
 __device__ __forceinline__ void load8(__nv_bfloat16* dst,
                                       const unsigned short* row, int start,
-                                      int limit) {
+                                      int limit, long long at,
+                                      long long extent, int bid,
+                                      const void* base, int dst_bid,
+                                      long long smem) {
   uint32_t u[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int c = start + 2 * e;
-    const uint32_t lo = c < limit ? row[c] : 0u;
-    const uint32_t hi = c + 1 < limit ? row[c + 1] : 0u;
+    const uint32_t lo =
+        c < limit VSRCIC_AND(
+                VSRCIC_IN(kVocabTileBf16, kGlobal, bid, at + c, 1, extent))
+            ? row[c]
+            : 0u;
+    const uint32_t hi =
+        c + 1 < limit VSRCIC_AND(VSRCIC_IN(kVocabTileBf16, kGlobal, bid,
+                                           at + c + 1, 1, extent))
+            ? row[c + 1]
+            : 0u;
     u[e] = lo | (hi << 16);
   }
-  *reinterpret_cast<uint4*>(dst) = make_uint4(u[0], u[1], u[2], u[3]);
+  VSRCIC_DO(VSRCIC_IN(kVocabTileBf16, kShared, dst_bid, soff(dst, base), 16,
+                      smem),
+            *reinterpret_cast<uint4*>(dst) =
+                make_uint4(u[0], u[1], u[2], u[3]));
 }
 
 // one slice: h2 rows row0.., depth k0..k0+BK; W_t depth k0.., columns v0..
 // (W_t's rows ldw apart; element loads: rows need not be 16-byte aligned
-// on this route)
+// on this route). `base`: the dynamic shared memory (the checks)
 __device__ __forceinline__ void load_slice(
     __nv_bfloat16* as, __nv_bfloat16* bs, const __nv_bfloat16* h2,
     const __nv_bfloat16* w, int row0, int v0, int k0, int rows, int R, int V,
-    int ldw, int tid) {
+    int ldw, int tid, const void* base) {
 #pragma unroll
   for (int l = 0; l < 2; ++l) {
     const int c = tid + l * kThreads;
@@ -419,7 +494,8 @@ __device__ __forceinline__ void load_slice(
     const int gr = row0 + r;
     load8(as + r * A_PITCH + kc,
           reinterpret_cast<const unsigned short*>(h2) + (size_t)gr * R,
-          k0 + kc, gr < rows ? R : 0);
+          k0 + kc, gr < rows ? R : 0, (long long)gr * R, (long long)rows * R,
+          kBH2, base, kBAs, 2LL * A_STAGE * 2);
   }
 #pragma unroll
   for (int l = 0; l < 2; ++l) {
@@ -428,7 +504,10 @@ __device__ __forceinline__ void load_slice(
     const int gk = k0 + kr;
     load8(bs + kr * B_PITCH + nc,
           reinterpret_cast<const unsigned short*>(w) + (size_t)gk * ldw,
-          v0 + nc, gk < R ? V : 0);
+          v0 + nc, gk < R ? V : 0, (long long)gk * ldw,
+          (long long)(R - 1) * ldw + V, kBW,
+          static_cast<const unsigned char*>(base) + 2 * A_STAGE * 2, kBBs,
+          2LL * B_STAGE * 2);
   }
 }
 
@@ -490,29 +569,44 @@ vocab_tile_bf16_kernel(const __nv_bfloat16* __restrict__ h2,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
+#if VSRCIC_CHECKED
+  if (tid == 0)
+    (void)VSRCIC_IN(kVocabTileBf16, kShared, kBSmem, 0, BF16_SMEM,
+                vsrcic_dynamic_smem());
+#endif
   const int n_k = (R + BK - 1) / BK;
-  load_slice(As, Bs, h2, w, row0, v0, 0, rows, R, V, ldw, tid);
+  load_slice(As, Bs, h2, w, row0, v0, 0, rows, R, V, ldw, tid, smem);
   for (int t = 0; t < n_k; ++t) {
     const int buf = t & 1;
     if (t + 1 < n_k)
       load_slice(As + (buf ^ 1) * A_STAGE, Bs + (buf ^ 1) * B_STAGE, h2, w,
-                 row0, v0, (t + 1) * BK, rows, R, V, ldw, tid);
+                 row0, v0, (t + 1) * BK, rows, R, V, ldw, tid, smem);
     __syncthreads();  // slice t is in place
     const __nv_bfloat16* as = As + buf * A_STAGE;
     const __nv_bfloat16* bs = Bs + buf * B_STAGE;
+    // a lane's 16-byte row of an ldmatrix (a warp-wide instruction: a row
+    // the check drops is read from the start of the region instead)
+#define LDSM_ROW(p, region, bid, lo, bytes)                                \
+  VSRCIC_LD(VSRCIC_IN(kVocabTileBf16, kShared, bid, soff(p, smem) - (lo),  \
+                      16, bytes),                                          \
+            p, region)
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       uint32_t af[4][4], bf[4][2];
 #pragma unroll
       for (int mi = 0; mi < 4; ++mi)
-        ldsm_x4(af[mi], as + (wm * 64 + mi * 16 + (lane & 15)) * A_PITCH + kk +
-                            (lane >> 4) * 8);
+        ldsm_x4(af[mi],
+                LDSM_ROW(as + (wm * 64 + mi * 16 + (lane & 15)) * A_PITCH +
+                             kk + (lane >> 4) * 8,
+                         As, kBAs, 0, 2LL * A_STAGE * 2));
 #pragma unroll
       for (int nj = 0; nj < 2; ++nj) {
         uint32_t r[4];
-        ldsm_x4_trans(r, bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                  B_PITCH +
-                             wn * 32 + nj * 16 + (lane >> 4) * 8);
+        ldsm_x4_trans(
+            r, LDSM_ROW(bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                 B_PITCH +
+                            wn * 32 + nj * 16 + (lane >> 4) * 8,
+                        Bs, kBBs, 2LL * A_STAGE * 2, 2LL * B_STAGE * 2));
         bf[2 * nj][0] = r[0];
         bf[2 * nj][1] = r[1];
         bf[2 * nj + 1][0] = r[2];
@@ -526,6 +620,7 @@ vocab_tile_bf16_kernel(const __nv_bfloat16* __restrict__ h2,
     }
     __syncthreads();  // before the next slice's copies overwrite buf
   }
+#undef LDSM_ROW
 
   // the accumulators (c0, c1 at row lane/4, columns 2*(lane%4) + {0, 1};
   // c2, c3 eight rows below) into the f32 tile, then into fold_tile's layout
@@ -535,10 +630,14 @@ vocab_tile_bf16_kernel(const __nv_bfloat16* __restrict__ h2,
     for (int ni = 0; ni < 4; ++ni) {
       const int r = wm * 64 + mi * 16 + (lane >> 2);
       const int c = wn * 32 + ni * 8 + (lane & 3) * 2;
-      *reinterpret_cast<float2*>(&Cs[r * C_PITCH + c]) =
-          make_float2(acc[mi][ni][0], acc[mi][ni][1]);
-      *reinterpret_cast<float2*>(&Cs[(r + 8) * C_PITCH + c]) =
-          make_float2(acc[mi][ni][2], acc[mi][ni][3]);
+      VSRCIC_DO(VSRCIC_IN(kVocabTileBf16, kShared, kBCs, r * C_PITCH + c, 2,
+                      TR * C_PITCH),
+                *reinterpret_cast<float2*>(&Cs[r * C_PITCH + c]) =
+                    make_float2(acc[mi][ni][0], acc[mi][ni][1]));
+      VSRCIC_DO(VSRCIC_IN(kVocabTileBf16, kShared, kBCs,
+                          (r + 8) * C_PITCH + c, 2, TR * C_PITCH),
+                *reinterpret_cast<float2*>(&Cs[(r + 8) * C_PITCH + c]) =
+                    make_float2(acc[mi][ni][2], acc[mi][ni][3]));
     }
   __syncthreads();
   const int tx = tid % 16;
@@ -547,10 +646,16 @@ vocab_tile_bf16_kernel(const __nv_bfloat16* __restrict__ h2,
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = (i < 4) ? ty * 4 + i : 64 + ty * 4 + (i - 4);
-    const float4 x0 =
-        *reinterpret_cast<const float4*>(&Cs[r * C_PITCH + tx * 4]);
-    const float4 x1 =
-        *reinterpret_cast<const float4*>(&Cs[r * C_PITCH + 64 + tx * 4]);
+    const float4 x0 = VSRCIC_LD(
+        VSRCIC_IN(kVocabTileBf16, kShared, kBCs, r * C_PITCH + tx * 4, 4,
+              TR * C_PITCH),
+        *reinterpret_cast<const float4*>(&Cs[r * C_PITCH + tx * 4]),
+        make_float4(0.f, 0.f, 0.f, 0.f));
+    const float4 x1 = VSRCIC_LD(
+        VSRCIC_IN(kVocabTileBf16, kShared, kBCs, r * C_PITCH + 64 + tx * 4, 4,
+              TR * C_PITCH),
+        *reinterpret_cast<const float4*>(&Cs[r * C_PITCH + 64 + tx * 4]),
+        make_float4(0.f, 0.f, 0.f, 0.f));
     x[i][0] = x0.x;
     x[i][1] = x0.y;
     x[i][2] = x0.z;
@@ -561,7 +666,7 @@ vocab_tile_bf16_kernel(const __nv_bfloat16* __restrict__ h2,
     x[i][7] = x1.w;
   }
   fold_tile(x, bias, tile, v0, row0, tx, ty, rows, V, k, part_vals, part_ids,
-            part_m, part_s);
+            part_m, part_s, kVocabTileBf16);
 }
 
 // ---------------------------------------------------------------------------
@@ -894,7 +999,10 @@ __device__ __forceinline__ void fold_tile_tma(
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
-    if (lead && row < rows) {
+    if (lead && row < rows VSRCIC_AND(VSRCIC_IN(
+                                 kVocabTma, kGlobal, kBPart,
+                                 (long long)row * n_vt + vt, 1,
+                                 (long long)rows * n_vt))) {
       part_m[(size_t)row * n_vt + vt] = m[r];
       part_s[(size_t)row * n_vt + vt] = s[r];
     }
@@ -938,7 +1046,10 @@ __device__ __forceinline__ void fold_tile_tma(
     for (int r = 0; r < 2; ++r) {
       quad_best(bk[r], bc[r]);
       const int row = row0 + 8 * r;
-      if (lead && row < rows) {
+      if (lead && row < rows VSRCIC_AND(VSRCIC_IN(
+                                   kVocabTma, kGlobal, kBPartK,
+                                   ((long long)row * n_vt + vt) * k + q, 1,
+                                   (long long)rows * n_vt * k))) {
         const size_t prow = (size_t)row * n_vt + vt;
         part_vals[prow * k + q] = key_value(bk[r]);
         part_ids[prow * k + q] = bk[r] == KEY_LOW ? NO_ID : v0 + bc[r];
@@ -984,8 +1095,14 @@ __device__ __forceinline__ void add_bias(float (&acc)[BN / 2],
 #pragma unroll
   for (int c = 0; c < BN / 8; ++c) {
     const int col = v0 + c * 8 + (lane & 3) * 2;
-    const float b0 = FULL || col < V ? __ldg(bias + col) : 0.f;
-    const float b1 = FULL || col + 1 < V ? __ldg(bias + col + 1) : 0.f;
+    const float b0 = (FULL || col < V) VSRCIC_AND(
+                         VSRCIC_IN(kVocabTma, kGlobal, kBBias, col, 1, V))
+                         ? __ldg(bias + col)
+                         : 0.f;
+    const float b1 = (FULL || col + 1 < V) VSRCIC_AND(
+                         VSRCIC_IN(kVocabTma, kGlobal, kBBias, col + 1, 1, V))
+                         ? __ldg(bias + col + 1)
+                         : 0.f;
     acc[c * 4] += b0;
     acc[c * 4 + 1] += b1;
     acc[c * 4 + 2] += b0;
@@ -1017,7 +1134,9 @@ __device__ __forceinline__ void finish_tile(
 // 1 or 2), whose producers all write into it
 __device__ __forceinline__ void release(uint64_t* bar, int rank, int C) {
   mbar_arrive(bar);
-  if (C > 1) mbar_arrive_remote(bar, rank ^ 1);
+  if (C > 1 VSRCIC_AND(VSRCIC_IN(kVocabTma, kDsmem, kBRank, rank ^ 1, 1,
+                                 cluster_size())))
+    mbar_arrive_remote(bar, rank ^ 1);
 }
 
 // Stage 1, TMA routes, on PA bf16 planes of h2 (tm_h2, (rows, depth)
@@ -1084,9 +1203,22 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
   const int rank = (int)cluster_rank();
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x & 31;
+  // the checks: slot s of the ring and its barriers (s < stages), a box
+  // or an operand of `bytes` at byte `off` of slot s within the ring
+#define SLOT_OK(s) VSRCIC_IN(kVocabTma, kMbarrier, kBSlot, s, 1, stages)
+#define BOX_OK(s, off, bytes)                                     \
+  VSRCIC_IN(kVocabTma, kShared, kBBox, (s) * STAGE + (off), bytes, \
+            stages * STAGE)
 
   if (threadIdx.x == 0) {
+#if VSRCIC_CHECKED
+    (void)VSRCIC_IN(kVocabTma, kShared, kBSmem, soff(ring, smem_raw),
+                stages * STAGE + 2 * 8 * stages, vsrcic_dynamic_smem());
+#endif
     for (int s = 0; s < stages; ++s) {
+#if VSRCIC_CHECKED
+      if (!SLOT_OK(s)) continue;
+#endif
       mbar_init(&full[s], 1);  // the producer's arrival + the copies' bytes
       mbar_init(&empty[s], 8 * C);  // eight consumer warps of each CTA
     }
@@ -1105,6 +1237,21 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
         const int vt = ALONG_V ? p / n_rb * C + rank : p / n_rbg;
         for (int kb = 0; kb < n_k; ++kb, ++g) {
           const int s = g % stages;
+#if VSRCIC_CHECKED
+          // a slot the check refuses is neither waited on nor filled (its
+          // consumers skip it too); a box it drops completes its bytes on
+          // every barrier it was bound for (each CTA of `all` where it is
+          // multicast)
+          if (!SLOT_OK(s)) continue;
+          auto drop = [&](uint32_t bytes, bool cast) {
+            if (!cast) {
+              mbar_complete_tx(&full[s], bytes);
+              return;
+            }
+            for (int c = 0; c < C; ++c)
+              mbar_complete_tx_remote(&full[s], (uint32_t)c, bytes);
+          };
+#endif
           mbar_wait(&empty[s], ((g / stages) & 1) ^ 1);
           mbar_expect_tx(&full[s], STAGE);
           unsigned char* a = ring + s * STAGE;
@@ -1117,6 +1264,13 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
             for (int i = 0; i < PA; ++i) {
               void* dst = a + i * T_A_BYTES + rank * (T_A_BYTES / T_CLUSTER);
               const int y = rb * T_BM + rank * (T_BM / T_CLUSTER);
+#if VSRCIC_CHECKED
+              if (!BOX_OK(s, i * T_A_BYTES + rank * (T_A_BYTES / T_CLUSTER),
+                          T_A_BYTES / C)) {
+                drop(T_A_BYTES / C, C > 1);
+                continue;
+              }
+#endif
               if (C == 1)
                 tma_box_3d(dst, &tm_h2, kb * T_BK, y, i, &full[s]);
               else
@@ -1128,6 +1282,13 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
 #pragma unroll
               for (int x = 0; x < NB; ++x) {
                 void* dst = b + (j * NB + x) * T_B_BOX;
+#if VSRCIC_CHECKED
+                if (!BOX_OK(s, PA * T_A_BYTES + (j * NB + x) * T_B_BOX,
+                            T_B_BOX)) {
+                  drop(T_B_BOX, false);
+                  continue;
+                }
+#endif
                 if constexpr (PB == 1)
                   tma_box(dst, &tm_w, vt * BN + x * 64, kb * T_BK, &full[s]);
                 else
@@ -1135,7 +1296,12 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
                              &full[s]);
               }
           } else {
-            tma_box(a, &tm_h2, kb * T_BK, rb * T_BM, &full[s]);
+#if VSRCIC_CHECKED
+            if (!BOX_OK(s, 0, T_A_BYTES))
+              drop(T_A_BYTES, false);
+            else
+#endif
+              tma_box(a, &tm_h2, kb * T_BK, rb * T_BM, &full[s]);
             // box bx of the PB * NB: plane bx / NB, columns (bx % NB) * 64..
             constexpr int SHARE = PB * NB / T_CLUSTER;
 #pragma unroll
@@ -1143,6 +1309,12 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
               const int bx = rank * SHARE + x;
               void* dst = b + bx * T_B_BOX;
               const int col = vt * BN + (bx % NB) * 64;
+#if VSRCIC_CHECKED
+              if (!BOX_OK(s, PA * T_A_BYTES + bx * T_B_BOX, T_B_BOX)) {
+                drop(T_B_BOX, true);
+                continue;
+              }
+#endif
               if constexpr (PB == 1)
                 tma_box_multicast(dst, &tm_w, col, kb * T_BK, &full[s], all);
               else
@@ -1155,7 +1327,8 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
       // the last `stages` positions released everywhere: no CTA arrives on
       // this one's barriers once it may have exited
       for (int i = 0; i < stages; ++i, ++g)
-        mbar_wait(&empty[g % stages], ((g / stages) & 1) ^ 1);
+        VSRCIC_DO(SLOT_OK(g % stages),
+                  mbar_wait(&empty[g % stages], ((g / stages) & 1) ^ 1));
     }
   } else {
     // consumers: warpgroup wg takes rows wg*64.. of every tile
@@ -1174,7 +1347,9 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
       fence_acc(d);
       for (int kb = 0; kb < n_k; ++kb, ++g) {
         const int s = g % stages;
-        mbar_wait(&full[s], (g / stages) & 1);
+        // a slot the check refuses is skipped (its producer skips it too);
+        // the test is the same in every thread of the warpgroup
+        VSRCIC_DO(SLOT_OK(s), mbar_wait(&full[s], (g / stages) & 1));
         const uint32_t a = smem_addr(ring + s * STAGE) + wg * 64 * 128;
         const uint32_t b = smem_addr(ring + s * STAGE) + PA * T_A_BYTES;
         wgmma_fence();
@@ -1185,21 +1360,28 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
             // A: K-major, 8-row groups 1024 bytes apart, 16 deep = 32
             // bytes on; B: MN-major, 64-column boxes 8192 bytes apart,
             // 8-deep groups 1024 apart, 16 deep = 2048 bytes on
-            wgmma_tile<BN>(
-                d, sw128_desc(a + ORD.h[q] * T_A_BYTES + kk * 32, 16, 1024),
-                sw128_desc(b + ORD.w[q] * NB * T_B_BOX + kk * 2048, T_B_BOX,
-                           1024),
-                ((TOTAL ? 0 : kb) | q | kk) != 0);
+            VSRCIC_DO(
+                SLOT_OK(s) &&
+                    BOX_OK(s, wg * 64 * 128 + ORD.h[q] * T_A_BYTES,
+                           64 * 128) &&
+                    BOX_OK(s, PA * T_A_BYTES + ORD.w[q] * NB * T_B_BOX,
+                           NB * T_B_BOX),
+                wgmma_tile<BN>(
+                    d, sw128_desc(a + ORD.h[q] * T_A_BYTES + kk * 32, 16,
+                                  1024),
+                    sw128_desc(b + ORD.w[q] * NB * T_B_BOX + kk * 2048,
+                               T_B_BOX, 1024),
+                    ((TOTAL ? 0 : kb) | q | kk) != 0));
         wgmma_commit();
         if constexpr (TOTAL) {
           wgmma_wait<0>();  // this stage's products are done
           fence_acc(d);
-          if (lane == 0) release(&empty[s], rank, C);
+          if (lane == 0) VSRCIC_DO(SLOT_OK(s), release(&empty[s], rank, C));
 #pragma unroll
           for (int c = 0; c < NACC; ++c) t[c] += d[c];
         } else {
           wgmma_wait<1>();  // the previous stage's products are done
-          if (kb > 0 && lane == 0)
+          if (kb > 0 && lane == 0 VSRCIC_AND(SLOT_OK((g - 1) % stages)))
             release(&empty[(g - 1) % stages], rank, C);
         }
       }
@@ -1211,12 +1393,15 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
       } else {
         wgmma_wait<0>();
         fence_acc(d);
-        if (lane == 0) release(&empty[(g - 1) % stages], rank, C);
+        if (lane == 0 VSRCIC_AND(SLOT_OK((g - 1) % stages)))
+          release(&empty[(g - 1) % stages], rank, C);
         finish_tile<BN>(d, bias, lane, row0, vt, n_vt, V, rows, k, part_vals,
                         part_ids, part_m, part_s);
       }
     }
   }
+#undef SLOT_OK
+#undef BOX_OK
 }
 
 // The exact split of an f32 value x into three bf16 values, x = hi + mid +
@@ -1261,13 +1446,26 @@ vocab_split_kernel(const float* __restrict__ h2, int rows, int R, int R8,
     const float* row = h2 + (size_t)r * R;
     float x[8];
     if (vec) {
-      const float4 x0 = *reinterpret_cast<const float4*>(row + c0);
-      const float4 x1 = *reinterpret_cast<const float4*>(row + c0 + 4);
+#define H2_8 \
+  VSRCIC_IN(kVocabSplit, kGlobal, kBH2, (long long)r * R + c0, 8, \
+        (long long)rows * R)
+      const float4 x0 =
+          VSRCIC_LD(H2_8, *reinterpret_cast<const float4*>(row + c0),
+                    make_float4(0.f, 0.f, 0.f, 0.f));
+      const float4 x1 =
+          VSRCIC_LD(H2_8, *reinterpret_cast<const float4*>(row + c0 + 4),
+                    make_float4(0.f, 0.f, 0.f, 0.f));
+#undef H2_8
       x[0] = x0.x, x[1] = x0.y, x[2] = x0.z, x[3] = x0.w;
       x[4] = x1.x, x[5] = x1.y, x[6] = x1.z, x[7] = x1.w;
     } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) x[e] = c0 + e < R ? row[c0 + e] : 0.f;
+      for (int e = 0; e < 8; ++e)
+        x[e] = c0 + e < R VSRCIC_AND(VSRCIC_IN(kVocabSplit, kGlobal, kBH2,
+                                           (long long)r * R + c0 + e, 1,
+                                           (long long)rows * R))
+                   ? row[c0 + e]
+                   : 0.f;
     }
     uint32_t hv[4], mv[4], lv[4];
 #pragma unroll
@@ -1279,9 +1477,14 @@ vocab_split_kernel(const float* __restrict__ h2, int rows, int R, int R8,
       mv[e] = m0 | (m1 << 16);
       lv[e] = l0 | (l1 << 16);
     }
-    planes[t] = make_uint4(hv[0], hv[1], hv[2], hv[3]);
-    planes[plane + t] = make_uint4(mv[0], mv[1], mv[2], mv[3]);
-    planes[2 * plane + t] = make_uint4(lv[0], lv[1], lv[2], lv[3]);
+#define PLANES_OK \
+  VSRCIC_IN(kVocabSplit, kGlobal, kBPlanes, 2 * plane + t, 1, 3 * plane)
+    VSRCIC_DO(PLANES_OK, planes[t] = make_uint4(hv[0], hv[1], hv[2], hv[3]));
+    VSRCIC_DO(PLANES_OK,
+              planes[plane + t] = make_uint4(mv[0], mv[1], mv[2], mv[3]));
+    VSRCIC_DO(PLANES_OK,
+              planes[2 * plane + t] = make_uint4(lv[0], lv[1], lv[2], lv[3]));
+#undef PLANES_OK
   }
 }
 
@@ -1303,13 +1506,18 @@ vocab_merge_kernel(int rows, int k, int n_tiles, int by_row,
     li[j] = NO_ID;
   }
   float m = -INFINITY, s = 0.f;
+#define N_PART ((long long)n_tiles * rows)
   for (int t = lane; t < n_tiles; t += 32) {
     const size_t prow =
         by_row ? (size_t)r * n_tiles + t : (size_t)t * rows + r;
-    lse_combine(m, s, part_m[prow], part_s[prow]);
+#define PART_OK VSRCIC_IN(kVocabMerge, kGlobal, kBPart, prow, 1, N_PART)
+#define PARTK_OK \
+  VSRCIC_IN(kVocabMerge, kGlobal, kBPartK, prow * k + q, 1, N_PART * k)
+    lse_combine(m, s, VSRCIC_LD(PART_OK, part_m[prow], 0.f),
+                VSRCIC_LD(PART_OK, part_s[prow], 0.f));
     for (int q = 0; q < k; ++q) {
-      int xk = order_key(part_vals[prow * k + q]);
-      int xi = part_ids[prow * k + q];
+      int xk = order_key(VSRCIC_LD(PARTK_OK, part_vals[prow * k + q], 0.f));
+      int xi = VSRCIC_LD(PARTK_OK, part_ids[prow * k + q], 0);
       if (!better(xk, xi, lk[K_MAX - 1], li[K_MAX - 1])) break;  // sorted
 #pragma unroll
       for (int j = 0; j < K_MAX; ++j) {
@@ -1338,12 +1546,18 @@ vocab_merge_kernel(int rows, int k, int n_tiles, int by_row,
       lk[K_MAX - 1] = KEY_LOW;
       li[K_MAX - 1] = NO_ID;
     }
-    if (lane == 0) {
+    if (lane == 0 VSRCIC_AND(VSRCIC_IN(kVocabMerge, kGlobal, kBOutK,
+                                   (long long)r * k + q, 1,
+                                   (long long)rows * k))) {
       vals[(size_t)r * k + q] = key_value(bk);
       ids[(size_t)r * k + q] = bi;
     }
   }
-  if (lane == 0) lse[r] = lse_final(m, s);
+  if (lane == 0 VSRCIC_AND(VSRCIC_IN(kVocabMerge, kGlobal, kBLse, r, 1, rows)))
+    lse[r] = lse_final(m, s);
+#undef N_PART
+#undef PART_OK
+#undef PARTK_OK
 }
 
 // stage 2 (both operand types): partials (tile, row) or, `by_row`, (row,
@@ -1452,11 +1666,16 @@ cudaError_t launch_tma(const __nv_bfloat16* h2, const __nv_bfloat16* w,
   const int R8 = PA == 1 ? R : (R + 7) / 8 * 8;
   // the split's planes: each CTA of a cluster copies its share of a box's
   // rows
+  // the extents the entry point's contract states: h2's PA planes of (rows,
+  // R8), contiguous; W_t's rows ldw apart, or its (PB, R, ldw) planes
+  const long long w_extent =
+      PB == 1 ? (long long)(R - 1) * ldw + V : (long long)PB * R * ldw;
   if (!encode_planes(&tm_h2, h2, 2, PA, rows, R8,
-                     PA == 1 ? T_BM : T_BM / cluster, T_BK,
+                     PA == 1 ? T_BM : T_BM / cluster, T_BK, kVocabTma,
+                     kBMapH2, 2LL * PA * rows * R8,
                      CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !encode_planes(&tm_w, w, 2, PB, R, V, T_BK, 64,
-                     CU_TENSOR_MAP_SWIZZLE_128B, ldw))
+      !encode_planes(&tm_w, w, 2, PB, R, V, T_BK, 64, kVocabTma, kBMapW,
+                     2 * w_extent, CU_TENSOR_MAP_SWIZZLE_128B, ldw))
     return cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = tma_config(grid, cluster, smem, stream,
@@ -1623,3 +1842,5 @@ extern "C" int vsrcic_vocab_tma_clusters(int smem, int planes, int w_planes,
 extern "C" const char* vsrcic_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+VSRCIC_CHECK_RECORDS(vocab)

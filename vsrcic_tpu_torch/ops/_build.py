@@ -14,6 +14,13 @@ compiler is rebuilt, never loaded. A failed build raises. Libraries and
 stamps are written into temporary files and moved into place, so that
 processes building at once (the ranks of a data-parallel run) never read
 half of either.
+
+`library(checked=True)` builds the same sources with `CHECKED_FLAGS`
+(`-DVSRCIC_CHECKED=1 -lineinfo`: every access of every kernel tested
+against its bound, csrc/check.cuh) into `CHECKED_LIB_NAME`, under a stamp
+of its own, at first use. Only the memory check asks for it
+(`tools/memcheck.py`, chip_smoke.py's memcheck phase, the card tests); the
+main path loads the default library.
 """
 from __future__ import annotations
 
@@ -33,6 +40,8 @@ BUILD = PKG / "build"
 LIB_NAME = "libvsrcic_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CHECKED_LIB_NAME = "libvsrcic_kernels_checked.so"
+CHECKED_FLAGS = NVCC_FLAGS + ["-DVSRCIC_CHECKED=1", "-lineinfo"]
 CXX = "c++"
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-pthread", "-shared"]
 
@@ -52,10 +61,19 @@ SIGNATURES = {
     "vsrcic_vocab_tma_clusters": [I, I, I, P],
     "vsrcic_sinkhorn": [P, I, I, I, F, F, P, P],
 }
+# the checked build's records (csrc/check.cu)
+CHECK_SIGNATURES = {
+    "vsrcic_check_read": [P],
+    "vsrcic_check_reset": [],
+    "vsrcic_check_cut": [I, I],
+}
 
-# seconds the last build took in this process (0.0 when it was cached)
+# seconds the last default build took in this process (0.0 when it was
+# cached) and what nvcc said; the same of the checked build
 last_build_seconds = 0.0
 last_build_log = ""
+last_checked_build_seconds = 0.0
+last_checked_build_log = ""
 last_host_build_seconds = 0.0
 
 
@@ -99,12 +117,19 @@ def _stamp(parts, sources) -> str:
     return h.hexdigest()[:16]
 
 
-def source_hash(compiler: str) -> str:
+def _flavour(checked):
+    """(library name, nvcc flags) of the default or the checked build."""
+    return ((CHECKED_LIB_NAME, CHECKED_FLAGS) if checked
+            else (LIB_NAME, NVCC_FLAGS))
+
+
+def source_hash(compiler: str, checked: bool = False) -> str:
     """The CUDA library's stamp, given `compiler_identity(nvcc)`: the
-    sources and the headers they include (`csrc/*.cuh`)."""
+    sources and the headers they include (`csrc/*.cuh`), under the flags
+    of the default or the checked build."""
     import torch
-    return _stamp([" ".join(NVCC_FLAGS), compiler, platform.machine(),
-                   str(torch.version.cuda)],
+    return _stamp([" ".join(_flavour(checked)[1]), compiler,
+                   platform.machine(), str(torch.version.cuda)],
                   _sources() + sorted(CSRC.glob("*.cuh")))
 
 
@@ -123,16 +148,21 @@ def write_stamp(stamp: Path, digest: str) -> None:
         raise
 
 
-def build() -> Path:
-    """Compile and link the library unless a build of these sources exists;
-    returns its path."""
+def build(checked: bool = False) -> Path:
+    """Compile and link the library (the default build, or the checked
+    one) unless a build of these sources exists; returns its path."""
     global last_build_seconds, last_build_log
+    global last_checked_build_seconds, last_checked_build_log
     nvcc = _nvcc()
-    digest = source_hash(compiler_identity(nvcc))
-    lib = BUILD / LIB_NAME
-    stamp = BUILD / (LIB_NAME + ".sha")
+    name, flags = _flavour(checked)
+    digest = source_hash(compiler_identity(nvcc), checked)
+    lib = BUILD / name
+    stamp = BUILD / (name + ".sha")
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
-        last_build_seconds = 0.0
+        if checked:
+            last_checked_build_seconds = 0.0
+        else:
+            last_build_seconds = 0.0
         return lib
     BUILD.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -140,7 +170,7 @@ def build() -> Path:
         procs = []
         for src in _sources():
             obj = Path(tmp) / (src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            cmd = [nvcc, *flags, "-c", str(src), "-o", str(obj)]
             procs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -151,7 +181,7 @@ def build() -> Path:
             if p.returncode:
                 raise RuntimeError("nvcc failed (%d): %s\n%s"
                                    % (p.returncode, " ".join(cmd), out))
-        tmp_lib = Path(tmp) / LIB_NAME
+        tmp_lib = Path(tmp) / name
         cmd = [nvcc, "-shared", "-o", str(tmp_lib),
                *[str(obj) for _, obj, _ in procs]]
         res = subprocess.run(cmd, stdout=subprocess.PIPE,
@@ -161,8 +191,12 @@ def build() -> Path:
                                % (res.returncode, " ".join(cmd), res.stdout))
         os.replace(tmp_lib, lib)
     write_stamp(stamp, digest)
-    last_build_seconds = time.perf_counter() - t0
-    last_build_log = "".join(logs)
+    if checked:
+        last_checked_build_seconds = time.perf_counter() - t0
+        last_checked_build_log = "".join(logs)
+    else:
+        last_build_seconds = time.perf_counter() - t0
+        last_build_log = "".join(logs)
     return lib
 
 
@@ -198,10 +232,12 @@ def host_library(stem: str) -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built first if needed)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
+def library(checked: bool = False) -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed): the default
+    build, or the checked one, which also has CHECK_SIGNATURES."""
+    lib = ctypes.CDLL(str(build(checked)))
+    for name, argtypes in (SIGNATURES | (CHECK_SIGNATURES if checked
+                                         else {})).items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -217,10 +253,11 @@ def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def check(err: int, name: str) -> None:
-    """Raise on a refused or failed launch (cudaGetLastError() != 0)."""
+def check(err: int, name: str, lib=None) -> None:
+    """Raise on a refused or failed launch (cudaGetLastError() != 0) of
+    `lib` (default: the default library)."""
     if err:
-        msg = library().vsrcic_error_string(err).decode()
+        msg = (lib or library()).vsrcic_error_string(err).decode()
         raise RuntimeError("%s: CUDA launch failed: error %d (%s)"
                            % (name, err, msg))
 

@@ -197,8 +197,8 @@ def fused_group_attention(item, ctrl, ha, sent_w, sent_mask, fc_sentinel,
         ha, fc_sentinel, det_groups, groups_proj))
     plan = fused_launch_plan(rows, m, d, a, det_groups.element_size(),
                              aligned, _build.sm_count(dev))
-    _launch(plan, item, ctrl, ha, sent_w, sent_mask, fc_sentinel, att_a_vec,
-            det_groups, groups_proj, out, gsum)
+    _launch(_build.library(), plan, item, ctrl, ha, sent_w, sent_mask,
+            fc_sentinel, att_a_vec, det_groups, groups_proj, out, gsum)
     fused_group_attention.launches += 1
     return out, gsum
 
@@ -206,13 +206,15 @@ def fused_group_attention(item, ctrl, ha, sent_w, sent_mask, fc_sentinel,
 fused_group_attention.launches = 0
 
 
-def _launch(plan, item, ctrl, ha, sent_w, sent_mask, fc_sentinel, att_a_vec,
-            det_groups, groups_proj, out, gsum):
-    """Launch the kernel with `plan` on tensors `fused_group_attention` has
-    checked (uncounted: the wrapper counts). Raises if the card refuses the
-    launch."""
+def _launch(lib, plan, item, ctrl, ha, sent_w, sent_mask, fc_sentinel,
+            att_a_vec, det_groups, groups_proj, out, gsum):
+    """Launch the kernel of library `lib` (`_build.library()`, or the
+    checked build) with `plan` on tensors `fused_group_attention` has
+    checked, into the caller's `out` and `gsum` (uncounted: the wrapper
+    counts; tools/memcheck.py passes guarded buffers). Raises if the card
+    refuses the launch."""
     b, l, m, d = det_groups.shape
-    err = _build.library().vsrcic_fused_attention(
+    err = lib.vsrcic_fused_attention(
         item.data_ptr(), ctrl.data_ptr(), ha.data_ptr(), sent_w.data_ptr(),
         sent_mask.data_ptr(), fc_sentinel.data_ptr(), att_a_vec.data_ptr(),
         det_groups.data_ptr(), groups_proj.data_ptr(),
@@ -221,4 +223,4 @@ def _launch(plan, item, ctrl, ha, sent_w, sent_mask, fc_sentinel, att_a_vec,
         plan.d_slice, plan.a_slice, plan.box_d, plan.box_a, plan.smem_bytes,
         int(plan.bulk), out.data_ptr(), gsum.data_ptr(),
         torch.cuda.current_stream(ha.device).cuda_stream)
-    _build.check(err, "fused_group_attention")
+    _build.check(err, "fused_group_attention", lib)

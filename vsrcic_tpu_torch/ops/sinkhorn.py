@@ -109,16 +109,24 @@ def sinkhorn_normalize(x, n_iters: int, tau: float):
     out = torch.empty_like(x)
     if s == 0 or n == 0:
         return out
-    lib = _build.library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.vsrcic_sinkhorn(x.data_ptr(), s, n, int(n_iters), tau, EPS,
-                              out.data_ptr(), stream)
-    _build.check(err, "sinkhorn_normalize")
+    _launch(_build.library(), x, n_iters, tau, out)
     sinkhorn_normalize.launches += 1
     return out
 
 
 sinkhorn_normalize.launches = 0
+
+
+def _launch(lib, x, n_iters: int, tau: float, out):
+    """Launch the kernel of library `lib` (`_build.library()`, or the
+    checked build) on a checked x (S, n, n), S and n >= 1, into the
+    caller's `out` (uncounted: the wrapper counts; tools/memcheck.py
+    passes guarded buffers). Raises if the card refuses the launch."""
+    s, n, _ = x.shape
+    err = lib.vsrcic_sinkhorn(x.data_ptr(), s, n, int(n_iters), tau, EPS,
+                              out.data_ptr(),
+                              torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "sinkhorn_normalize", lib)
 
 
 class SinkhornNormalize(torch.autograd.Function):

@@ -367,14 +367,25 @@ def split_bf16x3(h2):
                          dtype=torch.bfloat16, device=h2.device)
     if rows == 0:
         return planes
-    _build.check(_build.library().vsrcic_vocab_split(
-        h2.data_ptr(), rows, r, planes.data_ptr(),
-        torch.cuda.current_stream(h2.device).cuda_stream), "split_bf16x3")
+    _split_launch(_build.library(), h2, planes)
     split_bf16x3.launches += 1
     return planes
 
 
 split_bf16x3.launches = 0
+
+
+def _split_launch(lib, h2, planes):
+    """Launch the split pass of library `lib` (`_build.library()`, or the
+    checked build) on a checked f32 h2 (rows >= 1, R) into the caller's
+    `planes` (3, rows, R8), 16-byte aligned (uncounted: `split_bf16x3`
+    counts; tools/memcheck.py passes guarded planes). Raises if the card
+    refuses the launch."""
+    rows, r = h2.shape
+    _build.check(lib.vsrcic_vocab_split(
+        h2.data_ptr(), rows, r, planes.data_ptr(),
+        torch.cuda.current_stream(h2.device).cuda_stream), "split_bf16x3",
+        lib)
 
 
 def padded_table(w_t, dtype=None):
@@ -457,7 +468,7 @@ def vocab_topk_lse(h2, w_t, bias, k: int, w_planes=None, finite_table=True):
             w_planes = table_planes(w_t)
         _build.check_tensor(w_planes, "w_planes",
                             (SPLIT_PLANES, r, v + -v % 8), bf16, dev)
-    out = _launch(plan, h2, w_t, bias, k, w_planes)
+    out = _run(plan, h2, w_t, bias, k, w_planes)
     vocab_topk_lse.launches += 1
     vocab_topk_lse.launches_bf16 += plan.route in ("tma", "mma_sync")
     vocab_topk_lse.launches_bf16_tma += plan.route == "tma"
@@ -477,42 +488,62 @@ vocab_topk_lse.launches_split_w = 0
 vocab_topk_lse.launches_sgemm = 0
 
 
-def _launch(plan, h2, w_t, bias, k, w_planes=None):
-    """Launch `plan`'s route on tensors `vocab_topk_lse` has checked: the
-    f32 entry point ("sgemm"), or the bf16 one ("tma", "mma_sync" and the
-    split routes) on h2, or on the planes of `split_bf16x3(h2)` where the
-    plan takes three, and on w_t, or on `w_planes` where it takes three
-    (the split pass counts itself, stage 1 and the merge are uncounted:
-    the wrapper counts; tools/ab_vocab.py's sweep passes other plans).
-    Raises if the card refuses a launch."""
-    dev = h2.device
+def vocab_buffers(plan, rows, v, k, device, empty=torch.empty):
+    """The buffers `_launch` writes for `plan` on (rows, V), top k, made by
+    `empty(shape, dtype=, device=)` (tools/memcheck.py passes guarded
+    ones): ((vals (rows, k) f32, ids (rows, k) int32, lse (rows, 1) f32),
+    (the partials of stage 1: part_vals, part_ids (lead, k), part_m,
+    part_s (lead))): each vocab tile's partial top-k and (max, sum) of each
+    row, by tile, lead (ceil(V / plan.tile_n), rows), or by row on the TMA
+    kernel, lead (rows, tiles): its merge reads a row's partials at
+    once."""
+    f32, i32 = torch.float32, torch.int32
+    outs = (empty((rows, k), dtype=f32, device=device),
+            empty((rows, k), dtype=i32, device=device),
+            empty((rows, 1), dtype=f32, device=device))
+    n_tiles = math.ceil(v / plan.tile_n)
+    lead = (rows, n_tiles) if plan.route in PLANES else (n_tiles, rows)
+    parts = (empty(lead + (k,), dtype=f32, device=device),
+             empty(lead + (k,), dtype=i32, device=device),
+             empty(lead, dtype=f32, device=device),
+             empty(lead, dtype=f32, device=device))
+    return outs, parts
+
+
+def _run(plan, h2, w_t, bias, k, w_planes=None):
+    """`plan`'s route on the default library, on tensors `vocab_topk_lse`
+    has checked (or tools/ab_vocab.py's sweep's plans): its buffers
+    allocated, h2 split first where the plan takes its planes
+    (`split_bf16x3`, which counts itself); -> (vals, ids, lse). Stage 1 and
+    the merge are uncounted: the wrapper counts."""
+    rows = h2.shape[0]
+    h2_planes = split_bf16x3(h2) if plan.planes > 1 else None
+    outs, parts = vocab_buffers(plan, rows, w_t.shape[-1], k, h2.device)
+    _launch(_build.library(), plan, h2, w_t, bias, k, w_planes, h2_planes,
+            parts, outs)
+    return outs
+
+
+def _launch(lib, plan, h2, w_t, bias, k, w_planes, h2_planes, parts, outs):
+    """Launch `plan`'s route of library `lib` (`_build.library()`, or the
+    checked build): the f32 entry point ("sgemm") on h2 and w_t, or the
+    bf16 one ("tma", "mma_sync" and the split routes) on h2, or on
+    `h2_planes` (`split_bf16x3`'s (3, rows, R8)) where the plan takes
+    three, and on w_t, or on `w_planes` ((3, R, V8)) where it takes three;
+    into the caller's `parts` and `outs` (`vocab_buffers`' shapes;
+    tools/memcheck.py passes guarded ones). Uncounted. Raises if the card
+    refuses a launch."""
     rows, r = h2.shape
     v = w_t.shape[-1]
     ldw = w_t.stride(0) if r > 1 else v + -v % 8
-    f32 = torch.float32
-    vals = torch.empty((rows, k), dtype=f32, device=dev)
-    ids = torch.empty((rows, k), dtype=torch.int32, device=dev)
-    lse = torch.empty((rows, 1), dtype=f32, device=dev)
-    n_tiles = math.ceil(v / plan.tile_n)
-    # each vocab tile's partial top-k and (max, sum) of each row: by tile,
-    # or by row on the TMA kernel (its merge reads a row's partials at once)
-    by_row = plan.route in PLANES
-    lead = (rows, n_tiles) if by_row else (n_tiles, rows)
-    part_vals = torch.empty(lead + (k,), dtype=f32, device=dev)
-    part_ids = torch.empty(lead + (k,), dtype=torch.int32, device=dev)
-    part_m = torch.empty(lead, dtype=f32, device=dev)
-    part_s = torch.empty(lead, dtype=f32, device=dev)
-    lib = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    parts = (part_vals.data_ptr(), part_ids.data_ptr(), part_m.data_ptr(),
-             part_s.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-             lse.data_ptr(), stream)
+    stream = torch.cuda.current_stream(h2.device).cuda_stream
+    ptrs = tuple(t.data_ptr() for t in parts + outs) + (stream,)
     if plan.route == "sgemm":
         err = lib.vsrcic_vocab_topk(
             h2.data_ptr(), w_t.data_ptr(), bias.data_ptr(),
-            int(w_t.dtype == torch.bfloat16), rows, r, v, ldw, k, *parts)
+            int(w_t.dtype == torch.bfloat16), rows, r, v, ldw, k, *ptrs)
     else:
-        lhs = split_bf16x3(h2) if plan.planes > 1 else h2
+        lhs = h2_planes if plan.planes > 1 else h2
         rhs = w_planes if plan.w_planes > 1 else w_t
         if plan.w_planes > 1:
             ldw = w_planes.shape[-1]
@@ -520,6 +551,5 @@ def _launch(plan, h2, w_t, bias, k, w_planes=None):
             lhs.data_ptr(), rhs.data_ptr(), bias.data_ptr(), rows, r, v, ldw,
             k, int(plan.route != "mma_sync"), plan.tile_n, plan.planes,
             plan.w_planes, plan.stages, plan.cluster, plan.grid,
-            plan.smem_bytes, *parts)
-    _build.check(err, "vocab_topk_lse")
-    return vals, ids, lse
+            plan.smem_bytes, *ptrs)
+    _build.check(err, "vocab_topk_lse", lib)

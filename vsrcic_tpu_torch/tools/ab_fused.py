@@ -105,7 +105,7 @@ def child(repo, sweep):
             got = (torch.empty_like(want[0]), torch.empty_like(want[1]))
 
             def call():
-                fa._launch(plan, *args, *got)
+                fa._launch(_build.library(), plan, *args, *got)
             call()
             ok = _close(got, want)
             recs.append(dict(cluster=plan.cluster, batch=plan.batch,

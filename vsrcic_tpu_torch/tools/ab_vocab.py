@@ -34,7 +34,7 @@ SPLIT_SWEEP_STAGES ("split9": two, all that fit), each also split by the
 profiler into its stages and
 held to the plain version on randn inputs too (logits ~30, where the
 tensor cores' truncating sums drift the most); its launches go through
-the private `_launch`, which the wrapper's counts do not see.
+the private `_run`, which the wrapper's counts do not see.
 Every measurement prints one JSON line; all of them go to
 `chiprun_out/ab_vocab.json` (the sweep's to `ab_vocab_sweep.json`) beside
 the card's name and power limit.
@@ -112,7 +112,7 @@ def _randn_err(plan, dtype, table, k, rows=512, r=1000, v=10000):
     if plan.route != "mma_sync":
         plan = vt._tma_plan(plan.route, rows, v, plan.grid, plan.stages,
                             None, plan.planes, plan.w_planes)
-    got = vt._launch(plan, h2, wt, b, k, planes)
+    got = vt._run(plan, h2, wt, b, k, planes)
     want = vt.vocab_topk_lse_plain(h2, wt, b, k)
     return max(float(((g - w).abs() / w.abs().clamp_min(1e-30)).max())
                for g, w in ((got[0], want[0]), (got[2], want[2])))
@@ -191,7 +191,7 @@ def child(repo, sweep, beam=False):
         wt, wp = _tables(vt, w, table)
         for plan in dict.fromkeys([picked] + others):
             def call():
-                return vt._launch(plan, lhs, wt, b, k, wp)
+                return vt._run(plan, lhs, wt, b, k, wp)
             rec = _held(smoke, lhs, wt, b, k, call)
             rec["max_rel_err_randn"] = _randn_err(plan, lhs.dtype, table, k)
             rec.update(route=plan.route, cluster=plan.cluster,
