@@ -18,9 +18,14 @@ same checkpoints.
 N cards, or N processes on the CPU under `--platform cpu`): every rank reads
 every batch and decodes its block, and rank 0 alone prints, dumps and scores
 the gathered captions, in the dataset's order.
+
+After the decode one line on standard error gives the pipeline's spans
+(`utils/observability.py`; README.md lists them): host ms a batch by span,
+self time in brackets, the spans that wait on the device marked.
 """
 from __future__ import annotations
 
+import sys
 import time
 
 import numpy as np
@@ -87,6 +92,7 @@ def _run(opt):
                                                   init_sinkhorn_params)
     from vsrcic_tpu_torch.pipelines import CaptionJob, EvalPipeline
     from vsrcic_tpu_torch.text import dedup_join, ptb_tokenize
+    from vsrcic_tpu_torch.utils import observability as obs
 
     world = build_world(opt)
     tf = world.text_field
@@ -230,11 +236,15 @@ def _run(opt):
                     gt_captions.append(cap)
             yield np.stack(det_per_job), jobs
 
+    since, n_batches = time.perf_counter_ns(), 0
     for words in pipe.run_stream(batch_stream()):
         predictions.extend(list(words))
+        n_batches += 1
     dt = time.time() - t0
     print("decoded %d captions in %.2fs (%.1f captions/s)"
           % (len(predictions), dt, len(predictions) / max(dt, 1e-9)))
+    print(obs.summary_line(obs.summary(since), n_batches, "batch"),
+          file=sys.stderr)
     if mesh is not None and mesh.rank:
         return None
 

@@ -29,10 +29,15 @@ dropped, as in JAX; SCST: the trainer splits the whole batch). Rank 0
 alone prints, writes the journal and the checkpoints and validates; the
 others wait at a barrier before reading a checkpoint and take rank 0's
 decision to stop.
+
+After each epoch's loss line, one line on standard error gives the step's
+spans (`utils/observability.py`; README.md lists them): host ms a step by
+span, self time in brackets, the spans that wait on the device marked.
 """
 from __future__ import annotations
 
 import functools
+import sys
 import time
 
 import numpy as np
@@ -87,7 +92,8 @@ def _run(opt):
     device = mesh.device if mesh else resolve_device(opt.platform)
     rank0 = mesh is None or mesh.rank == 0
     seed_all(opt.seed)
-    from vsrcic_tpu_torch.utils.observability import MetricLogger
+    from vsrcic_tpu_torch.utils.observability import (MetricLogger, summary,
+                                                      summary_line)
     mlog = MetricLogger(opt.log_dir if rank0 else None)
 
     import torch
@@ -236,6 +242,7 @@ def _run(opt):
         if not opt.sample_rl:
             trainer.set_lr(step_lr(opt.lr, e, opt.step_size, opt.gamma))
         t0 = time.time()
+        since = time.perf_counter_ns()
         epoch_baselines = None
         if opt.sample_rl and opt.scst_baseline == "epoch":
             # frozen epoch-start greedy baseline pass (ref train.py:122-138);
@@ -275,6 +282,7 @@ def _run(opt):
                 break
         print("epoch %d train loss %.4f (%.1fs)"
               % (e, running / max(n_it, 1), time.time() - t0))
+        print(summary_line(summary(since), n_it, "step"), file=sys.stderr)
         if not rank0:
             if broadcast_object(None, mesh):
                 break

@@ -15,7 +15,9 @@ the JAX engine:
   * records that track beam slots, not ancestries (ref :273).
 
 `step_fn(state, prev_word, prev_gate, t0) -> ((word_logp, gate_logp), state)`
-runs over the flattened (batch*beam) leading dim.
+runs over the flattened (batch*beam) leading dim. Each step, t = 0 too,
+runs inside a span `beam.step` of the recorder (`utils/observability.py`)
+with the count `t`.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from vsrcic_tpu_torch.core.nn import top_k, total_order_key
+from vsrcic_tpu_torch.utils import observability as obs
 
 FROZEN_SEA = -999.0   # ref CaptioningModel.py:231-235
 
@@ -90,50 +93,52 @@ def beam_search_joint(step_fn: Callable, state, batch: int, beam_size: int,
         return (sel_logprob,) + _split_flat(idx, v2)
 
     # ----- t = 0: single live beam ------------------------------------------
-    zeros_bk = torch.zeros((batch * k,), dtype=torch.long, device=dev)
-    (w_logp, g_logp), state = step_fn(state, zeros_bk, zeros_bk, True)
-    vocab = w_logp.shape[-1]
-    w = w_logp.reshape(batch, k, vocab)
-    g = g_logp.reshape(batch, k, 2)
-    seq_logprob, sel_beam, word, gate = joint_topk(
-        torch.zeros((batch, k), device=dev), w, g, beam0_only=True)
-    state = _gather_beam(state, sel_beam, batch, k)
+    with obs.span("beam.step"):
+        zeros_bk = torch.zeros((batch * k,), dtype=torch.long, device=dev)
+        (w_logp, g_logp), state = step_fn(state, zeros_bk, zeros_bk, True)
+        vocab = w_logp.shape[-1]
+        w = w_logp.reshape(batch, k, vocab)
+        g = g_logp.reshape(batch, k, 2)
+        seq_logprob, sel_beam, word, gate = joint_topk(
+            torch.zeros((batch, k), device=dev), w, g, beam0_only=True)
+        state = _gather_beam(state, sel_beam, batch, k)
 
-    words = _history(seq_len, batch, k, dev, word, torch.long)
-    gates = _history(seq_len, batch, k, dev, gate, torch.long)
-    word_logps = _history(seq_len, batch, k, dev, _record(w, sel_beam, word),
-                          torch.float32)
-    gate_logps = _history(seq_len, batch, k, dev, _record(g, sel_beam, gate),
-                          torch.float32)
-    mask_w = torch.ones((batch, k), device=dev)
-    mask_g = torch.ones((batch, k), device=dev)
+        words = _history(seq_len, batch, k, dev, word, torch.long)
+        gates = _history(seq_len, batch, k, dev, gate, torch.long)
+        word_logps = _history(seq_len, batch, k, dev,
+                              _record(w, sel_beam, word), torch.float32)
+        gate_logps = _history(seq_len, batch, k, dev,
+                              _record(g, sel_beam, gate), torch.float32)
+        mask_w = torch.ones((batch, k), device=dev)
+        mask_g = torch.ones((batch, k), device=dev)
 
     # ----- t >= 1 ------------------------------------------------------------
     for t in range(1, seq_len):
-        (w_logp, g_logp), state = step_fn(
-            state, word.reshape(-1), gate.reshape(-1), False)
-        w = w_logp.reshape(batch, k, vocab)
-        g = g_logp.reshape(batch, k, 2)
+        with obs.span("beam.step"):
+            (w_logp, g_logp), state = step_fn(
+                state, word.reshape(-1), gate.reshape(-1), False)
+            w = w_logp.reshape(batch, k, vocab)
+            g = g_logp.reshape(batch, k, 2)
 
-        # EOS masks from previously selected outputs (ref :228-229)
-        mask_w = mask_w * (word != eos_word)
-        mask_g = mask_g * (gate != eos_gate)
-        mask_full = torch.clamp(mask_w + mask_g, 0.0, 1.0)
-        seq_logprob, sel_beam, word, gate = joint_topk(
-            seq_logprob, w, g, frozen=(mask_full == 0.0))
+            # EOS masks from previously selected outputs (ref :228-229)
+            mask_w = mask_w * (word != eos_word)
+            mask_g = mask_g * (gate != eos_gate)
+            mask_full = torch.clamp(mask_w + mask_g, 0.0, 1.0)
+            seq_logprob, sel_beam, word, gate = joint_topk(
+                seq_logprob, w, g, frozen=(mask_full == 0.0))
 
-        state = _gather_beam(state, sel_beam, batch, k)
-        mask_w = torch.gather(mask_w, 1, sel_beam)
-        mask_g = torch.gather(mask_g, 1, sel_beam)
-        hist = sel_beam[:, :, None].expand(-1, -1, seq_len)
-        words = torch.gather(words, 1, hist)
-        gates = torch.gather(gates, 1, hist)
-        words[:, :, t] = word
-        gates[:, :, t] = gate
-        # (w * mask)[b, sel, word] == w[b, sel, word] * mask[b, sel] with
-        # the masks already gathered along sel_beam
-        word_logps[:, :, t] = _record(w, sel_beam, word) * mask_w
-        gate_logps[:, :, t] = _record(g, sel_beam, gate) * mask_g
+            state = _gather_beam(state, sel_beam, batch, k)
+            mask_w = torch.gather(mask_w, 1, sel_beam)
+            mask_g = torch.gather(mask_g, 1, sel_beam)
+            hist = sel_beam[:, :, None].expand(-1, -1, seq_len)
+            words = torch.gather(words, 1, hist)
+            gates = torch.gather(gates, 1, hist)
+            words[:, :, t] = word
+            gates[:, :, t] = gate
+            # (w * mask)[b, sel, word] == w[b, sel, word] * mask[b, sel]
+            # with the masks already gathered along sel_beam
+            word_logps[:, :, t] = _record(w, sel_beam, word) * mask_w
+            gate_logps[:, :, t] = _record(g, sel_beam, gate) * mask_g
 
     # top_k leaves beams sorted by score desc (ref sorts again :279)
     return BeamResult(words, gates, word_logps, gate_logps, seq_logprob)
@@ -205,42 +210,45 @@ def beam_search_joint_candidates(step_fn: Callable, state, batch: int,
                 flat_glp[:, :k])
 
     # ----- t = 0 -------------------------------------------------------------
-    zeros_bk = torch.zeros((batch * k,), dtype=torch.long, device=dev)
-    (c_ids, c_wlp, g_logp), state = step_fn(state, zeros_bk, zeros_bk, True)
-    C = c_ids.shape[-1]
-    (seq_logprob, sel_beam, word, gate, w_lp0, g_lp0) = select(
-        torch.zeros((batch, k), device=dev), c_ids.reshape(batch, k, C),
-        c_wlp.reshape(batch, k, C), g_logp.reshape(batch, k, 2),
-        beam0_only=True)
-    state = _gather_beam(state, sel_beam, batch, k)
+    with obs.span("beam.step"):
+        zeros_bk = torch.zeros((batch * k,), dtype=torch.long, device=dev)
+        (c_ids, c_wlp, g_logp), state = step_fn(state, zeros_bk, zeros_bk,
+                                                True)
+        C = c_ids.shape[-1]
+        (seq_logprob, sel_beam, word, gate, w_lp0, g_lp0) = select(
+            torch.zeros((batch, k), device=dev), c_ids.reshape(batch, k, C),
+            c_wlp.reshape(batch, k, C), g_logp.reshape(batch, k, 2),
+            beam0_only=True)
+        state = _gather_beam(state, sel_beam, batch, k)
 
-    words = _history(seq_len, batch, k, dev, word, torch.long)
-    gates = _history(seq_len, batch, k, dev, gate, torch.long)
-    word_logps = _history(seq_len, batch, k, dev, w_lp0, torch.float32)
-    gate_logps = _history(seq_len, batch, k, dev, g_lp0, torch.float32)
-    mask_w = torch.ones((batch, k), device=dev)
-    mask_g = torch.ones((batch, k), device=dev)
+        words = _history(seq_len, batch, k, dev, word, torch.long)
+        gates = _history(seq_len, batch, k, dev, gate, torch.long)
+        word_logps = _history(seq_len, batch, k, dev, w_lp0, torch.float32)
+        gate_logps = _history(seq_len, batch, k, dev, g_lp0, torch.float32)
+        mask_w = torch.ones((batch, k), device=dev)
+        mask_g = torch.ones((batch, k), device=dev)
 
     # ----- t >= 1 ------------------------------------------------------------
     for t in range(1, seq_len):
-        (c_ids, c_wlp, g_logp), state = step_fn(
-            state, word.reshape(-1), gate.reshape(-1), False)
-        mask_w = mask_w * (word != eos_word)
-        mask_g = mask_g * (gate != eos_gate)
-        mask_full = torch.clamp(mask_w + mask_g, 0.0, 1.0)
-        (seq_logprob, sel_beam, word, gate, wlp_sel, glp_sel) = select(
-            seq_logprob, c_ids.reshape(batch, k, C),
-            c_wlp.reshape(batch, k, C), g_logp.reshape(batch, k, 2),
-            frozen=(mask_full == 0.0))
+        with obs.span("beam.step"):
+            (c_ids, c_wlp, g_logp), state = step_fn(
+                state, word.reshape(-1), gate.reshape(-1), False)
+            mask_w = mask_w * (word != eos_word)
+            mask_g = mask_g * (gate != eos_gate)
+            mask_full = torch.clamp(mask_w + mask_g, 0.0, 1.0)
+            (seq_logprob, sel_beam, word, gate, wlp_sel, glp_sel) = select(
+                seq_logprob, c_ids.reshape(batch, k, C),
+                c_wlp.reshape(batch, k, C), g_logp.reshape(batch, k, 2),
+                frozen=(mask_full == 0.0))
 
-        state = _gather_beam(state, sel_beam, batch, k)
-        mask_w = torch.gather(mask_w, 1, sel_beam)
-        mask_g = torch.gather(mask_g, 1, sel_beam)
-        hist = sel_beam[:, :, None].expand(-1, -1, seq_len)
-        words = torch.gather(words, 1, hist)
-        gates = torch.gather(gates, 1, hist)
-        words[:, :, t] = word
-        gates[:, :, t] = gate
-        word_logps[:, :, t] = wlp_sel * mask_w
-        gate_logps[:, :, t] = glp_sel * mask_g
+            state = _gather_beam(state, sel_beam, batch, k)
+            mask_w = torch.gather(mask_w, 1, sel_beam)
+            mask_g = torch.gather(mask_g, 1, sel_beam)
+            hist = sel_beam[:, :, None].expand(-1, -1, seq_len)
+            words = torch.gather(words, 1, hist)
+            gates = torch.gather(gates, 1, hist)
+            words[:, :, t] = word
+            gates[:, :, t] = gate
+            word_logps[:, :, t] = wlp_sel * mask_w
+            gate_logps[:, :, t] = glp_sel * mask_g
     return BeamResult(words, gates, word_logps, gate_logps, seq_logprob)

@@ -54,6 +54,7 @@ from vsrcic_tpu_torch.ops.fused_attention import (
 from vsrcic_tpu_torch.ops.vocab_topk import (padded_table, table_planes,
                                              vocab_topk_lse,
                                              vocab_topk_lse_plain)
+from vsrcic_tpu_torch.utils import observability as obs
 from vsrcic_tpu_torch.utils.device import as_tensor, resolve_device, to_device
 from vsrcic_tpu_torch.utils.params import flatten, unflatten
 
@@ -119,28 +120,31 @@ class ControllableCaptioner:
         use_fused_attention) of `params`, which every decode passes in: a
         trainer decodes with its live parameters, and the step weights are
         derived from them on every call. Returns (statics, fused_fn,
-        fused_w)."""
-        detections = self._cast(detections)
-        statics = precompute_statics(params, self.cfg, detections,
-                                     self._cast(det_groups),
-                                     verb_list=verb_list)
-        if not self.use_fused_attention:
-            return statics, None, None
-        fused = (fused_group_attention if self.use_fused_attention is True
-                 else fused_group_attention_plain)
-        tdt = (self.table_dtype or self.decode_dtype
-               or statics.det_groups.dtype)
-        fw = derive_fused_step_weights(params, self.cfg,
-                                       dtype=self.step_dtype)
-        # the image-descriptor slice of the input_1 projection is
-        # step-invariant: computed once per decode, per item
-        img_y = _mm(image_descriptor_f32(detections), fw["wx_img"]) + fw["bx"]
-        statics = Statics(statics.image_descriptor,
-                          statics.det_groups.to(tdt).contiguous(),
-                          statics.det_groups_proj.to(tdt).contiguous(),
-                          statics.det_groups_mask, statics.verb_list,
-                          img_y=img_y)
-        return statics, fused, fw
+        fused_w). Inside the span `beam.statics`."""
+        with obs.span("beam.statics"):
+            detections = self._cast(detections)
+            statics = precompute_statics(params, self.cfg, detections,
+                                         self._cast(det_groups),
+                                         verb_list=verb_list)
+            if not self.use_fused_attention:
+                return statics, None, None
+            fused = (fused_group_attention
+                     if self.use_fused_attention is True
+                     else fused_group_attention_plain)
+            tdt = (self.table_dtype or self.decode_dtype
+                   or statics.det_groups.dtype)
+            fw = derive_fused_step_weights(params, self.cfg,
+                                           dtype=self.step_dtype)
+            # the image-descriptor slice of the input_1 projection is
+            # step-invariant: computed once per decode, per item
+            img_y = (_mm(image_descriptor_f32(detections), fw["wx_img"])
+                     + fw["bx"])
+            statics = Statics(statics.image_descriptor,
+                              statics.det_groups.to(tdt).contiguous(),
+                              statics.det_groups_proj.to(tdt).contiguous(),
+                              statics.det_groups_mask, statics.verb_list,
+                              img_y=img_y)
+            return statics, fused, fw
 
     def _vocab_fn_and_tables(self, k):
         """The vocab op and its out_fc tables (w_t (R, V) in table_dtype or

@@ -21,6 +21,11 @@ against its bound, csrc/check.cuh) into `CHECKED_LIB_NAME`, under a stamp
 of its own, at first use. Only the memory check asks for it
 (`tools/memcheck.py`, chip_smoke.py's memcheck phase, the card tests); the
 main path loads the default library.
+
+Each call of `library` (once a flavour: it is cached) and of
+`host_library` runs inside the recorder's span `ops.build`
+(`utils/observability.py`), counting the library's file name once and
+`compiled` when it compiled: a rebuild shows in set-up.
 """
 from __future__ import annotations
 
@@ -33,6 +38,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+from vsrcic_tpu_torch.utils import observability as obs
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -207,35 +214,44 @@ def host_library(stem: str) -> Path:
     Concurrent builders each compile into their own temporary directory and
     move the result into place."""
     global last_host_build_seconds
-    src = CSRC / (stem + ".cpp")
-    digest = _stamp([" ".join(CXX_FLAGS), compiler_identity(CXX),
-                     platform.machine()], [src])
-    lib = BUILD / ("lib%s.so" % stem)
-    stamp = BUILD / (lib.name + ".sha")
-    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
-        last_host_build_seconds = 0.0
+    with obs.span("ops.build"):
+        src = CSRC / (stem + ".cpp")
+        digest = _stamp([" ".join(CXX_FLAGS), compiler_identity(CXX),
+                         platform.machine()], [src])
+        lib = BUILD / ("lib%s.so" % stem)
+        stamp = BUILD / (lib.name + ".sha")
+        obs.count(lib.name, 1)
+        if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+            last_host_build_seconds = 0.0
+            return lib
+        obs.count("compiled", 1)
+        BUILD.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+            out = Path(tmp) / lib.name
+            cmd = [CXX, *CXX_FLAGS, "-o", str(out), str(src)]
+            res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+            if res.returncode:
+                raise RuntimeError("c++ failed (%d): %s\n%s"
+                                   % (res.returncode, " ".join(cmd),
+                                      res.stdout))
+            os.replace(out, lib)
+        write_stamp(stamp, digest)
+        last_host_build_seconds = time.perf_counter() - t0
         return lib
-    BUILD.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
-        out = Path(tmp) / lib.name
-        cmd = [CXX, *CXX_FLAGS, "-o", str(out), str(src)]
-        res = subprocess.run(cmd, stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True)
-        if res.returncode:
-            raise RuntimeError("c++ failed (%d): %s\n%s"
-                               % (res.returncode, " ".join(cmd), res.stdout))
-        os.replace(out, lib)
-    write_stamp(stamp, digest)
-    last_host_build_seconds = time.perf_counter() - t0
-    return lib
 
 
 @functools.lru_cache(maxsize=None)
 def library(checked: bool = False) -> ctypes.CDLL:
     """The loaded kernel library (built first if needed): the default
     build, or the checked one, which also has CHECK_SIGNATURES."""
-    lib = ctypes.CDLL(str(build(checked)))
+    with obs.span("ops.build"):
+        path = build(checked)
+        obs.count(path.name, 1)
+        if (last_checked_build_seconds if checked else last_build_seconds):
+            obs.count("compiled", 1)
+        lib = ctypes.CDLL(str(path))
     for name, argtypes in (SIGNATURES | (CHECK_SIGNATURES if checked
                                          else {})).items():
         fn = getattr(lib, name)

@@ -21,6 +21,12 @@ back into pinned buffers behind a CUDA event that `plan_finish` waits on
 alone. A blocking `.cpu()` would wait for everything enqueued on the
 stream before it, including the previous batch's beam in `run_stream`.
 
+Each phase runs inside a span of the recorder (`utils/observability.py`):
+`eval.plan_dispatch` (`eval.groups`, `eval.sinkhorn`, `eval.planner`),
+`eval.plan_finish` (`eval.plan_wait`, `eval.hungarian`, `eval.assemble`),
+`eval.recons`, `eval.beam_dispatch`, and in `run_stream` `eval.words_copy`
+and `eval.words_wait`, each with the stream's index of its batch.
+
 Data parallelism (`mesh`, a `parallel.mesh.DataMesh`; JAX's `mesh`): every
 rank runs the same host work on the whole batch, and each device phase on
 its block. The planner's generate over the verb groups and the Sinkhorn net
@@ -57,6 +63,7 @@ from vsrcic_tpu_torch.parallel.mesh import (all_gather_blocks, block_of,
                                             mesh_device, same_device)
 from vsrcic_tpu_torch.pipelines.sr_groups import (extract_verb_groups_arrays,
                                                   extract_verb_groups_batch)
+from vsrcic_tpu_torch.utils import observability as obs
 from vsrcic_tpu_torch.utils.device import to_device
 from vsrcic_tpu_torch.utils.rank_merge import verb_rank_merge
 
@@ -160,6 +167,7 @@ class EvalPipeline:
         t = torch.from_numpy(np.ascontiguousarray(a))
         if dtype is not None:
             t = t.to(dtype)
+        obs.count("h2d_bytes", t.nbytes)
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
@@ -173,6 +181,7 @@ class EvalPipeline:
         bufs = []
         for t in ts:
             if t is not None:
+                obs.count("d2h_bytes", t.nbytes)
                 b = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 b.copy_(t, non_blocking=True)
                 t = b
@@ -201,6 +210,7 @@ class EvalPipeline:
         if isinstance(det_sr, np.ndarray) and det_sr.size:
             m = int((det_sr != 0).sum(axis=1).max())
             n_steps = min(n_steps, max(2, m + (m % 2)))
+        obs.count("planner_steps", n_steps)
         return self._ssp_run(n_steps, verbs, det_sr)
 
     def _ssp_run(self, n_steps, verbs, det_sr):
@@ -236,52 +246,63 @@ class EvalPipeline:
         k+1's plan BEFORE batch k's beam (see run_stream)."""
         L = self.fixed_len
         n_jobs = len(jobs)
+        with obs.span("eval.plan_dispatch"):
+            obs.count("jobs", n_jobs)
+            with obs.span("eval.groups"):
+                ga = extract_verb_groups_arrays(
+                    np.stack([j.control_verb for j in jobs]),
+                    np.stack([j.det_seqs_v for j in jobs]),
+                    np.stack([j.det_seqs_sr for j in jobs]))
+                if ga is None:
+                    return _PlanPending(n_jobs=n_jobs, L=L, jobs=jobs,
+                                        ga=None)
 
-        ga = extract_verb_groups_arrays(
-            np.stack([j.control_verb for j in jobs]),
-            np.stack([j.det_seqs_v for j in jobs]),
-            np.stack([j.det_seqs_sr for j in jobs]))
-        if ga is None:
-            return _PlanPending(n_jobs=n_jobs, L=L, jobs=jobs, ga=None)
+                # Sinkhorn first, then the planner: the two are independent
+                # (the planner orders roles, Sinkhorn orders regions within
+                # a role). rank CSR: per (group, sr) pair the slots in final
+                # within-role order — occurrence order for singletons,
+                # Hungarian order for ambiguous pairs (truncated to
+                # sinkhorn_len, ref eval_coco.py:183-200)
+                n = self.sinkhorn_len
+                plen = ga.pair_len
+                pair_off = ga.pair_off
+                multi = np.nonzero(plen > 1)[0]
+                rank_len = np.where(plen > 1, np.minimum(plen, n), plen)
+                rank_off = np.concatenate([[0], np.cumsum(rank_len)])
+                q_rep = np.repeat(np.arange(len(plen)), rank_len)
+                within_r = (np.arange(rank_off[-1])
+                            - np.repeat(rank_off[:-1], rank_len))
+                rank_flat = ga.slot_flat[pair_off[:-1][q_rep] + within_r]
+            obs.count("groups", len(ga.verbs))
+            obs.count("pairs", int(multi.size))
 
-        # Sinkhorn first, then the planner: the two are independent (the
-        # planner orders roles, Sinkhorn orders regions within a role). rank
-        # CSR: per (group, sr) pair the slots in final within-role order —
-        # occurrence order for singletons, Hungarian order for ambiguous
-        # pairs (truncated to sinkhorn_len, ref eval_coco.py:183-200)
-        n = self.sinkhorn_len
-        plen = ga.pair_len
-        pair_off = ga.pair_off
-        multi = np.nonzero(plen > 1)[0]
-        rank_len = np.where(plen > 1, np.minimum(plen, n), plen)
-        rank_off = np.concatenate([[0], np.cumsum(rank_len)])
-        q_rep = np.repeat(np.arange(len(plen)), rank_len)
-        within_r = np.arange(rank_off[-1]) - np.repeat(rank_off[:-1], rank_len)
-        rank_flat = ga.slot_flat[pair_off[:-1][q_rep] + within_r]
+            P_soft_dev = locs_pad = valid = within = None
+            if multi.size:
+                with obs.span("eval.sinkhorn"):
+                    m = rank_len[multi]                            # (S,)
+                    owner = ga.owners[ga.pair_group[multi]]
+                    within = np.arange(n)[None, :]                 # (1, n)
+                    valid = within < m[:, None]                    # (S, n)
+                    lo = pair_off[:-1][multi][:, None]
+                    hi = pair_off[1:][multi][:, None]
+                    locs_pad = np.where(
+                        valid, ga.slot_flat[np.minimum(lo + within, hi - 1)],
+                        0)
+                    if sink_feats is None:
+                        sink_feats = self.stage_job_feats(jobs)
+                    P_soft_dev = self._sinkhorn_gather(
+                        *sink_feats, self._put(owner, torch.long),
+                        self._put(locs_pad, torch.long), self._put(valid))
 
-        P_soft_dev = locs_pad = valid = within = None
-        if multi.size:
-            m = rank_len[multi]                                    # (S,)
-            owner = ga.owners[ga.pair_group[multi]]
-            within = np.arange(n)[None, :]                         # (1, n)
-            valid = within < m[:, None]                            # (S, n)
-            lo = pair_off[:-1][multi][:, None]
-            hi = pair_off[1:][multi][:, None]
-            locs_pad = np.where(
-                valid, ga.slot_flat[np.minimum(lo + within, hi - 1)], 0)
-            if sink_feats is None:
-                sink_feats = self.stage_job_feats(jobs)
-            P_soft_dev = self._sinkhorn_gather(
-                *sink_feats, self._put(owner, torch.long),
-                self._put(locs_pad, torch.long), self._put(valid))
-
-        preds_dev, _ = self._ssp_gen(ga.verbs[:, None], ga.det_sr)
-        (P_soft, preds), ready = self._start_readback(P_soft_dev, preds_dev)
-        return _PlanPending(
-            n_jobs=n_jobs, L=L, jobs=jobs, ga=ga, preds=preds, P_soft=P_soft,
-            ready=ready, multi=multi, rank_len=rank_len, rank_off=rank_off,
-            rank_flat=rank_flat, locs_pad=locs_pad, valid=valid,
-            within=within)
+            with obs.span("eval.planner"):
+                preds_dev, _ = self._ssp_gen(ga.verbs[:, None], ga.det_sr)
+            (P_soft, preds), ready = self._start_readback(P_soft_dev,
+                                                          preds_dev)
+            return _PlanPending(
+                n_jobs=n_jobs, L=L, jobs=jobs, ga=ga, preds=preds,
+                P_soft=P_soft, ready=ready, multi=multi, rank_len=rank_len,
+                rank_off=rank_off, rank_flat=rank_flat, locs_pad=locs_pad,
+                valid=valid, within=within)
 
     def plan_finish(self, pend: "_PlanPending"
                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -289,27 +310,39 @@ class EvalPipeline:
         the host phases: Hungarian rounding + vectorized rank assembly +
         merge."""
         L, n_jobs, ga = pend.L, pend.n_jobs, pend.ga
-        rank_idx = np.zeros((n_jobs, L), np.int32)
-        rank_valid = np.zeros((n_jobs, L), bool)
-        if ga is None:
-            return rank_idx, rank_valid, np.full((n_jobs, L), -1.0)
-        G = len(ga.owners)
-        n = self.sinkhorn_len
-        multi, rank_len, rank_off, rank_flat = (
-            pend.multi, pend.rank_len, pend.rank_off, pend.rank_flat)
-        locs_pad, valid, within = pend.locs_pad, pend.valid, pend.within
+        with obs.span("eval.plan_finish"):
+            rank_idx = np.zeros((n_jobs, L), np.int32)
+            rank_valid = np.zeros((n_jobs, L), bool)
+            if ga is None:
+                return rank_idx, rank_valid, np.full((n_jobs, L), -1.0)
+            multi, rank_off, rank_flat = (pend.multi, pend.rank_off,
+                                          pend.rank_flat)
+            with obs.span("eval.plan_wait", wait=True):
+                P_soft, preds = self._finish_readback(
+                    (pend.P_soft, pend.preds), pend.ready)
+            if P_soft is not None:
+                with obs.span("eval.hungarian"):
+                    # profit = P^T as in the reference (eval_coco.py:185);
+                    # row assignments are a permutation so the valid
+                    # entries are distinct, and invalid slots are pushed
+                    # past them with n+col
+                    n, valid, within = (self.sinkhorn_len, pend.valid,
+                                        pend.within)
+                    assign = hungarian_assign(np.transpose(P_soft, (0, 2, 1)))
+                    ordv = np.argsort(np.where(valid, assign, n + within),
+                                      axis=1)
+                    new_locs = np.take_along_axis(pend.locs_pad, ordv, 1)
+                    flat_idx = (rank_off[:-1][multi][:, None] + within)[valid]
+                    rank_flat[flat_idx] = new_locs[valid]
+            with obs.span("eval.assemble"):
+                return self._assemble(pend, preds, rank_idx, rank_valid)
 
-        P_soft, preds = self._finish_readback((pend.P_soft, pend.preds),
-                                              pend.ready)
-        if P_soft is not None:
-            # profit = P^T as in the reference (eval_coco.py:185); row
-            # assignments are a permutation so the valid entries are
-            # distinct, and invalid slots are pushed past them with n+col
-            assign = hungarian_assign(np.transpose(P_soft, (0, 2, 1)))
-            ordv = np.argsort(np.where(valid, assign, n + within), axis=1)
-            new_locs = np.take_along_axis(locs_pad, ordv, 1)       # (S, n)
-            flat_idx = (rank_off[:-1][multi][:, None] + within)[valid]
-            rank_flat[flat_idx] = new_locs[valid]
+    def _assemble(self, pend, preds, rank_idx, rank_valid):
+        """plan_finish's rank assembly, merge and verb lists (host)."""
+        L, n_jobs, ga = pend.L, pend.n_jobs, pend.ga
+        G = len(ga.owners)
+        rank_len, rank_off, rank_flat = (pend.rank_len, pend.rank_off,
+                                         pend.rank_flat)
         jobs = pend.jobs
 
         # -- vectorized rank assembly + per-job merge ---------------------
@@ -493,12 +526,14 @@ class EvalPipeline:
     def _build_recons(self, arr, rank_idx, rank_valid, row_sums):
         """The recons of the jobs; under a mesh of this rank's block of the
         jobs padded with zero rows (the block the beam decodes)."""
-        if self.mesh is not None:
-            arr, rank_idx, rank_valid, row_sums = (
-                block_of(a, self.mesh)
-                for a in (arr, rank_idx, rank_valid, row_sums))
-        return self._build_recons_impl(arr, self._put(rank_idx, torch.long),
-                                       self._put(rank_valid), row_sums)
+        with obs.span("eval.recons"):
+            if self.mesh is not None:
+                arr, rank_idx, rank_valid, row_sums = (
+                    block_of(a, self.mesh)
+                    for a in (arr, rank_idx, rank_valid, row_sums))
+            return self._build_recons_impl(
+                arr, self._put(rank_idx, torch.long), self._put(rank_valid),
+                row_sums)
 
     def plan_batch(self, jobs: Sequence[CaptionJob]
                    ) -> Tuple[np.ndarray, np.ndarray]:
@@ -564,16 +599,18 @@ class EvalPipeline:
         block; its detections are padded with repeats of the last job's,
         its verb lists with -1, and the blocks' words gathered."""
         mesh = self.mesh
-        if mesh is not None:
-            detections_per_job = block_of(detections_per_job, mesh,
-                                          fill=None)
-            verb_lists = block_of(np.asarray(verb_lists), mesh, fill=-1)
-        res = self.captioner.beam_search_v(
-            detections_per_job, recons, self._put(verb_lists, torch.long),
-            eos_word=self.eos_word, beam_size=self.beam_size, gt=self.gt)
-        if mesh is not None:
-            return all_gather_blocks(res.words[:, 0], mesh)[:n_jobs]
-        return res.words[:n_jobs, 0]
+        with obs.span("eval.beam_dispatch"):
+            obs.count("rows", recons.shape[0] * self.beam_size)
+            if mesh is not None:
+                detections_per_job = block_of(detections_per_job, mesh,
+                                              fill=None)
+                verb_lists = block_of(np.asarray(verb_lists), mesh, fill=-1)
+            res = self.captioner.beam_search_v(
+                detections_per_job, recons, self._put(verb_lists, torch.long),
+                eos_word=self.eos_word, beam_size=self.beam_size, gt=self.gt)
+            if mesh is not None:
+                return all_gather_blocks(res.words[:, 0], mesh)[:n_jobs]
+            return res.words[:n_jobs, 0]
 
     def submit_batch(self, detections_per_job, jobs: Sequence[CaptionJob],
                      seqs_all=None, sink_feats=None):
@@ -615,30 +652,43 @@ class EvalPipeline:
                 seqs_all = self.stage_seqs_all(jobs)
             return dets, jobs, self._as_staged(seqs_all), sink_feats
 
+        def words_of(pend, k):
+            with obs.span("eval.words_wait", batch=k, wait=True):
+                return self._finish_readback(*pend)[0]
+
         try:
             cur = norm(next(it))
         except StopIteration:
             return
-        pend_plan = self.plan_dispatch(cur[1], sink_feats=cur[3])
+        k = 0     # the stream's index of `cur`, every span's batch id
+        with obs.scope(k):
+            pend_plan = self.plan_dispatch(cur[1], sink_feats=cur[3])
         pend_words = None
         while cur is not None:
             dets, jobs, (arr, row_sums), _ = cur
-            rank_idx, rank_valid, verb_lists = self.plan_finish(pend_plan)
-            recons = self._build_recons(arr, rank_idx, rank_valid, row_sums)
+            with obs.scope(k):
+                rank_idx, rank_valid, verb_lists = self.plan_finish(pend_plan)
+                recons = self._build_recons(arr, rank_idx, rank_valid,
+                                            row_sums)
             # stage + dispatch NEXT batch's plan before this batch's beam
             try:
                 nxt = norm(next(it))
             except StopIteration:
                 nxt = None
             if nxt is not None:
-                pend_plan = self.plan_dispatch(nxt[1], sink_feats=nxt[3])
-            words = self._start_readback(self._dispatch_beam(
-                dets, recons, verb_lists, len(jobs)))
+                with obs.scope(k + 1):
+                    pend_plan = self.plan_dispatch(nxt[1], sink_feats=nxt[3])
+            with obs.scope(k):
+                best = self._dispatch_beam(dets, recons, verb_lists,
+                                           len(jobs))
+                with obs.span("eval.words_copy"):
+                    words = self._start_readback(best)
             if pend_words is not None:
-                yield self._finish_readback(*pend_words)[0]
+                yield words_of(pend_words, k - 1)
             pend_words = words
             cur = nxt
-        yield self._finish_readback(*pend_words)[0]
+            k += 1
+        yield words_of(pend_words, k - 1)
 
     def run_batch(self, detections_per_job, jobs: Sequence[CaptionJob],
                   seqs_all=None, sink_feats=None) -> np.ndarray:

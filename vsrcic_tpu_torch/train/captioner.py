@@ -36,6 +36,13 @@ fast one draws from a generator of the rank's own
 computed over the whole batch on every rank; the gradient pass runs on the
 rank's block with padded rows at advantage 0, its mean scaled by
 block / batch rows, so the ranks' shares sum to the true mean.
+
+Spans of the recorder (`utils/observability.py`), each step's with the
+train state's step as batch id: `xe.step` and `scst.step` around a step;
+inside them `train.forward`, `train.backward`, `train.adam` and the wait
+`train.readback` for the closing read of the losses; SCST's `scst.decode`
+(the two decodes and the words read back and detokenized) and
+`scst.reward` (the tokenizer and CIDEr-D).
 """
 from __future__ import annotations
 
@@ -63,6 +70,7 @@ from vsrcic_tpu_torch.text.vocab import TextField, dedup_join
 from vsrcic_tpu_torch.train.common import (
     TrainState, adam, apply_grads, init_train_state, nll_loss,
     rank_generator, set_learning_rate, value_and_grad)
+from vsrcic_tpu_torch.utils import observability as obs
 from vsrcic_tpu_torch.utils.device import as_tensor, to_device
 
 
@@ -179,13 +187,15 @@ class CaptionerXETrainer:
     def step(self, detections, captions, ctrl_det_seqs, gate_targets):
         """One Adam step; returns (loss, loss_cap, loss_gate) as floats
         (under a mesh, the global ones)."""
-        (loss, (lc, lg)), grads = self.loss_and_grads(
-            detections, captions, ctrl_det_seqs, gate_targets)
-        self.state = apply_grads(self.tx, self.state, grads, self.mesh)
-        losses = torch.stack([loss, lc, lg])
-        if self.mesh is not None:
-            losses = all_reduce_sum(losses, self.mesh)
-        return tuple(losses.tolist())
+        with obs.span("xe.step", batch=self.state.step):
+            (loss, (lc, lg)), grads = self.loss_and_grads(
+                detections, captions, ctrl_det_seqs, gate_targets)
+            self.state = apply_grads(self.tx, self.state, grads, self.mesh)
+            losses = torch.stack([loss, lc, lg])
+            if self.mesh is not None:
+                losses = all_reduce_sum(losses, self.mesh)
+            with obs.span("train.readback", wait=True):
+                return tuple(losses.tolist())
 
 
 def scst_loss_fn(params, cfg: CaptionerConfig, detections, det_groups,
@@ -357,21 +367,26 @@ class CaptionerSCSTTrainer:
         self.state = apply_grads(self.tx, self.state, grads, mesh)
         if mesh is not None:
             loss = all_reduce_sum(loss, mesh)
-        return float(loss)
+        with obs.span("train.readback", wait=True):
+            return float(loss)
 
     def step(self, detections, det_groups, gt_caps: List[str],
              gen: torch.Generator,
              baseline_caps: List[str] = None) -> Tuple[float, float]:
         """Sample, score against the baseline, take one Adam step; returns
         (loss, mean advantage)."""
-        det, grp = self._inputs(detections, det_groups)
         if baseline_caps is None and self.baseline == "epoch":
             raise ValueError("baseline='epoch' requires baseline_caps "
                              "(from epoch_baseline_caps at epoch start)")
-        ((words, gates), _), base = self._decode_batch(
-            det, grp, gen, greedy=baseline_caps is None)
-        if baseline_caps is None:
-            baseline_caps = self._decode_caps(base)
-        adv = self.rewards(self._decode_caps(words), baseline_caps, gt_caps)
-        return self.grad_step(det, grp, words, gates, adv), float(
-            np.mean(adv))
+        with obs.span("scst.step", batch=self.state.step):
+            det, grp = self._inputs(detections, det_groups)
+            with obs.span("scst.decode"):
+                ((words, gates), _), base = self._decode_batch(
+                    det, grp, gen, greedy=baseline_caps is None)
+                if baseline_caps is None:
+                    baseline_caps = self._decode_caps(base)
+                sampled_caps = self._decode_caps(words)
+            with obs.span("scst.reward"):
+                adv = self.rewards(sampled_caps, baseline_caps, gt_caps)
+            return self.grad_step(det, grp, words, gates, adv), float(
+                np.mean(adv))

@@ -15,6 +15,10 @@ gradient of its block's share of the global loss, and `apply_grads` sums
 the ranks' gradients (one all-reduce over a flat buffer) before Adam, and
 so before Adam's clamp: JAX clips the summed gradient. Every rank then
 runs the same Adam on the same bits.
+
+`value_and_grad` runs inside the recorder's spans `train.forward` and
+`train.backward`, `apply_grads` inside `train.adam`
+(`utils/observability.py`).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from vsrcic_tpu_torch.parallel.mesh import all_reduce_sum, all_reduce_tree
+from vsrcic_tpu_torch.utils import observability as obs
 from vsrcic_tpu_torch.utils.params import flatten, unflatten
 
 
@@ -134,25 +139,28 @@ def init_train_state(params, tx: Adam) -> TrainState:
 def apply_grads(tx: Adam, state: TrainState, grads, mesh=None) -> TrainState:
     """One Adam update; under a mesh the gradients are first summed over
     the ranks."""
-    if mesh is not None:
-        grads = all_reduce_tree(grads, mesh)
-    updates, opt_state = tx.update(grads, state.opt_state)
-    params = tree_map(lambda p, u: p + u, state.params, updates)
-    return TrainState(params, opt_state, state.step + 1)
+    with obs.span("train.adam"):
+        if mesh is not None:
+            grads = all_reduce_tree(grads, mesh)
+        updates, opt_state = tx.update(grads, state.opt_state)
+        params = tree_map(lambda p, u: p + u, state.params, updates)
+        return TrainState(params, opt_state, state.step + 1)
 
 
 def value_and_grad(loss_fn, params, *args, has_aux: bool = False, **kw):
     """(loss_fn(params, ...), d loss / d params) with the gradients as a
     dict like params; with has_aux, loss_fn returns (loss, aux) and so does
     this, as jax.value_and_grad."""
-    leaves = flatten(tree_map(lambda p: p.detach().requires_grad_(True),
-                              params))
-    out = loss_fn(unflatten(leaves), *args, **kw)
-    loss = out[0] if has_aux else out
-    grads = torch.autograd.grad(loss, list(leaves.values()),
-                                allow_unused=True)
-    grads = unflatten({k: torch.zeros_like(p) if g is None else g
-                       for (k, p), g in zip(leaves.items(), grads)})
+    with obs.span("train.forward"):
+        leaves = flatten(tree_map(
+            lambda p: p.detach().requires_grad_(True), params))
+        out = loss_fn(unflatten(leaves), *args, **kw)
+        loss = out[0] if has_aux else out
+    with obs.span("train.backward"):
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+        grads = unflatten({k: torch.zeros_like(p) if g is None else g
+                           for (k, p), g in zip(leaves.items(), grads)})
     if has_aux:
         return (loss.detach(), tuple(a.detach() for a in out[1])), grads
     return loss.detach(), grads
