@@ -13,6 +13,7 @@
     python3 chip_smoke.py --parallel   # phases 1-2 and 15
     python3 chip_smoke.py --vocab-bf16 # phases 1-2, 3's vocab checks, 5-5d
                                        # (every vocab route)
+    python3 chip_smoke.py --step-planes  # phases 1-2, 3p and 5e
 
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi), and the TF32 settings
@@ -67,6 +68,13 @@ Phases (any failure raises and the script exits non-zero):
      f32 tables, the beam's shape) reads the table as non-finite and sends
      its f32 h2 to the SGEMM, one launch and no split pass, with the plain
      version's +-inf, NaN and ids, timed beside the CUDA cores' bound;
+ 3p. the step products (ops/step_planes.py): the kernels held to their
+     plain version at ragged shapes (A in one to four segments, K and N no
+     multiples of 8, an addend), then at the eval cell's five groups (2560
+     rows): each group's largest error against the f64 product within
+     STEP_ERR_RATIO of cuBLAS f32's on the same values (TF32 off), held
+     time beside the nine-pass bound, the profiler's split, the plain
+     version and one torch.addmm;
  3m. the memory check (vsrcic_tpu_torch/tools/memcheck.py): the checked
      build (csrc/check.cuh: every access of every kernel tested against the
      bound its arguments imply) over the sweep of every launch plan, on
@@ -102,6 +110,13 @@ Phases (any failure raises and the script exits non-zero):
      batch), its captions equal a checked run's save vocab near ties and
      >= 0.99 of them the plain path's; then one batch under
      VSRCIC_VOCAB_LHS_BF16=1, every vocab launch on "split_w";
+ 5e. the eval cell's beam (512 items, f32 tables, the vocab op, gathered
+     attention): three timed batches, 100 step product launches a batch;
+     a checked batch (each step product call held to its plain version);
+     its beams against the plain products' and the all-plain path's at
+     phase 6's bar; the step products as the kernel, as cuBLAS (grouped,
+     img_y hoisted) and ungrouped (the step's nn.linear), in turns, timed
+     and split by the profiler;
   6. run phase 5's batch through the plain versions on the card and
      compare;
   7. replay the eval pipeline's golden fixture (JAX plans and words) through
@@ -1281,6 +1296,147 @@ def check_sinkhorn(gen, report):
 
 
 # ---------------------------------------------------------------------------
+# phase 3p: the step products (ops/step_planes.py)
+# ---------------------------------------------------------------------------
+
+# the eval cell's beam rows (vsrbench's vsr-coco.stream-b512: 512 jobs x
+# beam 5)
+CELL_ITEMS = 512
+CELL_ROWS = CELL_ITEMS * BEAM
+# phase 3p's ragged shapes: (rows, A's segments, N, add_div: 0 without an
+# addend)
+STEP_RAGGED = ((1, (8,), 1, 0), (37, (13, 100, 7), 129, 5),
+               (300, (45, 32, 77, 9), 300, 3), (127, (1000,), 4000, 0))
+# the most a group's error against the f64 product may reach, as a multiple
+# of cuBLAS f32's (TF32 off) on the same values
+STEP_ERR_RATIO = 2.0
+
+
+def step_inputs(gen, rows, widths, n, add_div):
+    """A's segments (tanh of normal values, f32), the group's
+    `step_weights` (normal W scaled by sqrt(2 / (N + K)), 0.1 x normal
+    bias; W^T's planes made) and the addend (normal, ceil(rows / add_div)
+    rows; None where add_div is 0), on the card."""
+    import torch
+    from vsrcic_tpu_torch.ops import step_planes as sp
+    k = sum(widths)
+    segs = [torch.tanh(torch.randn((rows, w), generator=gen, device="cuda"))
+            for w in widths]
+    w = torch.randn((n, k), generator=gen, device="cuda") * (
+        2.0 / (n + k)) ** 0.5
+    bias = 0.1 * torch.randn((n,), generator=gen, device="cuda")
+    add = (torch.randn((-(-rows // add_div), n), generator=gen,
+                       device="cuda") if add_div else None)
+    return segs, sp.step_weights(w, bias), add
+
+
+def step_bound(rows, k, n):
+    """The least time (ms) of A (rows, K) @ W^T (K, N) as nine bf16 passes
+    on the tensor cores, and as one product on the CUDA cores' f32 rate."""
+    ops = 2.0 * rows * n * k
+    return 1e3 * 9 * ops / BF16_TENSOR_FLOPS, 1e3 * ops / F32_FLOPS
+
+
+def check_step_planes(gen, report):
+    """Phase 3p: the step products' kernels (step_planes_split_kernel, then
+    step_planes_kernel) held to their plain version at ragged shapes (A in
+    one to four segments, K and N no multiples of 8 or 64, an addend), each
+    call one launch; then at the eval cell's five groups (2560 rows,
+    tools/memcheck.py STEP_GROUPS): each group's largest error against the
+    f64 product within STEP_ERR_RATIO of cuBLAS f32's (TF32 off) on the
+    same values; held ms beside the nine-pass bound, the profiler's split
+    (product, split pass), the plain version's ms and one torch.addmm f32
+    call's (library_ms, on A concatenated beforehand); the five summed as
+    one step."""
+    import torch
+    from vsrcic_tpu_torch.ops import step_planes as sp
+    from vsrcic_tpu_torch.tools.memcheck import STEP_GROUPS
+    out = {"ragged_max_abs_err": 0.0, "groups": {}}
+    for rows, widths, n, add_div in STEP_RAGGED:
+        segs, sw, add = step_inputs(gen, rows, widths, n, add_div)
+        before = sp.step_planes.launches
+        got = sp.step_planes(segs, sw, add, add_div or 1)
+        torch.cuda.synchronize()
+        want = sp.step_planes_plain(segs, sw, add, add_div or 1)
+        if sp.step_planes.launches != before + 1:
+            raise AssertionError("step_planes: %d launches for one call"
+                                 % (sp.step_planes.launches - before))
+        err = float((got - want).abs().max())
+        out["ragged_max_abs_err"] = max(out["ragged_max_abs_err"], err)
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+            raise AssertionError("step_planes at rows %d, segments %s, N %d: "
+                                 "%.3g from its plain version"
+                                 % (rows, widths, n, err))
+    log("  step products: ragged shapes %s within rtol / atol 1e-5 of the "
+        "plain version (max abs err %.3g)"
+        % ([(r, w, n) for r, w, n, _ in STEP_RAGGED],
+           out["ragged_max_abs_err"]))
+    step = dict(ms=0.0, bound_ms=0.0, cuda_core_bound_ms=0.0, plain_ms=0.0,
+                library_ms=0.0)
+    for name, widths, n, add_div in STEP_GROUPS:
+        segs, sw, add = step_inputs(gen, CELL_ROWS, widths, n, add_div)
+        k = sum(widths)
+        div = add_div or 1
+
+        def kernel():
+            return sp.step_planes(segs, sw, add, div)
+
+        def plain():
+            return sp.step_planes_plain(segs, sw, add, div)
+        a = torch.cat(segs, 1)
+        got, want = kernel(), plain()
+        lib = torch.addmm(sw.bias, a, sw.w.T)
+        ref = a.double() @ sw.w.double().T + sw.bias.double()
+        if add is not None:
+            item = torch.arange(CELL_ROWS, device="cuda") // div
+            lib = lib + add[item]
+            ref = ref + add.double()[item]
+        err = float((got.double() - ref).abs().max())
+        lib_err = float((lib.double() - ref).abs().max())
+        rel = float(((got.double() - ref).abs() / ref.abs().clamp_min(
+            1e-3)).max())
+        if err > STEP_ERR_RATIO * lib_err or not torch.allclose(
+                got, want, rtol=1e-5, atol=1e-5):
+            raise AssertionError(
+                "step_planes %s: %.3g from the f64 product, cuBLAS f32 %.3g "
+                "(at most x%.1f), %.3g from the plain version"
+                % (name, err, lib_err, STEP_ERR_RATIO,
+                   float((got - want).abs().max())))
+        bound, cuda_bound = step_bound(CELL_ROWS, k, n)
+        g = dict(rows=CELL_ROWS, k=k, n=n, segments=list(widths),
+                 addend=bool(add_div), max_abs_err_f64=err,
+                 library_max_abs_err_f64=lib_err, err_ratio=err / lib_err,
+                 max_rel_err_f64=rel,
+                 ms=held_ms(kernel, iters=20)[0],
+                 split=kernel_split(kernel, "step_planes", iters=20),
+                 plain_ms=held_ms(plain, iters=20)[0],
+                 library_ms=held_ms(lambda: torch.addmm(sw.bias, a, sw.w.T),
+                                    iters=20)[0],
+                 bound_ms=bound, cuda_core_bound_ms=cuda_bound)
+        g["bound_share"] = bound / g["ms"]
+        out["groups"][name] = g
+        for f in step:
+            step[f] += g[f]
+        log("  step products %-5s rows %d, K %d (%s), N %d: held %.4f ms "
+            "(%.1f%% of the nine-pass bound %.4f; %s), plain %.4f, "
+            "torch.addmm %.4f (CUDA cores' bound %.4f); max abs err against "
+            "f64 %.3g, cuBLAS f32 %.3g (x%.2f)"
+            % (name, CELL_ROWS, k, "+".join(map(str, widths)), n, g["ms"],
+               100 * g["bound_share"], bound, fmt_split(g["split"]),
+               g["plain_ms"], g["library_ms"], cuda_bound, err, lib_err,
+               g["err_ratio"]))
+    step["bound_share"] = step["bound_ms"] / step["ms"]
+    out["step"] = step
+    log("  step products, one step of the eval cell (5 calls): held %.4f ms "
+        "(%.1f%% of %.4f), plain %.4f, torch.addmm %.4f; x%d steps a "
+        "batch: %.2f ms" % (step["ms"], 100 * step["bound_share"],
+                            step["bound_ms"], step["plain_ms"],
+                            step["library_ms"], SEQ_LEN,
+                            SEQ_LEN * step["ms"]))
+    report["step_planes"] = out
+
+
+# ---------------------------------------------------------------------------
 # phase 3m: the memory check
 # ---------------------------------------------------------------------------
 
@@ -1293,12 +1449,13 @@ ROW_KERNELS = {
     "vocab_split": ("vocab_split",),
     "vocab_topk_split9": ("vocab_tma", "vocab_merge"),
     "vocab_topk_split_w": ("vocab_tma", "vocab_merge"),
+    "step_planes": ("step_planes", "step_planes_split"),
 }
 # each row's call in time_checked
 ROW_CALL = {"fused_attention": "fused_attention", "vocab_topk": "split",
             "sinkhorn": "sinkhorn_packed", "vocab_topk_bf16": "tma",
             "vocab_split": "split_pass", "vocab_topk_split9": "split9",
-            "vocab_topk_split_w": "split_w"}
+            "vocab_topk_split_w": "split_w", "step_planes": "step_planes"}
 
 
 def time_checked(gen, lib):
@@ -1308,7 +1465,8 @@ def time_checked(gen, lib):
     rows (bf16 tables, M 24); every vocab route at the beam's shape, h2's
     planes made beforehand ("split", "split9"), the split pass alone;
     the Sinkhorn kernel at the pipeline's S 1536, n 10 (packed) and at n
-    33 (one block a matrix)."""
+    33 (one block a matrix); the step products' "in1" group at the eval
+    cell's rows, its split pass and product."""
     import torch
     from vsrcic_tpu_torch.ops import _build
     from vsrcic_tpu_torch.ops import fused_attention as fa
@@ -1358,6 +1516,20 @@ def time_checked(gen, lib):
                             outs))
     split_out = torch.empty_like(h2_planes)
     calls["split_pass"] = lambda L: vt._split_launch(L, h2, split_out)
+    # the step products' largest group, its split pass and product
+    from vsrcic_tpu_torch.ops import step_planes as sp
+    from vsrcic_tpu_torch.tools.memcheck import STEP_GROUPS
+    _, widths, n, add_div = STEP_GROUPS[0]
+    segs, sw, add = step_inputs(gen, CELL_ROWS, widths, n, add_div)
+    k = sum(widths)
+    plan = sp.step_launch_plan(CELL_ROWS, k, n, sms, vt.resident_clusters(
+        dev, vt.SPLIT9_STAGES, vt.SPLIT_PLANES, vt.SPLIT_PLANES))
+    a_planes = sp.split_segments(segs)
+    step_out = torch.empty((CELL_ROWS, n), device=dev)
+    calls["step_planes"] = lambda L, plan=plan: (
+        sp._split_launch(L, segs, a_planes),
+        sp._launch(L, plan, a_planes, sw.planes, sw.bias, add, add_div,
+                   step_out))
     for name, n in (("sinkhorn_packed", SINK_N), ("sinkhorn_block", 33)):
         x = torch.tanh(torch.randn((SINK_S, n, n), generator=gen,
                                    device=dev))
@@ -1513,10 +1685,10 @@ def main_inputs():
     return detections, det_groups.contiguous(), verb_list
 
 
-def check_result(res):
+def check_result(res, batch=BATCH):
     import torch
-    assert res.words.shape == (BATCH, BEAM, SEQ_LEN), res.words.shape
-    assert res.gates.shape == (BATCH, BEAM, SEQ_LEN)
+    assert res.words.shape == (batch, BEAM, SEQ_LEN), res.words.shape
+    assert res.gates.shape == (batch, BEAM, SEQ_LEN)
     assert bool(((res.words >= 0) & (res.words < VOCAB)).all())
     assert bool(((res.gates >= 0) & (res.gates <= 1)).all())
     assert bool(torch.isfinite(res.scores).all())
@@ -1689,6 +1861,163 @@ def run_f32_tables(report, fast, inputs):
     return launches, launches_w
 
 
+def cell_captioner(mode=True, params=None):
+    """The eval cell's captioner (vsrbench's vsr-coco): the bench.py
+    configuration's widths, f32 tables, the vocab op (`mode`: True the
+    kernels, "plain" the plain versions) and the gathered attention (no
+    fused op), so that the candidate step runs its products through
+    ops/step_planes.py."""
+    from vsrcic_tpu_torch.models.api import ControllableCaptioner
+    from vsrcic_tpu_torch.models.captioner import CaptionerConfig
+    return ControllableCaptioner(
+        CaptionerConfig(**MAIN_CFG), params=params, seed=0,
+        verb_2_vob_all=VERBS, use_vocab_topk=mode, device="cuda")
+
+
+@contextlib.contextmanager
+def step_products_as(variant):
+    """The candidate step's products for the block: "kernel" (as built),
+    "cublas" (the plain op: the same groups, img_y hoisted, as cuBLAS f32
+    products) or "ungrouped" (`_step_core`'s nn.linear products, img_y
+    recomputed every step, as the strict step runs them; the facade still
+    makes the groups' weights and img_y once a decode)."""
+    from vsrcic_tpu_torch.models import api
+    saved = api.step_planes, api.captioner_step_v_topk
+    step = api.captioner_step_v_topk
+
+    def ungrouped(*a, products_fn=None, products_w=None, **kw):
+        return step(*a, **kw)
+    try:
+        if variant == "cublas":
+            api.step_planes = api.step_planes_plain
+        elif variant == "ungrouped":
+            api.captioner_step_v_topk = ungrouped
+        yield
+    finally:
+        api.step_planes, api.captioner_step_v_topk = saved
+
+
+def beam_device_ms(run):
+    """Device ms of one call of `run` under torch.profiler, summed over its
+    kernels by kind: the step products' (names holding "step_planes"),
+    cuBLAS's products (names holding "gemm") and every kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = {"step_planes": 0.0, "gemm": 0.0, "all": 0.0}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        out["all"] += ms
+        if "step_planes" in e.name:
+            out["step_planes"] += ms
+        elif "gemm" in e.name:
+            out["gemm"] += ms
+    return out
+
+
+def run_step_products_beam(report):
+    """Phase 5e: the eval cell's beam (512 items of main_inputs(), their
+    groups in f32; cell_captioner): three timed batches, 5 step product
+    launches a step (100 a batch) and every vocab launch on "split9"; a
+    checked batch (every step product call held to its plain version, the
+    plain result going on); its captions against the plain products' (the
+    same vocab kernel) and the all-plain path's, each at phase 6's bar
+    (>= 0.99 of the beams' words and gates); then the three variants of
+    `step_products_as` in turns (kernel, cuBLAS, ungrouped, then back), each
+    timed over three batches and its device time split by the profiler:
+    how much the hoisted img_y with the grouping gives on cuBLAS, and how
+    much the kernel gives. Returns the launch counts."""
+    import torch
+    from vsrcic_tpu_torch.models import api
+    from vsrcic_tpu_torch.ops import step_planes as sp
+    detections, det_groups, verb_list = main_inputs()
+    inputs = (detections[:CELL_ITEMS], det_groups[:CELL_ITEMS].float(),
+              verb_list[:CELL_ITEMS])
+    cap = cell_captioner()
+    n_batches = 3
+    outs, dt, launches = timed_batches(cap, inputs, n_batches, CELL_ITEMS)
+    steps = SEQ_LEN * n_batches
+    want = expected_launches(steps, "split9", splits=1)
+    want.update(fused_attention=0, step_planes=5 * steps)
+    if launches != want:
+        raise AssertionError("5e launches %s, expected %s" % (launches, want))
+    log("  5e the eval cell's beam (%d items, f32 tables, gathered "
+        "attention): %d batches in %.3f s: %.1f captions/s; launches %s"
+        % (CELL_ITEMS, n_batches, dt, CELL_ITEMS * n_batches / dt,
+           launches))
+
+    def run(c):
+        return c.beam_search_v(*inputs, eos_word=3, beam_size=BEAM)
+
+    checked = {"calls": 0, "max_abs_err": 0.0}
+    kernel = api.step_planes
+
+    def held(*a, **kw):
+        got, want = kernel(*a, **kw), sp.step_planes_plain(*a, **kw)
+        err = float((got - want).abs().max())
+        checked["calls"] += 1
+        checked["max_abs_err"] = max(checked["max_abs_err"], err)
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+            raise AssertionError("5e: step products call %d is %.3g from "
+                                 "its plain version"
+                                 % (checked["calls"], err))
+        return want
+    api.step_planes = held
+    try:
+        run(cap)
+    finally:
+        api.step_planes = kernel
+    with step_products_as("cublas"):
+        cublas = run(cap)
+    plain = run(cell_captioner("plain", params=cap.params))
+    shares = {}
+    for name, ref in (("cublas_products", cublas), ("plain_path", plain)):
+        check_result(ref, CELL_ITEMS)
+        same = ((outs[0].words == ref.words).all(-1)
+                & (outs[0].gates == ref.gates).all(-1))
+        shares[name] = float(same.float().mean())
+    log("  5e checked batch: %d step product calls, max abs err %.3g; "
+        "beams with identical words and gates: %.4f of the cuBLAS "
+        "products' run, %.4f of the all-plain path's"
+        % (checked["calls"], checked["max_abs_err"],
+           shares["cublas_products"], shares["plain_path"]))
+    if min(shares.values()) < 0.99:
+        raise AssertionError("5e: only %s of the beams match" % shares)
+    # cuBLAS's products a batch outside the steps: the statics (att_va's
+    # projection of the groups, img_y)
+    statics_dev = beam_device_ms(lambda: cap._fused_statics(
+        cap.decode_params, *inputs[:2], verb_list=inputs[2], products=True))
+    log("  5e statics alone, device ms a batch: cuBLAS gemm %.2f, all "
+        "kernels %.2f" % (statics_dev["gemm"], statics_dev["all"]))
+    variants = {}
+    for variant in ("kernel", "cublas", "ungrouped", "ungrouped", "cublas",
+                    "kernel"):
+        with step_products_as(variant):
+            _, dt_v, _ = timed_batches(cap, inputs, n_batches, CELL_ITEMS)
+            dev = beam_device_ms(lambda: run(cap))
+        v = variants.setdefault(variant, {"seconds_per_batch": [],
+                                          "device_ms": []})
+        v["seconds_per_batch"].append(dt_v / n_batches)
+        v["device_ms"].append(dev)
+        log("  5e %-9s %.1f ms a batch (%.1f captions/s); device ms a batch: "
+            "step products %.2f, cuBLAS gemm %.2f, all kernels %.2f"
+            % (variant, 1e3 * dt_v / n_batches,
+               CELL_ITEMS * n_batches / dt_v, dev["step_planes"],
+               dev["gemm"], dev["all"]))
+    report["cell_beam"] = dict(
+        captions_per_s=CELL_ITEMS * n_batches / dt, launches=launches,
+        checked=checked, identical_share=shares, variants=variants,
+        statics_device_ms=statics_dev)
+    return launches
+
+
 def caption_share(res, ref):
     """The share of items whose caption, the best beam's words and gates
     (what the eval CLI dumps), equals ref's."""
@@ -1699,8 +2028,9 @@ def caption_share(res, ref):
 
 def beam_counters():
     """{name: (wrapper, attribute)}: the beam's launch counts, the vocab
-    op's by route."""
+    op's by route, the step products'."""
     from vsrcic_tpu_torch.ops.fused_attention import fused_group_attention
+    from vsrcic_tpu_torch.ops.step_planes import step_planes
     from vsrcic_tpu_torch.ops.vocab_topk import split_bf16x3, vocab_topk_lse
     out = {"fused_attention": (fused_group_attention, "launches")}
     for name, attr in (("vocab_topk", "launches"),
@@ -1712,6 +2042,7 @@ def beam_counters():
                        ("vocab_topk_sgemm", "launches_sgemm")):
         out[name] = (vocab_topk_lse, attr)
     out["vocab_split"] = (split_bf16x3, "launches")
+    out["step_planes"] = (step_planes, "launches")
     return out
 
 
@@ -1733,10 +2064,11 @@ def expected_launches(n, route=None, splits=0):
     return want
 
 
-def timed_batches(cap, inputs, n_batches=3):
-    """One warm-up batch of `inputs` (main_inputs()), then n_batches timed
-    with the launch counts reset just before and read just after, every
-    result checked: (outputs, seconds, launches)."""
+def timed_batches(cap, inputs, n_batches=3, batch=BATCH):
+    """One warm-up batch of `inputs` (main_inputs(), or `batch` items of
+    them), then n_batches timed with the launch counts reset just before
+    and read just after, every result checked: (outputs, seconds,
+    launches)."""
     import torch
     detections, det_groups, verb_list = inputs
 
@@ -1755,7 +2087,7 @@ def timed_batches(cap, inputs, n_batches=3):
     launches = {name: getattr(obj, attr)
                 for name, (obj, attr) in counters.items()}
     for res in outs:
-        check_result(res)
+        check_result(res, batch)
     return outs, dt, launches
 
 
@@ -3787,6 +4119,18 @@ def main():
                                                     "vocab_topk_bf16")}))
         print_device_line()
         return 0
+    if "--step-planes" in sys.argv[1:]:
+        log("[3p] step products against their plain version")
+        check_step_planes(gen, kernels)
+        log("[5e] the eval cell's beam (step products on the kernel)")
+        run_step_products_beam(report)
+        report["kernels"] = kernels
+        write_report(report)
+        print(card)
+        print(json.dumps({"step_planes": kernels["step_planes"]["step"],
+                          "cell_beam": report["cell_beam"]}))
+        print_device_line()
+        return 0
     if "--memcheck" in sys.argv[1:]:
         log("[3m] memory check (checked build, guarded buffers, every plan)")
         check_memcheck(gen, kernels, pending)
@@ -3866,6 +4210,8 @@ def main():
     check_vocab_bf16(gen, kernels)
     check_vocab_nonfinite(gen, kernels)
     check_sinkhorn(gen, kernels)
+    log("[3p] step products against their plain version")
+    check_step_planes(gen, kernels)
 
     # phase 3m
     log("[3m] memory check (checked build, guarded buffers, every plan)")
@@ -3884,6 +4230,8 @@ def main():
     log("[5d] the beam on f32 tables")
     f32_launches, f32_lhs_launches = run_f32_tables(report, fast, inputs)
     del fast, inputs, ref
+    log("[5e] the eval cell's beam (step products on the kernel)")
+    cell_launches = run_step_products_beam(report)
 
     # phase 7
     log("[7] golden pipeline replay")
@@ -3910,6 +4258,7 @@ def main():
     by_path = {"beam": beam_launches, "beam_lhs_bf16": bf16_launches,
                "beam_f32_tables": f32_launches,
                "beam_f32_tables_lhs_bf16": f32_lhs_launches,
+               "cell_beam": cell_launches,
                "pipeline": launches,
                "train_scst": train_launches, "train_sinkhorn": sink_launches,
                "eval_cli": cli_launches}
@@ -4005,6 +4354,23 @@ def main():
             "bound_by": k["bound_by_route"][route],
             "library_ms": k["library_f32_ms"], "sgemm_ms": k["sgemm_ms"],
             "cuda_core_bound_ms": k["cuda_core_bound_f32_ms"]})
+    # the step products (phase 3p) run on the eval cell's beam (phase 5e),
+    # their main path: one step's five groups
+    k = kernels["step_planes"]
+    rows.append({
+        "name": "step_planes", "route": "cuda",
+        "source": "vsrcic_tpu_torch/csrc/vocab_topk.cu",
+        "replaces": "none (XLA's dot in JAX; cuBLAS f32 in the port)",
+        "launches": cell_launches["step_planes"],
+        "launches_by_path": {p: n.get("step_planes", 0)
+                             for p, n in by_path.items()},
+        "max_abs_err": max(g["max_abs_err_f64"]
+                           for g in k["groups"].values()),
+        "max_err": max(g["err_ratio"] for g in k["groups"].values()),
+        "ms": k["step"]["ms"], "plain_ms": k["step"]["plain_ms"],
+        "bound_ms": k["step"]["bound_ms"], "bound_by": "operations",
+        "library_ms": k["step"]["library_ms"],
+        "cuda_core_bound_ms": k["step"]["cuda_core_bound_ms"]})
     # the memory check's counts (phase 3m) over the CUDA kernels behind
     # each row, and the row's call on the default and the checked build
     mc = kernels["memcheck"]

@@ -1144,3 +1144,80 @@ def test_default_library_has_no_checks(cuda_device):
     """The main path's library is the default build: no check records."""
     assert not hasattr(_build.library(), "vsrcic_check_read")
     assert hasattr(_build.library(checked=True), "vsrcic_check_read")
+
+
+# the candidate step's f32 products (ops/step_planes.py)
+STEP_SHAPES = [(1, (8,), 1, 0), (37, (13, 100, 7), 129, 5),
+               (300, (45, 32, 77, 9), 300, 3),
+               (2560, (1000, 1000, 1000), 6000, 5),
+               (2560, (1000, 2048, 1000), 4000, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", STEP_SHAPES, ids=lambda s: "x".join(
+    map(str, (s[0], sum(s[1]), s[2]))))
+def test_step_planes_kernel_matches_plain(cuda_device, shape):
+    """One launch a call (and one split pass), within rtol / atol 1e-5 of
+    the plain version: A in one to four segments, K and N no multiples of
+    8 or 64, with and without a per-item addend; the eval cell's largest
+    groups."""
+    from vsrcic_tpu_torch.ops import step_planes as sp
+    rows, widths, n, add_div = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + n)
+    k = sum(widths)
+    segs = [torch.tanh(torch.randn((rows, w), generator=gen,
+                                   device=cuda_device)) for w in widths]
+    w = torch.randn((n, k), generator=gen, device=cuda_device) * (
+        2.0 / (n + k)) ** 0.5
+    sw = sp.step_weights(w, 0.1 * torch.randn((n,), generator=gen,
+                                              device=cuda_device))
+    assert torch.equal(sw.planes.view(torch.int16), vt.split_bf16x3_plain(
+        w.t()).view(torch.int16))
+    add = (torch.randn((-(-rows // add_div), n), generator=gen,
+                       device=cuda_device) if add_div else None)
+    before = sp.step_planes.launches
+    got = sp.step_planes(segs, sw, add, add_div or 1)
+    torch.cuda.synchronize()
+    assert sp.step_planes.launches == before + 1
+    want = sp.step_planes_plain(segs, sw, add, add_div or 1)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_step_planes_refuses_what_it_cannot_take(cuda_device):
+    from vsrcic_tpu_torch.ops import step_planes as sp
+    a = torch.zeros((4, 16), device=cuda_device)
+    sw = sp.step_weights(torch.zeros((40, 16), device=cuda_device))
+    with pytest.raises(ValueError, match="segments"):
+        sp.step_planes([a[:, :3]] * 5 + [a[:, :1]], sw)
+    with pytest.raises(ValueError, match="w is"):
+        sp.step_planes([a, a], sw)
+    with pytest.raises(ValueError, match="addend"):
+        sp.step_planes([a], sw, torch.zeros((1, 40), device=cuda_device), 2)
+    assert sp.step_planes([a[:0]], sw).shape == (0, 40)
+
+
+@pytest.mark.cuda
+def test_facade_candidate_step_runs_the_step_products(cuda_device):
+    """use_vocab_topk without the fused op, f32 tables (the eval cell's
+    captioner): 5 step product launches a step; its beams equal the plain
+    products' (the same vocab kernel) at the fast path's bar."""
+    from vsrcic_tpu_torch.models import api
+    from vsrcic_tpu_torch.ops import step_planes as sp
+    cap = api.ControllableCaptioner(
+        tp.torch_cfg(), seed=3, verb_2_vob_all=tp.VERB_TABLE,
+        use_vocab_topk=True, device=cuda_device)
+    det, groups, verb_list = tp.inputs(2)
+    before = sp.step_planes.launches
+    got = cap.beam_search_v(det, groups, verb_list, eos_word=tp.EOS,
+                            beam_size=5)
+    torch.cuda.synchronize()
+    assert sp.step_planes.launches - before == 5 * tp.T
+    kernel = api.step_planes
+    api.step_planes = api.step_planes_plain
+    try:
+        want = cap.beam_search_v(det, groups, verb_list, eos_word=tp.EOS,
+                                 beam_size=5)
+    finally:
+        api.step_planes = kernel
+    tp.assert_beams_match(got, want)

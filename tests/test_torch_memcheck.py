@@ -116,6 +116,59 @@ def test_sweep_reaches_every_fused_plan(cases):
     assert any(f.repeats >= mc.FULL_REPEATS for f in beam)
 
 
+def test_sweep_reaches_every_step_shape(cases):
+    """The step products: A in one to four segments, widths no multiple of
+    8 too, N of one tile (clusters of one CTA) and of an odd count of
+    tiles, with and without an addend, rows 1 and 127; the eval cell's
+    five groups (derive_step_product_groups' shapes at 2560 rows)
+    FULL_REPEATS times; forced resident clusters. Each launches the split
+    pass once more than the product (W^T's planes)."""
+    step = [c for c in cases if c.op == "step"]
+    assert {len(c.shape[1]) for c in step} == {1, 2, 3, 4}
+    assert any(w % 8 for c in step for w in c.shape[1])
+    assert {c.shape[0] for c in step} >= {1, 127, 2560}
+    assert {c.plan.cluster for c in step} == {1, 2}
+    assert any(c.plan.cluster == 2 and -(-c.shape[2] // 128) % 2
+               for c in step)
+    assert {bool(c.shape[3]) for c in step} == {False, True}
+    full = {(c.shape[1], c.shape[2], c.shape[3]) for c in step
+            if c.shape[0] == 2560 and c.repeats >= mc.FULL_REPEATS}
+    assert full == {(w, n, a) for _, w, n, a in mc.STEP_GROUPS}
+    assert any("resident" in c.name for c in step)
+    assert step[0].launches(3) == {"step_planes": 3, "step_planes_split": 4}
+
+
+def test_step_groups_are_the_cells(cases):
+    """STEP_GROUPS are derive_step_product_groups' (N, K) at the eval
+    cell's widths (vsrbench/configs/vsr-coco.json)."""
+    import json
+    from vsrcic_tpu_torch.models.captioner import (
+        CaptionerConfig, derive_fused_step_weights,
+        derive_step_product_groups)
+    c = json.loads((Path(_build.PKG).parent / "vsrbench" / "configs"
+                    / "vsr-coco.json").read_text())["captioner"]
+    cfg = CaptionerConfig(**c)
+    r, e, d, a = (cfg.rnn_size, cfg.input_encoding_size, cfg.det_feat_size,
+                  cfg.att_size)
+    # the shapes alone: meta tensors hold no values
+    params = {n: {"weight": torch.empty(shape, device="meta"),
+                  "bias": torch.empty(shape[:1], device="meta")}
+              for n, shape in (("W1_is", (r, r + d + e)),
+                               ("W1_ig", (r, r + d + e)),
+                               ("W1_hs", (r, r)), ("W1_hg", (r, r)),
+                               ("s_fc", (d, r)), ("att_ha", (a, r)),
+                               ("att_sa", (a, r)), ("att_ga", (a, r)))}
+    for n, k_in in (("lstm_cell_1", r + d + e), ("lstm_cell_2", r + d)):
+        params[n] = {"weight_ih": torch.empty((4 * r, k_in), device="meta"),
+                     "weight_hh": torch.empty((4 * r, r), device="meta"),
+                     "bias_ih": torch.empty((4 * r,), device="meta"),
+                     "bias_hh": torch.empty((4 * r,), device="meta")}
+    groups = derive_step_product_groups(
+        params, cfg, derive_fused_step_weights(params, cfg))
+    assert {(n, tuple(w.shape)) for n, (w, _) in groups.items()} == {
+        (n, (out, sum(ws))) for n, ws, out, _ in mc.STEP_GROUPS}
+
+
 def test_sweep_reaches_every_sinkhorn_case(cases):
     smoke = mc._smoke()
     assert sorted(c.shape for c in cases if c.op == "sinkhorn") == sorted(

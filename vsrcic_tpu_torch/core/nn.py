@@ -97,6 +97,12 @@ def lstm_cell(p: Params, x, state):
     h, c = state
     gates = (matmul_t(x, p["weight_ih"]) + p["bias_ih"]
              + matmul_t(h, p["weight_hh"]) + p["bias_hh"])
+    return lstm_update(gates, c)
+
+
+def lstm_update(gates, c):
+    """The LSTM's state update from its summed gates (B, 4H) (torch packing
+    i, f, g, o) and cell c: (h, c)."""
     i, f, g, o = torch.chunk(gates, 4, dim=-1)
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)

@@ -36,6 +36,8 @@ enum VsrcicKernel {
   kVocabMerge = 5,      // vocab_merge_kernel
   kSinkhornPacked = 6,  // sinkhorn.cu sinkhorn_packed_kernel
   kSinkhornBlock = 7,   // sinkhorn_block_kernel
+  kStepPlanes = 8,      // vocab_topk.cu step_planes_kernel
+  kStepPlanesSplit = 9,  // step_planes_split_kernel
 };
 
 // the record's `kind` (tools/memcheck.py KINDS)

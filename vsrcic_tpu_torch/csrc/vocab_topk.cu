@@ -90,6 +90,25 @@
 // is never a candidate and adds nothing to the sum. Every access is tested
 // against its bound in the checked build (check.cuh); the default build's
 // code is the plain access.
+//
+// The candidate step's f32 products (step_planes_kernel, its split pass
+// step_planes_split_kernel; ops/step_planes.py) replace no Pallas kernel:
+// JAX leaves the step's projections to XLA's dot; as cuBLAS f32 SGEMMs on
+// the CUDA cores (TF32 off, as the configurations state; the strict step's
+// route) they run near that rate's ceiling. They share this file's "split9"
+// mainloop (tma_mainloop<3, 3>) under another epilogue, which adds the bias
+// and an optional per-item addend and stores the f32 tile. Bound: each
+// product as nine bf16 passes on the tensor cores, 2 x 9 x rows x N x K
+// operations over 989 TFLOP/s (at the eval cell's widths, 37.8 M
+// multiply-adds a beam row a step: ~1.76 ms a step of 2560 rows, against
+// ~6 ms at the CUDA cores' 67 TFLOP/s); their operands' bytes (A's and W's
+// planes, the f32 output) are read and written well under that time. What
+// the design does: the products that share an input are one launch (the
+// caller groups their weights: ~5 a step), so each A is split into planes
+// once a step and every tile is a long 128 x 128 product; W's planes are
+// made once a decode; each 64-deep stage goes into fresh accumulators
+// added to an f32 total (the vocab head's reason, above), so the products
+// stay f32 products, summed in another order.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,6 +142,9 @@ enum Bound {
   kBRank = 15,     // the cluster rank a release arrives on
   kBMapH2 = 16,    // host: the tensor maps' extents
   kBMapW = 17,
+  kBOut = 18,      // the step products: rows x N
+  kBAdd = 19,      // their addend: add_rows x N
+  kBSeg = 20,      // a segment of the step split's input: rows x its width
 };
 
 // a shared-memory address's byte offset from `base`
@@ -1130,11 +1152,88 @@ __device__ __forceinline__ void finish_tile(
   }
 }
 
+// The vocab head's epilogue of the TMA mainloop: a tile's logits (without
+// bias) in a consumer thread's accumulators, the bias added, then folded
+// into the tile's partial top-k and (max, sum of exp) of each row
+struct FoldTile {
+  const float* bias;
+  int k;
+  float* part_vals;
+  int* part_ids;
+  float* part_m;
+  float* part_s;
+
+  template <int BN>
+  __device__ __forceinline__ void finish(float (&acc)[BN / 2], int lane,
+                                         int row0, int vt, int n_vt, int V,
+                                         int rows) const {
+    finish_tile<BN>(acc, bias, lane, row0, vt, n_vt, V, rows, k, part_vals,
+                    part_ids, part_m, part_s);
+  }
+};
+
+// The step products' epilogue (step_planes_kernel): out = the tile's sums +
+// bias (+ the addend's row `row / add_div` where `add` is given), f32, a
+// thread's two rows and column pairs (the wgmma fragment) stored as float2
+// where N is even, else one by one; rows past `rows` and columns past N are
+// not stored
+struct StoreTile {
+  const float* bias;  // (N,)
+  const float* add;   // (add_rows, N), or null
+  int add_div, add_rows;
+  float* out;         // (rows, N)
+
+  template <int BN>
+  __device__ __forceinline__ void finish(float (&acc)[BN / 2], int lane,
+                                         int row0, int vt, int n_vt, int N,
+                                         int rows) const {
+    const bool even = (N & 1) == 0;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= rows) continue;
+      const long long o = (long long)row * N;
+      const long long a = (long long)(row / add_div) * N;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = vt * BN + j * 8 + (lane & 3) * 2;
+        float x[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          x[e] = acc[j * 4 + r * 2 + e];
+          if (col + e < N VSRCIC_AND(VSRCIC_IN(kStepPlanes, kGlobal, kBBias,
+                                               col + e, 1, N)))
+            x[e] += __ldg(bias + col + e);
+          if (add && col + e < N VSRCIC_AND(VSRCIC_IN(
+                         kStepPlanes, kGlobal, kBAdd, a + col + e, 1,
+                         (long long)add_rows * N)))
+            x[e] += __ldg(add + a + col + e);
+        }
+        if (even && col + 1 < N) {
+          VSRCIC_DO(VSRCIC_IN(kStepPlanes, kGlobal, kBOut, o + col, 2,
+                              (long long)rows * N),
+                    *reinterpret_cast<float2*>(out + o + col) =
+                        make_float2(x[0], x[1]));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (col + e < N VSRCIC_AND(VSRCIC_IN(kStepPlanes, kGlobal, kBOut,
+                                                 o + col + e, 1,
+                                                 (long long)rows * N)))
+              out[o + col + e] = x[e];
+        }
+      }
+    }
+  }
+};
+
 // a consumer warp's release of a slot: to every CTA of its cluster (of C,
-// 1 or 2), whose producers all write into it
+// 1 or 2), whose producers all write into it (KID: the kernel the checks
+// name)
+template <int KID>
 __device__ __forceinline__ void release(uint64_t* bar, int rank, int C) {
   mbar_arrive(bar);
-  if (C > 1 VSRCIC_AND(VSRCIC_IN(kVocabTma, kDsmem, kBRank, rank ^ 1, 1,
+  if (C > 1 VSRCIC_AND(VSRCIC_IN(KID, kDsmem, kBRank, rank ^ 1, 1,
                                  cluster_size())))
     mbar_arrive_remote(bar, rank ^ 1);
 }
@@ -1172,14 +1271,17 @@ __device__ __forceinline__ void release(uint64_t* bar, int rank, int C) {
 // (product_order), into 64 fresh accumulators and adds them to a running
 // total of 64 more with f32 adds, which round to nearest: each truncation
 // is then at a 64-deep partial's scale, not the logit's.
-template <int PA, int PB>
-__global__ void __launch_bounds__(T_THREADS, 1)
-vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
-                 const __grid_constant__ CUtensorMap tm_w,
-                 const float* __restrict__ bias, int rows, int R, int V,
-                 int k, int stages, float* __restrict__ part_vals,
-                 int* __restrict__ part_ids, float* __restrict__ part_m,
-                 float* __restrict__ part_s) {
+//
+// The mainloop is shared: vocab_tma_kernel<PA, PB> finishes each tile with
+// the vocab head's fold (FoldTile), step_planes_kernel (<T_PLANES,
+// T_PLANES>, the candidate step's f32 products; R is their depth K, V
+// their width N) with a store (StoreTile). KID names the kernel in the
+// memory check's records.
+template <int PA, int PB, int KID, typename Epi>
+__device__ __forceinline__ void tma_mainloop(const CUtensorMap* tm_h2,
+                                             const CUtensorMap* tm_w,
+                                             int rows, int R, int V,
+                                             int stages, const Epi& epi) {
   constexpr int BN = tma_tile_n(PA, PB);
   constexpr int STAGE = tma_stage_bytes(PA, PB);
   constexpr int NB = BN / 64;          // W_t boxes of a plane a stage
@@ -1205,14 +1307,14 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
   const int lane = threadIdx.x & 31;
   // the checks: slot s of the ring and its barriers (s < stages), a box
   // or an operand of `bytes` at byte `off` of slot s within the ring
-#define SLOT_OK(s) VSRCIC_IN(kVocabTma, kMbarrier, kBSlot, s, 1, stages)
+#define SLOT_OK(s) VSRCIC_IN(KID, kMbarrier, kBSlot, s, 1, stages)
 #define BOX_OK(s, off, bytes)                                     \
-  VSRCIC_IN(kVocabTma, kShared, kBBox, (s) * STAGE + (off), bytes, \
+  VSRCIC_IN(KID, kShared, kBBox, (s) * STAGE + (off), bytes, \
             stages * STAGE)
 
   if (threadIdx.x == 0) {
 #if VSRCIC_CHECKED
-    (void)VSRCIC_IN(kVocabTma, kShared, kBSmem, soff(ring, smem_raw),
+    (void)VSRCIC_IN(KID, kShared, kBSmem, soff(ring, smem_raw),
                 stages * STAGE + 2 * 8 * stages, vsrcic_dynamic_smem());
 #endif
     for (int s = 0; s < stages; ++s) {
@@ -1272,9 +1374,9 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
               }
 #endif
               if (C == 1)
-                tma_box_3d(dst, &tm_h2, kb * T_BK, y, i, &full[s]);
+                tma_box_3d(dst, tm_h2, kb * T_BK, y, i, &full[s]);
               else
-                tma_box_3d_multicast(dst, &tm_h2, kb * T_BK, y, i, &full[s],
+                tma_box_3d_multicast(dst, tm_h2, kb * T_BK, y, i, &full[s],
                                      all);
             }
 #pragma unroll
@@ -1290,9 +1392,9 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
                 }
 #endif
                 if constexpr (PB == 1)
-                  tma_box(dst, &tm_w, vt * BN + x * 64, kb * T_BK, &full[s]);
+                  tma_box(dst, tm_w, vt * BN + x * 64, kb * T_BK, &full[s]);
                 else
-                  tma_box_3d(dst, &tm_w, vt * BN + x * 64, kb * T_BK, j,
+                  tma_box_3d(dst, tm_w, vt * BN + x * 64, kb * T_BK, j,
                              &full[s]);
               }
           } else {
@@ -1301,7 +1403,7 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
               drop(T_A_BYTES, false);
             else
 #endif
-              tma_box(a, &tm_h2, kb * T_BK, rb * T_BM, &full[s]);
+              tma_box(a, tm_h2, kb * T_BK, rb * T_BM, &full[s]);
             // box bx of the PB * NB: plane bx / NB, columns (bx % NB) * 64..
             constexpr int SHARE = PB * NB / T_CLUSTER;
 #pragma unroll
@@ -1316,9 +1418,9 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
               }
 #endif
               if constexpr (PB == 1)
-                tma_box_multicast(dst, &tm_w, col, kb * T_BK, &full[s], all);
+                tma_box_multicast(dst, tm_w, col, kb * T_BK, &full[s], all);
               else
-                tma_box_3d_multicast(dst, &tm_w, col, kb * T_BK, bx / NB,
+                tma_box_3d_multicast(dst, tm_w, col, kb * T_BK, bx / NB,
                                      &full[s], all);
             }
           }
@@ -1376,32 +1478,56 @@ vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
         if constexpr (TOTAL) {
           wgmma_wait<0>();  // this stage's products are done
           fence_acc(d);
-          if (lane == 0) VSRCIC_DO(SLOT_OK(s), release(&empty[s], rank, C));
+          if (lane == 0)
+            VSRCIC_DO(SLOT_OK(s), release<KID>(&empty[s], rank, C));
 #pragma unroll
           for (int c = 0; c < NACC; ++c) t[c] += d[c];
         } else {
           wgmma_wait<1>();  // the previous stage's products are done
           if (kb > 0 && lane == 0 VSRCIC_AND(SLOT_OK((g - 1) % stages)))
-            release(&empty[(g - 1) % stages], rank, C);
+            release<KID>(&empty[(g - 1) % stages], rank, C);
         }
       }
       const int row0 = rb * T_BM + wg * 64 + warp * 16 + (lane >> 2);
       if constexpr (TOTAL) {
         if (vt < n_vt)
-          finish_tile<BN>(t, bias, lane, row0, vt, n_vt, V, rows, k,
-                          part_vals, part_ids, part_m, part_s);
+          epi.template finish<BN>(t, lane, row0, vt, n_vt, V, rows);
       } else {
         wgmma_wait<0>();
         fence_acc(d);
         if (lane == 0 VSRCIC_AND(SLOT_OK((g - 1) % stages)))
-          release(&empty[(g - 1) % stages], rank, C);
-        finish_tile<BN>(d, bias, lane, row0, vt, n_vt, V, rows, k, part_vals,
-                        part_ids, part_m, part_s);
+          release<KID>(&empty[(g - 1) % stages], rank, C);
+        epi.template finish<BN>(d, lane, row0, vt, n_vt, V, rows);
       }
     }
   }
 #undef SLOT_OK
 #undef BOX_OK
+}
+
+template <int PA, int PB>
+__global__ void __launch_bounds__(T_THREADS, 1)
+vocab_tma_kernel(const __grid_constant__ CUtensorMap tm_h2,
+                 const __grid_constant__ CUtensorMap tm_w,
+                 const float* __restrict__ bias, int rows, int R, int V,
+                 int k, int stages, float* __restrict__ part_vals,
+                 int* __restrict__ part_ids, float* __restrict__ part_m,
+                 float* __restrict__ part_s) {
+  tma_mainloop<PA, PB, kVocabTma>(
+      &tm_h2, &tm_w, rows, R, V, stages,
+      FoldTile{bias, k, part_vals, part_ids, part_m, part_s});
+}
+
+// The candidate step's f32 products, out = A @ W^T + bias (+ addend), on
+// the planes of A (tm_a: T_PLANES of (rows, K8), step_planes_split_kernel)
+// and of W^T (tm_w: T_PLANES of (K, N), rows ldw apart): the mainloop of
+// "split9" (the note at the head of this file says why)
+__global__ void __launch_bounds__(T_THREADS, 1)
+step_planes_kernel(const __grid_constant__ CUtensorMap tm_a,
+                   const __grid_constant__ CUtensorMap tm_w, int rows,
+                   int K, int N, int stages, StoreTile out) {
+  tma_mainloop<T_PLANES, T_PLANES, kStepPlanes>(&tm_a, &tm_w, rows, K, N,
+                                                stages, out);
 }
 
 // The exact split of an f32 value x into three bf16 values, x = hi + mid +
@@ -1426,6 +1552,31 @@ __device__ __forceinline__ void split3(float x, uint32_t& h, uint32_t& m,
   h = u >> 16;
   m = u1 >> 16;
   l = (u2 + 0x7fffu + ((u2 >> 16) & 1u)) >> 16;
+}
+
+// a run of 8 entries x, split3 each, as run t of each of the three planes
+// (`plane` uint4 apart; KID: the kernel the checks name)
+template <int KID>
+__device__ __forceinline__ void store_planes(const float (&x)[8],
+                                             uint4* __restrict__ planes,
+                                             size_t plane, size_t t) {
+  uint32_t hv[4], mv[4], lv[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    uint32_t h0, m0, l0, h1, m1, l1;
+    split3(x[2 * e], h0, m0, l0);
+    split3(x[2 * e + 1], h1, m1, l1);
+    hv[e] = h0 | (h1 << 16);
+    mv[e] = m0 | (m1 << 16);
+    lv[e] = l0 | (l1 << 16);
+  }
+#define PLANES_OK VSRCIC_IN(KID, kGlobal, kBPlanes, 2 * plane + t, 1, 3 * plane)
+  VSRCIC_DO(PLANES_OK, planes[t] = make_uint4(hv[0], hv[1], hv[2], hv[3]));
+  VSRCIC_DO(PLANES_OK,
+            planes[plane + t] = make_uint4(mv[0], mv[1], mv[2], mv[3]));
+  VSRCIC_DO(PLANES_OK,
+            planes[2 * plane + t] = make_uint4(lv[0], lv[1], lv[2], lv[3]));
+#undef PLANES_OK
 }
 
 // f32 h2 (rows, R) -> bf16 planes (T_PLANES, rows, R8), R8 = R rounded up
@@ -1467,24 +1618,71 @@ vocab_split_kernel(const float* __restrict__ h2, int rows, int R, int R8,
                    ? row[c0 + e]
                    : 0.f;
     }
-    uint32_t hv[4], mv[4], lv[4];
+    store_planes<kVocabSplit>(x, planes, plane, t);
+  }
+}
+
+// A = [segment 0 | segment 1 | ...] (rows, K), up to MAX_SEGS f32
+// segments (rows, k[s]) side by side along the depth, -> bf16 planes
+// (T_PLANES, rows, K8), as vocab_split_kernel on one matrix (the step
+// products' A; W^T's rows as one segment). `vec`: every width a multiple of
+// 8 and every base 16-byte aligned, so a run of 8 lies in one segment and
+// loads as two float4.
+constexpr int MAX_SEGS = 4;  // ops/step_planes.py MAX_SEGMENTS
+struct Segments {
+  const float* p[MAX_SEGS];
+  int k[MAX_SEGS];
+};
+
+// the segment holding column `col` of A, and its first column
+__device__ __forceinline__ int segment_of(const Segments& seg, int col,
+                                          int& off) {
+  int s = 0;
+  off = 0;
+  while (s < MAX_SEGS - 1 && col >= off + seg.k[s]) off += seg.k[s++];
+  return s;
+}
+
+__global__ void __launch_bounds__(kThreads)
+step_planes_split_kernel(Segments seg, int rows, int K, int K8, bool vec,
+                         uint4* __restrict__ planes) {
+  const int runs = K8 / 8;
+  const size_t n = (size_t)rows * runs;
+  for (size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x; t < n;
+       t += (size_t)gridDim.x * blockDim.x) {
+    const int r = (int)(t / runs);
+    const int c0 = (int)(t % runs) * 8;
+    float x[8];
+    if (vec) {
+      int off;
+      const int s = segment_of(seg, c0, off);
+      const long long i = (long long)r * seg.k[s] + (c0 - off);
+      const float* src = seg.p[s] + i;
+#define SEG_8 \
+  VSRCIC_IN(kStepPlanesSplit, kGlobal, kBSeg, i, 8, (long long)rows * seg.k[s])
+      const float4 x0 =
+          VSRCIC_LD(SEG_8, *reinterpret_cast<const float4*>(src),
+                    make_float4(0.f, 0.f, 0.f, 0.f));
+      const float4 x1 =
+          VSRCIC_LD(SEG_8, *reinterpret_cast<const float4*>(src + 4),
+                    make_float4(0.f, 0.f, 0.f, 0.f));
+#undef SEG_8
+      x[0] = x0.x, x[1] = x0.y, x[2] = x0.z, x[3] = x0.w;
+      x[4] = x1.x, x[5] = x1.y, x[6] = x1.z, x[7] = x1.w;
+    } else {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      uint32_t h0, m0, l0, h1, m1, l1;
-      split3(x[2 * e], h0, m0, l0);
-      split3(x[2 * e + 1], h1, m1, l1);
-      hv[e] = h0 | (h1 << 16);
-      mv[e] = m0 | (m1 << 16);
-      lv[e] = l0 | (l1 << 16);
+      for (int e = 0; e < 8; ++e) {
+        int off;
+        const int s = segment_of(seg, c0 + e, off);
+        const long long i = (long long)r * seg.k[s] + (c0 + e - off);
+        x[e] = c0 + e < K VSRCIC_AND(VSRCIC_IN(kStepPlanesSplit, kGlobal,
+                                               kBSeg, i, 1,
+                                               (long long)rows * seg.k[s]))
+                   ? seg.p[s][i]
+                   : 0.f;
+      }
     }
-#define PLANES_OK \
-  VSRCIC_IN(kVocabSplit, kGlobal, kBPlanes, 2 * plane + t, 1, 3 * plane)
-    VSRCIC_DO(PLANES_OK, planes[t] = make_uint4(hv[0], hv[1], hv[2], hv[3]));
-    VSRCIC_DO(PLANES_OK,
-              planes[plane + t] = make_uint4(mv[0], mv[1], mv[2], mv[3]));
-    VSRCIC_DO(PLANES_OK,
-              planes[2 * plane + t] = make_uint4(lv[0], lv[1], lv[2], lv[3]));
-#undef PLANES_OK
+    store_planes<kStepPlanesSplit>(x, planes, n, t);
   }
 }
 
@@ -1628,13 +1826,14 @@ cudaLaunchConfig_t tma_config(int grid, int cluster, int smem,
   return cfg;
 }
 
-template <int PA, int PB>
-cudaError_t set_tma_smem(int smem) {
+// the dynamic shared bytes KERNEL may take raised to `smem`, once for the
+// most it has been asked
+template <auto KERNEL>
+cudaError_t allow_smem(int smem) {
   static int smem_set = 0;
   if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        vocab_tma_kernel<PA, PB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     smem_set = smem;
   }
@@ -1651,31 +1850,38 @@ cudaError_t on_planes(int pa, int pb, F f) {
   return pb == 1 ? f(Three{}, One{}) : f(Three{}, Three{});
 }
 
-// h2: PA (rows, R8) bf16 planes (R8 = R on one plane, R rounded up to 8 on
-// the split's three); w: PB (R, V) bf16 planes, rows ldw apart (one plane:
-// a table's rows; three: vsrcic_vocab_split's (3, R, ldw) of an f32 table)
+// The TMA mainloop's tensor maps (kernel `kid` in the checks). h2: PA
+// (rows, R8) bf16 planes (R8 = R on one plane, R rounded up to 8 on the
+// split's three; each CTA of a cluster copies its share of a box's rows);
+// w: PB (R, V) bf16 planes, rows ldw apart (one plane: a table's rows;
+// three: the split's (3, R, ldw) of an f32 table). The extents are the
+// ones the entry points' contracts state: h2's planes contiguous, W_t's
+// rows ldw apart or its (PB, R, ldw) planes.
+template <int PA, int PB>
+bool encode_operands(CUtensorMap* tm_h2, CUtensorMap* tm_w, const void* h2,
+                     const void* w, int rows, int R, int V, int ldw,
+                     int cluster, int kid) {
+  const int R8 = PA == 1 ? R : (R + 7) / 8 * 8;
+  const long long w_extent =
+      PB == 1 ? (long long)(R - 1) * ldw + V : (long long)PB * R * ldw;
+  return encode_planes(tm_h2, h2, 2, PA, rows, R8,
+                       PA == 1 ? T_BM : T_BM / cluster, T_BK, kid, kBMapH2,
+                       2LL * PA * rows * R8, CU_TENSOR_MAP_SWIZZLE_128B) &&
+         encode_planes(tm_w, w, 2, PB, R, V, T_BK, 64, kid, kBMapW,
+                       2 * w_extent, CU_TENSOR_MAP_SWIZZLE_128B, ldw);
+}
+
 template <int PA, int PB>
 cudaError_t launch_tma(const __nv_bfloat16* h2, const __nv_bfloat16* w,
                        const float* bias, int rows, int R, int V, int ldw,
                        int k, int stages, int cluster, int grid, int smem,
                        float* part_vals, int* part_ids, float* part_m,
                        float* part_s, cudaStream_t stream) {
-  cudaError_t e = set_tma_smem<PA, PB>(smem);
+  cudaError_t e = allow_smem<vocab_tma_kernel<PA, PB>>(smem);
   if (e != cudaSuccess) return e;
   CUtensorMap tm_h2, tm_w;
-  const int R8 = PA == 1 ? R : (R + 7) / 8 * 8;
-  // the split's planes: each CTA of a cluster copies its share of a box's
-  // rows
-  // the extents the entry point's contract states: h2's PA planes of (rows,
-  // R8), contiguous; W_t's rows ldw apart, or its (PB, R, ldw) planes
-  const long long w_extent =
-      PB == 1 ? (long long)(R - 1) * ldw + V : (long long)PB * R * ldw;
-  if (!encode_planes(&tm_h2, h2, 2, PA, rows, R8,
-                     PA == 1 ? T_BM : T_BM / cluster, T_BK, kVocabTma,
-                     kBMapH2, 2LL * PA * rows * R8,
-                     CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !encode_planes(&tm_w, w, 2, PB, R, V, T_BK, 64, kVocabTma, kBMapW,
-                     2 * w_extent, CU_TENSOR_MAP_SWIZZLE_128B, ldw))
+  if (!encode_operands<PA, PB>(&tm_h2, &tm_w, h2, w, rows, R, V, ldw,
+                               cluster, kVocabTma))
     return cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = tma_config(grid, cluster, smem, stream,
@@ -1832,11 +2038,93 @@ extern "C" int vsrcic_vocab_tma_clusters(int smem, int planes, int w_planes,
                                             &attr);
   return (int)on_planes(planes, w_planes, [&](auto pa, auto pb) {
     constexpr int PA = decltype(pa)::value, PB = decltype(pb)::value;
-    cudaError_t e = set_tma_smem<PA, PB>(smem);
+    cudaError_t e = allow_smem<vocab_tma_kernel<PA, PB>>(smem);
     if (e != cudaSuccess) return e;
     return cudaOccupancyMaxActiveClusters(out, vocab_tma_kernel<PA, PB>,
                                           &cfg);
   });
+}
+
+// A = [s0 | s1 | s2 | s3] (rows, K = k0 + .. + k3; segment s f32 (rows,
+// k[s]), contiguous; a width of 0 leaves its pointer unread) -> bf16
+// planes (3, rows, K8), K8 = K rounded up to 8, columns K..K8 zero
+// (step_planes_split_kernel); `planes` 16-byte aligned
+extern "C" int vsrcic_step_planes_split(const void* s0, const void* s1,
+                                        const void* s2, const void* s3,
+                                        int k0, int k1, int k2, int k3,
+                                        int rows, void* planes,
+                                        void* stream) {
+  cudaGetLastError();  // a stale error must not be reported as this launch's
+  const Segments seg = {{static_cast<const float*>(s0),
+                         static_cast<const float*>(s1),
+                         static_cast<const float*>(s2),
+                         static_cast<const float*>(s3)},
+                        {k0, k1, k2, k3}};
+  long long K = 0;
+  bool vec = true;
+  for (int s = 0; s < MAX_SEGS; ++s) {
+    if (seg.k[s] < 0 || (seg.k[s] > 0 && !seg.p[s]))
+      return (int)cudaErrorInvalidValue;
+    K += seg.k[s];
+    vec = vec && seg.k[s] % 8 == 0 &&
+          reinterpret_cast<uintptr_t>(seg.p[s]) % 16 == 0;
+  }
+  if (rows < 1 || K < 1 || K > (1 << 30) ||
+      reinterpret_cast<uintptr_t>(planes) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int K8 = (int)(K + 7) / 8 * 8;
+  const size_t runs = (size_t)rows * (K8 / 8);
+  const size_t blocks = (runs + kThreads - 1) / kThreads;
+  step_planes_split_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192),
+                             kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      seg, rows, (int)K, K8, vec, static_cast<uint4*>(planes));
+  return (int)cudaGetLastError();
+}
+
+// The candidate step's products (ops/step_planes.py): out (rows, N) f32 =
+// A @ W^T + bias, plus row r / add_div of `add` (add_rows, N) where it is
+// given (else null). `a`: A's planes (3, rows, K8)
+// (vsrcic_step_planes_split); `w`: W^T's planes (3, K, ldw), ldw a
+// multiple of 8 (the same pass on W^T's rows, once a decode); both 16-byte
+// aligned, `out` 8-byte. The plan is ops/step_planes.py::step_launch_plan's
+// ("split9"'s: `stages` ring slots, clusters of `cluster` along N, `grid`
+// persistent CTAs, `smem` dynamic shared bytes); a plan that differs is
+// refused.
+extern "C" int vsrcic_step_planes(const void* a, const void* w,
+                                  const void* bias, const void* add,
+                                  int add_div, int add_rows, int rows, int K,
+                                  int N, int ldw, int stages, int cluster,
+                                  int grid, int smem, void* out,
+                                  void* stream) {
+  cudaGetLastError();  // a stale error must not be reported as this launch's
+  const int n_rb = (rows + T_BM - 1) / T_BM;
+  const int n_vt = (N + T_BN_SPLIT - 1) / T_BN_SPLIT;
+  if (rows < 1 || K < 1 || N < 1 || ldw < N || ldw % 8 != 0 ||
+      (add && (add_div < 1 || (long long)add_rows * add_div < rows)) ||
+      reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 8 != 0 || stages < T_MIN_STAGES ||
+      stages > T_MAX_STAGES || (cluster != 1 && cluster != T_CLUSTER) ||
+      grid < cluster || grid % cluster != 0 ||
+      grid / cluster > n_rb * ((n_vt + cluster - 1) / cluster) ||
+      smem != tma_smem_bytes(stages, T_PLANES, T_PLANES))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_smem<step_planes_kernel>(smem);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap tm_a, tm_w;
+  if (!encode_operands<T_PLANES, T_PLANES>(&tm_a, &tm_w, a, w, rows, K, N,
+                                           ldw, cluster, kStepPlanes))
+    return (int)cudaErrorInvalidValue;
+  const StoreTile tile = {static_cast<const float*>(bias),
+                          static_cast<const float*>(add), add ? add_div : 1,
+                          add ? add_rows : 0, static_cast<float*>(out)};
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = tma_config(
+      grid, cluster, smem, static_cast<cudaStream_t>(stream), &attr);
+  e = cudaLaunchKernelEx(&cfg, step_planes_kernel, tm_a, tm_w, rows, K, N,
+                         stages, tile);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* vsrcic_error_string(int err) {

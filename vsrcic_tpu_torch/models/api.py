@@ -10,7 +10,11 @@ opted into with the same switches as in JAX:
     the CUDA kernel on the card, its plain version on the CPU) | "plain"
     (the plain version on any device);
   * use_vocab_topk: False | True (the vocab top-k + logsumexp op, likewise)
-    | "plain" (the plain version on any device; JAX's "xla");
+    | "plain" (the plain version on any device; JAX's "xla"). Without the
+    fused op, on f32 parameters, the beam's candidate step then also runs
+    its f32 products grouped by input through `ops/step_planes.py` (the
+    kernels on the card, or, "plain", the plain version), which JAX leaves
+    to XLA's dot;
   * table_dtype: storage dtype of the statics tables and of the vocab op's
     out_fc table (torch.bfloat16 halves the bytes read per step). Unlike
     JAX's "xla" mode, "plain" reads the same cast table as the kernel, so
@@ -48,9 +52,12 @@ from vsrcic_tpu_torch.decode.loops import (forward_teacher_forcing,
 from vsrcic_tpu_torch.models.captioner import (
     CaptionerConfig, Statics, VerbTenseTable, _mm, captioner_step,
     captioner_step_v, captioner_step_v_topk, derive_fused_step_weights,
-    image_descriptor_f32, init_captioner_params, init_state, precompute_statics)
+    derive_step_product_groups, image_descriptor_f32, init_captioner_params,
+    init_state, precompute_statics)
 from vsrcic_tpu_torch.ops.fused_attention import (
     fused_group_attention, fused_group_attention_plain)
+from vsrcic_tpu_torch.ops.step_planes import (step_planes, step_planes_plain,
+                                              step_weights)
 from vsrcic_tpu_torch.ops.vocab_topk import (padded_table, table_planes,
                                              vocab_topk_lse,
                                              vocab_topk_lse_plain)
@@ -115,30 +122,41 @@ class ControllableCaptioner:
         dt = self.table_dtype or self.decode_dtype
         return a.to(dt) if dt is not None and a.is_floating_point() else a
 
-    def _fused_statics(self, params, detections, det_groups, verb_list=None):
+    def _fused_statics(self, params, detections, det_groups, verb_list=None,
+                       products=False):
         """Statics (+ the fused attention op and fused step weights when
         use_fused_attention) of `params`, which every decode passes in: a
         trainer decodes with its live parameters, and the step weights are
-        derived from them on every call. Returns (statics, fused_fn,
-        fused_w). Inside the span `beam.statics`."""
+        derived from them on every call. With `products` (the candidate
+        step without the fused op), the step products' op and its grouped
+        weights (`derive_step_product_groups`, W's planes made for the
+        kernel) in the fused op's place. Returns (statics, op, weights).
+        Inside the span `beam.statics`."""
         with obs.span("beam.statics"):
             detections = self._cast(detections)
             statics = precompute_statics(params, self.cfg, detections,
                                          self._cast(det_groups),
                                          verb_list=verb_list)
-            if not self.use_fused_attention:
+            if not (self.use_fused_attention or products):
                 return statics, None, None
+            fw = derive_fused_step_weights(
+                params, self.cfg, dtype=None if products else self.step_dtype)
+            # the image-descriptor slice of the input_1 projection is
+            # step-invariant: computed once per decode, per item
+            img_y = (_mm(image_descriptor_f32(detections), fw["wx_img"])
+                     + fw["bx"])
+            if products:
+                kernel = self.use_vocab_topk is True
+                groups = derive_step_product_groups(params, self.cfg, fw)
+                return (statics._replace(img_y=img_y),
+                        step_planes if kernel else step_planes_plain,
+                        {name: step_weights(w, b, with_planes=kernel)
+                         for name, (w, b) in groups.items()})
             fused = (fused_group_attention
                      if self.use_fused_attention is True
                      else fused_group_attention_plain)
             tdt = (self.table_dtype or self.decode_dtype
                    or statics.det_groups.dtype)
-            fw = derive_fused_step_weights(params, self.cfg,
-                                           dtype=self.step_dtype)
-            # the image-descriptor slice of the input_1 projection is
-            # step-invariant: computed once per decode, per item
-            img_y = (_mm(image_descriptor_f32(detections), fw["wx_img"])
-                     + fw["bx"])
             statics = Statics(statics.image_descriptor,
                               statics.det_groups.to(tdt).contiguous(),
                               statics.det_groups_proj.to(tdt).contiguous(),
@@ -207,19 +225,27 @@ class ControllableCaptioner:
     def _beam_v_impl(self, params, detections, det_groups, verb_list,
                      beam_size, eos_word, gt):
         b = detections.shape[0]
-        statics, fused, fw = self._fused_statics(params, detections,
-                                                 det_groups,
-                                                 verb_list=verb_list)
+        # the candidate step's products through ops/step_planes.py: the
+        # fast path without the fused op, on f32 parameters (bf16 ones keep
+        # jnp's promotion through nn.linear)
+        products = (bool(self.use_vocab_topk) and not self.use_fused_attention
+                    and all(v.dtype == torch.float32
+                            for v in flatten(params).values()
+                            if v.is_floating_point()))
+        statics, op, ow = self._fused_statics(params, detections,
+                                              det_groups, verb_list=verb_list,
+                                              products=products)
         state = init_state(self.cfg, b * beam_size, device=self.device)
         if self.use_vocab_topk:
             vocab_fn, tables = self._vocab_fn_and_tables(beam_size)
+            step_kw = (dict(products_fn=op, products_w=ow) if products
+                       else dict(fused_fn=op, fused_w=ow))
 
             def step_fn(state, pw, pg, t0):
                 return captioner_step_v_topk(
                     params, self.cfg, state, statics, self.tense_table,
                     vocab_fn, tables, prev_word=pw, prev_gate=pg, t0=t0,
-                    gt=gt, beam=beam_size, k=beam_size, fused_fn=fused,
-                    fused_w=fw)
+                    gt=gt, beam=beam_size, k=beam_size, **step_kw)
 
             return beam_search_joint_candidates(
                 step_fn, state, b, beam_size, self.cfg.seq_len,
@@ -229,8 +255,8 @@ class ControllableCaptioner:
             return captioner_step_v(params, self.cfg, state, statics,
                                     self.tense_table, prev_word=pw,
                                     prev_gate=pg, t0=t0, gt=gt,
-                                    beam=beam_size, fused_fn=fused,
-                                    fused_w=fw)
+                                    beam=beam_size, fused_fn=op,
+                                    fused_w=ow)
 
         return beam_search_joint(step_fn, state, b, beam_size,
                                  self.cfg.seq_len, eos_word=eos_word)

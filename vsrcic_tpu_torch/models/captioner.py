@@ -150,10 +150,7 @@ def _fused_input1_block(fused_w, input_1, h1_prev, c1_prev, rnn_size,
     y_x = y_x + img_y
     s_gate = torch.sigmoid(y_x[:, :r] + y_h[:, :r])
     g_pre_x = y_x[:, r:2 * r]
-    gates = y_x[:, 2 * r:] + y_h[:, r:]
-    i, f, g, o = torch.chunk(gates, 4, dim=-1)
-    c1 = torch.sigmoid(f) * c1_prev + torch.sigmoid(i) * torch.tanh(g)
-    h1 = torch.sigmoid(o) * torch.tanh(c1)
+    h1, c1 = nn.lstm_update(y_x[:, 2 * r:] + y_h[:, r:], c1_prev)
     return s_gate, g_pre_x, h1, c1
 
 
@@ -181,8 +178,9 @@ class Statics(NamedTuple):
     det_groups_proj: torch.Tensor       # (B, L, M, A) att_va(det_groups)
     det_groups_mask: torch.Tensor       # (B, L, M) 1.0 where region non-zero
     verb_list: Optional[torch.Tensor]   # (B, L) verb ids or -1 (step_v only)
-    # fast path: image_descriptor's input_1 projection + bias, hoisted out
-    # of the decode loop (see derive_fused_step_weights)
+    # fast paths (the fused op's step, the step products'):
+    # image_descriptor's input_1 projection + bias, hoisted out of the
+    # decode loop (see derive_fused_step_weights)
     img_y: Optional[torch.Tensor] = None   # (B, 6R)
 
 
@@ -211,13 +209,20 @@ def precompute_statics(params, cfg: CaptionerConfig, detections, det_groups,
 
 def _step_core(params, cfg: CaptionerConfig, state: CaptionerState,
                it, det_curr, det_curr_proj, det_curr_mask, image_descriptor,
-               word_head=True):
+               word_head=True, products=None):
     """Shared math of step/step_v given the already-gathered region group.
 
     it: (B,) input word; det_curr: (B, M, D); det_curr_proj: (B, M, A);
     det_curr_mask: (B, M). Returns ((word_logp, gate_logp), (h1, c1, h2,
     c2)); `word_head=False` skips out_fc/log_softmax (word_logp is None).
+    products: None (every product an `nn.linear`), or (op, weights, img_y,
+    beam) of the candidate step, which has no word head: the products
+    grouped by input through the op (`_step_core_products`).
     """
+    if products is not None:
+        return _step_core_products(params, cfg, state, it, det_curr,
+                                   det_curr_proj, det_curr_mask,
+                                   image_descriptor, *products)
     xt = nn.embedding(params["embed"], it)
     if cfg.h2_first_lstm:
         input_1 = torch.cat([state.h2, image_descriptor, xt], 1)
@@ -230,22 +235,10 @@ def _step_core(params, cfg: CaptionerConfig, state: CaptionerState,
 
     s_t = s_gate * torch.tanh(c1)
     fc_sentinel = nn.linear(params["s_fc"], s_t)          # (B, D)
-
-    # additive attention over [sentinel ; regions]
     ha = nn.linear(params["att_ha"], h1)                   # (B, A)
-    det_w = torch.tanh(det_curr_proj + ha[:, None, :])     # (B, M, A)
-    det_w = nn.linear(params["att_a"], det_w)              # (B, M, 1)
-    sent_w = torch.tanh(nn.linear(params["att_sa"], s_t) + ha)
-    sent_w = nn.linear(params["att_s"], sent_w)[:, None, :]  # (B, 1, 1)
-
-    att = torch.softmax(torch.cat([sent_w, det_w], 1), dim=1)  # (B, 1+M, 1)
-    sent_mask = (fc_sentinel.sum(-1, keepdim=True) != 0).to(det_curr.dtype)
-    regions_mask = torch.cat(
-        [sent_mask[:, :, None], det_curr_mask[:, :, None]], 1)
-    att = regions_mask * att
-    att = att / att.sum(1, keepdim=True)
-    regions = torch.cat([fc_sentinel[:, None, :], det_curr], 1)
-    att_detections = (regions * att).sum(1)                # (B, D)
+    att_detections, det_w = _attend(
+        params, ha, nn.linear(params["att_sa"], s_t), fc_sentinel, det_curr,
+        det_curr_proj, det_curr_mask)
 
     if cfg.img_second_lstm:
         input_2 = torch.cat([h1, att_detections, image_descriptor], 1)
@@ -261,12 +254,113 @@ def _step_core(params, cfg: CaptionerConfig, state: CaptionerState,
     g_gate = torch.sigmoid(nn.linear(params["W1_ig"], input_1)
                            + nn.linear(params["W1_hg"], h1))
     g_t = g_gate * torch.tanh(c1)
-    gate_w = torch.tanh(nn.linear(params["att_ga"], g_t) + ha)
-    gate_w = nn.linear(params["att_g"], gate_w)            # (B, 1)
-    det_w_sum = (det_curr_mask[:, :, None] * det_w).sum(1)  # (B, 1)
-    gate_logits = torch.cat([gate_w, det_w_sum], 1).float()
-    gate_logp = torch.log_softmax(gate_logits, dim=-1)
+    gate_logp = _gate_logp(params, nn.linear(params["att_ga"], g_t), ha,
+                           det_w, det_curr_mask)
     return (word_logp, gate_logp), (h1, c1, h2, c2)
+
+
+def _attend(params, ha, sa, fc_sentinel, det_curr, det_curr_proj,
+            det_curr_mask):
+    """The additive attention over [sentinel ; regions] of _step_core,
+    given ha = att_ha(h1) (B, A) and sa = att_sa(s_t) (B, A): returns
+    (att_detections (B, D), det_w (B, M, 1))."""
+    det_w = torch.tanh(det_curr_proj + ha[:, None, :])     # (B, M, A)
+    det_w = nn.linear(params["att_a"], det_w)              # (B, M, 1)
+    sent_w = nn.linear(params["att_s"],
+                       torch.tanh(sa + ha))[:, None, :]    # (B, 1, 1)
+
+    att = torch.softmax(torch.cat([sent_w, det_w], 1), dim=1)  # (B, 1+M, 1)
+    sent_mask = (fc_sentinel.sum(-1, keepdim=True) != 0).to(det_curr.dtype)
+    regions_mask = torch.cat(
+        [sent_mask[:, :, None], det_curr_mask[:, :, None]], 1)
+    att = regions_mask * att
+    att = att / att.sum(1, keepdim=True)
+    regions = torch.cat([fc_sentinel[:, None, :], det_curr], 1)
+    return (regions * att).sum(1), det_w
+
+
+def _gate_logp(params, ga, ha, det_w, det_curr_mask):
+    """The shift gate's log-probs (B, 2) of _step_core, given ga =
+    att_ga(g_t), ha and the attention's det_w."""
+    gate_w = nn.linear(params["att_g"], torch.tanh(ga + ha))  # (B, 1)
+    det_w_sum = (det_curr_mask[:, :, None] * det_w).sum(1)   # (B, 1)
+    gate_logits = torch.cat([gate_w, det_w_sum], 1).float()
+    return torch.log_softmax(gate_logits, dim=-1)
+
+
+def derive_step_product_groups(params, cfg: CaptionerConfig, fused_w):
+    """The candidate step's products grouped by their input, as
+    `_step_core_products` reads them: {name: (weight (N, K), bias (N,) or
+    None)}, K the input's segments side by side.
+
+      * "in1": [h2_prev, word embedding, h1_prev] ([embedding, h1_prev]
+        without h2_first_lstm) -> [s-gate (R), g-gate x side (R), LSTM 1
+        ifgo (4R)]: `fused_w`'s (derive_fused_step_weights, f32) x side
+        without the image columns beside its h side, zeros where the g
+        gate meets h1_prev (W1_hg reads the new h1, in "h1"); the image
+        columns and bx come hoisted, per item (Statics.img_y);
+      * "s": s_t -> [s_fc (D), att_sa (A)];
+      * "h1": h1 -> [att_ha (A), W1_hg (R)];
+      * "g": g_t -> att_ga (A);
+      * "lstm2": [h1, att_detections, (image descriptor,) h2_prev] ->
+        LSTM 2 ifgo (4R).
+    The products with one output column (att_a, att_s, att_g) stay
+    `nn.linear`."""
+    r, a = cfg.rnn_size, cfg.att_size
+    wh, bh = fused_w["wh"], fused_w["bh"]
+    lstm2 = params["lstm_cell_2"]
+
+    def weights(*names):
+        return torch.cat([params[n]["weight"] for n in names], 0)
+
+    return {
+        "in1": (torch.cat([fused_w["wx_nimg"],
+                           torch.cat([wh[:r], wh.new_zeros((r, r)), wh[r:]],
+                                     0)], 1),
+                torch.cat([bh[:r], bh.new_zeros((r,)), bh[r:]], 0)),
+        "s": (weights("s_fc", "att_sa"),
+              torch.cat([params["s_fc"]["bias"], bh.new_zeros((a,))], 0)),
+        "h1": (weights("att_ha", "W1_hg"),
+               torch.cat([bh.new_zeros((a,)), params["W1_hg"]["bias"]], 0)),
+        "g": (params["att_ga"]["weight"], None),
+        "lstm2": (torch.cat([lstm2["weight_ih"], lstm2["weight_hh"]], 1),
+                  lstm2["bias_ih"] + lstm2["bias_hh"]),
+    }
+
+
+def _step_core_products(params, cfg: CaptionerConfig, state: CaptionerState,
+                        it, det_curr, det_curr_proj, det_curr_mask,
+                        image_descriptor, products_fn, products_w, img_y,
+                        beam):
+    """_step_core without the word head, its products grouped by input
+    (`derive_step_product_groups`) and run by `products_fn`
+    (`ops/step_planes.py::step_planes` or its plain version) on
+    `products_w` (each group as the op's weights): five calls a step. The
+    image-descriptor columns of the first projections and their bias come
+    hoisted in img_y (per item; `beam` rows an item)."""
+    r, d, a = cfg.rnn_size, cfg.det_feat_size, cfg.att_size
+    xt = nn.embedding(params["embed"], it)
+    x = [state.h2, xt] if cfg.h2_first_lstm else [xt]
+    y = products_fn(x + [state.h1], products_w["in1"], add=img_y,
+                    add_div=beam)                          # (B, 6R)
+    h1, c1 = nn.lstm_update(y[:, 2 * r:], state.c1)
+    s_t = torch.sigmoid(y[:, :r]) * torch.tanh(c1)
+    y_s = products_fn([s_t], products_w["s"])              # (B, D + A)
+    y_h = products_fn([h1], products_w["h1"])              # (B, A + R)
+    ha = y_h[:, :a]
+    # fc_sentinel contiguous: _attend concatenates it with the (B, M, D)
+    # group, which a strided view sends down torch.cat's slow path
+    att_detections, det_w = _attend(params, ha, y_s[:, d:],
+                                    y_s[:, :d].contiguous(), det_curr,
+                                    det_curr_proj, det_curr_mask)
+    x2 = [h1, att_detections] + (
+        [image_descriptor] if cfg.img_second_lstm else [])
+    h2, c2 = nn.lstm_update(
+        products_fn(x2 + [state.h2], products_w["lstm2"]), state.c2)
+    g_t = torch.sigmoid(y[:, r:2 * r] + y_h[:, a:]) * torch.tanh(c1)
+    gate_logp = _gate_logp(params, products_fn([g_t], products_w["g"]), ha,
+                           det_w, det_curr_mask)
+    return (None, gate_logp), (h1, c1, h2, c2)
 
 
 def _step_core_fused(params, cfg: CaptionerConfig, state: CaptionerState,
@@ -309,12 +403,9 @@ def _step_core_fused(params, cfg: CaptionerConfig, state: CaptionerState,
     else:
         input_2 = torch.cat([h1, att_detections], 1)
     if "w2_ih" in fused_w:
-        gates2 = (_mm(input_2, fused_w["w2_ih"])
-                  + _mm(state.h2, fused_w["w2_hh"]) + fused_w["b2"])
-        i2, f2, g2, o2 = torch.chunk(gates2, 4, dim=-1)
-        c2 = (torch.sigmoid(f2) * state.c2
-              + torch.sigmoid(i2) * torch.tanh(g2))
-        h2 = torch.sigmoid(o2) * torch.tanh(c2)
+        h2, c2 = nn.lstm_update(_mm(input_2, fused_w["w2_ih"])
+                                + _mm(state.h2, fused_w["w2_hh"])
+                                + fused_w["b2"], state.c2)
     else:
         h2, c2 = nn.lstm_cell(params["lstm_cell_2"], input_2,
                               (state.h2, state.c2))
@@ -516,13 +607,16 @@ def captioner_step_v_topk(params, cfg: CaptionerConfig, state: CaptionerState,
                           vocab_fn, out_fc_tables,
                           prev_word=None, prev_gate=None, t0=False, gt=False,
                           beam: int = 1, k: int = 5, fused_fn=None,
-                          fused_w=None):
+                          fused_w=None, products_fn=None, products_w=None):
     """captioner_step_v emitting the compact candidate set consumed by
     decode.beam.beam_search_joint_candidates instead of dense word_logp.
 
     vocab_fn(h2, w_t, bias) -> (vals (B,k), ids (B,k), lse (B,1)): the
     wrapper or the plain version of `ops.vocab_topk`.
     out_fc_tables: (w_t (R, V), bias (V,)).
+    products_fn, products_w: without fused_fn, the step products' op and
+    grouped weights (`_step_core`'s `products`; statics.img_y hoisted);
+    without either, its `nn.linear` products.
     Returns ((cand_ids (B, k+1), cand_wlp (B, k+1), gate_logp), state)."""
     b = state.h1.shape[0]
     v = cfg.vocab_size
@@ -538,7 +632,9 @@ def captioner_step_v_topk(params, cfg: CaptionerConfig, state: CaptionerState,
         det_curr, det_proj, det_mask = _gather_group(statics, ctrl, beam)
         (_, gate_logp), (h1, c1, h2, c2) = _step_core(
             params, cfg, state, it, det_curr, det_proj, det_mask,
-            image_descriptor, word_head=False)
+            image_descriptor, word_head=False, products=None
+            if products_fn is None else (products_fn, products_w,
+                                         statics.img_y, beam))
 
     w_t, bias = out_fc_tables
     vals, ids, lse = vocab_fn(h2.contiguous(), w_t, bias)

@@ -67,6 +67,8 @@ SIGNATURES = {
     "vsrcic_vocab_split": [P, I, I, P, P],
     "vsrcic_vocab_tma_clusters": [I, I, I, P],
     "vsrcic_sinkhorn": [P, I, I, I, F, F, P, P],
+    "vsrcic_step_planes": [P, P, P, P, I, I, I, I, I, I, I, I, I, I, P, P],
+    "vsrcic_step_planes_split": [P, P, P, P, I, I, I, I, I, P, P],
 }
 # the checked build's records (csrc/check.cu)
 CHECK_SIGNATURES = {

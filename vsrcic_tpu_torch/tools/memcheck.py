@@ -28,11 +28,12 @@ element copies); the vocab head on every route of `vocab_launch_plan`
 and 5121, R 8, 77 and 1000, V 1, 29, 30, 129, 9999, 10000 and 10007, k 1
 and 5, a pitch greater than V, an unaligned table, a non-finite table and
 forced resident clusters; the Sinkhorn kernel at every (n, S) of
-SINK_CASE_N x SINK_CASE_S. The beam's fused call and each route's
-full-width call run FULL_REPEATS times. `run_case(case, lib)` launches a
-case and returns what it found: the fault records, guard breaches,
-changed inputs, and whether the outputs match the plain version at
-chip_smoke.py phase 3's tolerances. chip_smoke.py runs the sweep in its
+SINK_CASE_N x SINK_CASE_S; the step products and their split pass at
+`_step_cases`' shapes. The beam's fused call, each route's full-width call
+and each of the eval cell's step product groups run FULL_REPEATS times.
+`run_case(case, lib)` launches a case and returns what it found: the fault
+records, guard breaches, changed inputs, and whether the outputs match the
+plain version at chip_smoke.py phase 3's tolerances. chip_smoke.py runs the sweep in its
 memcheck phase; this tool runs it with `--repeats N` launches of every
 case (a longer hunt for a rare fault) and prints one line per kernel and
 a JSON summary (also `chiprun_out/memcheck.json`) beside the card's name
@@ -59,7 +60,8 @@ REPO = os.path.dirname(os.path.dirname(HERE))
 
 # csrc/check.cuh's VsrcicKernel and VsrcicAccess, in order
 KERNELS = ("fused_attention", "vocab_tile", "vocab_tile_bf16", "vocab_tma",
-           "vocab_split", "vocab_merge", "sinkhorn_packed", "sinkhorn_block")
+           "vocab_split", "vocab_merge", "sinkhorn_packed", "sinkhorn_block",
+           "step_planes", "step_planes_split")
 KINDS = ("global", "shared", "distributed shared", "tensor-map extent",
          "mbarrier")
 # the files whose records vsrcic_check_read returns, in order
@@ -80,17 +82,27 @@ _VOCAB_BOUNDS = {
     5: "part_vals/part_ids", 6: "vals/ids", 7: "lse", 8: "planes",
     9: "h2 slices", 10: "W_t slices", 11: "f32 tile",
     12: "dynamic shared bytes", 13: "ring slot", 14: "box or operand",
-    15: "cluster rank", 16: "h2 map", 17: "W_t map"}
+    15: "cluster rank", 16: "h2 map", 17: "W_t map", 18: "out",
+    19: "addend", 20: "segments"}
 _SINKHORN_BOUNDS = {1: "x", 2: "out", 3: "warp tiles", 4: "matrix",
                     5: "dynamic shared bytes"}
 BOUNDS = dict(zip(KERNELS, (_FUSED_BOUNDS,) + (_VOCAB_BOUNDS,) * 5
-                  + (_SINKHORN_BOUNDS,) * 2))
+                  + (_SINKHORN_BOUNDS,) * 2 + (_VOCAB_BOUNDS,) * 2))
 
 GUARD = 0xFF            # every byte of a guard band (NaN, -1)
 MARGIN = 4096           # guard bytes on each side of a view
 FULL_REPEATS = 200      # launches of the beam's fused call, each full route
 SINK_ITERS, SINK_TAU = 20, 0.1
 VOCAB_ROUTES = ("split", "split9", "split_w", "tma", "mma_sync", "sgemm")
+# the step products' A segments in the sweep (K 8, 77, 120, 53: widths no
+# multiple of 8 too), and the eval cell's five groups
+# (models/captioner.py::derive_step_product_groups at COCO Entities'
+# widths): (name, A's segments, N, add_div)
+STEP_WIDTHS = ((8,), (45, 32), (13, 100, 7), (8, 16, 24, 5))
+STEP_GROUPS = (("in1", (1000, 1000, 1000), 6000, 5),
+               ("s", (1000,), 2560, 0), ("h1", (1000,), 1512, 0),
+               ("g", (1000,), 512, 0),
+               ("lstm2", (1000, 2048, 1000), 4000, 0))
 # the routes' operand types: (h2, table)
 _TYPES = {"split": ("float32", "bfloat16"), "split9": ("float32", "float32"),
           "split_w": ("bfloat16", "float32"),
@@ -205,8 +217,9 @@ class Case:
     shape (rows, R, V, k, h2 dtype, table dtype), `layout` ("padded":
     rows V rounded up to 8 apart, "pitch": 8 more, "contiguous",
     "unaligned": contiguous, the base one element off), `finite`; op
-    "sinkhorn": shape (S, n). `plan` is the launch plan; `repeats` the
-    launches."""
+    "sinkhorn": shape (S, n); op "step": shape (rows, the segments'
+    widths, N, add_div: 0 without an addend). `plan` is the launch plan;
+    `repeats` the launches."""
     op: str
     name: str
     shape: tuple
@@ -226,6 +239,8 @@ class Case:
         if self.op == "sinkhorn":
             return {("sinkhorn_packed" if self.shape[1] <= 32
                      else "sinkhorn_block"): n}
+        if self.op == "step":   # W^T's planes once, A's every launch
+            return {"step_planes": n, "step_planes_split": n + 1}
         out = {k: n for k in _ROUTE_KERNELS[self.plan.route]}
         if self.plan.w_planes > 1:   # W_t's planes, made once a table
             out["vocab_split"] = out.get("vocab_split", 0) + 1
@@ -371,6 +386,40 @@ def _vocab_cases(sms, seed):
     return cases
 
 
+def _step_case(name, rows, widths, n, add_div=0, sms=132, resident=None,
+               repeats=1, seed=0):
+    from vsrcic_tpu_torch.ops.step_planes import step_launch_plan
+    return Case("step", name, (rows, tuple(widths), n, add_div),
+                step_launch_plan(rows, sum(widths), n, sms, resident),
+                repeats=repeats, seed=seed)
+
+
+def _step_cases(sms, seed):
+    """The step products: rows 1 and 127, A in one to four segments
+    (STEP_WIDTHS), N 1 (clusters of one CTA), 129 and 300 (a cluster's
+    second tile past N), with and without an addend; the eval cell's five
+    groups at 2560 rows FULL_REPEATS times; forced resident clusters."""
+    cases = []
+
+    def add(*a, **kw):
+        cases.append(_step_case(*a, sms=sms, seed=seed + len(cases), **kw))
+
+    for rows in (1, 127):
+        for widths in STEP_WIDTHS:
+            for n in (1, 129, 300):
+                for add_div in (0, 5):
+                    add("step_r%d_K%s_N%d_add%d" % (
+                        rows, "+".join(map(str, widths)), n, add_div),
+                        rows, widths, n, add_div)
+    for name, widths, n, add_div in STEP_GROUPS:
+        add("step_full_%s" % name, 2560, widths, n, add_div,
+            repeats=FULL_REPEATS)
+    for resident in (1, 7):
+        add("step_resident%d" % resident, 1000, (1000,), 1000,
+            resident=resident)
+    return cases
+
+
 def sweep_cases(seed=0, sms=132):
     """The sweep, a deterministic list of Cases for a card of `sms` SMs
     (the module's note says what it covers)."""
@@ -380,13 +429,14 @@ def sweep_cases(seed=0, sms=132):
         for s in smoke.SINK_CASE_S:
             cases.append(Case("sinkhorn", "sinkhorn_n%d_S%d" % (n, s),
                               (s, n), seed=seed + 2000 + len(cases)))
-    return cases
+    return cases + _step_cases(sms, seed + 3000)
 
 
 def cut_cases(sms=132):
     """The card tests' proof that the checks are live: {(kernel, bound id):
-    (case, kind)}, one bound of each of the eight kernels (and the two
-    tensor maps' extents) whose last element the case's launch reaches;
+    (case, kind)}, one bound of each of the ten kernels (and the two
+    tensor maps' extents, the step products' addend) whose last element
+    the case's launch reaches;
     cut by one element (`run_case(..., cut_bound=)`), it must fault there,
     with that kind."""
     from vsrcic_tpu_torch.ops import fused_attention as fa
@@ -397,6 +447,7 @@ def cut_cases(sms=132):
                   smoke.M_REGIONS, smoke.BEAM, "item"),
                  fa.fused_launch_plan(rows, m, d, a, 2, True, sms))
     split = _vocab_case("cut_split", 127, 77, 129, 5, "split", sms=sms)
+    step = _step_case("cut_step", 127, (13, 100, 7), 129, 5, sms=sms)
     return {
         ("fused_attention", 8): (fused, "global"),        # out
         ("fused_attention", 30): (fused, "tensor-map extent"),  # det map
@@ -416,6 +467,9 @@ def cut_cases(sms=132):
                                  "global"),                # out
         ("sinkhorn_block", 1): (Case("sinkhorn", "cut_block", (7, 33)),
                                 "global"),                 # x
+        ("step_planes", 18): (step, "global"),             # out
+        ("step_planes", 19): (step, "global"),             # addend
+        ("step_planes_split", 20): (step, "global"),       # segments
     }
 
 
@@ -582,7 +636,49 @@ def _run_sinkhorn(case, lib, pool, gen, repeats, launch=None):
     return err, None if err <= 1e-6 else "beyond 1e-6 of the plain version"
 
 
-_RUN = {"fused": _run_fused, "vocab": _run_vocab, "sinkhorn": _run_sinkhorn}
+def _run_step(case, lib, pool, gen, repeats, launch=None):
+    import torch
+    from vsrcic_tpu_torch.ops import step_planes as sp
+    from vsrcic_tpu_torch.ops import vocab_topk as vt
+    rows, widths, n, add_div = case.shape
+    dev = pool.device
+    k = sum(widths)
+    segs = [torch.tanh(torch.randn((rows, w), generator=gen, device=dev))
+            for w in widths]
+    w = torch.randn((n, k), generator=gen, device=dev) * (
+        2.0 / (n + k)) ** 0.5
+    bias = 0.1 * torch.randn((n,), generator=gen, device=dev)
+    add = (torch.randn((-(-rows // add_div), n), generator=gen, device=dev)
+           if add_div else None)
+    g_segs = [pool.input("segment %d" % i, s) for i, s in enumerate(segs)]
+    g_b = pool.input("bias", bias)
+    g_add = None if add is None else pool.input("add", add)
+    w_planes = pool.empty((vt.SPLIT_PLANES, k, n + -n % 8), torch.bfloat16)
+    sp._split_launch(lib, [pool.input("W^T", w.t().contiguous())], w_planes)
+    a_planes = pool.empty((vt.SPLIT_PLANES, rows, k + -k % 8),
+                          torch.bfloat16)
+    out = pool.empty((rows, n), torch.float32)
+    for _ in range(repeats):
+        sp._split_launch(lib, g_segs, a_planes)
+        sp._launch(lib, case.plan, a_planes, w_planes, g_b, g_add,
+                   add_div or 1, out)
+    torch.cuda.synchronize()
+    for name, got, x in (("W^T planes", w_planes, w.t()),
+                         ("A planes", a_planes, torch.cat(segs, 1))):
+        if not torch.equal(got.view(torch.int16),
+                           vt.split_bf16x3_plain(x).view(torch.int16)):
+            return None, "the split pass's %s differ from " \
+                         "split_bf16x3_plain" % name
+    want = sp.step_planes_plain(segs, sp.StepWeights(w, bias, None), add,
+                                add_div or 1)
+    err = float((out - want).abs().max())
+    if not torch.allclose(out, want, rtol=1e-5, atol=1e-5):
+        return err, "beyond rtol / atol 1e-5 of the plain version"
+    return err, None
+
+
+_RUN = {"fused": _run_fused, "vocab": _run_vocab, "sinkhorn": _run_sinkhorn,
+        "step": _run_step}
 
 
 def run_case(case, lib, repeats=None, cut_bound=None, launch=None):
