@@ -14,6 +14,7 @@
     python3 chip_smoke.py --vocab-bf16 # phases 1-2, 3's vocab checks, 5-5d
                                        # (every vocab route)
     python3 chip_smoke.py --step-planes  # phases 1-2, 3p and 5e
+    python3 chip_smoke.py --kimi-head    # phases 1-2 and 3k
 
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi), and the TF32 settings
@@ -75,6 +76,14 @@ Phases (any failure raises and the script exits non-zero):
      STEP_ERR_RATIO of cuBLAS f32's on the same values (TF32 off), held
      time beside the nine-pass bound, the profiler's split, the plain
      version and one torch.addmm;
+ 3k. the Kimi-VL decoder's word head (`KimiVLCaptioner._vocab_fn`: the
+     vocab op on its bf16 final hidden and head table, the "tma" route) at
+     the shapes of its eval path: one batch of 256 jobs at beam 5 through
+     `beam_search_v` at the published widths and depth, launch counts
+     zeroed just before and read just after (20, every one "tma"); one
+     step's hidden of that batch (rows 1280, R 2048, V 163840, k 5) held
+     to the plain version on the same inputs at phase 3's bar, timed held
+     beside its one-pass bound and the plain version;
  3m. the memory check (vsrcic_tpu_torch/tools/memcheck.py): the checked
      build (csrc/check.cuh: every access of every kernel tested against the
      bound its arguments imply) over the sweep of every launch plan, on
@@ -628,16 +637,17 @@ def vocab_near_ties(h2, w, b, got, want):
     return int(rows.numel())
 
 
-def hold_vocab(h2, w, b, k, exact_ids, worst, w_planes=None):
+def hold_vocab(h2, w, b, k, exact_ids, worst, w_planes=None, call=None):
     """One input of phase 3's vocab checks: the wrapper's kernel (given an
-    f32 table's `w_planes`, or making them) against its plain version,
-    values and lse within rtol 1e-5 / atol 1e-6, ids exact (tie cases) or
-    equal save near ties. `worst` keeps the largest absolute ("abs") and
-    relative ("rel") errors seen. Returns the count of near-tie rows."""
+    f32 table's `w_planes`, or making them; or `call()`, a caller of the
+    wrapper on these inputs) against its plain version, values and lse
+    within rtol 1e-5 / atol 1e-6, ids exact (tie cases) or equal save near
+    ties. `worst` keeps the largest absolute ("abs") and relative ("rel")
+    errors seen. Returns the count of near-tie rows."""
     import torch
     from vsrcic_tpu_torch.ops.vocab_topk import (
         vocab_topk_lse as kern, vocab_topk_lse_plain as plain)
-    got = kern(h2, w, b, k, w_planes=w_planes)
+    got = call() if call else kern(h2, w, b, k, w_planes=w_planes)
     torch.cuda.synchronize()
     want = plain(h2, w, b, k)
     for g, wnt, name in ((got[0], want[0], "vals"),
@@ -1033,6 +1043,115 @@ def check_vocab_bf16(gen, report):
         library_kind=kind, near_tie_rows=near, k1_ms=k1_ms,
         split_ms=split, split_k1_ms=split_k1,
         library_product_ms=product_ms, route=route, checks_by_route=routes)
+
+
+# phase 3k: the Kimi-VL decoder's word head at its eval path's shapes
+KIMI_JOBS, KIMI_DETS = 256, 100
+
+
+def kimi_captioner():
+    """A `KimiVLCaptioner` at the published widths and depth (bf16 weights
+    from seed 5, std 0.02) with 10 verbs of 3 tenses each, and one batch
+    of its eval path's inputs: 256 jobs of 40-100 real detections (of
+    100), 10 region groups of 20, a verb slot in group 2."""
+    import torch
+    from vsrcic_tpu_torch.models import kimi_vl as kv
+    cfg = kv.KimiVLConfig()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = kv.init_kimi_vl_params(gen, cfg, device="cuda")
+    tenses = {str(v): [100 + 3 * v + i for i in range(3)] for v in range(10)}
+    cap = kv.KimiVLCaptioner(cfg, params, verb_2_vob_all=tenses,
+                             device="cuda")
+    dets = torch.randn((KIMI_JOBS, KIMI_DETS, cfg.det_feat_size),
+                       generator=gen, device="cuda")
+    real = torch.randint(40, KIMI_DETS + 1, (KIMI_JOBS,), generator=gen,
+                         device="cuda")
+    dets *= (torch.arange(KIMI_DETS, device="cuda")[None] < real[:, None]
+             )[..., None]
+    groups = torch.randn((KIMI_JOBS, L_GROUPS, M_REGIONS, cfg.det_feat_size),
+                         generator=gen, device="cuda")
+    verbs = torch.full((KIMI_JOBS, L_GROUPS), -1, dtype=torch.long,
+                       device="cuda")
+    verbs[:, 2] = torch.arange(KIMI_JOBS, device="cuda") % 10
+    bf16 = torch.bfloat16
+    return cap, (dets.to(bf16), groups.to(bf16), verbs)
+
+
+def run_kimi_head(report):
+    """Phase 3k: the Kimi-VL decoder's word head, `vocab_topk_lse` on its
+    bf16 final hidden and head table (the "tma" route) through
+    `KimiVLCaptioner._vocab_fn`, at the shapes its eval path gives it
+    (rows 1280 = 256 jobs x beam 5, R 2048, V 163840, k 5). One batch
+    through `beam_search_v` with the launch counts zeroed just before and
+    read just after: 20 launches, every one on the "tma" route. The
+    hidden of that batch's step 10 is then held to the plain version on
+    the same inputs (`hold_vocab`: values and lse within rtol 1e-5 / atol
+    1e-6, ids equal save near ties), the call one launch on "tma"; the
+    call timed held, beside its bound and the plain version's time."""
+    import torch
+    from vsrcic_tpu_torch.ops.vocab_topk import (
+        vocab_topk_lse as kern, vocab_topk_lse_plain as plain)
+    t0 = time.perf_counter()
+    cap, (dets, groups, verbs) = kimi_captioner()
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t0
+    hidden = []
+    make = cap._vocab_fn
+
+    def spy(k):
+        fn = make(k)
+
+        def call(h):
+            hidden.append(h.clone())
+            return fn(h)
+        return call
+    cap._vocab_fn = spy
+    counters = ["launches", "launches_bf16"] + [
+        a for a in VOCAB_ROUTES.values() if a]
+    for a in counters:
+        setattr(kern, a, 0)
+    t0 = time.perf_counter()
+    res = cap.beam_search_v(dets, groups, verbs, eos_word=3, beam_size=BEAM)
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t0
+    launches = {a: getattr(kern, a) for a in counters}
+    cap._vocab_fn = make
+    steps = cap.cfg.seq_len
+    want = {"launches": steps, "launches_bf16": steps,
+            "launches_bf16_tma": steps}
+    if any(launches[a] != want.get(a, 0) for a in counters):
+        raise AssertionError("3k launches %s, expected %s" % (launches,
+                                                              want))
+    if not bool(torch.isfinite(res.scores).all()):
+        raise AssertionError("3k: a beam score is not finite")
+    h = hidden[10]
+    rows, r = h.shape
+    fn = make(BEAM)
+    w_t, b = cap._w_t, cap._head["bias"]
+    route = vocab_route(h, w_t, BEAM)
+    worst = {"abs": 0.0, "rel": 0.0}
+    near = expect_route("tma", lambda: hold_vocab(
+        h, w_t, b, BEAM, False, worst, call=lambda: fn(h)))
+    ms, enqueue_ms = held_ms(lambda: fn(h), iters=50)
+    plain_ms = cuda_ms(lambda: plain(h, w_t, b, BEAM), iters=5)
+    split = kernel_split(lambda: fn(h), "vocab", iters=20)
+    v = w_t.shape[1]
+    bound_ms, bound_by = vocab_planes_bound(rows, r, v, BEAM, 2, 2)
+    log("  3k Kimi-VL head: weights and inputs in %.1f s; one beam batch "
+        "(256 jobs x beam 5, eager) in %.2f s, launches %s"
+        % (made_s, beam_s, launches))
+    log("  3k head at rows=%d R=%d V=%d k=%d (route %s): near-tie rows %d; "
+        "worst error %.3g absolute, %.3g relative; held %.4f ms (enqueue "
+        "%.4f ms), bound %.4f ms by %s (%.1f%%), plain %.4f ms; split %s"
+        % (rows, r, v, BEAM, route, near, worst["abs"], worst["rel"], ms,
+           enqueue_ms, bound_ms, bound_by, 100.0 * bound_ms / ms, plain_ms,
+           fmt_split(split)))
+    report["kimi_head"] = dict(
+        rows=rows, r=r, v=v, k=BEAM, route=route, launches=launches,
+        near_tie_rows=near, max_abs_err=worst["abs"],
+        max_rel_err=worst["rel"], ms=ms, bound_ms=bound_ms,
+        bound_by=bound_by, plain_ms=plain_ms, split_ms=split,
+        beam_s=beam_s, setup_s=made_s)
 
 
 def vocab_nonfinite_inputs(gen, rows, r, v, case):
@@ -4129,6 +4248,14 @@ def main():
         print(card)
         print(json.dumps({"step_planes": kernels["step_planes"]["step"],
                           "cell_beam": report["cell_beam"]}))
+        print_device_line()
+        return 0
+    if "--kimi-head" in sys.argv[1:]:
+        log("[3k] the Kimi-VL decoder's word head at its eval path's shapes")
+        run_kimi_head(report)
+        write_report(report)
+        print(card)
+        print(json.dumps({"kimi_head": report["kimi_head"]}))
         print_device_line()
         return 0
     if "--memcheck" in sys.argv[1:]:

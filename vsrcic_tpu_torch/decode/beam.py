@@ -74,7 +74,7 @@ def beam_search_joint(step_fn: Callable, state, batch: int, beam_size: int,
     `state` must already be expanded to leading dim batch*beam_size with all
     beams of an item identical (beam 0 is the live one at t=0)."""
     k = beam_size
-    dev = state.h1.device
+    dev = state[0].device
 
     def joint_topk(seq_logprob, w, g, frozen=None, beam0_only=False):
         total = (seq_logprob[:, :, None, None] + w[:, :, :, None]
@@ -151,8 +151,8 @@ def _sort_by(keys, *tensors):
 
 def beam_search_joint_candidates(step_fn: Callable, state, batch: int,
                                  beam_size: int, seq_len: int, eos_word: int,
-                                 vocab_size: int,
-                                 eos_gate: int = -1) -> BeamResult:
+                                 vocab_size: int, eos_gate: int = -1,
+                                 with_state: bool = False):
     """Candidate-based joint beam search: the selection of
     `beam_search_joint` without scoring the dense (beam x vocab x gate)
     space.
@@ -168,10 +168,15 @@ def beam_search_joint_candidates(step_fn: Callable, state, batch: int,
     the two keys (-score, flat virtual index beam*V*2 + word*2 + gate):
     JAX's two-key sort becomes a stable sort by the index, then a stable
     sort by the score's total-order key. The word and gate logprobs ride
-    along as passengers; beam, word and gate come from the index."""
+    along as passengers; beam, word and gate come from the index.
+
+    Every field of `state` is indexed by rows at each selection
+    (`_gather_beam`), so a field that is no tensor follows the beams
+    through its own `__getitem__`. Returns the `BeamResult`, and with
+    `with_state` also the final state, (result, state)."""
     k = beam_size
     v2 = vocab_size * 2
-    dev = state.h1.device
+    dev = state[0].device
 
     def select(seq_logprob, cand_ids, cand_wlp, g, frozen=None,
                beam0_only=False):
@@ -251,4 +256,5 @@ def beam_search_joint_candidates(step_fn: Callable, state, batch: int,
             gates[:, :, t] = gate
             word_logps[:, :, t] = wlp_sel * mask_w
             gate_logps[:, :, t] = glp_sel * mask_g
-    return BeamResult(words, gates, word_logps, gate_logps, seq_logprob)
+    res = BeamResult(words, gates, word_logps, gate_logps, seq_logprob)
+    return (res, state) if with_state else res

@@ -450,10 +450,10 @@ def _feedback_inputs(cfg, state, statics, prev_word, prev_gate, t0):
     pointer at t0, else the previous word and the pointer advanced by the
     previous gate, clipped to the last group."""
     if t0:
-        b = state.h1.shape[0]
-        it = torch.full((b,), cfg.bos_idx, dtype=torch.long,
-                        device=state.h1.device)
-        return it, state.ctrl_det_idx
+        ctrl = state.ctrl_det_idx
+        it = torch.full(ctrl.shape, cfg.bos_idx, dtype=torch.long,
+                        device=ctrl.device)
+        return it, ctrl
     ctrl = torch.clamp(state.ctrl_det_idx + prev_gate, 0,
                        statics.det_groups.shape[1] - 1)
     return prev_word, ctrl
@@ -583,21 +583,22 @@ def captioner_step_v(params, cfg: CaptionerConfig, state: CaptionerState,
     return (word_logp, gate_logp), CaptionerState(h1, c1, h2, c2, ctrl)
 
 
-def _verb_target(params, h2, verb_curr, tense_table: Optional[VerbTenseTable],
+def _verb_target(out_fc, h2, verb_curr, tense_table: Optional[VerbTenseTable],
                  gt: bool, vocab_size: int):
     """Substitution target word per row without dense logits: only the
-    tense-candidate columns of out_fc are scored (same argmax as
-    substitute_verb: subtracting the row's lse does not change it)."""
+    tense-candidate rows of the head table `out_fc` ({"weight" (V, R),
+    "bias" (V,)}) are scored (same argmax as substitute_verb: subtracting
+    the row's lse does not change it)."""
     if gt:
         return torch.clamp(verb_curr, 0, vocab_size - 1)
     if tense_table is None:
         raise ValueError("_verb_target: pred mode needs a tense table")
     cand = _tense_candidates(tense_table, verb_curr)          # (B, Kt)
     safe = torch.clamp(cand, 0, vocab_size - 1)
-    w_cols = params["out_fc"]["weight"][safe]                 # (B, Kt, R)
+    w_cols = out_fc["weight"][safe]                           # (B, Kt, R)
     dt = torch.promote_types(h2.dtype, w_cols.dtype)   # as jnp.einsum
     logits_cand = (torch.einsum("br,bkr->bk", h2.to(dt), w_cols.to(dt))
-                   + params["out_fc"]["bias"][safe]).float()
+                   + out_fc["bias"][safe]).float()
     return _pick_tense(cand, logits_cand)
 
 
@@ -620,7 +621,6 @@ def captioner_step_v_topk(params, cfg: CaptionerConfig, state: CaptionerState,
     Returns ((cand_ids (B, k+1), cand_wlp (B, k+1), gate_logp), state)."""
     b = state.h1.shape[0]
     v = cfg.vocab_size
-    dev = state.h1.device
     it, ctrl = _feedback_inputs(cfg, state, statics, prev_word, prev_gate, t0)
     image_descriptor, verb_list = _per_row(statics, beam, b)
     verb_curr = _verb_curr(verb_list, ctrl)
@@ -638,6 +638,19 @@ def captioner_step_v_topk(params, cfg: CaptionerConfig, state: CaptionerState,
 
     w_t, bias = out_fc_tables
     vals, ids, lse = vocab_fn(h2.contiguous(), w_t, bias)
+    tgt = _verb_target(params["out_fc"], h2, verb_curr, tense_table, gt, v)
+    return (topk_candidates(vals, ids, lse, gate_logp, verb_curr, tgt, k),
+            CaptionerState(h1, c1, h2, c2, ctrl))
+
+
+def topk_candidates(vals, ids, lse, gate_logp, verb_curr, tgt, k: int):
+    """A candidate step's (cand_ids (B, k+1), cand_wlp (B, k+1),
+    gate_logp) for `beam_search_joint_candidates`, from the vocab op's
+    top-k logits `vals`, their `ids` and the rows' `lse`, the rows' gate
+    log-probs, their verb (`_verb_curr`, -1 off verb slots) and the verb
+    rows' target words (`_verb_target`)."""
+    b = vals.shape[0]
+    dev = vals.device
     wlp_topk = vals - lse                                     # (B, k)
 
     # normal rows: top-k words + an inert slot (id 0, -inf)
@@ -648,7 +661,6 @@ def captioner_step_v_topk(params, cfg: CaptionerConfig, state: CaptionerState,
 
     # verb rows: forced tense word (logp 0) + the k lowest ids excluding
     # the target (logp -1e6): substitute_verb's sea in flat tie order
-    tgt = _verb_target(params, h2, verb_curr, tense_table, gt, v)
     sea_base = torch.arange(k, device=dev)[None, :]           # (1, k)
     sea_ids = sea_base + (tgt[:, None] <= sea_base).long()    # skip tgt
     verb_ids = torch.cat([tgt[:, None], sea_ids], 1)
@@ -658,6 +670,4 @@ def captioner_step_v_topk(params, cfg: CaptionerConfig, state: CaptionerState,
     is_verb = (verb_curr != -1)[:, None]
     cand_ids = torch.where(is_verb, verb_ids, norm_ids)
     cand_wlp = torch.where(is_verb, verb_wlp, norm_wlp)
-    gate_out = _gate_on_verbs(is_verb, gate_logp)
-    return ((cand_ids, cand_wlp, gate_out),
-            CaptionerState(h1, c1, h2, c2, ctrl))
+    return cand_ids, cand_wlp, _gate_on_verbs(is_verb, gate_logp)
