@@ -21,6 +21,7 @@ with the count `t`.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, NamedTuple
 
 import torch
@@ -152,7 +153,7 @@ def _sort_by(keys, *tensors):
 def beam_search_joint_candidates(step_fn: Callable, state, batch: int,
                                  beam_size: int, seq_len: int, eos_word: int,
                                  vocab_size: int, eos_gate: int = -1,
-                                 with_state: bool = False):
+                                 with_state: bool = False, runner=None):
     """Candidate-based joint beam search: the selection of
     `beam_search_joint` without scoring the dense (beam x vocab x gate)
     space.
@@ -214,8 +215,8 @@ def beam_search_joint_candidates(step_fn: Callable, state, batch: int,
         return (flat_score[:, :k], sel_beam, word, gate, flat_wlp[:, :k],
                 flat_glp[:, :k])
 
-    # ----- t = 0 -------------------------------------------------------------
-    with obs.span("beam.step"):
+    def first(carry):
+        state, = carry
         zeros_bk = torch.zeros((batch * k,), dtype=torch.long, device=dev)
         (c_ids, c_wlp, g_logp), state = step_fn(state, zeros_bk, zeros_bk,
                                                 True)
@@ -232,29 +233,42 @@ def beam_search_joint_candidates(step_fn: Callable, state, batch: int,
         gate_logps = _history(seq_len, batch, k, dev, g_lp0, torch.float32)
         mask_w = torch.ones((batch, k), device=dev)
         mask_g = torch.ones((batch, k), device=dev)
+        return (state, word, gate, seq_logprob, mask_w, mask_g, words, gates,
+                word_logps, gate_logps)
 
-    # ----- t >= 1 ------------------------------------------------------------
+    def step(t, carry):
+        (state, word, gate, seq_logprob, mask_w, mask_g, words, gates,
+         word_logps, gate_logps) = carry
+        (c_ids, c_wlp, g_logp), state = step_fn(
+            state, word.reshape(-1), gate.reshape(-1), False)
+        C = c_ids.shape[-1]
+        mask_w = mask_w * (word != eos_word)
+        mask_g = mask_g * (gate != eos_gate)
+        mask_full = torch.clamp(mask_w + mask_g, 0.0, 1.0)
+        (seq_logprob, sel_beam, word, gate, wlp_sel, glp_sel) = select(
+            seq_logprob, c_ids.reshape(batch, k, C),
+            c_wlp.reshape(batch, k, C), g_logp.reshape(batch, k, 2),
+            frozen=(mask_full == 0.0))
+
+        state = _gather_beam(state, sel_beam, batch, k)
+        mask_w = torch.gather(mask_w, 1, sel_beam)
+        mask_g = torch.gather(mask_g, 1, sel_beam)
+        hist = sel_beam[:, :, None].expand(-1, -1, seq_len)
+        words = torch.gather(words, 1, hist)
+        gates = torch.gather(gates, 1, hist)
+        words[:, :, t] = word
+        gates[:, :, t] = gate
+        word_logps[:, :, t] = wlp_sel * mask_w
+        gate_logps[:, :, t] = glp_sel * mask_g
+        return (state, word, gate, seq_logprob, mask_w, mask_g, words, gates,
+                word_logps, gate_logps)
+
+    run = runner or (lambda t, body, carry: body(carry))
+    with obs.span("beam.step"):
+        carry = run(0, first, (state,))
     for t in range(1, seq_len):
         with obs.span("beam.step"):
-            (c_ids, c_wlp, g_logp), state = step_fn(
-                state, word.reshape(-1), gate.reshape(-1), False)
-            mask_w = mask_w * (word != eos_word)
-            mask_g = mask_g * (gate != eos_gate)
-            mask_full = torch.clamp(mask_w + mask_g, 0.0, 1.0)
-            (seq_logprob, sel_beam, word, gate, wlp_sel, glp_sel) = select(
-                seq_logprob, c_ids.reshape(batch, k, C),
-                c_wlp.reshape(batch, k, C), g_logp.reshape(batch, k, 2),
-                frozen=(mask_full == 0.0))
-
-            state = _gather_beam(state, sel_beam, batch, k)
-            mask_w = torch.gather(mask_w, 1, sel_beam)
-            mask_g = torch.gather(mask_g, 1, sel_beam)
-            hist = sel_beam[:, :, None].expand(-1, -1, seq_len)
-            words = torch.gather(words, 1, hist)
-            gates = torch.gather(gates, 1, hist)
-            words[:, :, t] = word
-            gates[:, :, t] = gate
-            word_logps[:, :, t] = wlp_sel * mask_w
-            gate_logps[:, :, t] = glp_sel * mask_g
-    res = BeamResult(words, gates, word_logps, gate_logps, seq_logprob)
+            carry = run(t, partial(step, t), carry)
+    state, seq_logprob = carry[0], carry[3]
+    res = BeamResult(*carry[6:], seq_logprob)
     return (res, state) if with_state else res

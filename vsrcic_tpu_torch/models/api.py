@@ -14,7 +14,9 @@ opted into with the same switches as in JAX:
     fused op, on f32 parameters, the beam's candidate step then also runs
     its f32 products grouped by input through `ops/step_planes.py` (the
     kernels on the card, or, "plain", the plain version), which JAX leaves
-    to XLA's dot;
+    to XLA's dot. With True there, on f32 tables and on the card, the beam's
+    steps run as CUDA graphs (`decode/graphs.py`): a decode shape's first
+    batch as it is, its second captured, later ones replayed;
   * table_dtype: storage dtype of the statics tables and of the vocab op's
     out_fc table (torch.bfloat16 halves the bytes read per step). Unlike
     JAX's "xla" mode, "plain" reads the same cast table as the kernel, so
@@ -47,6 +49,7 @@ import torch
 
 from vsrcic_tpu_torch.decode.beam import (BeamResult, beam_search_joint,
                                           beam_search_joint_candidates)
+from vsrcic_tpu_torch.decode.graphs import StepGraphs, leaves
 from vsrcic_tpu_torch.decode.loops import (forward_teacher_forcing,
                                            greedy_decode, sample_decode)
 from vsrcic_tpu_torch.models.captioner import (
@@ -58,14 +61,20 @@ from vsrcic_tpu_torch.ops.fused_attention import (
     fused_group_attention, fused_group_attention_plain)
 from vsrcic_tpu_torch.ops.step_planes import (step_planes, step_planes_plain,
                                               step_weights)
-from vsrcic_tpu_torch.ops.vocab_topk import (padded_table, table_planes,
-                                             vocab_topk_lse,
+from vsrcic_tpu_torch.ops.vocab_topk import (padded_table, split_bf16x3,
+                                             table_planes, vocab_topk_lse,
                                              vocab_topk_lse_plain)
 from vsrcic_tpu_torch.utils import observability as obs
 from vsrcic_tpu_torch.utils.device import as_tensor, resolve_device, to_device
 from vsrcic_tpu_torch.utils.params import flatten, unflatten
 
 _MODES = (False, True, "plain")
+# decode shapes whose step graphs a captioner keeps (the oldest go first)
+GRAPH_SHAPES = 4
+
+
+def _vocab_lhs_bf16():
+    return os.environ.get("VSRCIC_VOCAB_LHS_BF16", "0") == "1"
 
 
 def build_verb_tense_table(verb_2_vob_all: Dict[str, list],
@@ -116,6 +125,7 @@ class ControllableCaptioner:
         self._vocab_tables = None
         self._w_planes = None
         self._finite_table = None
+        self._step_graphs = {}
 
     # -- impls ---------------------------------------------------------------
     def _cast(self, a):
@@ -194,7 +204,7 @@ class ControllableCaptioner:
         if self.use_vocab_topk is not True:
             return partial(vocab_topk_lse_plain, k=k), self._vocab_tables
         w_t = self._vocab_tables[0]
-        lhs_bf16 = os.environ.get("VSRCIC_VOCAB_LHS_BF16", "0") == "1"
+        lhs_bf16 = _vocab_lhs_bf16()
         finite = self._finite_table is not False
         kw = dict(k=k) if finite else dict(k=k, finite_table=False)
         if w_t.dtype == torch.float32 and (finite or lhs_bf16):
@@ -225,12 +235,12 @@ class ControllableCaptioner:
     def _beam_v_impl(self, params, detections, det_groups, verb_list,
                      beam_size, eos_word, gt):
         b = detections.shape[0]
+        flat = flatten(params)
         # the candidate step's products through ops/step_planes.py: the
         # fast path without the fused op, on f32 parameters (bf16 ones keep
         # jnp's promotion through nn.linear)
         products = (bool(self.use_vocab_topk) and not self.use_fused_attention
-                    and all(v.dtype == torch.float32
-                            for v in flatten(params).values()
+                    and all(v.dtype == torch.float32 for v in flat.values()
                             if v.is_floating_point()))
         statics, op, ow = self._fused_statics(params, detections,
                                               det_groups, verb_list=verb_list,
@@ -238,6 +248,17 @@ class ControllableCaptioner:
         state = init_state(self.cfg, b * beam_size, device=self.device)
         if self.use_vocab_topk:
             vocab_fn, tables = self._vocab_fn_and_tables(beam_size)
+            runner = None
+            # the fast route's steps as CUDA graphs: the kernels' products
+            # and vocab head on f32 tables, on the card
+            if (products and self.use_vocab_topk is True
+                    and self.table_dtype in (None, torch.float32)
+                    and self.device.type == "cuda"):
+                runner = self._graphs_of(
+                    (statics, ow, state), flat, beam_size, eos_word, gt,
+                    captioner_step_v_topk, op, vocab_topk_lse,
+                    _vocab_lhs_bf16())
+                statics, ow, state = runner.fill((statics, ow, state))
             step_kw = (dict(products_fn=op, products_w=ow) if products
                        else dict(fused_fn=op, fused_w=ow))
 
@@ -247,9 +268,15 @@ class ControllableCaptioner:
                     vocab_fn, tables, prev_word=pw, prev_gate=pg, t0=t0,
                     gt=gt, beam=beam_size, k=beam_size, **step_kw)
 
-            return beam_search_joint_candidates(
+            # the runner passed only where there is one: vsrbench's fault
+            # checks put a loop of their own in the search's place
+            res = beam_search_joint_candidates(
                 step_fn, state, b, beam_size, self.cfg.seq_len,
-                eos_word=eos_word, vocab_size=self.cfg.vocab_size)
+                eos_word=eos_word, vocab_size=self.cfg.vocab_size,
+                **({} if runner is None else dict(runner=runner)))
+            # a replay's result lives in the graphs' pool
+            return res if runner is None else BeamResult(
+                *(x.clone() for x in res))
 
         def step_fn(state, pw, pg, t0):
             return captioner_step_v(params, self.cfg, state, statics,
@@ -260,6 +287,22 @@ class ControllableCaptioner:
 
         return beam_search_joint(step_fn, state, b, beam_size,
                                  self.cfg.seq_len, eos_word=eos_word)
+
+    def _graphs_of(self, inputs, flat_params, *key):
+        """The `StepGraphs` of a decode: one per shape of its inputs, the
+        parameters' tensors (a step reads some of them as they are) and
+        `key` (the beam, EOS word, mode, and the functions and route the
+        steps are built of, as they are when called);
+        made on the shape's first batch, at most GRAPH_SHAPES kept."""
+        key += (tuple((x.shape, x.dtype) for x in leaves(inputs)),
+                tuple(v.data_ptr() for v in flat_params.values()))
+        graphs = self._step_graphs.get(key)
+        if graphs is None:
+            if len(self._step_graphs) >= GRAPH_SHAPES:
+                del self._step_graphs[next(iter(self._step_graphs))]
+            graphs = self._step_graphs[key] = StepGraphs(
+                inputs, counted=(vocab_topk_lse, split_bf16x3, step_planes))
+        return graphs
 
     @torch.no_grad()
     def _beam_impl(self, params, detections, det_groups, beam_size,

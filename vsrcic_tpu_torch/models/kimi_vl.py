@@ -84,6 +84,7 @@ import torch
 import torch.nn.functional as F
 
 from vsrcic_tpu_torch.decode.beam import beam_search_joint_candidates
+from vsrcic_tpu_torch.decode.graphs import CudaGraph
 from vsrcic_tpu_torch.models.api import build_verb_tense_table
 from vsrcic_tpu_torch.models.captioner import (_feedback_inputs, _verb_curr,
                                                _verb_target,
@@ -563,14 +564,8 @@ class DecodeGraphs:
                 self._stream = torch.cuda.Stream()
                 self._pool = torch.cuda.graph_pool_handle()
                 self._warm()
-            cur = torch.cuda.current_stream()
-            self._stream.wait_stream(cur)
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.stream(self._stream):
-                g.capture_begin(pool=self._pool)
-                fn()
-                g.capture_end()
-            cur.wait_stream(self._stream)
+            g = CudaGraph(self._stream, self._pool)
+            g.capture(fn)
             self.graphs[key] = g
         g.replay()
 

@@ -5,7 +5,7 @@ Counterpart of `vsrcic_tpu/utils/observability.py`, with torch in place of
 jax:
 
   * `Recorder` and the module's one recorder `RECORDER` (`span`, `scope`,
-    `count`, `summary`, `clear`): named host spans on the
+    `count`, `open_counts`, `summary`, `clear`): named host spans on the
     `time.perf_counter_ns()` clock, each with its parent, an optional batch
     id, a `wait` flag (the host only blocks on the device) and counts, kept
     in a bounded buffer in memory. On by default; `RECORDER.enabled = False`
@@ -225,6 +225,12 @@ class Recorder:
             counts = stack[-1].counts
             counts[name] = counts.get(name, 0) + n
 
+    def open_counts(self) -> dict:
+        """A copy of the counts of this thread's innermost open span ({}
+        where none is open, or the recorder is off)."""
+        stack = self._local.stack
+        return dict(stack[-1].counts) if self.enabled and stack else {}
+
     def closed(self, since_ns=None, until_ns=None):
         """The closed spans that start at or after `since_ns` and end at or
         before `until_ns`, in the order they opened."""
@@ -266,6 +272,7 @@ RECORDER = Recorder()
 span = RECORDER.span
 scope = RECORDER.scope
 count = RECORDER.count
+open_counts = RECORDER.open_counts
 summary = RECORDER.summary
 clear = RECORDER.clear
 
