@@ -1995,25 +1995,29 @@ def cell_captioner(mode=True, params=None):
 
 @contextlib.contextmanager
 def step_products_as(variant):
-    """The candidate step's products for the block: "kernel" (as built),
-    "cublas" (the plain op: the same groups, img_y hoisted, as cuBLAS f32
-    products) or "ungrouped" (`_step_core`'s nn.linear products, img_y
-    recomputed every step, as the strict step runs them; the facade still
-    makes the groups' weights and img_y once a decode)."""
+    """The candidate step's products for the block, as the route the facade
+    gets from `api.step_route` hands them: "kernel" (as built), "cublas"
+    (the same groups on the plain op, img_y hoisted, as cuBLAS f32
+    products) or "ungrouped" (`LinearProducts`: one nn.linear a weight,
+    as the strict step runs them; step_route still makes the groups'
+    weights and img_y once a decode). The steps run as CUDA graphs in each,
+    keyed by the route's kind."""
     from vsrcic_tpu_torch.models import api
-    saved = api.step_planes, api.captioner_step_v_topk
-    step = api.captioner_step_v_topk
+    saved = api.step_route
 
-    def ungrouped(*a, products_fn=None, products_w=None, **kw):
-        return step(*a, **kw)
-    try:
+    def route(*a, **kw):
+        statics, route, graphs = saved(*a, **kw)
         if variant == "cublas":
-            api.step_planes = api.step_planes_plain
+            route = route._replace(products=route.products._replace(
+                op=api.step_planes_plain))
         elif variant == "ungrouped":
-            api.captioner_step_v_topk = ungrouped
+            route = route._replace(products=api.LinearProducts())
+        return statics, route, graphs
+    api.step_route = route
+    try:
         yield
     finally:
-        api.step_planes, api.captioner_step_v_topk = saved
+        api.step_route = saved
 
 
 def beam_device_ms(run):
@@ -2111,8 +2115,8 @@ def run_step_products_beam(report):
         raise AssertionError("5e: only %s of the beams match" % shares)
     # cuBLAS's products a batch outside the steps: the statics (att_va's
     # projection of the groups, img_y)
-    statics_dev = beam_device_ms(lambda: cap._fused_statics(
-        cap.decode_params, *inputs[:2], verb_list=inputs[2], products=True))
+    statics_dev = beam_device_ms(lambda: cap._route(
+        cap.decode_params, *inputs[:2], inputs[2], candidates=True))
     log("  5e statics alone, device ms a batch: cuBLAS gemm %.2f, all "
         "kernels %.2f" % (statics_dev["gemm"], statics_dev["all"]))
     variants = {}

@@ -29,16 +29,3 @@ def test_fast_beam_search_v_matches_jax(captioners, table, seed, gt):
                                beam_size=beam, gt=gt)
         tp.assert_beams_match(got, want)
 
-
-def test_fast_bf16_step_weights_match_jax():
-    """step_dtype=bf16: the big fused step products read bf16 weights and
-    accumulate in f32, in both packages."""
-    params = tp.to_numpy_tree(tp.jax_params())
-    jc = tp.jax_captioner(params, "bf16", step_bf16=True)
-    tc = tp.torch_captioner(params, "bf16", step_bf16=True)
-    det, groups, verb_list = tp.inputs(2)
-    want = jc.beam_search_v(det, groups, verb_list, eos_word=tp.EOS,
-                            beam_size=5)
-    got = tc.beam_search_v(det, groups, verb_list, eos_word=tp.EOS,
-                           beam_size=5)
-    tp.assert_beams_match(got, want)

@@ -36,15 +36,15 @@ def captioner_case(seed=2):
                                     verb_2_vob_all=tp.VERB_TABLE,
                                     use_vocab_topk=True, device="cpu")
     det, groups, verb_list = (torch.as_tensor(x) for x in tp.inputs(seed))
-    statics, op, ow = cap._fused_statics(cap.params, det, groups,
-                                         verb_list=verb_list, products=True)
+    statics, route, _ = cap._route(cap.params, det, groups, verb_list,
+                                   candidates=True)
     vocab_fn, tables = cap._vocab_fn_and_tables(K)
 
     def step_fn(state, pw, pg, t0):
         return captioner_step_v_topk(
             cap.params, cap.cfg, state, statics, cap.tense_table, vocab_fn,
             tables, prev_word=pw, prev_gate=pg, t0=t0, beam=K, k=K,
-            products_fn=op, products_w=ow)
+            route=route)
     b = det.shape[0]
     return step_fn, init_state(cap.cfg, b * K), b, cap.cfg.vocab_size
 
@@ -238,7 +238,7 @@ def test_facade_keeps_one_graph_set_a_shape():
     name = next(iter(flat))
     other = dict(flat, **{name: flat[name].clone()})
     assert cap._graphs_of((torch.zeros((8, 2)),), other, K) is not of(8)
-    # the functions a step is built of are part of the key
+    # the route's kind is part of the key
     assert (cap._graphs_of((torch.zeros((8, 2)),), flat, K, sp.step_planes)
             is not of(8))
 

@@ -24,16 +24,16 @@ def params():
 
 
 def _pair(params, gt, fused):
-    """(jax captioner, port captioner, statics/fused_fn/fused_w of each)."""
+    """(jax captioner, port captioner, JAX's statics/fused_fn/fused_w,
+    the port's statics/route)."""
     jc = tp.jax_captioner(params, "f32" if fused else None)
     tc = tp.torch_captioner(params, "f32" if fused else None)
     det, groups, verb_list = tp.inputs(7, gt)
     js = jc._fused_statics(jc.params, jnp.asarray(det), jnp.asarray(groups),
                            jnp.asarray(verb_list).astype(jnp.int32),
                            beam=BEAM)
-    ts = tc._fused_statics(tc.params, torch.from_numpy(det),
-                           torch.from_numpy(groups),
-                           torch.from_numpy(verb_list))
+    ts = tc._route(tc.params, torch.from_numpy(det),
+                   torch.from_numpy(groups), torch.from_numpy(verb_list))
     return jc, tc, js, ts
 
 
@@ -58,7 +58,7 @@ def _feedback(step_j, step_t, jc, tc, js, ts, **kw):
             beam=BEAM, fused_fn=js[1], fused_w=js[2], **kw)
         ot, st = step_t(tc.params, tc.cfg, st, ts[0], prev_word=torch.from_numpy(
             pw), prev_gate=torch.from_numpy(pg), t0=t == 0, beam=BEAM,
-            fused_fn=ts[1], fused_w=ts[2], **kw)
+            route=ts[1], **kw)
         for a, b in zip(st, sj):
             _close(a, b)
         yield oj, ot
@@ -76,7 +76,7 @@ def test_precompute_statics_and_fused_weights(params):
         _close(getattr(got, f), getattr(want, f))
     _close(ts[0].img_y, js[0].img_y)
     for name in ("bx", "wh", "bh", "wx_img", "wx_nimg"):
-        np.testing.assert_array_equal(ts[2][name].numpy(),
+        np.testing.assert_array_equal(ts[1].products.fused[name].numpy(),
                                       np.asarray(js[2][name]))
 
 

@@ -86,10 +86,8 @@ def test_what_decode_dtype_casts(params):
             for c in (cap, tables)]
     for got, want in zip(outs[0][0] + outs[0][1], outs[1][0] + outs[1][1]):
         assert torch.equal(got, want)
-    assert cap._cast(torch.ones(2)).dtype == torch.bfloat16
-    statics, _, _ = cap._fused_statics(cap.decode_params,
-                                       torch.from_numpy(det),
-                                       torch.from_numpy(groups))
+    statics, _, _ = cap._route(cap.decode_params, torch.from_numpy(det),
+                               torch.from_numpy(groups))
     assert statics.det_groups.dtype == torch.bfloat16
     assert statics.det_groups_proj.dtype == torch.bfloat16
     _, (w_t, bias) = cap._vocab_fn_and_tables(5)

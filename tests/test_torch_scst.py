@@ -97,4 +97,3 @@ def test_scst_step_and_epoch_baseline_run(params):
             kw["baseline_caps"] = tr.epoch_baseline_caps(det, grp)
         loss, adv = tr.step(det, grp, gts, gen, **kw)
         assert np.isfinite(loss) and np.isfinite(adv)
-        assert tr._fast.params is None      # decodes read the live params

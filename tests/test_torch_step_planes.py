@@ -5,10 +5,12 @@ On the card each group is one launch of `step_planes_kernel`: the three
 exact bf16 planes of A and of W^T, nine plane products summed in f32. Here:
 the plain version is the f32 product within f32 rounding (A in one, two and
 three segments, K and N no multiples of 64); the planes sum back to A and W
-exactly, so their nine products are the exact product; the grouped step
-(`_step_core_products`) is `_step_core`'s function; the facade's candidate
-step calls the op five times a step and no other decode or teacher forcing
-calls it; and the CPU beam keeps JAX's words at the fast path's bar. The
+exactly, so their nine products are the exact product; the step on
+either fast products (grouped, or the fused route's first products) is
+the strict `_step_core`'s function; `api.step_route` picks each route
+from the facade's switches; the facade's candidate step calls the op five
+times a step and no other decode or teacher forcing calls it; and the CPU
+beam keeps JAX's words at the fast path's bar. The
 kernels are held to the plain version on the card
 (tests/test_torch_kernels_cuda.py, chip_smoke.py's step products phase)."""
 import pytest
@@ -16,8 +18,8 @@ import torch
 
 from vsrcic_tpu_torch.models import api
 from vsrcic_tpu_torch.models.captioner import (
-    CaptionerConfig, CaptionerState, _per_row, _step_core,
-    derive_fused_step_weights,
+    CaptionerConfig, CaptionerState, GroupedProducts, LinearProducts,
+    _per_row, _step_core, derive_fused_step_weights,
     derive_step_product_groups, image_descriptor_f32, init_captioner_params,
     precompute_statics)
 from vsrcic_tpu_torch.ops import step_planes as sp
@@ -130,12 +132,15 @@ CFGS = {"h2_first": {}, "x_only": dict(h2_first_lstm=False),
         "img_second": dict(img_second_lstm=True)}
 
 
+@pytest.mark.parametrize("products", ["grouped", "linear_fused"])
 @pytest.mark.parametrize("cfg_kw", list(CFGS.values()), ids=list(CFGS))
-def test_grouped_step_is_step_core(cfg_kw):
-    """`_step_core` with `products` on the plain op (groups of
-    derive_step_product_groups, img_y hoisted per item) gives
+def test_grouped_step_is_step_core(cfg_kw, products):
+    """`_step_core` on either fast products gives the strict
     `_step_core`'s gate log-probs and states within f32 rounding, beam 3
-    over 4 items, with five calls of the op."""
+    over 4 items: grouped (the plain op on the groups of
+    derive_step_product_groups, img_y hoisted per item, five calls of the
+    op) and linear with the fused first products (derive_fused_step_weights'
+    two, img_y per row)."""
     cfg = CaptionerConfig(seq_len=5, vocab_size=30, det_feat_size=24,
                           input_encoding_size=12, rnn_size=16, att_size=8,
                           **cfg_kw)
@@ -171,13 +176,16 @@ def test_grouped_step_is_step_core(cfg_kw):
         calls.append(a[1].w.shape)
         return sp.step_planes_plain(*a, **kw)
 
+    fast = (dict(products=GroupedProducts(op, pw), img_y=img_y, beam=beam)
+            if products == "grouped" else
+            dict(products=LinearProducts(fw), img_y=img_y[item]))
     (_, g_got), s_got = _step_core(params, cfg, state, it, det_curr, proj,
                                    mask, image_descriptor, word_head=False,
-                                   products=(op, pw, img_y, beam))
+                                   **fast)
     (_, g_want), s_want = _step_core(params, cfg, state, it, det_curr, proj,
                                      mask, image_descriptor,
                                      word_head=False)
-    assert len(calls) == 5
+    assert len(calls) == (5 if products == "grouped" else 0)
     for got, want in zip((g_got,) + tuple(s_got), (g_want,) + tuple(s_want)):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
@@ -196,6 +204,40 @@ def _tiny_inputs():
     return (torch.randn((3, 7, 24), generator=g),
             torch.randn((3, 4, 5, 24), generator=g),
             torch.tensor([[-1, 2, -1, -1], [1, -1, -1, 3], [-1] * 4]))
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("topk", api._MODES, ids=str)
+@pytest.mark.parametrize("fused", api._MODES, ids=str)
+def test_step_route_picks_the_route(fused, topk, bf16):
+    """api.step_route: the fused op (its plain version with "plain") with
+    the fused first products under use_fused_attention; else, for the
+    candidate step under use_vocab_topk on f32 parameters, the grouped
+    products (the wrapper with True, the plain op with "plain"); else the
+    strict route; other decodes never group; no CUDA graphs off the card."""
+    cap = _tiny(topk, use_fused_attention=fused,
+                decode_dtype=torch.bfloat16 if bf16 else None)
+    det, groups, verb_list = _tiny_inputs()
+    for candidates in (False, True):
+        statics, route, graphs = api.step_route(
+            cap.decode_params, cap.cfg, det, groups, verb_list,
+            use_fused_attention=fused, use_vocab_topk=topk,
+            decode_dtype=cap.decode_dtype, candidates=candidates)
+        assert graphs is False
+        products, attention = route
+        if fused:
+            assert attention is (api.fused_group_attention if fused is True
+                                 else api.fused_group_attention_plain)
+            assert isinstance(products, LinearProducts)
+            assert products.fused is not None and statics.img_y is not None
+        elif candidates and topk and not bf16:
+            assert attention is None and isinstance(products, GroupedProducts)
+            assert products.op is (api.step_planes if topk is True
+                                   else api.step_planes_plain)
+            assert sorted(products.weights) == ["g", "h1", "in1", "lstm2", "s"]
+            assert statics.img_y is not None
+        else:
+            assert route is api.STRICT and statics.img_y is None
 
 
 @pytest.mark.parametrize("mode", [True, "plain"])

@@ -174,11 +174,9 @@ def to_numpy_tree(tree):
             for k, v in tree.items()}
 
 
-def jax_captioner(params, fast=None, step_bf16=False, decode_bf16=False,
-                  cfg=None):
+def jax_captioner(params, fast=None, decode_bf16=False, cfg=None):
     """fast: None (strict), "f32" or "bf16" (fused attention + vocab top-k
     through the Pallas kernels in interpret mode, with that table dtype).
-    step_bf16: store the big fused step weights in bf16 (step_dtype).
     decode_bf16: decode_dtype=bfloat16. cfg: CaptionerConfig kwargs (this
     file's small config when None)."""
     import jax.numpy as jnp
@@ -188,8 +186,7 @@ def jax_captioner(params, fast=None, step_bf16=False, decode_bf16=False,
     if fast is not None:
         kw = dict(use_fused_attention=True, use_vocab_topk=True,
                   pallas_interpret=True,
-                  table_dtype=jnp.bfloat16 if fast == "bf16" else None,
-                  step_dtype=jnp.bfloat16 if step_bf16 else None)
+                  table_dtype=jnp.bfloat16 if fast == "bf16" else None)
     if decode_bf16:
         kw["decode_dtype"] = jnp.bfloat16
     return ControllableCaptioner(
@@ -197,16 +194,14 @@ def jax_captioner(params, fast=None, step_bf16=False, decode_bf16=False,
         verb_2_vob_all=VERB_TABLE, **kw)
 
 
-def torch_captioner(params_np, fast=None, device="cpu", step_bf16=False,
-                    decode_bf16=False):
+def torch_captioner(params_np, fast=None, device="cpu", decode_bf16=False):
     import torch
     from vsrcic_tpu_torch.models.api import ControllableCaptioner
     from vsrcic_tpu_torch.utils.params import params_from_jax
     kw = {}
     if fast is not None:
         kw = dict(use_fused_attention=True, use_vocab_topk=True,
-                  table_dtype=torch.bfloat16 if fast == "bf16" else None,
-                  step_dtype=torch.bfloat16 if step_bf16 else None)
+                  table_dtype=torch.bfloat16 if fast == "bf16" else None)
     if decode_bf16:
         kw["decode_dtype"] = torch.bfloat16
     return ControllableCaptioner(torch_cfg(),

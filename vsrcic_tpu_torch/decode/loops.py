@@ -16,8 +16,8 @@ from torch.utils.checkpoint import checkpoint
 
 from vsrcic_tpu_torch.core import nn
 from vsrcic_tpu_torch.models.captioner import (
-    CaptionerConfig, CaptionerState, Statics, _step_core, captioner_step,
-    init_state, precompute_statics)
+    STRICT, CaptionerConfig, CaptionerState, Statics, StepRoute, _step_core,
+    captioner_step, init_state, precompute_statics)
 
 
 def expand_compact_groups(detections, det_ids):
@@ -72,7 +72,7 @@ def _feedback_start(cfg: CaptionerConfig, statics: Statics):
 
 
 def greedy_decode(params, cfg: CaptionerConfig, statics: Statics,
-                  seq_len: Optional[int] = None, fused_fn=None, fused_w=None):
+                  seq_len: Optional[int] = None, route: StepRoute = STRICT):
     """Greedy feedback decode: words and gates by their first maximum (as
     `jnp.argmax`). Returns (words (B, T), gates (B, T)) int64."""
     state, word, gate = _feedback_start(cfg, statics)
@@ -80,7 +80,7 @@ def greedy_decode(params, cfg: CaptionerConfig, statics: Statics,
     for t in range(seq_len or cfg.seq_len):
         (w_logp, g_logp), state = captioner_step(
             params, cfg, state, statics, prev_word=word, prev_gate=gate,
-            t0=t == 0, fused_fn=fused_fn, fused_w=fused_w)
+            t0=t == 0, route=route)
         word = nn.first_argmax(w_logp)
         gate = nn.first_argmax(g_logp)
         words.append(word)
@@ -135,7 +135,7 @@ def categorical(gen, logits):
 
 def sample_decode(params, cfg: CaptionerConfig, statics: Statics,
                   gen: torch.Generator, seq_len: Optional[int] = None,
-                  fused_fn=None, fused_w=None):
+                  route: StepRoute = STRICT):
     """Ancestral sampling with per-step logprobs.
 
     gen: a generator on the statics' device (or a `core.nn.BlockRNG` over
@@ -146,7 +146,7 @@ def sample_decode(params, cfg: CaptionerConfig, statics: Statics,
     for t in range(seq_len or cfg.seq_len):
         (w_logp, g_logp), state = captioner_step(
             params, cfg, state, statics, prev_word=word, prev_gate=gate,
-            t0=t == 0, fused_fn=fused_fn, fused_w=fused_w)
+            t0=t == 0, route=route)
         word = categorical(gen, w_logp)
         gate = categorical(gen, g_logp)
         for acc, x in zip(out, (

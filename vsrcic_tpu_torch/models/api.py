@@ -21,7 +21,6 @@ opted into with the same switches as in JAX:
     out_fc table (torch.bfloat16 halves the bytes read per step). Unlike
     JAX's "xla" mode, "plain" reads the same cast table as the kernel, so
     the two differ only in the kernel;
-  * step_dtype: storage dtype of the big fused step weights;
   * decode_dtype: every parameter cast to it for `test`, `beam_search` and
     `beam_search_v` (`forward` and `sample_rl` keep the parameters as
     given), and the statics tables' dtype when table_dtype is None. The
@@ -53,8 +52,9 @@ from vsrcic_tpu_torch.decode.graphs import StepGraphs, leaves
 from vsrcic_tpu_torch.decode.loops import (forward_teacher_forcing,
                                            greedy_decode, sample_decode)
 from vsrcic_tpu_torch.models.captioner import (
-    CaptionerConfig, Statics, VerbTenseTable, _mm, captioner_step,
-    captioner_step_v, captioner_step_v_topk, derive_fused_step_weights,
+    STRICT, CaptionerConfig, GroupedProducts, LinearProducts, StepRoute,
+    VerbTenseTable, _mm, captioner_step, captioner_step_v,
+    captioner_step_v_topk, derive_fused_step_weights,
     derive_step_product_groups, image_descriptor_f32, init_captioner_params,
     init_state, precompute_statics)
 from vsrcic_tpu_torch.ops.fused_attention import (
@@ -91,12 +91,62 @@ def build_verb_tense_table(verb_2_vob_all: Dict[str, list],
     return VerbTenseTable(torch.from_numpy(ids).to(device))
 
 
+def step_route(params, cfg: CaptionerConfig, detections, det_groups,
+               verb_list=None, *, use_fused_attention=False,
+               use_vocab_topk=False, table_dtype=None, decode_dtype=None,
+               candidates=False):
+    """(statics, route, whether the steps replay as CUDA graphs) of a
+    decode of `params`, which every decode passes in (a trainer decodes
+    with its live parameters), under the facade's switches (the module's
+    note), inside the span `beam.statics`. `candidates`: the decode is
+    beam_search_v's. The route: with use_fused_attention the fused op on
+    tables in table_dtype or decode_dtype, the first products fused; else,
+    for the candidate step on f32 parameters, the grouped products (graphs
+    with the kernels on f32 tables on the card); else the strict one."""
+    with obs.span("beam.statics"):
+        dt = table_dtype or decode_dtype
+
+        def cast(a):
+            return a.to(dt) if dt is not None and a.is_floating_point() else a
+        detections = cast(detections)
+        statics = precompute_statics(params, cfg, detections,
+                                     cast(det_groups), verb_list=verb_list)
+        # bf16 parameters keep jnp's promotion through nn.linear
+        grouped = (candidates and bool(use_vocab_topk)
+                   and not use_fused_attention
+                   and all(v.dtype == torch.float32
+                           for v in flatten(params).values()
+                           if v.is_floating_point()))
+        if not (use_fused_attention or grouped):
+            return statics, STRICT, False
+        fw = derive_fused_step_weights(params, cfg)
+        # the image-descriptor slice of the input_1 projection is
+        # step-invariant: computed once per decode, per item
+        img_y = _mm(image_descriptor_f32(detections), fw["wx_img"]) + fw["bx"]
+        if grouped:
+            kernel = use_vocab_topk is True
+            route = StepRoute(GroupedProducts(
+                step_planes if kernel else step_planes_plain,
+                {name: step_weights(w, b, with_planes=kernel) for name, (w, b)
+                 in derive_step_product_groups(params, cfg, fw).items()}))
+            graphs = (kernel and table_dtype in (None, torch.float32)
+                      and detections.device.type == "cuda")
+            return statics._replace(img_y=img_y), route, graphs
+        tdt = dt or statics.det_groups.dtype
+        statics = statics._replace(
+            det_groups=statics.det_groups.to(tdt).contiguous(),
+            det_groups_proj=statics.det_groups_proj.to(tdt).contiguous(),
+            img_y=img_y)
+        fused = (fused_group_attention if use_fused_attention is True
+                 else fused_group_attention_plain)
+        return statics, StepRoute(LinearProducts(fw), fused), False
+
+
 class ControllableCaptioner:
     def __init__(self, cfg: CaptionerConfig, params=None, seed: int = 1234,
                  verb_2_vob_all: Optional[Dict] = None,
                  use_fused_attention=False, use_vocab_topk=False,
-                 table_dtype=None, step_dtype=None, device=None,
-                 decode_dtype=None):
+                 table_dtype=None, device=None, decode_dtype=None):
         """params: nested dict of tensors or arrays in torch layout (e.g.
         `utils.params.params_from_jax` of a JAX tree); made from `seed`
         when None. device: "cuda" unless given; "cpu" runs the plain
@@ -114,7 +164,6 @@ class ControllableCaptioner:
         self.use_fused_attention = use_fused_attention
         self.use_vocab_topk = use_vocab_topk
         self.table_dtype = table_dtype
-        self.step_dtype = step_dtype
         self.decode_dtype = decode_dtype
         self.decode_params = self.params if decode_dtype is None else \
             unflatten({k: v.to(decode_dtype) if v.is_floating_point() else v
@@ -128,51 +177,16 @@ class ControllableCaptioner:
         self._step_graphs = {}
 
     # -- impls ---------------------------------------------------------------
-    def _cast(self, a):
-        dt = self.table_dtype or self.decode_dtype
-        return a.to(dt) if dt is not None and a.is_floating_point() else a
-
-    def _fused_statics(self, params, detections, det_groups, verb_list=None,
-                       products=False):
-        """Statics (+ the fused attention op and fused step weights when
-        use_fused_attention) of `params`, which every decode passes in: a
-        trainer decodes with its live parameters, and the step weights are
-        derived from them on every call. With `products` (the candidate
-        step without the fused op), the step products' op and its grouped
-        weights (`derive_step_product_groups`, W's planes made for the
-        kernel) in the fused op's place. Returns (statics, op, weights).
-        Inside the span `beam.statics`."""
-        with obs.span("beam.statics"):
-            detections = self._cast(detections)
-            statics = precompute_statics(params, self.cfg, detections,
-                                         self._cast(det_groups),
-                                         verb_list=verb_list)
-            if not (self.use_fused_attention or products):
-                return statics, None, None
-            fw = derive_fused_step_weights(
-                params, self.cfg, dtype=None if products else self.step_dtype)
-            # the image-descriptor slice of the input_1 projection is
-            # step-invariant: computed once per decode, per item
-            img_y = (_mm(image_descriptor_f32(detections), fw["wx_img"])
-                     + fw["bx"])
-            if products:
-                kernel = self.use_vocab_topk is True
-                groups = derive_step_product_groups(params, self.cfg, fw)
-                return (statics._replace(img_y=img_y),
-                        step_planes if kernel else step_planes_plain,
-                        {name: step_weights(w, b, with_planes=kernel)
-                         for name, (w, b) in groups.items()})
-            fused = (fused_group_attention
-                     if self.use_fused_attention is True
-                     else fused_group_attention_plain)
-            tdt = (self.table_dtype or self.decode_dtype
-                   or statics.det_groups.dtype)
-            statics = Statics(statics.image_descriptor,
-                              statics.det_groups.to(tdt).contiguous(),
-                              statics.det_groups_proj.to(tdt).contiguous(),
-                              statics.det_groups_mask, statics.verb_list,
-                              img_y=img_y)
-            return statics, fused, fw
+    def _route(self, params, detections, det_groups, verb_list=None,
+               candidates=False):
+        """`step_route` of a decode of `params` under this captioner's
+        switches."""
+        return step_route(params, self.cfg, detections, det_groups, verb_list,
+                          use_fused_attention=self.use_fused_attention,
+                          use_vocab_topk=self.use_vocab_topk,
+                          table_dtype=self.table_dtype,
+                          decode_dtype=self.decode_dtype,
+                          candidates=candidates)
 
     def _vocab_fn_and_tables(self, k):
         """The vocab op and its out_fc tables (w_t (R, V) in table_dtype or
@@ -219,81 +233,60 @@ class ControllableCaptioner:
 
     @torch.no_grad()
     def _greedy_impl(self, params, detections, det_groups):
-        statics, fused, fw = self._fused_statics(params, detections,
-                                                 det_groups)
-        return greedy_decode(params, self.cfg, statics, fused_fn=fused,
-                             fused_w=fw)
+        statics, route, _ = self._route(params, detections, det_groups)
+        return greedy_decode(params, self.cfg, statics, route=route)
 
     @torch.no_grad()
     def _sample_impl(self, params, detections, det_groups, gen):
-        statics, fused, fw = self._fused_statics(params, detections,
-                                                 det_groups)
-        return sample_decode(params, self.cfg, statics, gen, fused_fn=fused,
-                             fused_w=fw)
+        statics, route, _ = self._route(params, detections, det_groups)
+        return sample_decode(params, self.cfg, statics, gen, route=route)
 
     @torch.no_grad()
     def _beam_v_impl(self, params, detections, det_groups, verb_list,
                      beam_size, eos_word, gt):
         b = detections.shape[0]
-        flat = flatten(params)
-        # the candidate step's products through ops/step_planes.py: the
-        # fast path without the fused op, on f32 parameters (bf16 ones keep
-        # jnp's promotion through nn.linear)
-        products = (bool(self.use_vocab_topk) and not self.use_fused_attention
-                    and all(v.dtype == torch.float32 for v in flat.values()
-                            if v.is_floating_point()))
-        statics, op, ow = self._fused_statics(params, detections,
-                                              det_groups, verb_list=verb_list,
-                                              products=products)
+        statics, route, graphs = self._route(params, detections, det_groups,
+                                             verb_list, candidates=True)
         state = init_state(self.cfg, b * beam_size, device=self.device)
-        if self.use_vocab_topk:
-            vocab_fn, tables = self._vocab_fn_and_tables(beam_size)
-            runner = None
-            # the fast route's steps as CUDA graphs: the kernels' products
-            # and vocab head on f32 tables, on the card
-            if (products and self.use_vocab_topk is True
-                    and self.table_dtype in (None, torch.float32)
-                    and self.device.type == "cuda"):
-                runner = self._graphs_of(
-                    (statics, ow, state), flat, beam_size, eos_word, gt,
-                    captioner_step_v_topk, op, vocab_topk_lse,
-                    _vocab_lhs_bf16())
-                statics, ow, state = runner.fill((statics, ow, state))
-            step_kw = (dict(products_fn=op, products_w=ow) if products
-                       else dict(fused_fn=op, fused_w=ow))
-
+        if not self.use_vocab_topk:
             def step_fn(state, pw, pg, t0):
-                return captioner_step_v_topk(
-                    params, self.cfg, state, statics, self.tense_table,
-                    vocab_fn, tables, prev_word=pw, prev_gate=pg, t0=t0,
-                    gt=gt, beam=beam_size, k=beam_size, **step_kw)
+                return captioner_step_v(params, self.cfg, state, statics,
+                                        self.tense_table, prev_word=pw,
+                                        prev_gate=pg, t0=t0, gt=gt,
+                                        beam=beam_size, route=route)
 
-            # the runner passed only where there is one: vsrbench's fault
-            # checks put a loop of their own in the search's place
-            res = beam_search_joint_candidates(
-                step_fn, state, b, beam_size, self.cfg.seq_len,
-                eos_word=eos_word, vocab_size=self.cfg.vocab_size,
-                **({} if runner is None else dict(runner=runner)))
-            # a replay's result lives in the graphs' pool
-            return res if runner is None else BeamResult(
-                *(x.clone() for x in res))
+            return beam_search_joint(step_fn, state, b, beam_size,
+                                     self.cfg.seq_len, eos_word=eos_word)
+        vocab_fn, tables = self._vocab_fn_and_tables(beam_size)
+        runner = None
+        if graphs:
+            runner = self._graphs_of(
+                (statics, route, state), flatten(params), beam_size,
+                eos_word, gt, route.kind, vocab_topk_lse, _vocab_lhs_bf16())
+            statics, route, state = runner.fill((statics, route, state))
 
         def step_fn(state, pw, pg, t0):
-            return captioner_step_v(params, self.cfg, state, statics,
-                                    self.tense_table, prev_word=pw,
-                                    prev_gate=pg, t0=t0, gt=gt,
-                                    beam=beam_size, fused_fn=op,
-                                    fused_w=ow)
+            return captioner_step_v_topk(
+                params, self.cfg, state, statics, self.tense_table,
+                vocab_fn, tables, prev_word=pw, prev_gate=pg, t0=t0,
+                gt=gt, beam=beam_size, k=beam_size, route=route)
 
-        return beam_search_joint(step_fn, state, b, beam_size,
-                                 self.cfg.seq_len, eos_word=eos_word)
+        # the runner passed only where there is one: vsrbench's fault
+        # checks put a loop of their own in the search's place
+        res = beam_search_joint_candidates(
+            step_fn, state, b, beam_size, self.cfg.seq_len,
+            eos_word=eos_word, vocab_size=self.cfg.vocab_size,
+            **({} if runner is None else dict(runner=runner)))
+        # a replay's result lives in the graphs' pool
+        return res if runner is None else BeamResult(
+            *(x.clone() for x in res))
 
     def _graphs_of(self, inputs, flat_params, *key):
         """The `StepGraphs` of a decode: one per shape of its inputs, the
         parameters' tensors (a step reads some of them as they are) and
-        `key` (the beam, EOS word, mode, and the functions and route the
-        steps are built of, as they are when called);
-        made on the shape's first batch, at most GRAPH_SHAPES kept."""
+        `key` (the beam, EOS word, mode, the route's kind and the vocab op
+        and its h2 rounding, as they are when called); made on the shape's
+        first batch, at most GRAPH_SHAPES kept."""
         key += (tuple((x.shape, x.dtype) for x in leaves(inputs)),
                 tuple(v.data_ptr() for v in flat_params.values()))
         graphs = self._step_graphs.get(key)
@@ -308,13 +301,12 @@ class ControllableCaptioner:
     def _beam_impl(self, params, detections, det_groups, beam_size,
                    eos_word):
         b = detections.shape[0]
-        statics, fused, fw = self._fused_statics(params, detections,
-                                                 det_groups)
+        statics, route, _ = self._route(params, detections, det_groups)
 
         def step_fn(state, pw, pg, t0):
             return captioner_step(params, self.cfg, state, statics,
                                   prev_word=pw, prev_gate=pg, t0=t0,
-                                  beam=beam_size, fused_fn=fused, fused_w=fw)
+                                  beam=beam_size, route=route)
 
         return beam_search_joint(step_fn,
                                  init_state(self.cfg, b * beam_size,

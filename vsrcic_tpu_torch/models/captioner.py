@@ -17,7 +17,8 @@ decode loops live in `vsrcic_tpu_torch.decode`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional
+from functools import partial
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -86,7 +87,7 @@ def init_captioner_params(gen: torch.Generator, cfg: CaptionerConfig,
     }
 
 
-def derive_fused_step_weights(params, cfg: CaptionerConfig, dtype=None):
+def derive_fused_step_weights(params, cfg: CaptionerConfig):
     """Concatenate the input_1-consuming projections (W1_is, W1_ig,
     lstm_cell_1 w_ih) into one product and the h1_prev-consuming ones
     (W1_hs, lstm w_hh) into another (W1_hg stays separate: the reference
@@ -98,8 +99,6 @@ def derive_fused_step_weights(params, cfg: CaptionerConfig, dtype=None):
     The x side is split into the image-descriptor columns (`wx_img`), whose
     projection is step-invariant and is hoisted to once per decode
     (Statics.img_y), and the remaining columns (`wx_nimg`).
-    dtype (e.g. bf16): store the big step weights (wx_nimg, wh,
-    lstm_cell_2, s_fc) in that dtype; products accumulate in f32.
     """
     wx = torch.cat([params["W1_is"]["weight"], params["W1_ig"]["weight"],
                     params["lstm_cell_1"]["weight_ih"]], 0)
@@ -111,47 +110,15 @@ def derive_fused_step_weights(params, cfg: CaptionerConfig, dtype=None):
                     params["lstm_cell_1"]["bias_hh"]], 0)
     r, d = cfg.rnn_size, cfg.det_feat_size
     lo = r if cfg.h2_first_lstm else 0
-    out = {"bx": bx, "wh": wh, "bh": bh,
-           "wx_img": wx[:, lo:lo + d].contiguous(),
-           "wx_nimg": torch.cat([wx[:, :lo], wx[:, lo + d:]], 1)}
-    if dtype is not None:
-        out["wh"] = wh.to(dtype)
-        # wx_img stays f32: img_y is computed once per decode
-        out["wx_nimg"] = out["wx_nimg"].to(dtype)
-        out["w2_ih"] = params["lstm_cell_2"]["weight_ih"].to(dtype)
-        out["w2_hh"] = params["lstm_cell_2"]["weight_hh"].to(dtype)
-        out["b2"] = (params["lstm_cell_2"]["bias_ih"]
-                     + params["lstm_cell_2"]["bias_hh"])
-        out["sfc_w"] = params["s_fc"]["weight"].to(dtype)
-    return out
+    return {"bx": bx, "wh": wh, "bh": bh,
+            "wx_img": wx[:, lo:lo + d].contiguous(),
+            "wx_nimg": torch.cat([wx[:, :lo], wx[:, lo + d:]], 1)}
 
 
 def _mm(x, w):
     """x (B, I) @ w (O, I)^T with x rounded to w's storage dtype and the
     product accumulated in f32 (the upcast operands are exact in f32)."""
     return x.to(w.dtype).float() @ w.float().T
-
-
-def _fused_input1_block(fused_w, input_1, h1_prev, c1_prev, rnn_size,
-                        img_y):
-    """Two fused products: returns (s_gate, g_pre_x, h1, c1); the caller
-    finishes g_gate = sigmoid(g_pre_x + W1_hg(h1)).
-
-    img_y: hoisted image-descriptor contribution (including bx), shape
-    (rows, 6R); input_1 excludes the image slice."""
-    r = rnn_size
-    wx = fused_w["wx_nimg"]
-    if wx.dtype != input_1.dtype:  # reduced-precision step weights
-        y_x = _mm(input_1, wx)
-        y_h = _mm(h1_prev, fused_w["wh"]) + fused_w["bh"]
-    else:
-        y_x = input_1 @ wx.T                              # (B, 6R)
-        y_h = h1_prev @ fused_w["wh"].T + fused_w["bh"]   # (B, 5R)
-    y_x = y_x + img_y
-    s_gate = torch.sigmoid(y_x[:, :r] + y_h[:, :r])
-    g_pre_x = y_x[:, r:2 * r]
-    h1, c1 = nn.lstm_update(y_x[:, 2 * r:] + y_h[:, r:], c1_prev)
-    return s_gate, g_pre_x, h1, c1
 
 
 class CaptionerState(NamedTuple):
@@ -178,9 +145,8 @@ class Statics(NamedTuple):
     det_groups_proj: torch.Tensor       # (B, L, M, A) att_va(det_groups)
     det_groups_mask: torch.Tensor       # (B, L, M) 1.0 where region non-zero
     verb_list: Optional[torch.Tensor]   # (B, L) verb ids or -1 (step_v only)
-    # fast paths (the fused op's step, the step products'):
-    # image_descriptor's input_1 projection + bias, hoisted out of the
-    # decode loop (see derive_fused_step_weights)
+    # fast routes: image_descriptor's input_1 projection + bias, hoisted
+    # out of the decode loop (see derive_fused_step_weights)
     img_y: Optional[torch.Tensor] = None   # (B, 6R)
 
 
@@ -207,63 +173,162 @@ def precompute_statics(params, cfg: CaptionerConfig, detections, det_groups,
                    verb_list)
 
 
-def _step_core(params, cfg: CaptionerConfig, state: CaptionerState,
-               it, det_curr, det_curr_proj, det_curr_mask, image_descriptor,
-               word_head=True, products=None):
-    """Shared math of step/step_v given the already-gathered region group.
+class LinearProducts(NamedTuple):
+    """The step's products one weight at a time (`nn.linear`,
+    `nn.lstm_cell`), each where the strict step has always taken it (a
+    backward's gradient sums keep their order). `fused`: the first products
+    as derive_fused_step_weights' two, img_y (per row) hoisted."""
+    fused: Optional[Dict[str, torch.Tensor]] = None
 
-    it: (B,) input word; det_curr: (B, M, D); det_curr_proj: (B, M, A);
-    det_curr_mask: (B, M). Returns ((word_logp, gate_logp), (h1, c1, h2,
-    c2)); `word_head=False` skips out_fc/log_softmax (word_logp is None).
-    products: None (every product an `nn.linear`), or (op, weights, img_y,
-    beam) of the candidate step, which has no word head: the products
-    grouped by input through the op (`_step_core_products`).
-    """
-    if products is not None:
-        return _step_core_products(params, cfg, state, it, det_curr,
-                                   det_curr_proj, det_curr_mask,
-                                   image_descriptor, *products)
+    def first(self, params, cfg, state, xt, image_descriptor, img_y, beam):
+        """(s_gate, h1, c1, x): `gate` takes the g gate's x side from x."""
+        if self.fused is None:
+            if cfg.h2_first_lstm:
+                in1 = torch.cat([state.h2, image_descriptor, xt], 1)
+            else:
+                in1 = torch.cat([image_descriptor, xt], 1)
+            s_gate = torch.sigmoid(nn.linear(params["W1_is"], in1)
+                                   + nn.linear(params["W1_hs"], state.h1))
+            h1, c1 = nn.lstm_cell(params["lstm_cell_1"], in1,
+                                  (state.h1, state.c1))
+            return s_gate, h1, c1, in1
+        fw, r = self.fused, cfg.rnn_size
+        in1 = torch.cat([state.h2, xt], 1) if cfg.h2_first_lstm else xt
+        if fw["wx_nimg"].dtype != in1.dtype:   # decode_dtype's bf16 weights
+            y_x = _mm(in1, fw["wx_nimg"])
+            y_h = _mm(state.h1, fw["wh"]) + fw["bh"]
+        else:
+            y_x = in1 @ fw["wx_nimg"].T                       # (B, 6R)
+            y_h = state.h1 @ fw["wh"].T + fw["bh"]            # (B, 5R)
+        y_x = y_x + img_y
+        s_gate = torch.sigmoid(y_x[:, :r] + y_h[:, :r])
+        g_x = y_x[:, r:2 * r]
+        h1, c1 = nn.lstm_update(y_x[:, 2 * r:] + y_h[:, r:], state.c1)
+        return s_gate, h1, c1, g_x
+
+    def middle(self, params, cfg, s_t, h1):
+        """(fc_sentinel, ha, sa, h): `gate` takes the h side from h."""
+        fc_sentinel = nn.linear(params["s_fc"], s_t)
+        ha = nn.linear(params["att_ha"], h1)
+        return fc_sentinel, ha, nn.linear(params["att_sa"], s_t), h1
+
+    def lstm2(self, params, cfg, x2, state):
+        return nn.lstm_cell(params["lstm_cell_2"], torch.cat(x2, 1),
+                            (state.h2, state.c2))
+
+    def gate(self, params, cfg, x, h):
+        g_x = x if self.fused is not None else nn.linear(params["W1_ig"], x)
+        return g_x + nn.linear(params["W1_hg"], h)
+
+    def g(self, params, cfg, g_t):
+        return nn.linear(params["att_ga"], g_t)
+
+
+class GroupedProducts(NamedTuple):
+    """The step's products grouped by input (`derive_step_product_groups`),
+    each group one call of `op` (`ops/step_planes.py::step_planes` or its
+    plain version) on its `weights`: five calls a step; img_y (per item,
+    `beam` rows an item) hoisted."""
+    op: Callable
+    weights: Dict[str, Any]
+
+    def first(self, params, cfg, state, xt, image_descriptor, img_y, beam):
+        r = cfg.rnn_size
+        x = [state.h2, xt] if cfg.h2_first_lstm else [xt]
+        y = self.op(x + [state.h1], self.weights["in1"], add=img_y,
+                    add_div=beam)                              # (B, 6R)
+        h1, c1 = nn.lstm_update(y[:, 2 * r:], state.c1)
+        return torch.sigmoid(y[:, :r]), h1, c1, y[:, r:2 * r]
+
+    def middle(self, params, cfg, s_t, h1):
+        d, a = cfg.det_feat_size, cfg.att_size
+        y_s = self.op([s_t], self.weights["s"])                # (B, D + A)
+        y_h = self.op([h1], self.weights["h1"])                # (B, A + R)
+        # fc_sentinel contiguous: the gathered attention concatenates it
+        # with the (B, M, D) group, which a strided view sends down
+        # torch.cat's slow path
+        return y_s[:, :d].contiguous(), y_h[:, :a], y_s[:, d:], y_h[:, a:]
+
+    def lstm2(self, params, cfg, x2, state):
+        return nn.lstm_update(self.op(x2 + [state.h2], self.weights["lstm2"]),
+                              state.c2)
+
+    def gate(self, params, cfg, x, h):
+        return x + h
+
+    def g(self, params, cfg, g_t):
+        return self.op([g_t], self.weights["g"])
+
+
+class StepRoute(NamedTuple):
+    """A decode's products (`LinearProducts` or `GroupedProducts`) and
+    attention (None: the group gathered, `_step_core`; else the fused op of
+    `ops/fused_attention.py`, `_step_core_fused`): `api.step_route`."""
+    products: Any = LinearProducts()
+    attention: Optional[Callable] = None
+
+    @property
+    def kind(self):
+        """What the steps run besides the route's tensors (a graph key)."""
+        return (type(self.products), getattr(self.products, "op", None),
+                self.attention)
+
+
+STRICT = StepRoute()
+
+
+def _step(params, cfg: CaptionerConfig, state: CaptionerState, it,
+          image_descriptor, img_y, beam, products, attend, word_head):
+    """The step's math, with two seams: `products` and `attend`
+    ((ha, sa, fc_sentinel) -> (attended vector, gate evidence (B, 1))).
+    Returns ((word_logp or None without word_head, gate_logp), (h1, c1, h2,
+    c2))."""
     xt = nn.embedding(params["embed"], it)
-    if cfg.h2_first_lstm:
-        input_1 = torch.cat([state.h2, image_descriptor, xt], 1)
-    else:
-        input_1 = torch.cat([image_descriptor, xt], 1)
-
-    s_gate = torch.sigmoid(nn.linear(params["W1_is"], input_1)
-                           + nn.linear(params["W1_hs"], state.h1))
-    h1, c1 = nn.lstm_cell(params["lstm_cell_1"], input_1, (state.h1, state.c1))
-
+    s_gate, h1, c1, gate_x = products.first(params, cfg, state, xt,
+                                            image_descriptor, img_y, beam)
     s_t = s_gate * torch.tanh(c1)
-    fc_sentinel = nn.linear(params["s_fc"], s_t)          # (B, D)
-    ha = nn.linear(params["att_ha"], h1)                   # (B, A)
-    att_detections, det_w = _attend(
-        params, ha, nn.linear(params["att_sa"], s_t), fc_sentinel, det_curr,
-        det_curr_proj, det_curr_mask)
-
-    if cfg.img_second_lstm:
-        input_2 = torch.cat([h1, att_detections, image_descriptor], 1)
-    else:
-        input_2 = torch.cat([h1, att_detections], 1)
-    h2, c2 = nn.lstm_cell(params["lstm_cell_2"], input_2, (state.h2, state.c2))
+    fc_sentinel, ha, sa, gate_h = products.middle(params, cfg, s_t, h1)
+    att_detections, det_w_sum = attend(ha, sa, fc_sentinel)
+    x2 = [h1, att_detections] + (
+        [image_descriptor] if cfg.img_second_lstm else [])
+    h2, c2 = products.lstm2(params, cfg, x2, state)
     word_logp = None
     if word_head:
         word_logits = nn.linear(params["out_fc"], h2).float()
         word_logp = torch.log_softmax(word_logits, dim=-1)
 
     # shift gate
-    g_gate = torch.sigmoid(nn.linear(params["W1_ig"], input_1)
-                           + nn.linear(params["W1_hg"], h1))
+    g_gate = torch.sigmoid(products.gate(params, cfg, gate_x, gate_h))
     g_t = g_gate * torch.tanh(c1)
-    gate_logp = _gate_logp(params, nn.linear(params["att_ga"], g_t), ha,
-                           det_w, det_curr_mask)
-    return (word_logp, gate_logp), (h1, c1, h2, c2)
+    gate_w = nn.linear(params["att_g"],
+                       torch.tanh(products.g(params, cfg, g_t) + ha))
+    gate_logits = torch.cat([gate_w, det_w_sum], 1).float()
+    return (word_logp, torch.log_softmax(gate_logits, dim=-1)), \
+        (h1, c1, h2, c2)
 
 
-def _attend(params, ha, sa, fc_sentinel, det_curr, det_curr_proj,
-            det_curr_mask):
-    """The additive attention over [sentinel ; regions] of _step_core,
-    given ha = att_ha(h1) (B, A) and sa = att_sa(s_t) (B, A): returns
-    (att_detections (B, D), det_w (B, M, 1))."""
+def _step_core(params, cfg: CaptionerConfig, state: CaptionerState,
+               it, det_curr, det_curr_proj, det_curr_mask, image_descriptor,
+               word_head=True, products=LinearProducts(), img_y=None,
+               beam=1):
+    """The step on the already-gathered region group (teacher forcing,
+    the strict and the grouped products' decodes).
+
+    it: (B,) input word; det_curr: (B, M, D); det_curr_proj: (B, M, A);
+    det_curr_mask: (B, M); image_descriptor: (B, D); img_y, beam: what the
+    fast products read. Returns ((word_logp, gate_logp), (h1, c1, h2,
+    c2)); `word_head=False` skips out_fc/log_softmax (word_logp is None).
+    """
+    return _step(params, cfg, state, it, image_descriptor, img_y, beam,
+                 products, partial(_attend, params, det_curr, det_curr_proj,
+                                   det_curr_mask), word_head)
+
+
+def _attend(params, det_curr, det_curr_proj, det_curr_mask, ha, sa,
+            fc_sentinel):
+    """The additive attention over [sentinel ; regions], given ha =
+    att_ha(h1) (B, A) and sa = att_sa(s_t) (B, A): returns (att_detections
+    (B, D), the masked sum of the regions' weights (B, 1))."""
     det_w = torch.tanh(det_curr_proj + ha[:, None, :])     # (B, M, A)
     det_w = nn.linear(params["att_a"], det_w)              # (B, M, 1)
     sent_w = nn.linear(params["att_s"],
@@ -276,26 +341,17 @@ def _attend(params, ha, sa, fc_sentinel, det_curr, det_curr_proj,
     att = regions_mask * att
     att = att / att.sum(1, keepdim=True)
     regions = torch.cat([fc_sentinel[:, None, :], det_curr], 1)
-    return (regions * att).sum(1), det_w
+    return (regions * att).sum(1), (det_curr_mask[:, :, None] * det_w).sum(1)
 
 
-def _gate_logp(params, ga, ha, det_w, det_curr_mask):
-    """The shift gate's log-probs (B, 2) of _step_core, given ga =
-    att_ga(g_t), ha and the attention's det_w."""
-    gate_w = nn.linear(params["att_g"], torch.tanh(ga + ha))  # (B, 1)
-    det_w_sum = (det_curr_mask[:, :, None] * det_w).sum(1)   # (B, 1)
-    gate_logits = torch.cat([gate_w, det_w_sum], 1).float()
-    return torch.log_softmax(gate_logits, dim=-1)
-
-
-def derive_step_product_groups(params, cfg: CaptionerConfig, fused_w):
+def derive_step_product_groups(params, cfg: CaptionerConfig, fw):
     """The candidate step's products grouped by their input, as
-    `_step_core_products` reads them: {name: (weight (N, K), bias (N,) or
+    `GroupedProducts` reads them: {name: (weight (N, K), bias (N,) or
     None)}, K the input's segments side by side.
 
       * "in1": [h2_prev, word embedding, h1_prev] ([embedding, h1_prev]
         without h2_first_lstm) -> [s-gate (R), g-gate x side (R), LSTM 1
-        ifgo (4R)]: `fused_w`'s (derive_fused_step_weights, f32) x side
+        ifgo (4R)]: `fw`'s (derive_fused_step_weights, f32) x side
         without the image columns beside its h side, zeros where the g
         gate meets h1_prev (W1_hg reads the new h1, in "h1"); the image
         columns and bx come hoisted, per item (Statics.img_y);
@@ -307,14 +363,14 @@ def derive_step_product_groups(params, cfg: CaptionerConfig, fused_w):
     The products with one output column (att_a, att_s, att_g) stay
     `nn.linear`."""
     r, a = cfg.rnn_size, cfg.att_size
-    wh, bh = fused_w["wh"], fused_w["bh"]
+    wh, bh = fw["wh"], fw["bh"]
     lstm2 = params["lstm_cell_2"]
 
     def weights(*names):
         return torch.cat([params[n]["weight"] for n in names], 0)
 
     return {
-        "in1": (torch.cat([fused_w["wx_nimg"],
+        "in1": (torch.cat([fw["wx_nimg"],
                            torch.cat([wh[:r], wh.new_zeros((r, r)), wh[r:]],
                                      0)], 1),
                 torch.cat([bh[:r], bh.new_zeros((r,)), bh[r:]], 0)),
@@ -328,99 +384,35 @@ def derive_step_product_groups(params, cfg: CaptionerConfig, fused_w):
     }
 
 
-def _step_core_products(params, cfg: CaptionerConfig, state: CaptionerState,
-                        it, det_curr, det_curr_proj, det_curr_mask,
-                        image_descriptor, products_fn, products_w, img_y,
-                        beam):
-    """_step_core without the word head, its products grouped by input
-    (`derive_step_product_groups`) and run by `products_fn`
-    (`ops/step_planes.py::step_planes` or its plain version) on
-    `products_w` (each group as the op's weights): five calls a step. The
-    image-descriptor columns of the first projections and their bias come
-    hoisted in img_y (per item; `beam` rows an item)."""
-    r, d, a = cfg.rnn_size, cfg.det_feat_size, cfg.att_size
-    xt = nn.embedding(params["embed"], it)
-    x = [state.h2, xt] if cfg.h2_first_lstm else [xt]
-    y = products_fn(x + [state.h1], products_w["in1"], add=img_y,
-                    add_div=beam)                          # (B, 6R)
-    h1, c1 = nn.lstm_update(y[:, 2 * r:], state.c1)
-    s_t = torch.sigmoid(y[:, :r]) * torch.tanh(c1)
-    y_s = products_fn([s_t], products_w["s"])              # (B, D + A)
-    y_h = products_fn([h1], products_w["h1"])              # (B, A + R)
-    ha = y_h[:, :a]
-    # fc_sentinel contiguous: _attend concatenates it with the (B, M, D)
-    # group, which a strided view sends down torch.cat's slow path
-    att_detections, det_w = _attend(params, ha, y_s[:, d:],
-                                    y_s[:, :d].contiguous(), det_curr,
-                                    det_curr_proj, det_curr_mask)
-    x2 = [h1, att_detections] + (
-        [image_descriptor] if cfg.img_second_lstm else [])
-    h2, c2 = nn.lstm_update(
-        products_fn(x2 + [state.h2], products_w["lstm2"]), state.c2)
-    g_t = torch.sigmoid(y[:, r:2 * r] + y_h[:, a:]) * torch.tanh(c1)
-    gate_logp = _gate_logp(params, products_fn([g_t], products_w["g"]), ha,
-                           det_w, det_curr_mask)
-    return (None, gate_logp), (h1, c1, h2, c2)
-
-
 def _step_core_fused(params, cfg: CaptionerConfig, state: CaptionerState,
-                     it, statics: Statics, ctrl, beam: int, fused_fn,
-                     fused_w, word_head=True):
-    """_step_core through the fused group gather + attention op
-    (`ops/fused_attention.py`): the region group is read and attended in
-    the kernel and only the attended vector and gate evidence come back.
-    Uses the fused step weights with the hoisted image projection
-    (`statics.img_y`, per item; expanded here to the beam rows)."""
+                     it, statics: Statics, ctrl, beam: int,
+                     route: StepRoute, word_head=True):
+    """The step through the fused group gather + attention op
+    (`route.attention`): only the attended vector and gate evidence come
+    back. img_y (per item) is expanded here to the beam rows."""
     rows = state.h1.shape[0]
     item = torch.arange(rows, device=state.h1.device) // beam
-    xt = nn.embedding(params["embed"], it)
     img_y = statics.img_y
     if img_y.shape[0] != rows:
         img_y = img_y[item]
-    input_1p = torch.cat([state.h2, xt], 1) if cfg.h2_first_lstm else xt
-    s_gate, g_pre_x, h1, c1 = _fused_input1_block(
-        fused_w, input_1p, state.h1, state.c1, cfg.rnn_size, img_y=img_y)
-    s_t = s_gate * torch.tanh(c1)
-    if "sfc_w" in fused_w:
-        fc_sentinel = _mm(s_t, fused_w["sfc_w"]) + params["s_fc"]["bias"]
-    else:
-        fc_sentinel = nn.linear(params["s_fc"], s_t)          # (B, D)
+    image_descriptor = (statics.image_descriptor[item]
+                        if cfg.img_second_lstm else None)
+    return _step(params, cfg, state, it, image_descriptor, img_y, 1,
+                 route.products,
+                 partial(_attend_fused, route.attention, params, statics,
+                         item, ctrl), word_head)
 
-    ha = nn.linear(params["att_ha"], h1)                      # (B, A)
-    sent_w = nn.linear(params["att_s"],
-                       torch.tanh(nn.linear(params["att_sa"], s_t) + ha))
+
+def _attend_fused(op, params, statics: Statics, item, ctrl, ha, sa,
+                  fc_sentinel):
+    """`_attend` by the fused op on the rows' items and ctrl pointers."""
+    sent_w = nn.linear(params["att_s"], torch.tanh(sa + ha))
     sent_mask = (fc_sentinel.sum(-1, keepdim=True) != 0).to(
         fc_sentinel.dtype)
-    att_detections, det_w_sum = fused_fn(
-        item.to(torch.int32), ctrl.to(torch.int32), ha.contiguous(),
-        sent_w.contiguous(), sent_mask, fc_sentinel.contiguous(),
-        params["att_a"]["weight"][0].float().contiguous(),
-        statics.det_groups, statics.det_groups_proj)
-
-    if cfg.img_second_lstm:
-        image_descriptor = statics.image_descriptor[item]
-        input_2 = torch.cat([h1, att_detections, image_descriptor], 1)
-    else:
-        input_2 = torch.cat([h1, att_detections], 1)
-    if "w2_ih" in fused_w:
-        h2, c2 = nn.lstm_update(_mm(input_2, fused_w["w2_ih"])
-                                + _mm(state.h2, fused_w["w2_hh"])
-                                + fused_w["b2"], state.c2)
-    else:
-        h2, c2 = nn.lstm_cell(params["lstm_cell_2"], input_2,
-                              (state.h2, state.c2))
-    word_logp = None
-    if word_head:
-        word_logits = nn.linear(params["out_fc"], h2).float()
-        word_logp = torch.log_softmax(word_logits, dim=-1)
-
-    g_gate = torch.sigmoid(g_pre_x + nn.linear(params["W1_hg"], h1))
-    g_t = g_gate * torch.tanh(c1)
-    gate_w = nn.linear(params["att_g"],
-                       torch.tanh(nn.linear(params["att_ga"], g_t) + ha))
-    gate_logits = torch.cat([gate_w, det_w_sum], 1).float()
-    gate_logp = torch.log_softmax(gate_logits, dim=-1)
-    return (word_logp, gate_logp), (h1, c1, h2, c2)
+    return op(item.to(torch.int32), ctrl.to(torch.int32), ha.contiguous(),
+              sent_w.contiguous(), sent_mask, fc_sentinel.contiguous(),
+              params["att_a"]["weight"][0].float().contiguous(),
+              statics.det_groups, statics.det_groups_proj)
 
 
 def _gather_group(statics: Statics, idx, beam: int = 1):
@@ -459,19 +451,41 @@ def _feedback_inputs(cfg, state, statics, prev_word, prev_gate, t0):
     return prev_word, ctrl
 
 
+def _feedback_step(params, cfg: CaptionerConfig, state: CaptionerState,
+                   statics: Statics, prev_word, prev_gate, t0, beam: int,
+                   route: StepRoute, word_head=True, verbs=False):
+    """A feedback step through `route`: ((word_logp, gate_logp), new
+    state, the rows' verbs (`_verb_curr`) or None without `verbs`)."""
+    it, ctrl = _feedback_inputs(cfg, state, statics, prev_word, prev_gate, t0)
+    gathered = route.attention is None
+    image_descriptor, verb_list = (
+        _per_row(statics, beam, state.h1.shape[0]) if verbs or gathered
+        else (None, None))
+    verb_curr = _verb_curr(verb_list, ctrl) if verbs else None
+    if gathered:
+        det_curr, det_proj, det_mask = _gather_group(statics, ctrl, beam)
+        out, (h1, c1, h2, c2) = _step_core(
+            params, cfg, state, it, det_curr, det_proj, det_mask,
+            image_descriptor, word_head=word_head, products=route.products,
+            img_y=statics.img_y, beam=beam)
+    else:
+        out, (h1, c1, h2, c2) = _step_core_fused(
+            params, cfg, state, it, statics, ctrl, beam, route,
+            word_head=word_head)
+    return out, CaptionerState(h1, c1, h2, c2, ctrl), verb_curr
+
+
 def captioner_step(params, cfg: CaptionerConfig, state: CaptionerState,
                    statics: Statics, it=None, det_curr=None,
                    prev_word=None, prev_gate=None, t0=False, beam: int = 1,
-                   fused_fn=None, fused_w=None):
+                   route: StepRoute = STRICT):
     """One decode step.
 
     Teacher forcing: pass `it` (B,) and `det_curr` (B, M, D); the group's
     projection and mask are taken here, the pointer stays, and only
     statics.image_descriptor is read. Feedback (the step of `beam_search`,
     greedy and sampling): the ctrl pointer advances by prev_gate and the
-    group is gathered from statics, or attended in the fused op when
-    fused_fn is given."""
-    b = state.h1.shape[0]
+    step runs through `route`."""
     if it is not None and det_curr is not None:
         det_proj = nn.linear(params["att_va"], det_curr)
         det_mask = (det_curr.sum(-1) != 0).to(det_curr.dtype)
@@ -480,17 +494,9 @@ def captioner_step(params, cfg: CaptionerConfig, state: CaptionerState,
             statics.image_descriptor)
         return ((word_logp, gate_logp),
                 CaptionerState(h1, c1, h2, c2, state.ctrl_det_idx))
-    it, ctrl = _feedback_inputs(cfg, state, statics, prev_word, prev_gate, t0)
-    if fused_fn is not None:
-        (word_logp, gate_logp), (h1, c1, h2, c2) = _step_core_fused(
-            params, cfg, state, it, statics, ctrl, beam, fused_fn, fused_w)
-    else:
-        det_curr, det_proj, det_mask = _gather_group(statics, ctrl, beam)
-        image_descriptor, _ = _per_row(statics, beam, b)
-        (word_logp, gate_logp), (h1, c1, h2, c2) = _step_core(
-            params, cfg, state, it, det_curr, det_proj, det_mask,
-            image_descriptor)
-    return (word_logp, gate_logp), CaptionerState(h1, c1, h2, c2, ctrl)
+    out, state, _ = _feedback_step(params, cfg, state, statics, prev_word,
+                                   prev_gate, t0, beam, route)
+    return out, state
 
 
 class VerbTenseTable(NamedTuple):
@@ -561,26 +567,16 @@ def _verb_curr(verb_list, ctrl):
 def captioner_step_v(params, cfg: CaptionerConfig, state: CaptionerState,
                      statics: Statics, tense_table: Optional[VerbTenseTable],
                      prev_word=None, prev_gate=None, t0=False, gt=False,
-                     beam: int = 1, fused_fn=None, fused_w=None):
+                     beam: int = 1, route: StepRoute = STRICT):
     """Feedback step with verb substitution (ref step_v :192-297).
 
     statics.verb_list (B, L) holds -1 for non-verb slots, else the verb id
     (verb vocab in pred mode / caption vocab in gt mode)."""
-    b = state.h1.shape[0]
-    it, ctrl = _feedback_inputs(cfg, state, statics, prev_word, prev_gate, t0)
-    image_descriptor, verb_list = _per_row(statics, beam, b)
-    verb_curr = _verb_curr(verb_list, ctrl)
-    if fused_fn is not None:
-        (word_logp, gate_logp), (h1, c1, h2, c2) = _step_core_fused(
-            params, cfg, state, it, statics, ctrl, beam, fused_fn, fused_w)
-    else:
-        det_curr, det_proj, det_mask = _gather_group(statics, ctrl, beam)
-        (word_logp, gate_logp), (h1, c1, h2, c2) = _step_core(
-            params, cfg, state, it, det_curr, det_proj, det_mask,
-            image_descriptor)
-    word_logp, gate_logp = substitute_verb(word_logp, gate_logp, verb_curr,
-                                           tense_table, gt)
-    return (word_logp, gate_logp), CaptionerState(h1, c1, h2, c2, ctrl)
+    (word_logp, gate_logp), state, verb_curr = _feedback_step(
+        params, cfg, state, statics, prev_word, prev_gate, t0, beam, route,
+        verbs=True)
+    return substitute_verb(word_logp, gate_logp, verb_curr, tense_table,
+                           gt), state
 
 
 def _verb_target(out_fc, h2, verb_curr, tense_table: Optional[VerbTenseTable],
@@ -607,40 +603,24 @@ def captioner_step_v_topk(params, cfg: CaptionerConfig, state: CaptionerState,
                           tense_table: Optional[VerbTenseTable],
                           vocab_fn, out_fc_tables,
                           prev_word=None, prev_gate=None, t0=False, gt=False,
-                          beam: int = 1, k: int = 5, fused_fn=None,
-                          fused_w=None, products_fn=None, products_w=None):
+                          beam: int = 1, k: int = 5,
+                          route: StepRoute = STRICT):
     """captioner_step_v emitting the compact candidate set consumed by
     decode.beam.beam_search_joint_candidates instead of dense word_logp.
 
     vocab_fn(h2, w_t, bias) -> (vals (B,k), ids (B,k), lse (B,1)): the
     wrapper or the plain version of `ops.vocab_topk`.
     out_fc_tables: (w_t (R, V), bias (V,)).
-    products_fn, products_w: without fused_fn, the step products' op and
-    grouped weights (`_step_core`'s `products`; statics.img_y hoisted);
-    without either, its `nn.linear` products.
     Returns ((cand_ids (B, k+1), cand_wlp (B, k+1), gate_logp), state)."""
-    b = state.h1.shape[0]
-    v = cfg.vocab_size
-    it, ctrl = _feedback_inputs(cfg, state, statics, prev_word, prev_gate, t0)
-    image_descriptor, verb_list = _per_row(statics, beam, b)
-    verb_curr = _verb_curr(verb_list, ctrl)
-    if fused_fn is not None:
-        (_, gate_logp), (h1, c1, h2, c2) = _step_core_fused(
-            params, cfg, state, it, statics, ctrl, beam, fused_fn, fused_w,
-            word_head=False)
-    else:
-        det_curr, det_proj, det_mask = _gather_group(statics, ctrl, beam)
-        (_, gate_logp), (h1, c1, h2, c2) = _step_core(
-            params, cfg, state, it, det_curr, det_proj, det_mask,
-            image_descriptor, word_head=False, products=None
-            if products_fn is None else (products_fn, products_w,
-                                         statics.img_y, beam))
-
+    (_, gate_logp), state, verb_curr = _feedback_step(
+        params, cfg, state, statics, prev_word, prev_gate, t0, beam, route,
+        word_head=False, verbs=True)
     w_t, bias = out_fc_tables
-    vals, ids, lse = vocab_fn(h2.contiguous(), w_t, bias)
-    tgt = _verb_target(params["out_fc"], h2, verb_curr, tense_table, gt, v)
-    return (topk_candidates(vals, ids, lse, gate_logp, verb_curr, tgt, k),
-            CaptionerState(h1, c1, h2, c2, ctrl))
+    vals, ids, lse = vocab_fn(state.h2.contiguous(), w_t, bias)
+    tgt = _verb_target(params["out_fc"], state.h2, verb_curr, tense_table,
+                       gt, cfg.vocab_size)
+    return topk_candidates(vals, ids, lse, gate_logp, verb_curr, tgt, k), \
+        state
 
 
 def topk_candidates(vals, ids, lse, gate_logp, verb_curr, tgt, k: int):

@@ -58,9 +58,9 @@ from vsrcic_tpu_torch.decode.loops import (
     forward_teacher_forcing, greedy_decode, sample_decode)
 from vsrcic_tpu_torch.metrics.cider import Cider
 from vsrcic_tpu_torch.metrics.cider_native import NativeCiderPair
-from vsrcic_tpu_torch.models.api import ControllableCaptioner
+from vsrcic_tpu_torch.models.api import step_route
 from vsrcic_tpu_torch.models.captioner import (
-    CaptionerConfig, Statics, captioner_step, image_descriptor_f32,
+    STRICT, CaptionerConfig, Statics, captioner_step, image_descriptor_f32,
     init_state, precompute_statics)
 from vsrcic_tpu_torch.parallel.mesh import (all_gather_blocks,
                                             all_reduce_sum, block_of,
@@ -254,15 +254,8 @@ class CaptionerSCSTTrainer:
         self.tx = adam(lr)
         self.state = init_train_state(to_device(params, self.device),
                                       self.tx)
-        self._fast = None
-        if fast_decode:
-            self._fast = ControllableCaptioner(
-                cfg, params=self.state.params, use_fused_attention=True,
-                table_dtype=table_dtype, device=self.device)
-            # a kernel factory only: every decode passes the live params, so
-            # its construction-time params must never be read
-            self._fast.params = None
-            self._fast.decode_params = None
+        self.fast_decode = fast_decode
+        self.table_dtype = table_dtype
 
     def set_lr(self, lr: float):
         self.state = TrainState(self.state.params,
@@ -277,17 +270,17 @@ class CaptionerSCSTTrainer:
         None; and the greedy words (B, T) when `greedy`, else None. Both
         share one statics."""
         params = self.state.params
-        if self._fast is not None:
-            statics, fused, fw = self._fast._fused_statics(
-                params, detections, det_groups)
+        if self.fast_decode:
+            statics, route, _ = step_route(
+                params, self.cfg, detections, det_groups,
+                use_fused_attention=True, table_dtype=self.table_dtype)
         else:
-            statics = precompute_statics(params, self.cfg, detections,
-                                         det_groups)
-            fused = fw = None
+            statics, route = precompute_statics(params, self.cfg, detections,
+                                                det_groups), STRICT
         sampled = None if gen is None else sample_decode(
-            params, self.cfg, statics, gen, fused_fn=fused, fused_w=fw)
+            params, self.cfg, statics, gen, route=route)
         base = None if not greedy else greedy_decode(
-            params, self.cfg, statics, fused_fn=fused, fused_w=fw)[0]
+            params, self.cfg, statics, route=route)[0]
         return sampled, base
 
     def _decode_batch(self, detections, det_groups, gen=None, greedy=True):
@@ -301,7 +294,7 @@ class CaptionerSCSTTrainer:
         if gen is not None:
             # strict: this block's rows of the whole batch's draws; fast:
             # the rank's own stream
-            gen = (rank_generator(gen, mesh) if self._fast is not None
+            gen = (rank_generator(gen, mesh) if self.fast_decode
                    else BlockRNG(gen, *mesh.bounds(b), b))
         sampled, base = self.decode(block_of(detections, mesh, fill=None),
                                     block_of(det_groups, mesh, fill=None),
