@@ -14,6 +14,7 @@
     python3 chip_smoke.py --vocab-bf16 # phases 1-2, 3's vocab checks, 5-5d
                                        # (every vocab route)
     python3 chip_smoke.py --step-planes  # phases 1-2, 3p and 5e
+    python3 chip_smoke.py --xe-planes    # phases 1-2 and 3g
     python3 chip_smoke.py --kimi-head    # phases 1-2 and 3k
 
 Phases (any failure raises and the script exits non-zero):
@@ -76,6 +77,15 @@ Phases (any failure raises and the script exits non-zero):
      STEP_ERR_RATIO of cuBLAS f32's on the same values (TF32 off), held
      time beside the nine-pass bound, the profiler's split, the plain
      version and one torch.addmm;
+ 3g. XE's products (ops/step_planes.py::StepPlanes, the lean XE loss's
+     route on the card) at the XE cell's shapes (tools/memcheck.py
+     XE_GROUPS): each product's forward, dA = dC @ W and dW = dC^T @ A
+     held to the f64 product within STEP_ERR_RATIO of cuBLAS f32's (TF32
+     off) on the same values, the autograd function's gradients equal to
+     the products run alone and its forward bit for bit the same twice;
+     each timed held (split passes included) beside one cuBLAS f32 call
+     (library_ms) and the nine-pass bound, and summed into an XE step
+     (forward and recompute, dA, dW at 20 steps; img once);
  3k. the Kimi-VL decoder's word head (`KimiVLCaptioner._vocab_fn`: the
      vocab op on its bf16 final hidden and head table, the "tma" route) at
      the shapes of its eval path: one batch of 256 jobs at beam 5 through
@@ -1556,6 +1566,114 @@ def check_step_planes(gen, report):
 
 
 # ---------------------------------------------------------------------------
+# phase 3g: XE's products and their gradients (ops/step_planes.py)
+# ---------------------------------------------------------------------------
+
+def check_xe_planes(gen, report):
+    """Phase 3g: at each of XE_GROUPS' shapes (tools/memcheck.py), the
+    forward (split pass and product), dA (dC's split pass and product, not
+    for att_va and img, whose A is the data) and dW (the transposing split
+    pass and product): each result's largest error against the f64 product
+    within STEP_ERR_RATIO of one cuBLAS f32 call's on the same values (TF32
+    off); through the autograd function the gradients equal those products
+    bit for bit, the bias's dC summed, and the forward repeats its bits
+    (a checkpointed step's recompute); held ms of each beside cuBLAS f32's
+    and the nine-pass bound; an XE step's sum (20 steps of forward,
+    recompute, dA and dW; img's forward and dW once)."""
+    import torch
+    from vsrcic_tpu_torch.ops import step_planes as sp
+    from vsrcic_tpu_torch.tools.memcheck import XE_GROUPS, XE_NO_DA
+    out = {"products": {}}
+    step = dict(ms=0.0, library_ms=0.0, bound_ms=0.0, cuda_core_bound_ms=0.0)
+    for name, rows, widths, n, add_div in XE_GROUPS:
+        k = sum(widths)
+        segs = [torch.tanh(torch.randn((rows, w), generator=gen,
+                                       device="cuda")) for w in widths]
+        w = torch.randn((n, k), generator=gen, device="cuda") * (
+            2.0 / (n + k)) ** 0.5
+        bias = 0.1 * torch.randn((n,), generator=gen, device="cuda")
+        add = (torch.randn((rows, n), generator=gen, device="cuda")
+               if add_div else None)
+        dc = torch.randn((rows, n), generator=gen, device="cuda") / rows
+        sw = sp.step_grad_weights(w, bias)
+        a = torch.cat(segs, 1)
+        a64, w64, dc64 = a.double(), w.double(), dc.double()
+        fwd_ref = a64 @ w64.T + bias.double()
+        fwd_lib = torch.addmm(bias, a, w.T)
+        if add is not None:
+            fwd_ref, fwd_lib = fwd_ref + add.double(), fwd_lib + add
+        fwd = lambda: sp._forward(segs, sw, add, 1)
+        y, a_planes = fwd()
+        da_fn = lambda: sp._grad_product(sp.split_segments([dc]),
+                                         sw.w_planes, k)
+        dw_fn = lambda: sp._grad_product(sp.split_t(dc), a_planes, k)
+        parts = {"forward": (y, fwd_ref, fwd_lib, fwd,
+                             lambda: torch.addmm(bias, a, w.T), rows, n, k),
+                 "dW": (dw_fn(), dc64.T @ a64, dc.T @ a, dw_fn,
+                        lambda: dc.T @ a, n, k, rows)}
+        if name not in XE_NO_DA:
+            parts["dA"] = (da_fn(), dc64 @ w64, dc @ w, da_fn,
+                           lambda: dc @ w, rows, k, n)
+        # the autograd function: the same products, its forward's bits twice
+        leaves = [x.requires_grad_(True) for x in segs + [w, bias]]
+        got = sp.step_planes_autograd(leaves[:-2], sp.StepWeights(
+            leaves[-2], leaves[-1], sw.planes, sw.w_planes), add, 1)
+        grads = torch.autograd.grad(got, leaves, dc)
+        for x in leaves:
+            x.requires_grad_(False)
+        again = sp._forward(segs, sw, add, 1)[0]
+        if not (torch.equal(got, y) and torch.equal(again, y)
+                and torch.equal(grads[-2], parts["dW"][0])
+                and torch.equal(grads[-1], dc.sum(0))
+                and (name in XE_NO_DA or torch.equal(
+                    torch.cat(grads[:-2], 1), parts["dA"][0]))):
+            raise AssertionError("XE %s: the autograd function departs from "
+                                 "its products, or the forward from itself"
+                                 % name)
+        g = {"rows": rows, "k": k, "n": n}
+        for part, (res, ref, lib, call, lib_call, m, nn_, kk) in \
+                parts.items():
+            err = float((res.double() - ref).abs().max())
+            lib_err = float((lib.double() - ref).abs().max())
+            if err > STEP_ERR_RATIO * lib_err:
+                raise AssertionError(
+                    "XE %s %s: %.3g from the f64 product, cuBLAS f32 %.3g "
+                    "(at most x%.1f)" % (name, part, err, lib_err,
+                                         STEP_ERR_RATIO))
+            bound, cuda_bound = step_bound(m, kk, nn_)
+            g[part] = dict(max_abs_err_f64=err,
+                           library_max_abs_err_f64=lib_err,
+                           err_ratio=err / lib_err,
+                           ms=held_ms(call, iters=20)[0],
+                           library_ms=held_ms(lib_call, iters=20)[0],
+                           bound_ms=bound, cuda_core_bound_ms=cuda_bound)
+            g[part]["bound_share"] = bound / g[part]["ms"]
+            # an XE step: forward and its recompute at every step (img_y
+            # once a loss, not recomputed), each gradient at every step
+            per_step = (1 if name == "img" else
+                        2 * SEQ_LEN if part == "forward" else SEQ_LEN)
+            for f in step:
+                step[f] += per_step * g[part][f]
+            log("  XE %-6s %-7s rows %5d, K %5d, N %5d: held %.4f ms (%.1f%% "
+                "of the nine-pass bound %.4f), cuBLAS f32 %.4f (CUDA cores' "
+                "bound %.4f); err against f64 %.3g, cuBLAS %.3g (x%.2f)"
+                % (name, part, m, kk, nn_, g[part]["ms"],
+                   100 * g[part]["bound_share"], bound,
+                   g[part]["library_ms"], cuda_bound, err, lib_err,
+                   err / lib_err))
+        out["products"][name] = g
+        del parts, y, a_planes, a64, w64, dc64, fwd_ref, fwd_lib
+        torch.cuda.empty_cache()
+    step["bound_share"] = step["bound_ms"] / step["ms"]
+    out["xe_step"] = step
+    log("  XE step's products (%d steps): held %.2f ms (%.1f%% of the "
+        "nine-pass bound %.2f), cuBLAS f32 %.2f (CUDA cores' bound %.2f)"
+        % (SEQ_LEN, step["ms"], 100 * step["bound_share"], step["bound_ms"],
+           step["library_ms"], step["cuda_core_bound_ms"]))
+    report["xe_planes"] = out
+
+
+# ---------------------------------------------------------------------------
 # phase 3m: the memory check
 # ---------------------------------------------------------------------------
 
@@ -2744,12 +2862,17 @@ def run_trainers(report):
                                          DET, time.perf_counter() - t0))
     out = {}
 
-    # XE, lean compact path
+    # XE, lean compact path: its products on the step products' kernels
+    from vsrcic_tpu_torch.ops.step_planes import step_planes
     torch.cuda.reset_peak_memory_stats()
     xe = CaptionerXETrainer(cfg, params, lr=TRAIN_LR, device="cuda")
     losses = [xe.step(det, caps, ids, gates)[0]]                  # warm-up
+    before = step_planes.launches, step_planes.grad_launches
     res, dt, launches = counted(lambda: [
         xe.step(det, caps, ids, gates)[0] for _ in range(TRAIN_STEPS)])
+    launches["step_planes"], launches["step_planes_grad"] = (
+        step_planes.launches - before[0],
+        step_planes.grad_launches - before[1])
     losses += res + [xe.step(det, caps, ids, gates)[0]]
     peak = torch.cuda.max_memory_allocated() / 1e9
     log("  XE (lean): %d steps of %d in %.3f s: %.3f steps/s, %.1f "
@@ -2760,6 +2883,16 @@ def run_trainers(report):
     if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
         raise AssertionError("XE losses do not fall over five steps: %s"
                              % losses)
+    # a step: 7 products at each of 20 steps, twice (the recompute), and
+    # img_y once; dA of 6 and dW of 7 at each step, and img_y's dW
+    want = (TRAIN_STEPS * (14 * SEQ_LEN + 1),
+            TRAIN_STEPS * (13 * SEQ_LEN + 1))
+    if (launches["step_planes"], launches["step_planes_grad"]) != want:
+        raise AssertionError("XE step products: %d and %d gradient launches "
+                             "in %d steps, expected %s"
+                             % (launches["step_planes"],
+                                launches["step_planes_grad"], TRAIN_STEPS,
+                                want))
     out["xe"] = dict(steps_per_s=TRAIN_STEPS / dt,
                      sequences_per_s=TRAIN_STEPS * TRAIN_BATCH / dt,
                      seconds=dt, losses=losses, peak_mem_gb=peak,
@@ -4254,6 +4387,14 @@ def main():
                           "cell_beam": report["cell_beam"]}))
         print_device_line()
         return 0
+    if "--xe-planes" in sys.argv[1:]:
+        log("[3g] XE's products and their gradients")
+        check_xe_planes(gen, report)
+        write_report(report)
+        print(card)
+        print(json.dumps({"xe_planes": report["xe_planes"]["xe_step"]}))
+        print_device_line()
+        return 0
     if "--kimi-head" in sys.argv[1:]:
         log("[3k] the Kimi-VL decoder's word head at its eval path's shapes")
         run_kimi_head(report)
@@ -4343,6 +4484,8 @@ def main():
     check_sinkhorn(gen, kernels)
     log("[3p] step products against their plain version")
     check_step_planes(gen, kernels)
+    log("[3g] XE's products and their gradients")
+    check_xe_planes(gen, report)
 
     # phase 3m
     log("[3m] memory check (checked build, guarded buffers, every plan)")

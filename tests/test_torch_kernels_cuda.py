@@ -1044,7 +1044,8 @@ TRAIN_CLI_TINY = ["--synthetic", "--synthetic_images", "16", "--batch_size",
 def test_train_cli_lifecycle_on_the_card(cuda_device, tmp_path):
     """The tiny XE -> SCST --fast_decode -> Sinkhorn lifecycle through the
     train CLIs on the card (no --platform): XE writes exp_best and runs no
-    kernel; SCST restores it, launches the fused kernel 40 times a step (a
+    fused, vocab or Sinkhorn kernel (its products run on the step
+    products' kernels); SCST restores it, launches the fused kernel 40 times a step (a
     greedy and a sampled decode of 20 steps) and writes exp_rl_last; the
     Sinkhorn CLI launches its kernel once a step; every logged loss is
     finite."""
@@ -1221,3 +1222,175 @@ def test_facade_candidate_step_runs_the_step_products(cuda_device):
     finally:
         api.step_planes = kernel
     tp.assert_beams_match(got, want)
+
+
+# XE's products and their gradients (ops/step_planes.py::StepPlanes)
+XE_GRAD_SHAPES = [("in1", 1024, (1000, 1000, 1000), 6000),
+                  ("lstm2", 1024, (1000, 2048, 1000), 4000),
+                  ("att_va", 20480, (2048,), 512),
+                  ("out_fc", 1024, (1000,), 10000)]
+
+
+def _xe_operands(device, rows, widths, n, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    k = sum(widths)
+    segs = [torch.tanh(torch.randn((rows, w), generator=gen, device=device))
+            for w in widths]
+    w = torch.randn((n, k), generator=gen, device=device) * (
+        2.0 / (n + k)) ** 0.5
+    bias = 0.1 * torch.randn((n,), generator=gen, device=device)
+    dc = torch.randn((rows, n), generator=gen, device=device) / rows
+    return segs, w, bias, dc
+
+
+def _grads(segs, w, bias, dc, need_a=True):
+    """(out, dA (or None), dW, db) through the autograd function, and the
+    launches it made (forward, gradient)."""
+    from vsrcic_tpu_torch.ops import step_planes as sp
+    segs = [s.clone().requires_grad_(need_a) for s in segs]
+    w, bias = w.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+    before = sp.step_planes.launches, sp.step_planes.grad_launches
+    out = sp.step_planes_autograd(segs, sp.step_grad_weights(w, bias))
+    grads = torch.autograd.grad(out, (segs if need_a else []) + [w, bias],
+                                dc)
+    torch.cuda.synchronize()
+    launched = (sp.step_planes.launches - before[0],
+                sp.step_planes.grad_launches - before[1])
+    da = torch.cat(grads[:-2], 1) if need_a else None
+    return out.detach(), da, grads[-2], grads[-1], launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", XE_GRAD_SHAPES, ids=lambda s: s[0])
+def test_step_planes_grads_match_f64(cuda_device, shape):
+    """At XE's shapes (att_va over every region row, its A the data: no
+    dA) one forward and one or two gradient launches; dA = dC @ W and dW =
+    dC^T @ A no further from the f64 product than cuBLAS f32 (TF32 off) on
+    the same values, at most x2; the bias's gradient dC summed."""
+    name, rows, widths, n = shape
+    segs, w, bias, dc = _xe_operands(cuda_device, rows, widths, n, rows + n)
+    need_a = name != "att_va"
+    _, da, dw, db, launched = _grads(segs, w, bias, dc, need_a)
+    assert launched == (1, 2 if need_a else 1)
+    a = torch.cat(segs, 1)
+    pairs = [(dw, dc.T @ a, dc.double().T @ a.double())]
+    if need_a:
+        pairs.append((da, dc @ w, dc.double() @ w.double()))
+    for got, lib, ref in pairs:
+        err = float((got.double() - ref).abs().max())
+        lib_err = float((lib.double() - ref).abs().max())
+        assert err <= 2.0 * lib_err, (err, lib_err)
+    assert torch.equal(db, dc.sum(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1e-8, 1e-4, 1.0])
+def test_step_planes_grads_hold_at_every_scale(cuda_device, scale):
+    """Gradients from 1e-8 to 1 (the planes split them exactly down to
+    2^-100): dA and dW relative to their largest entry within x2 of
+    cuBLAS f32's."""
+    segs, w, bias, dc = _xe_operands(cuda_device, 1024, (1000, 1000, 1000),
+                                     6000, 3)
+    dc = dc * (scale * 1024)
+    _, da, dw, _, _ = _grads(segs, w, bias, dc)
+    a = torch.cat(segs, 1)
+    for got, lib, ref in ((da, dc @ w, dc.double() @ w.double()),
+                          (dw, dc.T @ a, dc.double().T @ a.double())):
+        top = float(ref.abs().max())
+        assert 0.1 * scale < top < 1e3 * scale
+        err = float((got.double() - ref).abs().max()) / top
+        lib_err = float((lib.double() - ref).abs().max()) / top
+        assert err <= 2.0 * lib_err, (err, lib_err)
+
+
+@pytest.mark.cuda
+def test_step_planes_recompute_is_bit_identical(cuda_device):
+    """The forward repeats its bits, so a checkpointed step's recompute
+    gives the gradients of the plain backward bit for bit; the gradient
+    products repeat theirs too."""
+    from torch.utils.checkpoint import checkpoint
+    from vsrcic_tpu_torch.ops import step_planes as sp
+    segs, w, bias, dc = _xe_operands(cuda_device, 1024, (1000, 2048, 1000),
+                                     4000, 5)
+    segs = [s.requires_grad_(True) for s in segs]
+    w.requires_grad_(True)
+    sw = sp.step_grad_weights(w, bias)
+
+    def f(*xs):
+        return torch.tanh(sp.step_planes_autograd(list(xs), sw))
+    runs = []
+    for ck in (False, True, True):
+        out = checkpoint(f, *segs, use_reentrant=False) if ck else f(*segs)
+        runs.append((out,) + torch.autograd.grad(out, segs + [w], dc))
+    for x, y in zip(runs[0], runs[1]):
+        assert torch.equal(x, y)
+    for x, y in zip(runs[1], runs[2]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(1, 1), (7, 129), (37, 300),
+                                    (1024, 6000), (20480, 512)])
+def test_transposing_split_is_exact(cuda_device, rows, n):
+    """The transposing split pass gives split_bf16x3_plain's planes of x^T
+    bit for bit (rows no multiple of 8: zero columns), on every kind of
+    entry: normal, tiny, signed zeros, +-inf and NaN."""
+    from vsrcic_tpu_torch.ops import step_planes as sp
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + n)
+    x = torch.randn((rows, n), generator=gen, device=cuda_device)
+    flat = x.view(-1)
+    special = torch.tensor([1e-38, -3e-40, 0.0, -0.0, float("inf"),
+                            -float("inf"), float("nan"), 3.0e38],
+                           device=cuda_device)
+    flat[:min(8, flat.numel())] = special[:min(8, flat.numel())]
+    got = sp.split_t(x)
+    assert got.shape == (3, n, rows + -rows % 8)
+    assert torch.equal(got.view(torch.int16),
+                       split_bf16x3_plain(x.t()).view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_xe_loss_on_the_card_takes_the_grouped_route(cuda_device):
+    """The lean XE loss on f32 CUDA parameters runs its products on the
+    kernels (281 forward and 261 gradient launches a step of 20; here 5
+    steps: 71 and 66) and keeps the strict route's loss and gradients
+    (cuBLAS f32) within 1e-5, relative."""
+    from vsrcic_tpu_torch.models.captioner import (CaptionerConfig,
+                                                   init_captioner_params)
+    from vsrcic_tpu_torch.ops import step_planes as sp
+    from vsrcic_tpu_torch.train import captioner as tc
+    from vsrcic_tpu_torch.train.common import value_and_grad
+    from vsrcic_tpu_torch.utils.params import flatten
+    cfg = CaptionerConfig(seq_len=5, vocab_size=300, det_feat_size=136,
+                          input_encoding_size=40, rnn_size=72, att_size=24)
+    g = torch.Generator().manual_seed(0)
+    params = {k: {n: t.to(cuda_device) for n, t in v.items()}
+              for k, v in init_captioner_params(g, cfg).items()}
+    b, n_det, m = 64, 9, 6
+    caps = torch.randint(4, 300, (b, 5), generator=g)
+    caps[:, 0] = cfg.bos_idx
+    batch = [t.to(cuda_device) for t in (
+        torch.randn((b, n_det, 136), generator=g), caps,
+        torch.randint(-1, n_det, (b, 5, m), generator=g),
+        torch.randint(-1, 2, (b, 5), generator=g))]
+
+    def run():
+        before = sp.step_planes.launches, sp.step_planes.grad_launches
+        (loss, _), grads = value_and_grad(tc.xe_loss_fn, params, cfg, *batch,
+                                          has_aux=True)
+        torch.cuda.synchronize()
+        return loss, flatten(grads), (
+            sp.step_planes.launches - before[0],
+            sp.step_planes.grad_launches - before[1])
+    loss, grads, launched = run()
+    assert launched == (71, 66)
+    on_planes = tc._on_planes
+    tc._on_planes = lambda p: False
+    try:
+        want_loss, want, strict = run()
+    finally:
+        tc._on_planes = on_planes
+    assert strict == (0, 0)
+    assert abs(float(loss - want_loss)) <= 1e-5 * abs(float(want_loss))
+    for k, v in want.items():
+        assert float((grads[k] - v).norm()) <= 1e-5 * float(v.norm()) + 1e-12

@@ -138,6 +138,60 @@ def test_sweep_reaches_every_step_shape(cases):
     assert step[0].launches(3) == {"step_planes": 3, "step_planes_split": 4}
 
 
+def test_sweep_reaches_every_xe_shape(cases):
+    """XE's products forward and their gradients at the cell's shapes
+    (XE_GROUPS); the gradients also at rows 1 and 127, A in one to four
+    segments, N 1, 129 and 300, and forced resident clusters. A gradient
+    case launches the product kernel twice (dA, dW), the transposing split
+    once and the split pass once more than that (dC's), plus W's and A's
+    planes."""
+    grad = [c for c in cases if c.op == "step_grad"]
+    xe = {(r, w, n) for _, r, w, n, _ in mc.XE_GROUPS}
+    assert {c.shape for c in grad if c.name.startswith("grad_xe_")} == xe
+    assert {(c.shape[0], c.shape[1], c.shape[2]) for c in cases
+            if c.op == "step" and c.name.startswith("step_xe_")} == xe
+    assert {c.shape[0] for c in grad} >= {1, 127, 1024, 20480}
+    assert {len(c.shape[1]) for c in grad} == {1, 2, 3, 4}
+    assert {c.shape[2] for c in grad} >= {1, 129, 300}
+    assert any("resident" in c.name for c in grad)
+    plan_a, plan_w = grad[0].plan
+    assert plan_a.route == plan_w.route == "step_planes"
+    assert grad[0].launches(3) == {"step_planes_grad": 6,
+                                   "step_planes_split": 5,
+                                   "step_planes_split_t": 3}
+
+
+def test_xe_groups_are_the_cells(monkeypatch):
+    """XE_GROUPS are the lean XE loss's products on the card
+    (train/captioner.py::_xe_route) at the XE cell's widths, batch and
+    regions (vsrbench/configs/captioner-coco.json, traffic xe-b1024): the
+    five step groups, att_va over every region row, out_fc, and img_y once
+    a loss."""
+    import json
+    from vsrcic_tpu_torch.models.captioner import (CaptionerConfig, Statics,
+                                                   init_captioner_params)
+    from vsrcic_tpu_torch.train import captioner as tc
+    bench = Path(_build.PKG).parent / "vsrbench"
+    conf = json.loads((bench / "configs" / "captioner-coco.json").read_text())
+    batch = json.loads((bench / "traffic" / "xe-b1024.json").read_text())[
+        "batch"]
+    cfg = CaptionerConfig(**conf["captioner"])
+    with torch.device("meta"):
+        params = init_captioner_params(None, cfg)
+    img = []
+    monkeypatch.setattr(tc, "_on_planes", lambda p: True)
+    monkeypatch.setattr(tc, "step_planes_autograd", lambda segs, sw: (
+        img.append((segs[0].shape[0], sw.w.shape)) or segs[0]))
+    statics = Statics(torch.empty((batch, cfg.det_feat_size),
+                                  device="meta"), None, None, None, None)
+    _, route = tc._xe_route(params, cfg, statics)
+    got = {n: (batch * (conf["data"]["regions"] if n == "att_va" else 1),
+               tuple(sw.w.shape)) for n, sw in route.products.weights.items()}
+    got["img"] = img[0][0], tuple(img[0][1])
+    assert got == {n: (r, (out, sum(ws)))
+                   for n, r, ws, out, _ in mc.XE_GROUPS}
+
+
 def test_step_groups_are_the_cells(cases):
     """STEP_GROUPS are derive_step_product_groups' (N, K) at the eval
     cell's widths (vsrbench/configs/vsr-coco.json)."""

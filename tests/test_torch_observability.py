@@ -121,6 +121,57 @@ def test_summary_self_time_and_counts(monkeypatch):
     assert rec.summary() == {} and rec.closed() == []
 
 
+def test_other_threads_count_into_the_shared_span():
+    """A thread with no span of its own counts into the innermost open
+    shared span of any thread only inside a backward pass of the autograd
+    engine (as the engine's CUDA threads do; here the worker runs the
+    engine itself); a thread's own open span keeps its counts; other
+    threads' counts, and any once the shared span closes, drop."""
+    import threading
+    rec = torch_obs.Recorder()
+
+    class Counted(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x * 2
+
+        @staticmethod
+        def backward(ctx, g):
+            rec.count(ctx.name, 1)
+            return g * 2
+
+    def backward_of(name):
+        x = torch.ones(2, requires_grad=True)
+        y = Counted.apply(x)
+        y.grad_fn.name = name
+        torch.autograd.grad(y.sum(), [x])
+
+    def worker(name):
+        rec.count("plain", 1)
+        backward_of(name)
+        with rec.span("own"):
+            rec.count("mine", 1)
+
+    def in_thread(name):
+        t = threading.Thread(target=worker, args=(name,))
+        t.start()
+        t.join()
+    with rec.span("train.forward"):
+        in_thread("lost")
+    with rec.span("train.backward", shared=True) as shared:
+        with rec.span("inner"):
+            in_thread("products")
+            rec.count("here", 1)
+    in_thread("after")
+    summ = rec.summary()
+    assert shared.shared and summ["train.backward"]["counts"] == {
+        "products": 1}
+    assert summ["inner"]["counts"] == {"here": 1}
+    assert summ["own"]["counts"] == {"mine": 3}
+    assert summ["train.forward"]["counts"] == {}
+    assert rec._shared == []
+
+
 def test_bounded_buffer_counts_what_it_drops():
     rec = torch_obs.Recorder(capacity=4)
     made = []

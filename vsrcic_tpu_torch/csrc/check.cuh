@@ -38,6 +38,8 @@ enum VsrcicKernel {
   kSinkhornBlock = 7,   // sinkhorn_block_kernel
   kStepPlanes = 8,      // vocab_topk.cu step_planes_kernel
   kStepPlanesSplit = 9,  // step_planes_split_kernel
+  kStepPlanesGrad = 10,   // step_planes_grad_kernel
+  kStepPlanesSplitT = 11,  // step_planes_split_t_kernel
 };
 
 // the record's `kind` (tools/memcheck.py KINDS)

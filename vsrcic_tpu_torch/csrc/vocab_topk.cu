@@ -109,6 +109,17 @@
 // made once a decode; each 64-deep stage goes into fresh accumulators
 // added to an f32 total (the vocab head's reason, above), so the products
 // stay f32 products, summed in another order.
+//
+// XE training takes the same products and their gradients through an
+// autograd function (ops/step_planes.py::StepPlanes). Both gradients are
+// products of the same form on the same mainloop, in step_planes_grad_kernel
+// (its epilogue stores the sums alone): dA = dC @ W on dC's planes (the
+// split pass) and W's untransposed planes (3, N, K8), made once a training
+// step; dW = dC^T @ A on the planes of dC^T (step_planes_split_t_kernel, a
+// transposing split pass) and the forward's planes of A, which are already
+// (depth, width). Each output element is one tile's sum over the whole
+// depth in a fixed order: no atomics, and a recomputed forward (the
+// checkpointed loss) gives the same bits.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1227,6 +1238,45 @@ struct StoreTile {
   }
 };
 
+// The step products' gradients' epilogue (step_planes_grad_kernel): out =
+// the tile's sums, f32, stored as StoreTile stores them, with no bias and
+// no addend
+struct StoreSums {
+  float* out;  // (rows, N)
+
+  template <int BN>
+  __device__ __forceinline__ void finish(float (&acc)[BN / 2], int lane,
+                                         int row0, int vt, int n_vt, int N,
+                                         int rows) const {
+    const bool even = (N & 1) == 0;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= rows) continue;
+      const long long o = (long long)row * N;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = vt * BN + j * 8 + (lane & 3) * 2;
+        const float x0 = acc[j * 4 + r * 2], x1 = acc[j * 4 + r * 2 + 1];
+        if (even && col + 1 < N) {
+          VSRCIC_DO(VSRCIC_IN(kStepPlanesGrad, kGlobal, kBOut, o + col, 2,
+                              (long long)rows * N),
+                    *reinterpret_cast<float2*>(out + o + col) =
+                        make_float2(x0, x1));
+        } else {
+          if (col < N VSRCIC_AND(VSRCIC_IN(kStepPlanesGrad, kGlobal, kBOut,
+                                           o + col, 1, (long long)rows * N)))
+            out[o + col] = x0;
+          if (col + 1 < N VSRCIC_AND(VSRCIC_IN(kStepPlanesGrad, kGlobal,
+                                               kBOut, o + col + 1, 1,
+                                               (long long)rows * N)))
+            out[o + col + 1] = x1;
+        }
+      }
+    }
+  }
+};
+
 // a consumer warp's release of a slot: to every CTA of its cluster (of C,
 // 1 or 2), whose producers all write into it (KID: the kernel the checks
 // name)
@@ -1275,8 +1325,9 @@ __device__ __forceinline__ void release(uint64_t* bar, int rank, int C) {
 // The mainloop is shared: vocab_tma_kernel<PA, PB> finishes each tile with
 // the vocab head's fold (FoldTile), step_planes_kernel (<T_PLANES,
 // T_PLANES>, the candidate step's f32 products; R is their depth K, V
-// their width N) with a store (StoreTile). KID names the kernel in the
-// memory check's records.
+// their width N) with a store (StoreTile), step_planes_grad_kernel (the
+// same for their gradients) with a store of the sums alone (StoreSums). KID
+// names the kernel in the memory check's records.
 template <int PA, int PB, int KID, typename Epi>
 __device__ __forceinline__ void tma_mainloop(const CUtensorMap* tm_h2,
                                              const CUtensorMap* tm_w,
@@ -1530,6 +1581,21 @@ step_planes_kernel(const __grid_constant__ CUtensorMap tm_a,
                                                 stages, out);
 }
 
+// The step products' gradients (ops/step_planes.py::StepPlanes), out =
+// A @ B on the planes of A (tm_a: T_PLANES of (rows, K8)) and of B (tm_b:
+// T_PLANES of (K, N), rows ldb apart), with no bias: dA = dC @ W on dC's
+// planes and W's, dW = dC^T @ A on those of dC^T
+// (step_planes_split_t_kernel) and the forward's A. The forward's mainloop
+// under StoreSums, an instance of its own, so the forward's kernel stays
+// as the decodes run it.
+__global__ void __launch_bounds__(T_THREADS, 1)
+step_planes_grad_kernel(const __grid_constant__ CUtensorMap tm_a,
+                        const __grid_constant__ CUtensorMap tm_b, int rows,
+                        int K, int N, int stages, StoreSums out) {
+  tma_mainloop<T_PLANES, T_PLANES, kStepPlanesGrad>(&tm_a, &tm_b, rows, K,
+                                                    N, stages, out);
+}
+
 // The exact split of an f32 value x into three bf16 values, x = hi + mid +
 // lo (ops/vocab_topk.py::split_bf16x3_plain does the same bit for bit):
 // hi is x rounded toward zero (its top 16 bits: never overflows), mid the
@@ -1683,6 +1749,34 @@ step_planes_split_kernel(Segments seg, int rows, int K, int K8, bool vec,
       }
     }
     store_planes<kStepPlanesSplit>(x, planes, n, t);
+  }
+}
+
+// x (rows, N) f32 -> the bf16 planes of x^T (T_PLANES, N, rows8), rows8 =
+// rows rounded up to 8, columns rows..rows8 zero (dC^T's, the first
+// operand of dW): one thread a run of 8 rows of one column of x, a run of
+// x^T's row (8 loads, each coalesced over the warp's consecutive columns;
+// one 16-byte store into each plane)
+__global__ void __launch_bounds__(kThreads)
+step_planes_split_t_kernel(const float* __restrict__ x, int rows, int N,
+                           int rows8, uint4* __restrict__ planes) {
+  const int runs = rows8 / 8;
+  const size_t n = (size_t)N * runs;
+  for (size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x; t < n;
+       t += (size_t)gridDim.x * blockDim.x) {
+    const int c = (int)(t % N);
+    const int r0 = (int)(t / N) * 8;
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const long long i = (long long)(r0 + e) * N + c;
+      v[e] = r0 + e < rows VSRCIC_AND(VSRCIC_IN(kStepPlanesSplitT, kGlobal,
+                                                kBSeg, i, 1,
+                                                (long long)rows * N))
+                 ? __ldg(x + i)
+                 : 0.f;
+    }
+    store_planes<kStepPlanesSplitT>(v, planes, n, (size_t)c * runs + r0 / 8);
   }
 }
 
@@ -1893,6 +1987,27 @@ cudaError_t launch_tma(const __nv_bfloat16* h2, const __nv_bfloat16* w,
   return cudaGetLastError();
 }
 
+// The step products' plans (ops/step_planes.py::step_launch_plan's,
+// "split9"'s) and operands, as the entry points below take them: A's planes
+// (3, rows, K8) and B's (3, K, ldw), both 16-byte aligned, ldw >= N a
+// multiple of 8, `out` 8-byte aligned; `stages` ring slots, clusters of
+// `cluster` along N, `grid` persistent CTAs, `smem` dynamic shared bytes
+bool step_plan_ok(const void* a, const void* b, const void* out, int rows,
+                  int K, int N, int ldw, int stages, int cluster, int grid,
+                  int smem) {
+  const int n_rb = (rows + T_BM - 1) / T_BM;
+  const int n_vt = (N + T_BN_SPLIT - 1) / T_BN_SPLIT;
+  return rows >= 1 && K >= 1 && N >= 1 && ldw >= N && ldw % 8 == 0 &&
+         reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(b) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(out) % 8 == 0 &&
+         stages >= T_MIN_STAGES && stages <= T_MAX_STAGES &&
+         (cluster == 1 || cluster == T_CLUSTER) && grid >= cluster &&
+         grid % cluster == 0 &&
+         grid / cluster <= n_rb * ((n_vt + cluster - 1) / cluster) &&
+         smem == tma_smem_bytes(stages, T_PLANES, T_PLANES);
+}
+
 }  // namespace
 
 // f32 h2 (rows, R) and W_t (R, V) of bf16 or f32 (`table_bf16`), rows ldw
@@ -2097,17 +2212,9 @@ extern "C" int vsrcic_step_planes(const void* a, const void* w,
                                   int grid, int smem, void* out,
                                   void* stream) {
   cudaGetLastError();  // a stale error must not be reported as this launch's
-  const int n_rb = (rows + T_BM - 1) / T_BM;
-  const int n_vt = (N + T_BN_SPLIT - 1) / T_BN_SPLIT;
-  if (rows < 1 || K < 1 || N < 1 || ldw < N || ldw % 8 != 0 ||
-      (add && (add_div < 1 || (long long)add_rows * add_div < rows)) ||
-      reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(out) % 8 != 0 || stages < T_MIN_STAGES ||
-      stages > T_MAX_STAGES || (cluster != 1 && cluster != T_CLUSTER) ||
-      grid < cluster || grid % cluster != 0 ||
-      grid / cluster > n_rb * ((n_vt + cluster - 1) / cluster) ||
-      smem != tma_smem_bytes(stages, T_PLANES, T_PLANES))
+  if (!step_plan_ok(a, w, out, rows, K, N, ldw, stages, cluster, grid,
+                    smem) ||
+      (add && (add_div < 1 || (long long)add_rows * add_div < rows)))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = allow_smem<step_planes_kernel>(smem);
   if (e != cudaSuccess) return (int)e;
@@ -2124,6 +2231,54 @@ extern "C" int vsrcic_step_planes(const void* a, const void* w,
   e = cudaLaunchKernelEx(&cfg, step_planes_kernel, tm_a, tm_w, rows, K, N,
                          stages, tile);
   if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The step products' gradients (ops/step_planes.py::StepPlanes): out
+// (rows, N) f32 = A @ B, no bias (step_planes_grad_kernel). `a`: A's planes
+// (3, rows, K8) (vsrcic_step_planes_split of dC for dA = dC @ W,
+// vsrcic_step_planes_split_t of dC for dW = dC^T @ A); `b`: B's planes (3,
+// K, ldb) (W's for dA, the forward's A's for dW). Operands and plan as
+// vsrcic_step_planes takes them; a plan that differs is refused.
+extern "C" int vsrcic_step_planes_grad(const void* a, const void* b, int rows,
+                                       int K, int N, int ldb, int stages,
+                                       int cluster, int grid, int smem,
+                                       void* out, void* stream) {
+  cudaGetLastError();  // a stale error must not be reported as this launch's
+  if (!step_plan_ok(a, b, out, rows, K, N, ldb, stages, cluster, grid, smem))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_smem<step_planes_grad_kernel>(smem);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap tm_a, tm_b;
+  if (!encode_operands<T_PLANES, T_PLANES>(&tm_a, &tm_b, a, b, rows, K, N,
+                                           ldb, cluster, kStepPlanesGrad))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = tma_config(
+      grid, cluster, smem, static_cast<cudaStream_t>(stream), &attr);
+  e = cudaLaunchKernelEx(&cfg, step_planes_grad_kernel, tm_a, tm_b, rows, K,
+                         N, stages, StoreSums{static_cast<float*>(out)});
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// x (rows, N) f32, contiguous -> the bf16 planes of x^T (3, N, rows8),
+// rows8 = rows rounded up to 8, columns rows..rows8 zero
+// (step_planes_split_t_kernel); `planes` 16-byte aligned
+extern "C" int vsrcic_step_planes_split_t(const void* x, int rows, int N,
+                                          void* planes, void* stream) {
+  cudaGetLastError();  // a stale error must not be reported as this launch's
+  if (rows < 1 || N < 1 || !x ||
+      reinterpret_cast<uintptr_t>(planes) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int rows8 = (rows + 7) / 8 * 8;
+  const size_t runs = (size_t)N * (rows8 / 8);
+  const size_t blocks = (runs + kThreads - 1) / kThreads;
+  step_planes_split_t_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192),
+                               kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), rows, N, rows8,
+      static_cast<uint4*>(planes));
   return (int)cudaGetLastError();
 }
 

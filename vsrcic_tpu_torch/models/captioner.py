@@ -223,12 +223,24 @@ class LinearProducts(NamedTuple):
     def g(self, params, cfg, g_t):
         return nn.linear(params["att_ga"], g_t)
 
+    def head(self, params, cfg, h2):
+        """The word logits, f32."""
+        return nn.linear(params["out_fc"], h2).float()
+
+    def regions(self, params, cfg, det_curr):
+        """The group's attention projection att_va (B, M, A) (teacher
+        forcing)."""
+        return nn.linear(params["att_va"], det_curr)
+
 
 class GroupedProducts(NamedTuple):
     """The step's products grouped by input (`derive_step_product_groups`),
     each group one call of `op` (`ops/step_planes.py::step_planes` or its
     plain version) on its `weights`: five calls a step; img_y (per item,
-    `beam` rows an item) hoisted."""
+    `beam` rows an item) hoisted. The word head and the group's
+    projection (`head`, `regions`) are calls of `op` on `weights`'
+    "out_fc" and "att_va", which only XE training's route
+    (`train/captioner.py::_xe_route`) builds and calls."""
     op: Callable
     weights: Dict[str, Any]
 
@@ -258,6 +270,14 @@ class GroupedProducts(NamedTuple):
 
     def g(self, params, cfg, g_t):
         return self.op([g_t], self.weights["g"])
+
+    def head(self, params, cfg, h2):
+        return self.op([h2], self.weights["out_fc"])
+
+    def regions(self, params, cfg, det_curr):
+        b, m, d = det_curr.shape
+        return self.op([det_curr.reshape(b * m, d)],
+                       self.weights["att_va"]).view(b, m, -1)
 
 
 class StepRoute(NamedTuple):
@@ -294,8 +314,7 @@ def _step(params, cfg: CaptionerConfig, state: CaptionerState, it,
     h2, c2 = products.lstm2(params, cfg, x2, state)
     word_logp = None
     if word_head:
-        word_logits = nn.linear(params["out_fc"], h2).float()
-        word_logp = torch.log_softmax(word_logits, dim=-1)
+        word_logp = torch.log_softmax(products.head(params, cfg, h2), dim=-1)
 
     # shift gate
     g_gate = torch.sigmoid(products.gate(params, cfg, gate_x, gate_h))
@@ -483,15 +502,18 @@ def captioner_step(params, cfg: CaptionerConfig, state: CaptionerState,
 
     Teacher forcing: pass `it` (B,) and `det_curr` (B, M, D); the group's
     projection and mask are taken here, the pointer stays, and only
-    statics.image_descriptor is read. Feedback (the step of `beam_search`,
-    greedy and sampling): the ctrl pointer advances by prev_gate and the
-    step runs through `route`."""
+    statics.image_descriptor (and img_y, which XE's grouped route hoists)
+    is read. Feedback (the step of `beam_search`, greedy and sampling): the
+    ctrl pointer advances by prev_gate. Either runs through `route`'s
+    products; feedback through its attention too."""
     if it is not None and det_curr is not None:
-        det_proj = nn.linear(params["att_va"], det_curr)
+        products = route.products
+        det_proj = products.regions(params, cfg, det_curr)
         det_mask = (det_curr.sum(-1) != 0).to(det_curr.dtype)
         (word_logp, gate_logp), (h1, c1, h2, c2) = _step_core(
             params, cfg, state, it, det_curr, det_proj, det_mask,
-            statics.image_descriptor)
+            statics.image_descriptor, products=products,
+            img_y=statics.img_y)
         return ((word_logp, gate_logp),
                 CaptionerState(h1, c1, h2, c2, state.ctrl_det_idx))
     out, state, _ = _feedback_step(params, cfg, state, statics, prev_word,

@@ -69,6 +69,8 @@ SIGNATURES = {
     "vsrcic_sinkhorn": [P, I, I, I, F, F, P, P],
     "vsrcic_step_planes": [P, P, P, P, I, I, I, I, I, I, I, I, I, I, P, P],
     "vsrcic_step_planes_split": [P, P, P, P, I, I, I, I, I, P, P],
+    "vsrcic_step_planes_grad": [P, P, I, I, I, I, I, I, I, I, P, P],
+    "vsrcic_step_planes_split_t": [P, I, I, P, P],
 }
 # the checked build's records (csrc/check.cu)
 CHECK_SIGNATURES = {
@@ -269,6 +271,14 @@ def sm_count(device) -> int:
     """The streaming multiprocessors of a CUDA device (launch plans)."""
     import torch
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def stream(device) -> int:
+    """The raw cudaStream_t of the current stream of CUDA `device` (what
+    `torch.cuda.current_stream(device).cuda_stream` reads, without making
+    a Stream object: a launch's stream argument)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(err: int, name: str, lib=None) -> None:

@@ -29,13 +29,17 @@ and 5121, R 8, 77 and 1000, V 1, 29, 30, 129, 9999, 10000 and 10007, k 1
 and 5, a pitch greater than V, an unaligned table, a non-finite table and
 forced resident clusters; the Sinkhorn kernel at every (n, S) of
 SINK_CASE_N x SINK_CASE_S; the step products and their split pass at
-`_step_cases`' shapes. The beam's fused call, each route's full-width call
-and each of the eval cell's step product groups run FULL_REPEATS times.
+`_step_cases`' shapes; XE's products and their gradients (dA and dW on
+`step_planes_grad_kernel`, the transposing split pass) at `_xe_cases`'
+shapes. The beam's fused call, each route's full-width call and each of
+the eval cell's step product groups run FULL_REPEATS times.
 `run_case(case, lib)` launches a case and returns what it found: the fault
 records, guard breaches, changed inputs, and whether the outputs match the
-plain version at chip_smoke.py phase 3's tolerances. chip_smoke.py runs the sweep in its
-memcheck phase; this tool runs it with `--repeats N` launches of every
-case (a longer hunt for a rare fault) and prints one line per kernel and
+plain version at chip_smoke.py phase 3's tolerances (the gradient cases:
+the f64 product within the f32 sums' rounding bound, which holds at any
+depth). chip_smoke.py runs the sweep in its memcheck phase; this tool runs
+it with `--repeats N` launches of every case (a longer hunt for a rare
+fault) and prints one line per kernel and
 a JSON summary (also `chiprun_out/memcheck.json`) beside the card's name
 and power limit. `--old-fused DIR` runs another checkout's fused kernel
 instead, in its first design (no thread-block clusters and no launch
@@ -61,7 +65,8 @@ REPO = os.path.dirname(os.path.dirname(HERE))
 # csrc/check.cuh's VsrcicKernel and VsrcicAccess, in order
 KERNELS = ("fused_attention", "vocab_tile", "vocab_tile_bf16", "vocab_tma",
            "vocab_split", "vocab_merge", "sinkhorn_packed", "sinkhorn_block",
-           "step_planes", "step_planes_split")
+           "step_planes", "step_planes_split", "step_planes_grad",
+           "step_planes_split_t")
 KINDS = ("global", "shared", "distributed shared", "tensor-map extent",
          "mbarrier")
 # the files whose records vsrcic_check_read returns, in order
@@ -87,7 +92,7 @@ _VOCAB_BOUNDS = {
 _SINKHORN_BOUNDS = {1: "x", 2: "out", 3: "warp tiles", 4: "matrix",
                     5: "dynamic shared bytes"}
 BOUNDS = dict(zip(KERNELS, (_FUSED_BOUNDS,) + (_VOCAB_BOUNDS,) * 5
-                  + (_SINKHORN_BOUNDS,) * 2 + (_VOCAB_BOUNDS,) * 2))
+                  + (_SINKHORN_BOUNDS,) * 2 + (_VOCAB_BOUNDS,) * 4))
 
 GUARD = 0xFF            # every byte of a guard band (NaN, -1)
 MARGIN = 4096           # guard bytes on each side of a view
@@ -103,6 +108,18 @@ STEP_GROUPS = (("in1", (1000, 1000, 1000), 6000, 5),
                ("s", (1000,), 2560, 0), ("h1", (1000,), 1512, 0),
                ("g", (1000,), 512, 0),
                ("lstm2", (1000, 2048, 1000), 4000, 0))
+# the XE cell's products (train/captioner.py::_xe_route at COCO Entities'
+# widths, batch 1024): (name, rows, A's segments, N, add_div); each with
+# its gradients dA = dC @ W (not att_va's and img's: their A is the data)
+# and dW = dC^T @ A
+XE_GROUPS = (("in1", 1024, (1000, 1000, 1000), 6000, 1),
+             ("s", 1024, (1000,), 2560, 0), ("h1", 1024, (1000,), 1512, 0),
+             ("g", 1024, (1000,), 512, 0),
+             ("lstm2", 1024, (1000, 2048, 1000), 4000, 0),
+             ("out_fc", 1024, (1000,), 10000, 0),
+             ("att_va", 20480, (2048,), 512, 0),
+             ("img", 1024, (2048,), 6000, 0))
+XE_NO_DA = ("att_va", "img")
 # the routes' operand types: (h2, table)
 _TYPES = {"split": ("float32", "bfloat16"), "split9": ("float32", "float32"),
           "split_w": ("bfloat16", "float32"),
@@ -218,8 +235,10 @@ class Case:
     rows V rounded up to 8 apart, "pitch": 8 more, "contiguous",
     "unaligned": contiguous, the base one element off), `finite`; op
     "sinkhorn": shape (S, n); op "step": shape (rows, the segments'
-    widths, N, add_div: 0 without an addend). `plan` is the launch plan;
-    `repeats` the launches."""
+    widths, N, add_div: 0 without an addend); op "step_grad": shape (rows,
+    the forward's segments' widths, N), the gradients of that product.
+    `plan` is the launch plan (op "step_grad": dA's and dW's); `repeats`
+    the launches."""
     op: str
     name: str
     shape: tuple
@@ -241,6 +260,9 @@ class Case:
                      else "sinkhorn_block"): n}
         if self.op == "step":   # W^T's planes once, A's every launch
             return {"step_planes": n, "step_planes_split": n + 1}
+        if self.op == "step_grad":   # W's and A's planes once, dC's each
+            return {"step_planes_grad": 2 * n, "step_planes_split": n + 2,
+                    "step_planes_split_t": n}
         out = {k: n for k in _ROUTE_KERNELS[self.plan.route]}
         if self.plan.w_planes > 1:   # W_t's planes, made once a table
             out["vocab_split"] = out.get("vocab_split", 0) + 1
@@ -420,6 +442,40 @@ def _step_cases(sms, seed):
     return cases
 
 
+def _grad_case(name, rows, widths, n, sms=132, resident=None, repeats=1,
+               seed=0):
+    from vsrcic_tpu_torch.ops.step_planes import step_launch_plan
+    k = sum(widths)
+    return Case("step_grad", name, (rows, tuple(widths), n),
+                (step_launch_plan(rows, n, k, sms, resident),
+                 step_launch_plan(n, rows, k, sms, resident)),
+                repeats=repeats, seed=seed)
+
+
+def _xe_cases(sms, seed):
+    """The XE cell's products (XE_GROUPS) forward, then their gradients
+    (dA and dW of each; the case launches both); the gradients at rows 1
+    and 127 (depth 1 and 127 for dW), A in one to four segments (K no
+    multiple of 8 too), N 1, 129 and 300; forced resident clusters."""
+    cases = []
+
+    def add(case, *a, **kw):
+        cases.append(case(*a, sms=sms, seed=seed + len(cases), **kw))
+
+    for name, rows, widths, n, add_div in XE_GROUPS:
+        add(_step_case, "step_xe_%s" % name, rows, widths, n, add_div)
+        add(_grad_case, "grad_xe_%s" % name, rows, widths, n)
+    for rows in (1, 127):
+        for widths in STEP_WIDTHS:
+            for n in (1, 129, 300):
+                add(_grad_case, "grad_r%d_K%s_N%d" % (
+                    rows, "+".join(map(str, widths)), n), rows, widths, n)
+    for resident in (1, 7):
+        add(_grad_case, "grad_resident%d" % resident, 1000, (1000,), 1000,
+            resident=resident)
+    return cases
+
+
 def sweep_cases(seed=0, sms=132):
     """The sweep, a deterministic list of Cases for a card of `sms` SMs
     (the module's note says what it covers)."""
@@ -429,7 +485,8 @@ def sweep_cases(seed=0, sms=132):
         for s in smoke.SINK_CASE_S:
             cases.append(Case("sinkhorn", "sinkhorn_n%d_S%d" % (n, s),
                               (s, n), seed=seed + 2000 + len(cases)))
-    return cases + _step_cases(sms, seed + 3000)
+    return (cases + _step_cases(sms, seed + 3000)
+            + _xe_cases(sms, seed + 4000))
 
 
 def cut_cases(sms=132):
@@ -448,6 +505,7 @@ def cut_cases(sms=132):
                  fa.fused_launch_plan(rows, m, d, a, 2, True, sms))
     split = _vocab_case("cut_split", 127, 77, 129, 5, "split", sms=sms)
     step = _step_case("cut_step", 127, (13, 100, 7), 129, 5, sms=sms)
+    grad = _grad_case("cut_grad", 127, (13, 100, 7), 129, sms=sms)
     return {
         ("fused_attention", 8): (fused, "global"),        # out
         ("fused_attention", 30): (fused, "tensor-map extent"),  # det map
@@ -470,6 +528,9 @@ def cut_cases(sms=132):
         ("step_planes", 18): (step, "global"),             # out
         ("step_planes", 19): (step, "global"),             # addend
         ("step_planes_split", 20): (step, "global"),       # segments
+        ("step_planes_grad", 18): (grad, "global"),        # out
+        ("step_planes_grad", 17): (grad, "tensor-map extent"),  # B's map
+        ("step_planes_split_t", 20): (grad, "global"),     # dC
     }
 
 
@@ -677,8 +738,61 @@ def _run_step(case, lib, pool, gen, repeats, launch=None):
     return err, None
 
 
+def _run_step_grad(case, lib, pool, gen, repeats, launch=None):
+    import torch
+    from vsrcic_tpu_torch.ops import step_planes as sp
+    from vsrcic_tpu_torch.ops import vocab_topk as vt
+    rows, widths, n = case.shape
+    plan_a, plan_w = case.plan
+    dev = pool.device
+    k = sum(widths)
+    bf16 = torch.bfloat16
+    segs = [torch.tanh(torch.randn((rows, w), generator=gen, device=dev))
+            for w in widths]
+    w = torch.randn((n, k), generator=gen, device=dev) * (
+        2.0 / (n + k)) ** 0.5
+    dc = torch.randn((rows, n), generator=gen, device=dev)
+    g_dc = pool.input("dC", dc)
+    w_planes = pool.empty((vt.SPLIT_PLANES, n, k + -k % 8), bf16)
+    sp._split_launch(lib, [pool.input("W", w)], w_planes)
+    a_planes = pool.empty((vt.SPLIT_PLANES, rows, k + -k % 8), bf16)
+    sp._split_launch(lib, [pool.input("segment %d" % i, s)
+                           for i, s in enumerate(segs)], a_planes)
+    dc_planes = pool.empty((vt.SPLIT_PLANES, rows, n + -n % 8), bf16)
+    dct_planes = pool.empty((vt.SPLIT_PLANES, n, rows + -rows % 8), bf16)
+    da = pool.empty((rows, k), torch.float32)
+    dw = pool.empty((n, k), torch.float32)
+    for _ in range(repeats):
+        sp._split_launch(lib, [g_dc], dc_planes)
+        sp._grad_launch(lib, plan_a, dc_planes, w_planes, da)
+        sp._split_t_launch(lib, g_dc, dct_planes)
+        sp._grad_launch(lib, plan_w, dct_planes, a_planes, dw)
+    torch.cuda.synchronize()
+    a = torch.cat(segs, 1)
+    for name, got, x in (("W planes", w_planes, w), ("A planes", a_planes, a),
+                         ("dC planes", dc_planes, dc),
+                         ("dC^T planes", dct_planes, dc.t())):
+        if not torch.equal(got.view(torch.int16),
+                           vt.split_bf16x3_plain(x).view(torch.int16)):
+            return None, "the split passes' %s differ from " \
+                         "split_bf16x3_plain" % name
+    # against the f64 product: within the f32 sums' rounding bound, (depth
+    # + 16) x 2^-24 x |x| @ |y| (a sum of `depth` products in f32, and the
+    # nine plane products' eight truncated adds, at most one ulp each),
+    # which a product of any depth keeps and a wrong read breaks
+    err = 0.0
+    dc64, w64, a64 = dc.double(), w.double(), a.double()
+    for got, x, y in ((da, dc64, w64), (dw, dc64.T, a64)):
+        gap = (got.double() - x @ y).abs()
+        err = max(err, float(gap.max()))
+        bound = (x.shape[1] + 16) * 2.0 ** -24 * (x.abs() @ y.abs())
+        if bool((gap > bound).any()):
+            return err, "beyond the f32 sums' rounding of the f64 product"
+    return err, None
+
+
 _RUN = {"fused": _run_fused, "vocab": _run_vocab, "sinkhorn": _run_sinkhorn,
-        "step": _run_step}
+        "step": _run_step, "step_grad": _run_step_grad}
 
 
 def run_case(case, lib, repeats=None, cut_bound=None, launch=None):

@@ -3,7 +3,10 @@
 Counterpart of `vsrcic_tpu/train/captioner.py`.
 
 XE (ref coco_scripts/train.py:92-120): NLL(word) + 4 * NLL(gate, ignore -1),
-Adam.
+Adam. On f32 CUDA parameters the lean loss's products and their gradients
+run on the tensor cores as exact bf16 plane products summed in f32
+(`_xe_route`, `ops/step_planes.py::step_planes_autograd`); elsewhere, and
+in the dense loss, the strict route's f32 products.
 
 SCST (ref train.py:121-183): the sampled decode and the greedy baseline run
 on the device under `torch.no_grad()`; rewards are the Python tokenizer and
@@ -60,8 +63,11 @@ from vsrcic_tpu_torch.metrics.cider import Cider
 from vsrcic_tpu_torch.metrics.cider_native import NativeCiderPair
 from vsrcic_tpu_torch.models.api import step_route
 from vsrcic_tpu_torch.models.captioner import (
-    STRICT, CaptionerConfig, Statics, captioner_step, image_descriptor_f32,
-    init_state, precompute_statics)
+    STRICT, CaptionerConfig, GroupedProducts, Statics, StepRoute,
+    captioner_step, derive_fused_step_weights, derive_step_product_groups,
+    image_descriptor_f32, init_state, precompute_statics)
+from vsrcic_tpu_torch.ops.step_planes import (step_grad_weights,
+                                              step_planes_autograd)
 from vsrcic_tpu_torch.parallel.mesh import (all_gather_blocks,
                                             all_reduce_sum, block_of,
                                             mesh_device)
@@ -72,6 +78,7 @@ from vsrcic_tpu_torch.train.common import (
     rank_generator, set_learning_rate, value_and_grad)
 from vsrcic_tpu_torch.utils import observability as obs
 from vsrcic_tpu_torch.utils.device import as_tensor, to_device
+from vsrcic_tpu_torch.utils.params import flatten
 
 
 def xe_loss_fn(params, cfg: CaptionerConfig, detections, captions,
@@ -103,12 +110,14 @@ def _xe_loss_compact(params, cfg: CaptionerConfig, detections, captions,
     checkpointed step, so neither the (B, T, M, D) groups nor the (B, T, V)
     logprobs are kept, and the backward recomputes the step. Equal to the
     dense path (word loss over b * (T - 1) terms, gate loss over the
-    targets that are not -1)."""
+    targets that are not -1); the steps' products take `_xe_route`'s
+    route."""
     b, t_len = captions.shape
     captions = captions.long()
     gate_targets = gate_targets.long()
-    statics = Statics(image_descriptor_f32(detections).to(detections.dtype),
-                      None, None, None, None)
+    statics, route = _xe_route(params, cfg, Statics(
+        image_descriptor_f32(detections).to(detections.dtype), None, None,
+        None, None))
     # step t predicts captions[:, t + 1]; the last step's word term is
     # masked, as the dense path drops it
     tgt_next = torch.cat([captions[:, 1:], torch.zeros_like(captions[:, :1])],
@@ -117,7 +126,7 @@ def _xe_loss_compact(params, cfg: CaptionerConfig, detections, captions,
     def body(state, it, ids_t, tgt_t, gate_t, on_t):
         (w_logp, g_logp), state = captioner_step(
             params, cfg, state, statics, it=it,
-            det_curr=expand_compact_groups(detections, ids_t))
+            det_curr=expand_compact_groups(detections, ids_t), route=route)
         g_valid = gate_t != -1
         g_lp = _take(g_logp, gate_t.clamp(0, 1))
         return (state, _take(w_logp, tgt_t).sum() * on_t,
@@ -141,6 +150,37 @@ def _xe_loss_compact(params, cfg: CaptionerConfig, detections, captions,
     loss_cap = -w_sums.sum() / (b * (t_len - 1))
     loss_gate = -g_sums.sum() / g_count.clamp_min(1.0)
     return loss_cap + 4.0 * loss_gate, (loss_cap, loss_gate)
+
+
+def _on_planes(params):
+    """Whether the lean loss takes the grouped products on the card: every
+    floating parameter an f32 CUDA tensor."""
+    return all(v.dtype == torch.float32 and v.device.type == "cuda"
+               for v in flatten(params).values() if v.is_floating_point())
+
+
+def _xe_route(params, cfg: CaptionerConfig, statics: Statics):
+    """(statics, route) of the lean loss's steps. On f32 CUDA parameters
+    (`_on_planes`) every product of a step with more than one output
+    column goes through `ops/step_planes.py::step_planes_autograd`, the
+    nine-plane products and their gradients on the tensor cores: the
+    candidate step's five groups (`derive_step_product_groups`), the word
+    head and the group's att_va projection, their weights concatenated
+    here from the live parameters, so the gradients reach each one, and
+    their planes made once a loss; img_y, the image columns' projection
+    of the first products with their bias, through it once a loss too.
+    Else the strict route, as JAX's step takes it."""
+    if not _on_planes(params):
+        return statics, STRICT
+    fw = derive_fused_step_weights(params, cfg)
+    groups = derive_step_product_groups(params, cfg, fw)
+    groups["att_va"] = (params["att_va"]["weight"], None)
+    groups["out_fc"] = (params["out_fc"]["weight"], params["out_fc"]["bias"])
+    op = step_planes_autograd
+    img_y = op([statics.image_descriptor],
+               step_grad_weights(fw["wx_img"], fw["bx"]))
+    return statics._replace(img_y=img_y), StepRoute(GroupedProducts(
+        op, {n: step_grad_weights(w, b) for n, (w, b) in groups.items()}))
 
 
 class CaptionerXETrainer:

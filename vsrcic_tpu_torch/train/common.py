@@ -156,7 +156,8 @@ def value_and_grad(loss_fn, params, *args, has_aux: bool = False, **kw):
             lambda p: p.detach().requires_grad_(True), params))
         out = loss_fn(unflatten(leaves), *args, **kw)
         loss = out[0] if has_aux else out
-    with obs.span("train.backward"):
+    # the engine runs the backward of CUDA tensors on a thread of its own
+    with obs.span("train.backward", shared=True):
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True)
         grads = unflatten({k: torch.zeros_like(p) if g is None else g

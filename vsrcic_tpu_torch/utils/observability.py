@@ -43,6 +43,7 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 from torch.autograd import _profiler_enabled
 from torch.autograd.profiler import record_function
 
@@ -107,13 +108,14 @@ class Span:
     `Recorder.span` returns one not yet open; it is its own context
     manager."""
     __slots__ = ("index", "name", "start_ns", "end_ns", "parent", "batch",
-                 "wait", "counts", "_rec", "_rf")
+                 "wait", "counts", "shared", "_rec", "_rf")
 
-    def __init__(self, rec, name, batch, wait):
+    def __init__(self, rec, name, batch, wait, shared=False):
         self._rec = rec
         self.name = name
         self.batch = batch
         self.wait = wait
+        self.shared = shared
         self.end_ns = None
         self.counts = {}
 
@@ -138,6 +140,8 @@ class Span:
             rec.dropped_until_ns = spans[0].start_ns
         spans.append(self)
         stack.append(self)
+        if self.shared:
+            rec._shared.append(self)
         if _profiler_enabled():
             self._rf = record_function(self.name)
             self._rf.__enter__()
@@ -151,6 +155,8 @@ class Span:
             self._rf.__exit__(*exc)
             self._rf = None
         self._rec._local.stack.pop()
+        if self.shared:
+            self._rec._shared.remove(self)
         return False
 
     def __repr__(self):
@@ -191,7 +197,13 @@ class Recorder:
     """Host spans and counts in a bounded buffer (`capacity` spans; the
     oldest go first, counted in `dropped`, the newest of them starting at
     `dropped_until_ns`). Spans nest per thread; a span's batch id is the
-    one given, else its parent's, else the thread's `scope`'s."""
+    one given, else its parent's, else the thread's `scope`'s. A thread
+    with no open span of its own that runs a backward pass of the autograd
+    engine (its CUDA threads) counts into the innermost open `shared` span
+    of any thread; any other such thread's counts drop. One process's
+    engine threads serve every thread's backward, so two threads that each
+    hold a shared span open at once cannot tell their counts apart: the
+    later span takes both."""
 
     def __init__(self, capacity: int = 65536):
         self.enabled = True
@@ -200,13 +212,17 @@ class Recorder:
         self.dropped_until_ns = None
         self._count = itertools.count()
         self._local = _Thread()
+        self._shared = []
 
-    def span(self, name: str, batch=None, wait: bool = False):
+    def span(self, name: str, batch=None, wait: bool = False,
+             shared: bool = False):
         """Context manager: a span named `name` around its body. `wait`:
-        the host only blocks on the device in it."""
+        the host only blocks on the device in it. `shared`: its body's
+        work runs on other threads too (the autograd engine's), whose
+        counts land on it."""
         if not self.enabled:
             return _OFF
-        return Span(self, name, batch, wait)
+        return Span(self, name, batch, wait, shared)
 
     def scope(self, batch):
         """Context manager: spans opened in its body with no batch id of
@@ -217,10 +233,14 @@ class Recorder:
 
     def count(self, name: str, n) -> None:
         """Add `n` (a host number) to the count `name` of this thread's
-        innermost open span; nothing where none is open."""
+        innermost open span, else, in a backward pass on a thread of the
+        autograd engine, of the innermost open shared span; nothing where
+        none is open."""
         if not self.enabled:
             return
         stack = self._local.stack
+        if not stack and torch._C._current_graph_task_id() != -1:
+            stack = self._shared
         if stack:
             counts = stack[-1].counts
             counts[name] = counts.get(name, 0) + n
