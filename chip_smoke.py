@@ -16,6 +16,7 @@
     python3 chip_smoke.py --step-planes  # phases 1-2, 3p and 5e
     python3 chip_smoke.py --xe-planes    # phases 1-2 and 3g
     python3 chip_smoke.py --kimi-head    # phases 1-2 and 3k
+    python3 chip_smoke.py --kda          # phases 1-2 and 3l
 
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi), and the TF32 settings
@@ -94,6 +95,14 @@ Phases (any failure raises and the script exits non-zero):
      step's hidden of that batch (rows 1280, R 2048, V 163840, k 5) held
      to the plain version on the same inputs at phase 3's bar, timed held
      beside its one-pass bound and the plain version;
+ 3l. the KDA recurrence (`ops/kda.py`, csrc/kda.cu) at the Kimi-Linear
+     cell's decode (640 rows reading their parents in place, groups of 5)
+     and prefill (128 jobs, 40-100 valid positions of 100) shapes, 32
+     heads: outputs and states within 1e-5 of the plain version's largest
+     value, each call timed held beside its bound (bytes, each distinct
+     parent read once, or f32 operations) and the plain version; then
+     three batches of the cell's shapes through `KimiLinearCaptioner`
+     (eager, captured, replayed), the kernel's launches counted in each;
  3m. the memory check (vsrcic_tpu_torch/tools/memcheck.py): the checked
      build (csrc/check.cuh: every access of every kernel tested against the
      bound its arguments imply) over the sweep of every launch plan, on
@@ -228,6 +237,7 @@ Prints the kernels' JSON line, then, last, the device JSON line. Details go
 to chiprun_out/chip_smoke.json.
 """
 import contextlib
+import gc
 import json
 import math
 import os
@@ -1059,32 +1069,158 @@ def check_vocab_bf16(gen, report):
 KIMI_JOBS, KIMI_DETS = 256, 100
 
 
-def kimi_captioner():
+def kimi_captioner(linear=False):
     """A `KimiVLCaptioner` at the published widths and depth (bf16 weights
     from seed 5, std 0.02) with 10 verbs of 3 tenses each, and one batch
     of its eval path's inputs: 256 jobs of 40-100 real detections (of
-    100), 10 region groups of 20, a verb slot in group 2."""
+    100), 10 region groups of 20, a verb slot in group 2. linear: a
+    `KimiLinearCaptioner` instead, at the Kimi-Linear cell's published
+    widths and depth with 64 of the 256 experts held
+    (`init_kimi_linear_params`), and 128 jobs."""
     import torch
+    from vsrcic_tpu_torch.models import kimi_linear as kl
     from vsrcic_tpu_torch.models import kimi_vl as kv
-    cfg = kv.KimiVLConfig()
     gen = torch.Generator(device="cuda").manual_seed(5)
-    params = kv.init_kimi_vl_params(gen, cfg, device="cuda")
+    if linear:
+        cfg, jobs, facade = kl.KimiLinearConfig(), KDA_JOBS, (
+            kl.KimiLinearCaptioner)
+        params = kl.init_kimi_linear_params(gen, cfg, device="cuda")
+    else:
+        cfg, jobs, facade = kv.KimiVLConfig(), KIMI_JOBS, kv.KimiVLCaptioner
+        params = kv.init_kimi_vl_params(gen, cfg, device="cuda")
     tenses = {str(v): [100 + 3 * v + i for i in range(3)] for v in range(10)}
-    cap = kv.KimiVLCaptioner(cfg, params, verb_2_vob_all=tenses,
-                             device="cuda")
-    dets = torch.randn((KIMI_JOBS, KIMI_DETS, cfg.det_feat_size),
+    cap = facade(cfg, params, verb_2_vob_all=tenses, device="cuda")
+    dets = torch.randn((jobs, KIMI_DETS, cfg.det_feat_size),
                        generator=gen, device="cuda")
-    real = torch.randint(40, KIMI_DETS + 1, (KIMI_JOBS,), generator=gen,
+    real = torch.randint(40, KIMI_DETS + 1, (jobs,), generator=gen,
                          device="cuda")
     dets *= (torch.arange(KIMI_DETS, device="cuda")[None] < real[:, None]
              )[..., None]
-    groups = torch.randn((KIMI_JOBS, L_GROUPS, M_REGIONS, cfg.det_feat_size),
+    groups = torch.randn((jobs, L_GROUPS, M_REGIONS, cfg.det_feat_size),
                          generator=gen, device="cuda")
-    verbs = torch.full((KIMI_JOBS, L_GROUPS), -1, dtype=torch.long,
+    verbs = torch.full((jobs, L_GROUPS), -1, dtype=torch.long,
                        device="cuda")
-    verbs[:, 2] = torch.arange(KIMI_JOBS, device="cuda") % 10
+    verbs[:, 2] = torch.arange(jobs, device="cuda") % 10
     bf16 = torch.bfloat16
     return cap, (dets.to(bf16), groups.to(bf16), verbs)
+
+
+# the Kimi-Linear cell's recurrence shapes: its decode (128 jobs x beam 5,
+# a job's beams one group) and its prefill (128 jobs of 40-100 real tokens
+# of 100), 32 heads of 128; 20 KDA layers
+KDA_HEADS, KDA_LAYERS, KDA_JOBS, KDA_DETS = 32, 20, 128, 100
+
+
+def kda_bound_ms(s_, tokens, h, parents=0):
+    """Least ms of one recurrence call (vsrbench/yardstick_kla.py's
+    arithmetic): bytes over HBM (the `parents` distinct states the rows
+    read, 0 at prefill, each read once; each row's own written; each real
+    token's q, k, g, v, beta in and o out) or 7 D^2 f32 operations a token
+    and head over the CUDA cores; (ms, "bytes" or "operations")."""
+    d = 128
+    states = s_ + parents
+    nbytes = 4 * h * (states * d * d + tokens * (5 * d + 1))
+    flops = 7 * d * d * h * tokens
+    by_bytes, by_ops = nbytes / 3.35e12, flops / 67e12
+    return (1e3 * max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def check_kda(gen, report):
+    """Phase 3l: the KDA recurrence kernel (`ops/kda.py`, csrc/kda.cu)
+    against its plain version at the Kimi-Linear cell's decode (640 rows,
+    each reading its parent within its job's group of 5, in place) and
+    prefill (128 jobs, ragged 40-100 valid positions of 100) shapes:
+    outputs and states within 1e-5 of the plain version's largest value,
+    one launch each; then each call timed held, beside its bound and the
+    plain version's time. Then the launches of the cell's batch, counted:
+    `KimiLinearCaptioner.beam_search_v` at the cell's shapes (128 jobs of
+    40-100 real detections, beam 5, 20 steps) over three batches (eager,
+    captured as CUDA graphs, replayed), the wrapper's count zeroed before
+    each and read after: each a KDA layer's prefill and 20 decode steps."""
+    import torch
+    from vsrcic_tpu_torch.ops import kda
+    from vsrcic_tpu_torch.tools.memcheck import kda_inputs
+    out = {}
+    for name, (s_, t_, group) in (("decode", (KDA_JOBS * BEAM, 1, BEAM)),
+                                  ("prefill", (KDA_JOBS, KDA_DETS, 1))):
+        (q, k, v, g, beta, state, rows_in, rows_out, valid) = kda_inputs(
+            gen, s_, t_, KDA_HEADS, group, False, "cuda")
+        if t_ > 1:
+            real = torch.randint(40, t_ + 1, (s_,), generator=gen,
+                                 device="cuda")
+            valid = (torch.arange(t_, device="cuda")[None] < real[:, None]
+                     ).to(torch.uint8)
+        tokens = int(valid.sum()) if valid is not None else s_ * t_
+        want_state = state.clone()
+        want = kda.kda_recurrence_plain(q, k, v, g, beta, want_state,
+                                        rows_in, rows_out, valid)
+        got_state = state.clone()
+        before = kda.kda_recurrence.launches
+        got = kda.kda_recurrence(q, k, v, g, beta, got_state, rows_in,
+                                 rows_out, valid, group)
+        torch.cuda.synchronize()
+        if kda.kda_recurrence.launches != before + 1:
+            raise AssertionError("3l %s: %d launches, expected 1" % (
+                name, kda.kda_recurrence.launches - before))
+        err = abs_err = 0.0
+        for a, b in ((got, want), (got_state, want_state)):
+            gap = float((a - b).abs().max())
+            abs_err = max(abs_err, gap)
+            err = max(err, gap / float(b.abs().max().clamp_min(1e-30)))
+        if not err <= 1e-5:
+            raise AssertionError("3l %s: %.3g of the plain version's "
+                                 "largest value, beyond 1e-5" % (name, err))
+        call = lambda: kda.kda_recurrence(  # noqa: E731
+            q, k, v, g, beta, got_state, rows_in, rows_out, valid, group)
+        ms, enqueue_ms = held_ms(call, iters=30)
+        plain_ms = cuda_ms(lambda: kda.kda_recurrence_plain(
+            q, k, v, g, beta, want_state, rows_in, rows_out, valid),
+            iters=2, warmup=1)
+        parents = (0 if name == "prefill"
+                   else int(torch.unique(rows_in[rows_in >= 0]).numel()))
+        bound_ms, bound_by = kda_bound_ms(s_, tokens, KDA_HEADS, parents)
+        log("  3l KDA %s: S=%d T=%d H=%d group %d (%d valid tokens, %d "
+            "distinct parents): error %.3g of the largest value; held %.4f "
+            "ms (enqueue %.4f ms), bound %.4f ms by %s (%.1f%%), plain %.4f "
+            "ms" % (name, s_, t_, KDA_HEADS, group, tokens, parents, err, ms,
+                    enqueue_ms, bound_ms, bound_by, 100.0 * bound_ms / ms,
+                    plain_ms))
+        out[name] = dict(s=s_, t=t_, h=KDA_HEADS, group=group,
+                         tokens=tokens, parents=parents, max_rel_err=err,
+                         max_abs_err=abs_err, ms=ms, bound_ms=bound_ms,
+                         bound_by=bound_by, plain_ms=plain_ms)
+    del q, k, v, g, beta, state, got_state, want_state, want, got
+    t0 = time.perf_counter()
+    cap, (dets, groups, verbs) = kimi_captioner(linear=True)
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t0
+    counts, secs = [], []
+    for _ in range(3):
+        kda.kda_recurrence.launches = 0
+        t0 = time.perf_counter()
+        res = cap.beam_search_v(dets, groups, verbs, eos_word=3,
+                                beam_size=BEAM)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts.append(kda.kda_recurrence.launches)
+        if not bool(torch.isfinite(res.scores).all()):
+            raise AssertionError("3l: a beam score is not finite")
+    want = KDA_LAYERS * (1 + cap.cfg.seq_len)
+    if counts != [want] * 3:
+        raise AssertionError("3l launches of the three batches %s, expected "
+                             "%d each" % (counts, want))
+    out.update(launches_per_batch=counts[-1], launches_by_batch=counts,
+               beam_s=secs, setup_s=made_s)
+    log("  3l Kimi-Linear: weights and inputs in %.1f s; three beam batches "
+        "(128 jobs x beam 5: eager, captured, replayed) in %s s, KDA "
+        "launches %s (a layer's prefill and %d decode steps)"
+        % (made_s, ", ".join("%.2f" % x for x in secs), counts,
+           cap.cfg.seq_len))
+    del cap, res, dets, groups, verbs
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["kda"] = out
 
 
 def run_kimi_head(report):
@@ -1687,12 +1823,14 @@ ROW_KERNELS = {
     "vocab_topk_split9": ("vocab_tma", "vocab_merge"),
     "vocab_topk_split_w": ("vocab_tma", "vocab_merge"),
     "step_planes": ("step_planes", "step_planes_split"),
+    "kda": ("kda_recurrence",),
 }
 # each row's call in time_checked
 ROW_CALL = {"fused_attention": "fused_attention", "vocab_topk": "split",
             "sinkhorn": "sinkhorn_packed", "vocab_topk_bf16": "tma",
             "vocab_split": "split_pass", "vocab_topk_split9": "split9",
-            "vocab_topk_split_w": "split_w", "step_planes": "step_planes"}
+            "vocab_topk_split_w": "split_w", "step_planes": "step_planes",
+            "kda": "kda"}
 
 
 def time_checked(gen, lib):
@@ -1703,7 +1841,8 @@ def time_checked(gen, lib):
     planes made beforehand ("split", "split9"), the split pass alone;
     the Sinkhorn kernel at the pipeline's S 1536, n 10 (packed) and at n
     33 (one block a matrix); the step products' "in1" group at the eval
-    cell's rows, its split pass and product."""
+    cell's rows, its split pass and product; the KDA recurrence at the
+    Kimi-Linear cell's decode (640 rows in groups of 5, 32 heads)."""
     import torch
     from vsrcic_tpu_torch.ops import _build
     from vsrcic_tpu_torch.ops import fused_attention as fa
@@ -1767,6 +1906,13 @@ def time_checked(gen, lib):
         sp._split_launch(L, segs, a_planes),
         sp._launch(L, plan, a_planes, sw.planes, sw.bias, add, add_div,
                    step_out))
+    from vsrcic_tpu_torch.ops import kda
+    from vsrcic_tpu_torch.tools.memcheck import kda_inputs
+    (q, kk, v, g, beta, state, rows_in, rows_out, _) = kda_inputs(
+        gen, KDA_JOBS * BEAM, 1, KDA_HEADS, BEAM, False, "cuda")
+    kda_out = torch.empty_like(v)
+    calls["kda"] = lambda L: kda._launch(L, q, kk, v, g, beta, None, rows_in,
+                                         rows_out, state, kda_out, BEAM)
     for name, n in (("sinkhorn_packed", SINK_N), ("sinkhorn_block", 33)):
         x = torch.tanh(torch.randn((SINK_S, n, n), generator=gen,
                                    device=dev))
@@ -4395,6 +4541,14 @@ def main():
         print(json.dumps({"xe_planes": report["xe_planes"]["xe_step"]}))
         print_device_line()
         return 0
+    if "--kda" in sys.argv[1:]:
+        log("[3l] the KDA recurrence at the Kimi-Linear cell's shapes")
+        check_kda(gen, report)
+        write_report(report)
+        print(card)
+        print(json.dumps({"kda": report["kda"]}))
+        print_device_line()
+        return 0
     if "--kimi-head" in sys.argv[1:]:
         log("[3k] the Kimi-VL decoder's word head at its eval path's shapes")
         run_kimi_head(report)
@@ -4486,6 +4640,8 @@ def main():
     check_step_planes(gen, kernels)
     log("[3g] XE's products and their gradients")
     check_xe_planes(gen, report)
+    log("[3l] the KDA recurrence at the Kimi-Linear cell's shapes")
+    check_kda(gen, report)
 
     # phase 3m
     log("[3m] memory check (checked build, guarded buffers, every plan)")
@@ -4645,6 +4801,23 @@ def main():
         "bound_ms": k["step"]["bound_ms"], "bound_by": "operations",
         "library_ms": k["step"]["library_ms"],
         "cuda_core_bound_ms": k["step"]["cuda_core_bound_ms"]})
+    # the KDA recurrence (phase 3l) runs on the Kimi-Linear cell's beam,
+    # its main path: the decode call's shape, the prefill's beside it
+    k = report["kda"]
+    rows.append({
+        "name": "kda", "route": "cuda",
+        "source": "vsrcic_tpu_torch/csrc/kda.cu",
+        "replaces": "none (the JAX package has no linear attention)",
+        "launches": k["launches_per_batch"],
+        "launches_by_path": {"kimi_linear_beam": k["launches_per_batch"]},
+        "max_abs_err": max(k[c]["max_abs_err"] for c in ("decode",
+                                                         "prefill")),
+        "max_err": max(k[c]["max_rel_err"] for c in ("decode", "prefill")),
+        "ms": k["decode"]["ms"], "plain_ms": k["decode"]["plain_ms"],
+        "bound_ms": k["decode"]["bound_ms"],
+        "bound_by": k["decode"]["bound_by"], "library_ms": None,
+        **{"prefill_" + f: k["prefill"][f] for f in (
+            "ms", "plain_ms", "bound_ms", "bound_by")}})
     # the memory check's counts (phase 3m) over the CUDA kernels behind
     # each row, and the row's call on the default and the checked build
     mc = kernels["memcheck"]

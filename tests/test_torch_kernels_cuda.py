@@ -1394,3 +1394,59 @@ def test_xe_loss_on_the_card_takes_the_grouped_route(cuda_device):
     assert abs(float(loss - want_loss)) <= 1e-5 * abs(float(want_loss))
     for k, v in want.items():
         assert float((grads[k] - v).norm()) <= 1e-5 * float(v.norm()) + 1e-12
+
+
+# ---------------------------------------------------------------------------
+# the KDA recurrence (ops/kda.py, csrc/kda.cu)
+# ---------------------------------------------------------------------------
+
+KDA_SHAPES = [(1, 1, 3, 1, False), (5, 1, 3, 5, True), (640, 1, 32, 5, False),
+              (640, 1, 4, 8, True), (3, 100, 4, 1, True),
+              (128, 100, 32, 1, True), (10, 7, 2, 5, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", KDA_SHAPES,
+                         ids=lambda s: "S%d_T%d_H%d_g%d%s" % (
+                             *s[:4], "_ragged" if s[4] else ""))
+def test_kda_recurrence_kernel_matches_plain(cuda_device, shape):
+    """Decode (T 1: each row reads its parent within its group and writes
+    its own state in place) and prefill (T > 1, from zeros into rows 5
+    apart, ragged valid positions): outputs and states within 1e-5 of the
+    plain version's largest value (f32 sums in another order), rows no
+    sequence writes untouched, one launch."""
+    from vsrcic_tpu_torch.ops import kda
+    s_, t_, h, group, ragged = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(s_ * 31 + t_)
+    (q, k, v, g, beta, state, rows_in, rows_out,
+     valid) = memcheck.kda_inputs(gen, s_, t_, h, group, ragged, cuda_device)
+    want_state = state.clone()
+    want = kda.kda_recurrence_plain(q, k, v, g, beta, want_state, rows_in,
+                                    rows_out, valid)
+    before = kda.kda_recurrence.launches
+    got = kda.kda_recurrence(q, k, v, g, beta, state, rows_in, rows_out,
+                             valid, group)
+    torch.cuda.synchronize()
+    assert kda.kda_recurrence.launches == before + 1
+    for a, b in ((got, want), (state, want_state)):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_kda_recurrence_refuses_what_it_cannot_take(cuda_device):
+    from vsrcic_tpu_torch.ops import kda
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    args = list(memcheck.kda_inputs(gen, 10, 1, 2, 5, False, cuda_device))
+    with pytest.raises(ValueError):     # a group that does not divide S
+        kda.kda_recurrence(*args, group=3)
+    with pytest.raises(ValueError):     # more than MAX_GROUP
+        kda.kda_recurrence(*args, group=10)
+    bad = list(args)
+    bad[0] = bad[0][..., :64].contiguous()  # a head of 64
+    with pytest.raises(ValueError):
+        kda.kda_recurrence(*bad, group=5)
+    bad = list(args)
+    bad[6] = bad[6].long()                  # rows_in int64
+    with pytest.raises(ValueError):
+        kda.kda_recurrence(*bad, group=5)

@@ -223,6 +223,22 @@ def test_step_groups_are_the_cells(cases):
         (n, (out, sum(ws))) for n, ws, out, _ in mc.STEP_GROUPS}
 
 
+def test_sweep_reaches_every_kda_shape(cases):
+    """The KDA recurrence: rows 1, 5 and 640 at one position, groups 1, 5
+    and 8 (a job's beams); 1, 5 and 128 sequences of 100 positions;
+    every position valid and ragged; the Kimi-Linear cell's decode (640
+    rows, groups of 5, 32 heads) and prefill (128 x 100) FULL_REPEATS
+    times."""
+    kda = [c for c in cases if c.op == "kda"]
+    assert {c.shape[0] for c in kda if c.shape[1] == 1} == {1, 5, 640}
+    assert {c.shape[0] for c in kda if c.shape[1] == 100} == {1, 5, 128}
+    assert {c.shape[3] for c in kda} == {1, 5, 8}
+    assert {c.layout for c in kda} == {"padded", "ragged"}
+    full = {c.shape for c in kda if c.repeats >= mc.FULL_REPEATS}
+    assert full == {(640, 1, 32, 5), (128, 100, 32, 1)}
+    assert kda[0].launches(3) == {"kda_recurrence": 3}
+
+
 def test_sweep_reaches_every_sinkhorn_case(cases):
     smoke = mc._smoke()
     assert sorted(c.shape for c in cases if c.op == "sinkhorn") == sorted(
@@ -433,11 +449,13 @@ def test_tables_name_what_the_sources_enumerate():
     assert len(enum(check, "VsrcicAccess")) == len(mc.KINDS)
     for kernel, file in (("fused_attention", "fused_attention.cu"),
                          ("vocab_tma", "vocab_topk.cu"),
-                         ("sinkhorn_block", "sinkhorn.cu")):
+                         ("sinkhorn_block", "sinkhorn.cu"),
+                         ("kda_recurrence", "kda.cu")):
         bounds = enum((csrc / file).read_text(), "Bound")
         assert set(bounds) == set(mc.BOUNDS[kernel]), file
     files = re.search(r"files\[kFiles\].*?\};",
                       (csrc / "check.cu").read_text(), re.S).group(0)
     assert re.findall(r"vsrcic_check_(\w+)", files) == [
-        "fused", "vocab", "sinkhorn"]
-    assert mc.FILES == ("fused_attention.cu", "vocab_topk.cu", "sinkhorn.cu")
+        "fused", "vocab", "sinkhorn", "kda"]
+    assert mc.FILES == ("fused_attention.cu", "vocab_topk.cu", "sinkhorn.cu",
+                        "kda.cu")

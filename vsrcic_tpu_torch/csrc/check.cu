@@ -1,4 +1,4 @@
-// The memory check's records (check.cuh), gathered from the three kernel
+// The memory check's records (check.cuh), gathered from the four kernel
 // files of the checked build; the default build compiles nothing here.
 // tools/memcheck.py reads them through ctypes.
 #include "check.cuh"
@@ -8,14 +8,16 @@
 int vsrcic_check_fused(VsrcicFault* out, int op, int kernel, int bound);
 int vsrcic_check_vocab(VsrcicFault* out, int op, int kernel, int bound);
 int vsrcic_check_sinkhorn(VsrcicFault* out, int op, int kernel, int bound);
+int vsrcic_check_kda(VsrcicFault* out, int op, int kernel, int bound);
 
 namespace {
 
-constexpr int kFiles = 3;
+constexpr int kFiles = 4;
 
 int each_file(VsrcicFault* out, int op, int kernel, int bound) {
   int (*const files[kFiles])(VsrcicFault*, int, int, int) = {
-      vsrcic_check_fused, vsrcic_check_vocab, vsrcic_check_sinkhorn};
+      vsrcic_check_fused, vsrcic_check_vocab, vsrcic_check_sinkhorn,
+      vsrcic_check_kda};
   VsrcicFault scratch[2];
   for (int f = 0; f < kFiles; ++f) {
     const int e = files[f](out ? out + 2 * f : scratch, op, kernel, bound);
@@ -26,9 +28,9 @@ int each_file(VsrcicFault* out, int op, int kernel, int bound) {
 
 }  // namespace
 
-// out: 2 * 3 records, each file's device record then its host record (the
+// out: 2 * 4 records, each file's device record then its host record (the
 // tensor maps), in the order fused_attention.cu, vocab_topk.cu,
-// sinkhorn.cu; call after the launches have finished. Returns a
+// sinkhorn.cu, kda.cu; call after the launches have finished. Returns a
 // cudaError_t.
 extern "C" int vsrcic_check_read(void* out) {
   return each_file(static_cast<VsrcicFault*>(out), 0, -1, -1);

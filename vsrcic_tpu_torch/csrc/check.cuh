@@ -40,6 +40,7 @@ enum VsrcicKernel {
   kStepPlanesSplit = 9,  // step_planes_split_kernel
   kStepPlanesGrad = 10,   // step_planes_grad_kernel
   kStepPlanesSplitT = 11,  // step_planes_split_t_kernel
+  kKdaRecurrence = 12,     // kda.cu kda_recurrence_kernel
 };
 
 // the record's `kind` (tools/memcheck.py KINDS)

@@ -38,6 +38,28 @@ def leaves(tree):
     return []
 
 
+def launch_counts(counted):
+    """{(i, attribute): value} of the launch counters of counted[i]: its
+    attributes whose names start with "launches"."""
+    return {(i, name): v for i, obj in enumerate(counted)
+            for name, v in vars(obj).items() if name.startswith("launches")}
+
+
+def counts_added(before, after):
+    """The counts `after` holds beyond `before` (dicts of counts), where
+    they differ."""
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def add_counts(counted, added):
+    """Advance the launch counters of `counted` by `added` ({(i,
+    attribute): n}, `launch_counts`' keys)."""
+    for (i, name), n in added.items():
+        obj = counted[i]
+        setattr(obj, name, getattr(obj, name) + n)
+
+
 def _map(f, tree):
     """`tree` with each tensor x replaced by f(x)."""
     if isinstance(tree, torch.Tensor):
@@ -115,9 +137,7 @@ class StepGraphs:
             before = self._counts()
             graph = self._graph()
             out = graph.capture(lambda: body(carry))
-            after = self._counts()
-            added = {k: v - before.get(k, 0) for k, v in after.items()
-                     if v != before.get(k, 0)}
+            added = counts_added(before, self._counts())
             self.graphs[t] = (graph, ptrs, out, added)
             StepGraphs.captures += 1
             obs.count("graph_captures", 1)
@@ -126,12 +146,11 @@ class StepGraphs:
             if ptrs != want:
                 raise RuntimeError("StepGraphs: step %d's inputs are not the "
                                    "tensors its graph was captured on" % t)
+            add_counts(self.counted, {k: n for k, n in added.items()
+                                      if k[0] is not None})
             for (i, name), n in added.items():
                 if i is None:
                     obs.count(name, n)
-                else:
-                    obj = self.counted[i]
-                    setattr(obj, name, getattr(obj, name) + n)
         graph.replay()
         StepGraphs.replays += 1
         obs.count("graph_replays", 1)
@@ -140,9 +159,7 @@ class StepGraphs:
     def _counts(self):
         """{(i, attribute): value} of the launch counters of counted[i],
         and {(None, name): value} of the open span's counts."""
-        out = {(i, name): v for i, obj in enumerate(self.counted)
-               for name, v in vars(obj).items()
-               if name.startswith("launches")}
+        out = launch_counts(self.counted)
         out.update(((None, k), v) for k, v in obs.open_counts().items())
         return out
 

@@ -84,7 +84,8 @@ import torch
 import torch.nn.functional as F
 
 from vsrcic_tpu_torch.decode.beam import beam_search_joint_candidates
-from vsrcic_tpu_torch.decode.graphs import CudaGraph
+from vsrcic_tpu_torch.decode.graphs import (CudaGraph, add_counts,
+                                            counts_added, launch_counts)
 from vsrcic_tpu_torch.models.api import build_verb_tense_table
 from vsrcic_tpu_torch.models.captioner import (_feedback_inputs, _verb_curr,
                                                _verb_target,
@@ -125,6 +126,9 @@ class KimiVLConfig:
     det_feat_size: int = 2048
     seq_len: int = 20
     bos_idx: int = 2
+    # the first routed expert this chip holds (`moe`: the experts' stacked
+    # weights say how many)
+    first_expert: int = 0
 
     @property
     def qk_head_dim(self):
@@ -257,21 +261,25 @@ def projector(p, feats):
 
 def _mla_qkv(lp, cfg, x, rot):
     """q_nope (..., H, 128), the roped q_pe (..., H, 64), the normed c_kv
-    (..., 512) and the roped k_pe (..., 64)."""
+    (..., 512) and the roped k_pe (..., 64); rot None: NoPE, q_pe and k_pe
+    as projected (nothing is turned)."""
     dn = cfg.qk_nope_head_dim
     q = F.linear(x, lp["q_proj"]).unflatten(-1, (cfg.num_attention_heads,
                                                  cfg.qk_head_dim))
     kva = F.linear(x, lp["kv_a"])
     c_kv = rms_norm(kva[..., :cfg.kv_lora_rank], lp["kv_norm"],
                     cfg.rms_norm_eps)
-    return (q[..., :dn], apply_rope(q[..., dn:], rot[..., None, :]), c_kv,
-            apply_rope(kva[..., cfg.kv_lora_rank:], rot))
+    q_pe, k_pe = q[..., dn:], kva[..., cfg.kv_lora_rank:]
+    if rot is not None:
+        q_pe, k_pe = apply_rope(q_pe, rot[..., None, :]), apply_rope(k_pe,
+                                                                     rot)
+    return q[..., :dn], q_pe, c_kv, k_pe
 
 
 def mla_prefill(lp, cfg, x, rot, mask):
     """Expanded-form attention over a padded prefix. x (P, N, H); rot
-    (P, N, 32); mask (P, 1, N, N) bool, True where a query may attend.
-    Returns (output (P, N, H), latents (P, N, 576))."""
+    (P, N, 32), or None (NoPE); mask (P, 1, N, N) bool, True where a query
+    may attend. Returns (output (P, N, H), latents (P, N, 576))."""
     nh, dn, dv = (cfg.num_attention_heads, cfg.qk_nope_head_dim,
                   cfg.v_head_dim)
     q_nope, q_pe, c_kv, k_pe = _mla_qkv(lp, cfg, x, rot)
@@ -295,10 +303,11 @@ def absorbed(lp, cfg):
 
 def mla_decode(lp, cfg, x, rot, prefix, bias, own, beam):
     """Absorbed-form attention of one decode step. x (R, H) with R = P x
-    beam rows; rot (R, 32); prefix (P, N, 576) the jobs' cached latents;
-    bias (P, 1, >= N + S) f32: 0, or -inf at the prefix's padding; own: a
-    callable that stores this step's (c_kv, k_pe) and returns the rows'
-    cached latents, this step's included, as an (R, S, 576) view. Returns
+    beam rows; rot (R, 32), or None (NoPE); prefix (P, N, 576) the jobs'
+    cached latents; bias (P, 1, >= N + S) f32: 0, or -inf at the prefix's
+    padding; own: a callable that stores this step's (c_kv, k_pe) and
+    returns the rows' cached latents, this step's included, as an (R, S,
+    576) view. Returns
     the output (R, H)."""
     nh, dv = cfg.num_attention_heads, cfg.v_head_dim
     r, c = x.shape[0], cfg.kv_lora_rank
@@ -335,22 +344,35 @@ def route(lp, cfg, x):
 
 
 def moe(lp, cfg, x, valid=None, counts=None):
-    """Routed experts plus the shared ones over tokens x (T, H). `valid`
-    (T,) bool: tokens that are not padding (the rest are sorted after the
-    last expert's group, not computed, and output 0). `counts`: an (E,)
-    slot that receives each expert's cumulative end in the sorted pairs.
-    Returns (y (T, H), expert ids (T, k))."""
+    """Routed experts plus the shared ones over tokens x (T, H). The router
+    spans all `cfg.n_routed_experts`; this chip holds the E experts whose
+    weights `lp` stacks, from `cfg.first_expert` on (expert parallelism's
+    share: all of them for Kimi-VL). `valid` (T,) bool: tokens that are
+    not padding. Pairs of padding and pairs routed to an expert not held
+    are sorted after the last held expert's group, not computed, and add
+    0: what the absent experts would give is another chip's part of the
+    layer. `counts`: an (E,) slot that receives each held expert's
+    cumulative end in the sorted pairs. Returns (y (T, H), expert ids (T,
+    k), numbered over all the router's experts)."""
     e, k = cfg.n_routed_experts, cfg.num_experts_per_tok
+    held = lp["experts_gate_up"].shape[0]
+    keep = None
     with obs.span("vlm.route"):
         w, idx = route(lp, cfg, x)
         key = idx.reshape(-1)
-        if valid is not None:
+        if held < e:
+            key = key - cfg.first_expert
+            keep = (key >= 0) & (key < held)
+            if valid is not None:
+                keep &= valid[:, None].expand(-1, k).reshape(-1)
+            key = torch.where(keep, key, held)
+        elif valid is not None:
             key = torch.where(valid[:, None].expand(-1, k).reshape(-1), key,
                               e)
         skey, order = torch.sort(key, stable=True)
         # each expert's end in the sorted pairs (torch.bincount would read
         # the largest key back to the host)
-        ends = torch.searchsorted(skey, torch.arange(e, device=x.device),
+        ends = torch.searchsorted(skey, torch.arange(held, device=x.device),
                                   right=True)
         if counts is not None:
             counts.copy_(ends)
@@ -362,7 +384,9 @@ def moe(lp, cfg, x, valid=None, counts=None):
                             lp["experts_down"].transpose(-2, -1), offs=offs)
     routed = torch.empty_like(out).index_copy_(0, order, out)
     routed = routed.unflatten(0, (-1, k))
-    if valid is not None:
+    if keep is not None:
+        routed = torch.where(keep.view(-1, k, 1), routed, 0.0)
+    elif valid is not None:
         routed = torch.where(valid[:, None, None], routed, 0.0)
     y = torch.bmm(w[:, None, :], routed.float())[:, 0].to(x.dtype)
     return y + swiglu(x, lp["shared_gate_up"], lp["shared_down"]), idx
@@ -388,32 +412,46 @@ class Prefix(NamedTuple):
     routes: torch.Tensor        # (P, N, L_moe, k) uint8: experts chosen
 
 
-def prefill(p, cfg: KimiVLConfig, dets, counts=None, out=None):
+def prefill(p, cfg: KimiVLConfig, dets, counts=None, out=None, mix=None):
     """The jobs' detections (P, N, D) through the projector and every
     layer, causal over the real ones in order. `counts`: (L_moe, E) slots
     of `moe`'s; `out`: (latents, bias) buffers to fill (else new ones).
+
+    `mix(i, lp)`, the layer kinds' seam: layer i's token mixer, as (span,
+    attend, counts): attend(h, real, mask) takes the normed tokens (P, N,
+    H), real (P, N) and the causal mask of the real tokens, keeps what the
+    decode reads and returns the mixer's output; the counts are counted
+    inside the span. Default: MLA with RoPE at the real tokens' positions
+    on every layer, each layer's latents into `latents`.
     Returns a `Prefix`."""
     n_jobs, n = dets.shape[:2]
     real = dets.sum(-1) != 0                                   # (P, N)
-    pos = (real.cumsum(1) - 1).clamp_min(0)
     x = torch.where(real[..., None], projector(p, dets), 0.0)
     ar = torch.arange(n, device=dets.device)
     mask = ((ar[:, None] >= ar[None, :])
             & (real[:, None, :] | (ar[:, None] == ar[None, :])))[:, None]
-    rot = rope_angles(pos, cfg)
     lats, bias = out if out is not None else (
         torch.empty((cfg.num_hidden_layers, n_jobs, n, cfg.latent_dim),
                     dtype=x.dtype, device=x.device),
         torch.empty((n_jobs, 1, n + cfg.seq_len), device=x.device))
+    if mix is None:
+        rot = rope_angles((real.cumsum(1) - 1).clamp_min(0), cfg)
+
+        def mix(i, lp):
+            def attend(h, real, mask):
+                a, lat = mla_prefill(lp, cfg, h, rot, mask)
+                lats[i] = lat.masked_fill(~real[..., None], 0.0)
+                return a
+            return "vlm.attn", attend, {}
     routes = []
     flat_real = real.reshape(-1)
     for i, lp in enumerate(p["layers"]):
-        with obs.span("vlm.attn"):
-            a, lat = mla_prefill(lp, cfg,
-                                 rms_norm(x, lp["attn_norm"],
-                                          cfg.rms_norm_eps), rot, mask)
-            lats[i] = lat.masked_fill(~real[..., None], 0.0)
-            x = x + a
+        span, attend, counted = mix(i, lp)
+        with obs.span(span):
+            for name, n_ in counted.items():
+                obs.count(name, n_)
+            x = x + attend(rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps),
+                           real, mask)
         with obs.span("vlm.moe"):
             h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
             slot = (None if counts is None or "router" not in lp
@@ -509,12 +547,16 @@ def ancestry(rec, parents):
 
 
 def decode_layers(p, cfg, x, rot, statics, cache, t, beam, counts=None,
-                  routes=None, run=None):
+                  routes=None, run=None, mix=None):
     """One decode step through every layer, in place on x (R, H); rot
     (R, 32) the rows' RoPE turns. Each layer's attention and MLP are one
     call each of `run(key, fn)` (`DecodeGraphs.run`: fn once, or its CUDA
     graph), inside the spans `vlm.attn` and `vlm.moe`; `routes` (R, L_moe,
-    k) receives the experts chosen. Returns the final normed hidden."""
+    k) receives the experts chosen. `mix(i, lp)`, the layer kinds' seam:
+    (span, fn, counts), fn adding layer i's mixer to x in place, run under
+    that span, the counts counted there (outside any graph); default: MLA
+    over the prefix's and `cache`'s latents of layer i. Returns the final
+    normed hidden."""
     prefix = statics.prefix
     run = run or (lambda key, fn: fn())
     moe_i = 0
@@ -524,6 +566,9 @@ def decode_layers(p, cfg, x, rot, statics, cache, t, beam, counts=None,
                                                 cfg.rms_norm_eps),
                               rot, prefix.latents[i], prefix.bias,
                               cache.writer(i, t), beam))
+        span, counted = "vlm.attn", {}
+        if mix is not None:
+            span, attn, counted = mix(i, lp)
 
         def ffn(lp=lp, j=moe_i):
             slot = None if counts is None or "router" not in lp else counts[j]
@@ -532,7 +577,9 @@ def decode_layers(p, cfg, x, rot, statics, cache, t, beam, counts=None,
             x.add_(m)
             if idx is not None and routes is not None:
                 routes[:, j] = idx
-        with obs.span("vlm.attn"):
+        with obs.span(span):
+            for name, n_ in counted.items():
+                obs.count(name, n_)
             run(("attn", t, i), attn)
         with obs.span("vlm.moe"):
             run(("moe", t, i), ffn)
@@ -547,27 +594,44 @@ class DecodeGraphs:
     stream into one shared memory pool, and replays it. fn reads and writes
     only the shape's persistent buffers (`KimiVLCaptioner._buffers`), so a
     replay redoes the captured work on the batch at hand. A replay's
-    kernels stand under the span around it, as fn's would."""
+    kernels stand under the span around it, as fn's would. A replay skips
+    the Python wrappers of the kernels, so it adds what its capture added
+    to their launch counters (`counted`: every attribute of each object
+    whose name starts with "launches", as `decode/graphs.py::StepGraphs`
+    does). graph: a callable that makes an object with `capture(fn)` and
+    `replay()` (tests pass a stand-in), by default CUDA graphs on the
+    card and none elsewhere."""
 
-    def __init__(self, device):
+    def __init__(self, device, counted=(), graph=None):
         self.graphs = {}
         self.live = False
-        self._cuda = device.type == "cuda"
+        self.counted = tuple(counted)
+        self._graph = (graph if graph is not None or device.type != "cuda"
+                       else self._cuda)
         self._pool = self._stream = None
 
     def run(self, key, fn):
-        if not (self.live and self._cuda):
+        if not (self.live and self._graph is not None):
             return fn()
-        g = self.graphs.get(key)
-        if g is None:
-            if self._stream is None:
-                self._stream = torch.cuda.Stream()
-                self._pool = torch.cuda.graph_pool_handle()
-                self._warm()
-            g = CudaGraph(self._stream, self._pool)
+        entry = self.graphs.get(key)
+        if entry is None:
+            before = launch_counts(self.counted)
+            g = self._graph()
             g.capture(fn)
-            self.graphs[key] = g
-        g.replay()
+            entry = self.graphs[key] = (g, counts_added(
+                before, launch_counts(self.counted)))
+        else:
+            add_counts(self.counted, entry[1])
+        entry[0].replay()
+
+    def _cuda(self):
+        """A CUDA graph on the side stream and shared pool, made (with the
+        libraries' handles) before the first capture."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream()
+            self._pool = torch.cuda.graph_pool_handle()
+            self._warm()
+        return CudaGraph(self._stream, self._pool)
 
     def _warm(self):
         """Make the side stream's library handles and workspaces before the
@@ -624,6 +688,8 @@ class KimiVLCaptioner:
         self._w_t = padded_table(head.T)
         self.counts_total = torch.zeros(len(COUNTS), dtype=torch.int64,
                                         device=self.device)
+        # the routed experts each MoE layer holds here
+        self.held = self.params["layers"][-1]["experts_gate_up"].shape[0]
         self._pending = None
         self._seen = {}
         self._shapes = {}
@@ -661,7 +727,7 @@ class KimiVLCaptioner:
     def _count(self, prefill_ends, decode_ends, n_real):
         """Add a batch's per-call expert counts (from each call's experts'
         ends in its sorted pairs) to the device totals."""
-        e = self.cfg.n_routed_experts
+        e = self.held
         parts = [n_real.sum()]
         for ends in (prefill_ends, decode_ends):
             c = torch.diff(ends.reshape(-1, e), dim=1, prepend=torch.zeros(
@@ -674,39 +740,65 @@ class KimiVLCaptioner:
                                         self._head["bias"], k=k)
 
     def _buffers(self, n_jobs, n, k):
-        """A decode shape's persistent buffers and its graphs: the rows'
-        hidden state and RoPE turns, the beams' two latent caches (the
-        reorders alternate between them), the prefix's latents and mask,
-        the experts' counts and choices."""
+        """A decode shape's persistent buffers and its graphs
+        (`_new_buffers`), made at its first batch."""
         key = (n_jobs, n, k)
         if key not in self._shapes:
-            cfg, dev = self.cfg, self.device
-            dtype = self.params["embed"].dtype
-            rows, t_len, lm = n_jobs * k, cfg.seq_len, cfg.moe_layers
-            lat = (t_len, rows, cfg.num_hidden_layers, cfg.latent_dim)
-            e = cfg.n_routed_experts
-            self._shapes[key] = SimpleNamespace(
-                x=torch.empty((rows, cfg.hidden_size), dtype=dtype,
-                              device=dev),
-                rot=torch.empty((rows, cfg.qk_rope_head_dim // 2),
-                                dtype=torch.complex64, device=dev),
-                caches=(torch.empty(lat, dtype=dtype, device=dev),
-                        torch.empty(lat, dtype=dtype, device=dev)),
-                prefix=(torch.empty((cfg.num_hidden_layers, n_jobs, n,
-                                     cfg.latent_dim), dtype=dtype,
-                                    device=dev),
-                        torch.empty((n_jobs, 1, n + t_len), device=dev)),
-                pre_counts=torch.zeros((lm, e), dtype=torch.long,
-                                       device=dev),
-                dec_counts=torch.zeros((t_len, lm, e), dtype=torch.long,
-                                       device=dev),
-                routes=torch.zeros((rows, lm, cfg.num_experts_per_tok),
-                                   dtype=torch.long, device=dev),
-                graphs=DecodeGraphs(dev), batches=0)
+            self._shapes[key] = self._new_buffers(n_jobs, n, k)
         buf = self._shapes[key]
         buf.graphs.live = buf.batches > 0
         buf.batches += 1
         return buf
+
+    def _new_buffers(self, n_jobs, n, k, latent_layers=None, counted=()):
+        """The rows' hidden state and RoPE turns, the beams' two latent
+        caches of `latent_layers` layers (default: every layer; the
+        reorders alternate between them), the prefix's latents and mask,
+        the experts' counts and choices, the graphs (replays advancing the
+        launch counters of `counted`)."""
+        cfg, dev = self.cfg, self.device
+        dtype = self.params["embed"].dtype
+        rows, t_len, lm = n_jobs * k, cfg.seq_len, cfg.moe_layers
+        layers = latent_layers or cfg.num_hidden_layers
+        lat = (t_len, rows, layers, cfg.latent_dim)
+        e = self.held
+        return SimpleNamespace(
+            x=torch.empty((rows, cfg.hidden_size), dtype=dtype, device=dev),
+            rot=torch.empty((rows, cfg.qk_rope_head_dim // 2),
+                            dtype=torch.complex64, device=dev),
+            caches=(torch.empty(lat, dtype=dtype, device=dev),
+                    torch.empty(lat, dtype=dtype, device=dev)),
+            prefix=(torch.empty((layers, n_jobs, n, cfg.latent_dim),
+                                dtype=dtype, device=dev),
+                    torch.empty((n_jobs, 1, n + t_len), device=dev)),
+            pre_counts=torch.zeros((lm, e), dtype=torch.long, device=dev),
+            dec_counts=torch.zeros((t_len, lm, e), dtype=torch.long,
+                                   device=dev),
+            routes=torch.zeros((rows, lm, cfg.num_experts_per_tok),
+                               dtype=torch.long, device=dev),
+            graphs=DecodeGraphs(dev, counted), batches=0)
+
+    # the seams a decoder of other layer kinds overrides (models/
+    # kimi_linear.py): the prefill, the beams' first cache, one step
+    # through the layers, and the cache after a step
+
+    def _prefill(self, buf, detections):
+        return prefill(self.params, self.cfg, detections, buf.pre_counts,
+                       buf.prefix)
+
+    def _first_cache(self, buf, n_jobs, k):
+        return LatentCache(*buf.caches)
+
+    def _decode(self, buf, statics, cache, t, k, job):
+        buf.rot.copy_(rope_angles(statics.prefix.n_real[job] + t, self.cfg))
+        return decode_layers(self.params, self.cfg, buf.x, buf.rot, statics,
+                             cache, t, k, buf.dec_counts[t], buf.routes,
+                             buf.graphs.run)
+
+    def _advance(self, cache, t):
+        with obs.span("vlm.cache"):
+            obs.count("cache_bytes", cache.buf[t].nbytes)
+        return LatentCache(cache.buf, cache.spare, t + 1)
 
     @torch.no_grad()
     def _beam_v_impl(self, detections, det_groups, verb_list, beam_size,
@@ -721,7 +813,7 @@ class KimiVLCaptioner:
             self._harvest()
             obs.count("prefill_rows", detections.shape[0]
                       * detections.shape[1])
-            prefix = prefill(p, cfg, detections, buf.pre_counts, buf.prefix)
+            prefix = self._prefill(buf, detections)
             statics = VLMStatics(control_tokens(p, det_groups), verb_list,
                                  prefix)
         with obs.span("vlm.cache"):
@@ -738,7 +830,7 @@ class KimiVLCaptioner:
                                  device=dev))
         row_ids = torch.arange(rows, device=dev)
         state = VLMState(torch.zeros((rows,), dtype=torch.long, device=dev),
-                         LatentCache(*buf.caches), row_ids)
+                         self._first_cache(buf, n_jobs, k), row_ids)
         job = row_ids // k
         vocab_fn = self._vocab_fn(k)
 
@@ -751,12 +843,8 @@ class KimiVLCaptioner:
                 rec.gates[t - 1] = pg
             it, ctrl = _feedback_inputs(cfg, state, statics, pw, pg, t0)
             buf.x.copy_(p["embed"][it] + statics.det_groups[job, ctrl])
-            buf.rot.copy_(rope_angles(prefix.n_real[job] + t, cfg))
-            h = decode_layers(p, cfg, buf.x, buf.rot, statics, cache, t, k,
-                              buf.dec_counts[t], buf.routes, buf.graphs.run)
-            with obs.span("vlm.cache"):
-                obs.count("cache_bytes", cache.buf[t].nbytes)
-            cache = LatentCache(cache.buf, cache.spare, t + 1)
+            h = self._decode(buf, statics, cache, t, k, job)
+            cache = self._advance(cache, t)
             with obs.span("vlm.head"):
                 vals, ids, lse = vocab_fn(h)
                 g = self.params["gate_head"]

@@ -71,6 +71,7 @@ SIGNATURES = {
     "vsrcic_step_planes_split": [P, P, P, P, I, I, I, I, I, P, P],
     "vsrcic_step_planes_grad": [P, P, I, I, I, I, I, I, I, I, P, P],
     "vsrcic_step_planes_split_t": [P, I, I, P, P],
+    "vsrcic_kda": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
 }
 # the checked build's records (csrc/check.cu)
 CHECK_SIGNATURES = {

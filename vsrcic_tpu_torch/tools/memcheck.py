@@ -31,8 +31,11 @@ forced resident clusters; the Sinkhorn kernel at every (n, S) of
 SINK_CASE_N x SINK_CASE_S; the step products and their split pass at
 `_step_cases`' shapes; XE's products and their gradients (dA and dW on
 `step_planes_grad_kernel`, the transposing split pass) at `_xe_cases`'
-shapes. The beam's fused call, each route's full-width call and each of
-the eval cell's step product groups run FULL_REPEATS times.
+shapes; the KDA recurrence at `_kda_cases`' (rows 1, 5, 640 at one
+position with parents within groups of 1, 5, 8; 1, 5, 128 sequences of
+100 positions; ragged positions). The beam's fused call, each route's
+full-width call, each of the eval cell's step product groups and the
+Kimi-Linear cell's recurrence calls run FULL_REPEATS times.
 `run_case(case, lib)` launches a case and returns what it found: the fault
 records, guard breaches, changed inputs, and whether the outputs match the
 plain version at chip_smoke.py phase 3's tolerances (the gradient cases:
@@ -66,11 +69,11 @@ REPO = os.path.dirname(os.path.dirname(HERE))
 KERNELS = ("fused_attention", "vocab_tile", "vocab_tile_bf16", "vocab_tma",
            "vocab_split", "vocab_merge", "sinkhorn_packed", "sinkhorn_block",
            "step_planes", "step_planes_split", "step_planes_grad",
-           "step_planes_split_t")
+           "step_planes_split_t", "kda_recurrence")
 KINDS = ("global", "shared", "distributed shared", "tensor-map extent",
          "mbarrier")
 # the files whose records vsrcic_check_read returns, in order
-FILES = ("fused_attention.cu", "vocab_topk.cu", "sinkhorn.cu")
+FILES = ("fused_attention.cu", "vocab_topk.cu", "sinkhorn.cu", "kda.cu")
 # each file's Bound enum (the csrc sources say what each bounds)
 _FUSED_BOUNDS = {
     1: "item/ctrl", 2: "ha", 3: "sent_w/sent_mask", 4: "fc_sentinel",
@@ -91,8 +94,12 @@ _VOCAB_BOUNDS = {
     19: "addend", 20: "segments"}
 _SINKHORN_BOUNDS = {1: "x", 2: "out", 3: "warp tiles", 4: "matrix",
                     5: "dynamic shared bytes"}
+_KDA_BOUNDS = {1: "q", 2: "k", 3: "v", 4: "g", 5: "beta", 6: "valid",
+               7: "rows_in", 8: "rows_out", 9: "state", 10: "out",
+               11: "shared vectors"}
 BOUNDS = dict(zip(KERNELS, (_FUSED_BOUNDS,) + (_VOCAB_BOUNDS,) * 5
-                  + (_SINKHORN_BOUNDS,) * 2 + (_VOCAB_BOUNDS,) * 4))
+                  + (_SINKHORN_BOUNDS,) * 2 + (_VOCAB_BOUNDS,) * 4
+                  + (_KDA_BOUNDS,)))
 
 GUARD = 0xFF            # every byte of a guard band (NaN, -1)
 MARGIN = 4096           # guard bytes on each side of a view
@@ -120,6 +127,13 @@ XE_GROUPS = (("in1", 1024, (1000, 1000, 1000), 6000, 1),
              ("att_va", 20480, (2048,), 512, 0),
              ("img", 1024, (2048,), 6000, 0))
 XE_NO_DA = ("att_va", "img")
+# the KDA recurrence (ops/kda.py): (sequences, positions, heads, group);
+# the Kimi-Linear cell's decode (640 rows, a job's 5 beams a group) and
+# prefill (128 jobs of up to 100 tokens) at its 32 heads FULL_REPEATS times
+KDA_SHAPES = ((1, 1, 3, 1), (5, 1, 3, 5), (5, 1, 3, 1), (640, 1, 3, 8),
+              (640, 1, 3, 1), (1, 100, 3, 1), (5, 100, 3, 1),
+              (5, 100, 3, 5), (128, 100, 3, 1), (40, 7, 5, 8))
+KDA_CELL = ((640, 1, 32, 5), (128, 100, 32, 1))
 # the routes' operand types: (h2, table)
 _TYPES = {"split": ("float32", "bfloat16"), "split9": ("float32", "float32"),
           "split_w": ("bfloat16", "float32"),
@@ -237,8 +251,9 @@ class Case:
     "sinkhorn": shape (S, n); op "step": shape (rows, the segments'
     widths, N, add_div: 0 without an addend); op "step_grad": shape (rows,
     the forward's segments' widths, N), the gradients of that product.
-    `plan` is the launch plan (op "step_grad": dA's and dW's); `repeats`
-    the launches."""
+    op "kda": shape (S, T, H, group), `layout` "ragged" (some positions
+    not valid) or "padded" (all valid); `plan` is the launch plan (op
+    "step_grad": dA's and dW's); `repeats` the launches."""
     op: str
     name: str
     shape: tuple
@@ -263,6 +278,8 @@ class Case:
         if self.op == "step_grad":   # W's and A's planes once, dC's each
             return {"step_planes_grad": 2 * n, "step_planes_split": n + 2,
                     "step_planes_split_t": n}
+        if self.op == "kda":
+            return {"kda_recurrence": n}
         out = {k: n for k in _ROUTE_KERNELS[self.plan.route]}
         if self.plan.w_planes > 1:   # W_t's planes, made once a table
             out["vocab_split"] = out.get("vocab_split", 0) + 1
@@ -476,6 +493,23 @@ def _xe_cases(sms, seed):
     return cases
 
 
+def _kda_cases(seed):
+    """The KDA recurrence at KDA_SHAPES, each with every position valid and
+    with ragged positions (decode: some rows' one position not valid),
+    and the Kimi-Linear cell's decode and prefill FULL_REPEATS times."""
+    cases = []
+    for shape in KDA_SHAPES:
+        for layout in ("padded", "ragged"):
+            cases.append(Case("kda", "kda_S%d_T%d_H%d_g%d_%s" % (
+                *shape, layout), shape, layout=layout,
+                seed=seed + len(cases)))
+    for shape, layout in zip(KDA_CELL, ("padded", "ragged")):
+        cases.append(Case("kda", "kda_cell_S%d_T%d" % shape[:2], shape,
+                          layout=layout, repeats=FULL_REPEATS,
+                          seed=seed + len(cases)))
+    return cases
+
+
 def sweep_cases(seed=0, sms=132):
     """The sweep, a deterministic list of Cases for a card of `sms` SMs
     (the module's note says what it covers)."""
@@ -486,7 +520,7 @@ def sweep_cases(seed=0, sms=132):
             cases.append(Case("sinkhorn", "sinkhorn_n%d_S%d" % (n, s),
                               (s, n), seed=seed + 2000 + len(cases)))
     return (cases + _step_cases(sms, seed + 3000)
-            + _xe_cases(sms, seed + 4000))
+            + _xe_cases(sms, seed + 4000) + _kda_cases(seed + 5000))
 
 
 def cut_cases(sms=132):
@@ -531,6 +565,10 @@ def cut_cases(sms=132):
         ("step_planes_grad", 18): (grad, "global"),        # out
         ("step_planes_grad", 17): (grad, "tensor-map extent"),  # B's map
         ("step_planes_split_t", 20): (grad, "global"),     # dC
+        ("kda_recurrence", 9): (Case("kda", "cut_kda", (5, 1, 3, 5)),
+                                "global"),                 # state
+        ("kda_recurrence", 10): (Case("kda", "cut_kda_out", (5, 3, 3, 1)),
+                                 "global"),                # out
     }
 
 
@@ -791,8 +829,77 @@ def _run_step_grad(case, lib, pool, gen, repeats, launch=None):
     return err, None
 
 
+def kda_inputs(gen, s_, t_, h, group, ragged, device):
+    """Inputs of the recurrence (`ops/kda.py`) at the kernel's head width:
+    q and k L2-normed (q scaled by D^-1/2), v normal, g in (-0.2, 0], beta
+    in [0, 1); a state of R rows (decode, T = 1: R = S, each row's parent
+    a row of its group; prefill: R = 5 S, sequences from zeros into rows
+    0, 5, ..); valid (S, T) uint8 with ragged positions (the first always
+    valid) or None. Returns (q, k, v, g, beta, state, rows_in, rows_out,
+    valid)."""
+    import torch
+    from vsrcic_tpu_torch.ops.kda import HEAD_DIM as d
+    f = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                   device=device)
+    norm = torch.nn.functional.normalize
+    q = norm(f(s_, t_, h, d), dim=-1) * d ** -0.5
+    k = norm(f(s_, t_, h, d), dim=-1)
+    v = f(s_, t_, h, d)
+    g = -0.2 * torch.rand((s_, t_, h, d), generator=gen, device=device)
+    beta = torch.rand((s_, t_, h), generator=gen, device=device)
+    i32 = torch.int32
+    if t_ == 1:
+        r = s_
+        state = f(r, h, d, d)
+        first = torch.arange(s_, device=device) // group * group
+        rows_in = (first + torch.randint(group, (s_,), generator=gen,
+                                         device=device)).to(i32)
+        rows_out = torch.arange(s_, dtype=i32, device=device)
+    else:
+        r = 5 * s_
+        state = f(r, h, d, d)
+        rows_in = torch.full((s_,), -1, dtype=i32, device=device)
+        rows_out = torch.arange(0, r, 5, dtype=i32, device=device)
+    valid = None
+    if ragged:
+        valid = (torch.rand((s_, t_), generator=gen, device=device) < 0.7
+                 ).to(torch.uint8)
+        valid[:, 0] = 1 if t_ > 1 else valid[:, 0]
+    return q, k, v, g, beta, state, rows_in, rows_out, valid
+
+
+def _run_kda(case, lib, pool, gen, repeats, launch=None):
+    import torch
+    from vsrcic_tpu_torch.ops import kda
+    s_, t_, h, group = case.shape
+    (q, k, v, g, beta, state, rows_in, rows_out, valid) = kda_inputs(
+        gen, s_, t_, h, group, case.layout == "ragged", pool.device)
+    names = ("q", "k", "v", "g", "beta", "rows_in", "rows_out")
+    g_args = [pool.input(n, x) for n, x in zip(
+        names, (q, k, v, g, beta, rows_in, rows_out))]
+    g_valid = None if valid is None else pool.input("valid", valid)
+    g_state = pool.empty(tuple(state.shape), torch.float32)
+    out = pool.empty((s_, t_, h, kda.HEAD_DIM), torch.float32)
+    want_state = state.clone()
+    want = None
+    for _ in range(repeats):    # each launch from the same starting state
+        g_state.copy_(state)
+        kda._launch(lib, *g_args[:5], g_valid, *g_args[5:], g_state, out,
+                    group)
+        if want is None:
+            want = kda.kda_recurrence_plain(q, k, v, g, beta, want_state,
+                                            rows_in, rows_out, valid)
+    torch.cuda.synchronize()
+    err = 0.0
+    for got, ref in ((out, want), (g_state, want_state)):
+        scale = float(ref.abs().max().clamp_min(1e-30))
+        err = max(err, float((got - ref).abs().max()) / scale)
+    return err, (None if err <= 1e-5
+                 else "beyond 1e-5 of the plain version, relative")
+
+
 _RUN = {"fused": _run_fused, "vocab": _run_vocab, "sinkhorn": _run_sinkhorn,
-        "step": _run_step, "step_grad": _run_step_grad}
+        "step": _run_step, "step_grad": _run_step_grad, "kda": _run_kda}
 
 
 def run_case(case, lib, repeats=None, cut_bound=None, launch=None):

@@ -24,9 +24,10 @@ jax:
 
 The spans the program opens (README.md lists what each covers): the eval
 stream's `eval.*` (batch id: the stream's index of the batch) with the
-facade's `beam.statics` and `beam.step`, and the Kimi-VL decoder's
+facade's `beam.statics` and `beam.step`, the Kimi-VL decoder's
 `vlm.prefill`, `vlm.attn`, `vlm.moe`, `vlm.route`, `vlm.cache` and
-`vlm.head` (`models/kimi_vl.py`); the trainers' `xe.step` and
+`vlm.head` (`models/kimi_vl.py`), and beside them the Kimi-Linear
+decoder's `vlm.kda` (`models/kimi_linear.py`); the trainers' `xe.step` and
 `scst.step` (batch id: the train state's step) with `train.forward`,
 `train.backward`, `train.adam`, `train.readback`, `scst.decode` and
 `scst.reward`; `ops.build` around each build or load of a native library.
