@@ -100,9 +100,14 @@ Phases (any failure raises and the script exits non-zero):
      and prefill (128 jobs, 40-100 valid positions of 100) shapes, 32
      heads: outputs and states within 1e-5 of the plain version's largest
      value, each call timed held beside its bound (bytes, each distinct
-     parent read once, or f32 operations) and the plain version; then
-     three batches of the cell's shapes through `KimiLinearCaptioner`
-     (eager, captured, replayed), the kernel's launches counted in each;
+     parent read once, or f32 operations) and the plain version; the
+     layer's input stage (`conv_qkv`, short_conv_kernel) and gated norm
+     (`gated_norm`, gated_norm_kernel) at the same shapes, held to their
+     plain versions (1e-6 of the largest value, the windows exact; one
+     bf16 rounding step) and timed beside their byte bounds and the
+     chains of PyTorch operations they replace; then three batches of the
+     cell's shapes through `KimiLinearCaptioner` (eager, captured,
+     replayed), the three kernels' launches counted in each;
  3m. the memory check (vsrcic_tpu_torch/tools/memcheck.py): the checked
      build (csrc/check.cuh: every access of every kernel tested against the
      bound its arguments imply) over the sweep of every launch plan, on
@@ -238,6 +243,7 @@ to chiprun_out/chip_smoke.json.
 """
 import contextlib
 import gc
+import itertools
 import json
 import math
 import os
@@ -1126,6 +1132,111 @@ def kda_bound_ms(s_, tokens, h, parents=0):
             "bytes" if by_bytes >= by_ops else "operations")
 
 
+def kda_stage_bytes(s_, t_, h, tokens, parents=0):
+    """(bytes of one input-stage call, bytes of one gated norm call) at
+    the cell's shapes in bf16 (`csrc/kda.cu`'s notes): the stage reads
+    each real token's q, k, v, b and f, the `parents` distinct parent
+    windows (decode), the conv weights, rates and dt_bias, and writes
+    every position's q, k, v, g, beta in f32 (zeros past a prefix) and
+    each row's window; the norm reads o (f32) and the gate, writes the
+    output, a token each position."""
+    d, win = 128, 3
+    c = 3 * h * d
+    stage = (2 * tokens * (c + h + h * d) + 2 * parents * win * c
+             + 2 * c * 4 + 4 * h * (d + 1)
+             + 4 * s_ * t_ * h * (4 * d + 1) + 2 * s_ * win * c)
+    norm = s_ * t_ * h * d * (4 + 2 + 2) + 2 * d
+    return stage, norm
+
+
+def check_kda_stages(gen, out):
+    """Phase 3l's input stage and gated norm at the cell's decode (640
+    rows in groups of 5, parents within each) and prefill (128 jobs of
+    40-100 real tokens of 100) shapes, 32 heads, bf16: each held to its
+    plain version (the stage's q, k, v, g, beta within 1e-6 of the largest
+    value, its windows exact; the norm within one bf16 rounding step), one
+    launch a call, then timed held beside its byte bound and the plain
+    chain's time (the norm on input sets taken in turns, 150 MB or more in
+    all, so that they come from HBM and not from the 50 MB L2). Adds
+    "stage" and "norm" to out[decode] and out[prefill]."""
+    import torch
+    from vsrcic_tpu_torch.ops import kda
+    from vsrcic_tpu_torch.tools import memcheck
+    for name, (s_, t_, group, layout) in (
+            ("decode", (KDA_JOBS * BEAM, 1, BEAM, "decode")),
+            ("prefill", (KDA_JOBS, KDA_DETS, 1, "ragged"))):
+        proj, f, rate, dt_bias, w, conv, kw = memcheck.kda_stage_inputs(
+            gen, s_, t_, KDA_HEADS, group, layout, torch.bfloat16, "cuda")
+        if layout != "decode":
+            kw["lengths"] = torch.randint(40, t_ + 1, (s_,), generator=gen,
+                                          device="cuda").to(torch.int32)
+        args = (proj, f, rate, dt_bias, w)
+        want_conv = conv.clone()
+        want = kda.conv_qkv_plain(*args, want_conv, **kw)
+        got_conv = conv.clone()
+        before = kda.conv_qkv.launches
+        got = kda.conv_qkv(*args, got_conv, **kw)
+        torch.cuda.synchronize()
+        if kda.conv_qkv.launches != before + 1:
+            raise AssertionError("3l %s stage: %d launches, expected 1" % (
+                name, kda.conv_qkv.launches - before))
+        err = memcheck.stage_gap(got, want)
+        if not (err <= 1e-6 and torch.equal(got_conv, want_conv)):
+            raise AssertionError("3l %s stage: %.3g of the plain version's "
+                                 "largest value (1e-6), windows equal %s"
+                                 % (name, err, torch.equal(got_conv,
+                                                           want_conv)))
+        parents = (0 if layout != "decode"
+                   else int(torch.unique(kw["parent"]).numel()))
+        tokens = (s_ if layout == "decode" else int(kw["lengths"].sum()))
+        stage_b, norm_b = kda_stage_bytes(s_, t_, KDA_HEADS, tokens, parents)
+        ms = held_ms(lambda: kda.conv_qkv(*args, got_conv, **kw),
+                     iters=50)[0]
+        plain_ms = cuda_ms(lambda: kda.conv_qkv_plain(*args, want_conv,
+                                                      **kw), iters=5)
+        bound_ms = 1e3 * stage_b / 3.35e12
+        log("  3l KDA %s input stage: %d tokens, %d distinct parents: "
+            "error %.3g of the largest value, windows exact; held %.4f ms, "
+            "bound %.4f ms by bytes (%.1f%%: %.1f MB), plain chain %.4f ms"
+            % (name, tokens, parents, err, ms, bound_ms,
+               100.0 * bound_ms / ms, stage_b / 1e6, plain_ms))
+        out[name]["stage"] = dict(max_rel_err=err, ms=ms, bound_ms=bound_ms,
+                                  bytes=stage_b, plain_ms=plain_ms,
+                                  parents=parents, tokens=tokens)
+        o = torch.randn((s_, t_, KDA_HEADS, kda.HEAD_DIM), generator=gen,
+                        device="cuda")
+        gate = torch.randn((s_, t_, KDA_HEADS * kda.HEAD_DIM), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        weight = torch.ones((kda.HEAD_DIM,), device="cuda",
+                            dtype=torch.bfloat16)
+        want = kda.gated_norm_plain(o, gate, weight, 1e-5)
+        before = kda.gated_norm.launches
+        got = kda.gated_norm(o, gate, weight, 1e-5)
+        torch.cuda.synchronize()
+        steps, share = memcheck.norm_gap(got, want)
+        if kda.gated_norm.launches != before + 1 or steps > 1.0:
+            raise AssertionError("3l %s gated norm: %d launches, %.3g bf16 "
+                                 "steps from the plain version's" % (
+                                     name, kda.gated_norm.launches - before,
+                                     steps))
+        sets = [(o, gate)] + [(o.clone(), gate.clone()) for _ in range(
+            int(150e6 // norm_b))]
+        turn = itertools.cycle(sets)
+        ms = held_ms(lambda: kda.gated_norm(*next(turn), weight, 1e-5),
+                     iters=50)[0]
+        plain_ms = cuda_ms(lambda: kda.gated_norm_plain(o, gate, weight,
+                                                        1e-5), iters=5)
+        bound_ms = 1e3 * norm_b / 3.35e12
+        log("  3l KDA %s gated norm: %.3g bf16 steps at most (%.2g%% of "
+            "outputs off the plain version's); held %.4f ms, bound %.4f ms "
+            "by bytes (%.1f%%), plain chain %.4f ms"
+            % (name, steps, 100.0 * share, ms, bound_ms,
+               100.0 * bound_ms / ms, plain_ms))
+        out[name]["norm"] = dict(max_steps=steps, share_off=share, ms=ms,
+                                 bound_ms=bound_ms, bytes=norm_b,
+                                 plain_ms=plain_ms)
+
+
 def check_kda(gen, report):
     """Phase 3l: the KDA recurrence kernel (`ops/kda.py`, csrc/kda.cu)
     against its plain version at the Kimi-Linear cell's decode (640 rows,
@@ -1191,32 +1302,36 @@ def check_kda(gen, report):
                          max_abs_err=abs_err, ms=ms, bound_ms=bound_ms,
                          bound_by=bound_by, plain_ms=plain_ms)
     del q, k, v, g, beta, state, got_state, want_state, want, got
+    check_kda_stages(gen, out)
     t0 = time.perf_counter()
     cap, (dets, groups, verbs) = kimi_captioner(linear=True)
     torch.cuda.synchronize()
     made_s = time.perf_counter() - t0
+    wrappers = (kda.kda_recurrence, kda.conv_qkv, kda.gated_norm)
     counts, secs = [], []
     for _ in range(3):
-        kda.kda_recurrence.launches = 0
+        for fn in wrappers:
+            fn.launches = 0
         t0 = time.perf_counter()
         res = cap.beam_search_v(dets, groups, verbs, eos_word=3,
                                 beam_size=BEAM)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        counts.append(kda.kda_recurrence.launches)
+        counts.append([fn.launches for fn in wrappers])
         if not bool(torch.isfinite(res.scores).all()):
             raise AssertionError("3l: a beam score is not finite")
     want = KDA_LAYERS * (1 + cap.cfg.seq_len)
-    if counts != [want] * 3:
-        raise AssertionError("3l launches of the three batches %s, expected "
-                             "%d each" % (counts, want))
-    out.update(launches_per_batch=counts[-1], launches_by_batch=counts,
+    if counts != [[want] * 3] * 3:
+        raise AssertionError("3l launches of the three batches (recurrence, "
+                             "input stage, gated norm) %s, expected %d each"
+                             % (counts, want))
+    out.update(launches_per_batch=counts[-1][0], launches_by_batch=counts,
                beam_s=secs, setup_s=made_s)
     log("  3l Kimi-Linear: weights and inputs in %.1f s; three beam batches "
-        "(128 jobs x beam 5: eager, captured, replayed) in %s s, KDA "
-        "launches %s (a layer's prefill and %d decode steps)"
-        % (made_s, ", ".join("%.2f" % x for x in secs), counts,
-           cap.cfg.seq_len))
+        "(128 jobs x beam 5: eager, captured, replayed) in %s s, launches "
+        "(recurrence, input stage, gated norm) %s (a layer's prefill and %d "
+        "decode steps)" % (made_s, ", ".join("%.2f" % x for x in secs),
+                           counts, cap.cfg.seq_len))
     del cap, res, dets, groups, verbs
     gc.collect()
     torch.cuda.empty_cache()
@@ -1824,13 +1939,16 @@ ROW_KERNELS = {
     "vocab_topk_split_w": ("vocab_tma", "vocab_merge"),
     "step_planes": ("step_planes", "step_planes_split"),
     "kda": ("kda_recurrence",),
+    "short_conv": ("short_conv",),
+    "gated_norm": ("gated_norm",),
 }
 # each row's call in time_checked
 ROW_CALL = {"fused_attention": "fused_attention", "vocab_topk": "split",
             "sinkhorn": "sinkhorn_packed", "vocab_topk_bf16": "tma",
             "vocab_split": "split_pass", "vocab_topk_split9": "split9",
             "vocab_topk_split_w": "split_w", "step_planes": "step_planes",
-            "kda": "kda"}
+            "kda": "kda", "short_conv": "short_conv",
+            "gated_norm": "gated_norm"}
 
 
 def time_checked(gen, lib):
@@ -1841,8 +1959,9 @@ def time_checked(gen, lib):
     planes made beforehand ("split", "split9"), the split pass alone;
     the Sinkhorn kernel at the pipeline's S 1536, n 10 (packed) and at n
     33 (one block a matrix); the step products' "in1" group at the eval
-    cell's rows, its split pass and product; the KDA recurrence at the
-    Kimi-Linear cell's decode (640 rows in groups of 5, 32 heads)."""
+    cell's rows, its split pass and product; the KDA recurrence, input
+    stage and gated norm at the Kimi-Linear cell's decode (640 rows in
+    groups of 5, 32 heads)."""
     import torch
     from vsrcic_tpu_torch.ops import _build
     from vsrcic_tpu_torch.ops import fused_attention as fa
@@ -1913,6 +2032,20 @@ def time_checked(gen, lib):
     kda_out = torch.empty_like(v)
     calls["kda"] = lambda L: kda._launch(L, q, kk, v, g, beta, None, rows_in,
                                          rows_out, state, kda_out, BEAM)
+    from vsrcic_tpu_torch.tools.memcheck import kda_stage_inputs
+    (proj, f, rate, dt_bias, w, conv, kw) = kda_stage_inputs(
+        gen, KDA_JOBS * BEAM, 1, KDA_HEADS, BEAM, "decode", bf16, "cuda")
+    stage_out = torch.empty((4,) + tuple(q.shape), device=dev)
+    stage_beta = torch.empty_like(beta)
+    calls["short_conv"] = lambda L: kda._conv_launch(
+        L, proj, f, rate, dt_bias, w, conv, kw["parent"], BEAM, None, None,
+        stage_out, stage_beta)
+    gate = torch.randn((KDA_JOBS * BEAM, KDA_HEADS * kda.HEAD_DIM),
+                       generator=gen, device=dev).to(bf16)
+    o_norm = torch.ones((kda.HEAD_DIM,), device=dev, dtype=bf16)
+    normed = torch.empty_like(gate)
+    calls["gated_norm"] = lambda L: kda._norm_launch(L, kda_out, gate,
+                                                     o_norm, 1e-5, normed)
     for name, n in (("sinkhorn_packed", SINK_N), ("sinkhorn_block", 33)):
         x = torch.tanh(torch.randn((SINK_S, n, n), generator=gen,
                                    device=dev))
@@ -4818,6 +4951,28 @@ def main():
         "bound_by": k["decode"]["bound_by"], "library_ms": None,
         **{"prefill_" + f: k["prefill"][f] for f in (
             "ms", "plain_ms", "bound_ms", "bound_by")}})
+    # the KDA layer's input stage and gated norm (phase 3l), on the same
+    # beam: the decode call's shape, the prefill's beside it
+    for name, part in (("short_conv", "stage"), ("gated_norm", "norm")):
+        dec, pre = k["decode"][part], k["prefill"][part]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "vsrcic_tpu_torch/csrc/kda.cu",
+            "replaces": "none (the JAX package has no linear attention)",
+            "launches": k["launches_by_batch"][-1][
+                1 if part == "stage" else 2],
+            "launches_by_path": {"kimi_linear_beam": k["launches_by_batch"][
+                -1][1 if part == "stage" else 2]},
+            "max_abs_err": None,
+            "max_err": (max(dec["max_rel_err"], pre["max_rel_err"])
+                        if part == "stage" else
+                        max(dec["max_steps"], pre["max_steps"])),
+            "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+            "bound_ms": dec["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            **{"prefill_" + f: pre[f] for f in ("ms", "plain_ms",
+                                                "bound_ms")},
+            "prefill_bound_by": "bytes"})
     # the memory check's counts (phase 3m) over the CUDA kernels behind
     # each row, and the row's call on the default and the checked build
     mc = kernels["memcheck"]

@@ -1450,3 +1450,126 @@ def test_kda_recurrence_refuses_what_it_cannot_take(cuda_device):
     bad[6] = bad[6].long()                  # rows_in int64
     with pytest.raises(ValueError):
         kda.kda_recurrence(*bad, group=5)
+
+
+# the KDA layer's input stage and gated norm (ops/kda.py::conv_qkv,
+# gated_norm; csrc/kda.cu short_conv_kernel, gated_norm_kernel)
+
+KDA_STAGE_SHAPES = [(640, 1, 32, 5, "decode", "bfloat16"),
+                    (128, 100, 32, 1, "ragged", "bfloat16"),
+                    (5, 1, 2, 5, "decode", "bfloat16"),
+                    (5, 1, 4, 5, "decode", "float32"),
+                    (1, 1, 2, 1, "decode", "bfloat16"),
+                    (40, 1, 2, 8, "decode", "bfloat16"),
+                    (3, 7, 2, 1, "ragged", "bfloat16"),
+                    (4, 100, 4, 1, "padded", "float32"),
+                    (1, 1, 2, 1, "padded", "bfloat16")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", KDA_STAGE_SHAPES,
+                         ids=lambda s: "S%d_T%d_H%d_g%d_%s_%s" % s)
+def test_conv_qkv_kernel_matches_plain(cuda_device, shape):
+    """Decode (T 1: each row convolves its parent's window, a row of its
+    group, and writes its own in place) and prefill (ragged or whole
+    prefixes, zeros before the first token and past the last real one, the
+    last 3 real inputs into each job's window row): q, k, v, g, beta within
+    1e-6 of the plain version's largest value (f32 sums in another order),
+    the windows exactly the plain version's, one launch."""
+    from vsrcic_tpu_torch.ops import kda
+    s_, t_, h, group, layout, dt = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(s_ * 37 + t_)
+    proj, f, rate, dt_bias, w, conv, kw = memcheck.kda_stage_inputs(
+        gen, s_, t_, h, group, layout, getattr(torch, dt), cuda_device)
+    want_conv = conv.clone()
+    want = kda.conv_qkv_plain(proj, f, rate, dt_bias, w, want_conv, **kw)
+    before = kda.conv_qkv.launches
+    got = kda.conv_qkv(proj, f, rate, dt_bias, w, conv, **kw)
+    torch.cuda.synchronize()
+    assert kda.conv_qkv.launches == before + 1
+    assert torch.equal(conv, want_conv)
+    assert memcheck.stage_gap(got, want) <= 1e-6
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.is_contiguous()
+        assert torch.equal(a == 0, b == 0)
+
+
+KDA_NORM_SHAPES = [(640, 32, "bfloat16"), (12800, 32, "bfloat16"),
+                   (7, 3, "float32"), (1, 1, "bfloat16"), (33, 2, "float32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", KDA_NORM_SHAPES,
+                         ids=lambda s: "N%d_H%d_%s" % s)
+def test_gated_norm_kernel_matches_plain(cuda_device, shape):
+    """The gated RMSNorm at the cell's decode and prefill rows and small
+    ones: in bf16 each output within one rounding step of the plain
+    version's (both round f32 values ~1e-7 apart), under 1% of them off it;
+    in f32 within 16 ulps; one launch."""
+    from vsrcic_tpu_torch.ops import kda
+    rows, h, dt = shape
+    dt = getattr(torch, dt)
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + h)
+    o = torch.randn((rows, h, kda.HEAD_DIM), generator=gen,
+                    device=cuda_device)
+    gate = torch.randn((rows, h * kda.HEAD_DIM), generator=gen,
+                       device=cuda_device).to(dt)
+    weight = (1 + 0.1 * torch.randn((kda.HEAD_DIM,), generator=gen,
+                                    device=cuda_device)).to(dt)
+    want = kda.gated_norm_plain(o, gate, weight, 1e-5)
+    before = kda.gated_norm.launches
+    got = kda.gated_norm(o, gate, weight, 1e-5)
+    torch.cuda.synchronize()
+    assert kda.gated_norm.launches == before + 1
+    assert got.dtype == dt and got.shape == want.shape
+    steps, share = memcheck.norm_gap(got, want)
+    assert steps <= (1.0 if dt == torch.bfloat16 else 16.0)
+    assert share < 0.01
+
+
+@pytest.mark.cuda
+def test_kda_stages_refuse_what_they_cannot_take(cuda_device):
+    from vsrcic_tpu_torch.ops import kda
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    proj, f, rate, dt_bias, w, conv, kw = memcheck.kda_stage_inputs(
+        gen, 10, 1, 2, 5, "decode", torch.bfloat16, cuda_device)
+    args = [proj, f, rate, dt_bias, w, conv]
+    parent = kw["parent"]
+    with pytest.raises(ValueError):     # a group that does not divide S
+        kda.conv_qkv(*args, parent=parent, group=3)
+    with pytest.raises(ValueError):     # more than MAX_GROUP
+        kda.conv_qkv(*args, parent=parent, group=10)
+    with pytest.raises(ValueError):     # parent int64
+        kda.conv_qkv(*args, parent=parent.long(), group=5)
+    with pytest.raises(ValueError):     # decode over two positions
+        kda.conv_qkv(proj.expand(-1, 2, -1).contiguous(), f.expand(
+            -1, 2, -1).contiguous(), *args[2:], parent=parent, group=5)
+    with pytest.raises(ValueError):     # f16 storage
+        kda.conv_qkv(*[a.half() if a.dtype == torch.bfloat16 else a
+                       for a in args], parent=parent, group=5)
+    with pytest.raises(ValueError):     # f not contiguous
+        spaced = torch.cat([f, f], -1)[..., ::2]
+        kda.conv_qkv(proj, spaced, *args[2:], parent=parent, group=5)
+    with pytest.raises(ValueError):     # heads of 64: w's rows 3 x 2 x 64
+        kda.conv_qkv(*args[:4], w[:384].contiguous(), conv, parent=parent,
+                     group=5)
+    with pytest.raises(ValueError):     # prefill without its rows
+        kda.conv_qkv(*args, lengths=parent)
+    odd = memcheck.kda_stage_inputs(gen, 5, 1, 3, 5, "decode",
+                                    torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError):     # 3 heads: rows of odd width
+        kda.conv_qkv(*odd[:6], **odd[6])
+    o = torch.randn((10, 2, kda.HEAD_DIM), device=cuda_device)
+    gate = torch.randn((10, 2 * kda.HEAD_DIM), device=cuda_device,
+                       dtype=torch.bfloat16)
+    weight = torch.ones((kda.HEAD_DIM,), device=cuda_device,
+                        dtype=torch.bfloat16)
+    with pytest.raises(ValueError):     # heads of 64
+        kda.gated_norm(o[..., :64].contiguous(), gate[:, :128].contiguous(),
+                       weight[:64].contiguous(), 1e-5)
+    with pytest.raises(ValueError):     # the gate not contiguous
+        kda.gated_norm(o, gate.t().contiguous().t(), weight, 1e-5)
+    with pytest.raises(ValueError):     # the weight in f32, the gate bf16
+        kda.gated_norm(o, gate, weight.float(), 1e-5)
+    with pytest.raises(ValueError):     # o in bf16
+        kda.gated_norm(o.bfloat16(), gate, weight, 1e-5)

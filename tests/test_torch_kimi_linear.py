@@ -19,6 +19,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from reference_torch import kimi_linear_lm as ref
@@ -226,6 +227,159 @@ def test_recurrence_over_a_prefix_skips_padding():
             torch.testing.assert_close(o[s, t], want, rtol=1e-5, atol=1e-6)
         torch.testing.assert_close(state[row], st, rtol=1e-5, atol=1e-6)
     assert float((state[[1, 2, 4, 5]] - 7.0).abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the layer's input and output stages (ops/kda.py::conv_qkv, gated_norm)
+# against the chains of PyTorch operations they replace, as the layer ran
+# them before (kept here as written then)
+# ---------------------------------------------------------------------------
+
+def _chain_gates(proj, f, a_log, dt_bias, nh, d):
+    g = (-torch.exp(a_log.float())[:, None]
+         * F.softplus(f.float().unflatten(-1, (nh, d))
+                      + dt_bias.float().view(nh, d)))
+    return g, torch.sigmoid(proj[..., -nh:].float()).contiguous()
+
+
+def _chain_short_conv(qkv, w):
+    n, kk = qkv.shape[1], w.shape[1]
+    xp = F.pad(qkv, (0, 0, kk - 1, 0)).float()
+    w = w.float()
+    y = xp[:, :n] * w[:, 0]
+    for j in range(1, kk):
+        y.addcmul_(xp[:, j:j + n], w[:, j])
+    return F.silu(y)
+
+
+def _chain_conv_step(qkv, conv, parent, w):
+    window = torch.cat([conv.index_select(0, parent), qkv[:, None]], 1)
+    conv.copy_(window[:, 1:])
+    return F.silu((window.float() * w.T.float()).sum(1))
+
+
+def _chain_qkv(y, nh, d):
+    hd = nh * d
+    q, k, v = (y[..., i * hd:(i + 1) * hd].unflatten(-1, (nh, d))
+               for i in range(3))
+
+    def l2(t):
+        return t * torch.rsqrt(t.pow(2).sum(-1, keepdim=True) + 1e-6)
+    return l2(q) * d ** -0.5, l2(k), v.contiguous()
+
+
+def _stage_inputs(dtype, rows, t_, nh=2, d=8, seed=0):
+    """in_proj's rows (rows, t_, 3 nh d + 2 d + nh), f, A_log, dt_bias and
+    conv weights as `init_kimi_linear_params` draws them, in `dtype`."""
+    g = torch.Generator().manual_seed(seed)
+    c = 3 * nh * d
+    proj = torch.randn(rows, t_, c + 2 * d + nh, generator=g).to(dtype)
+    f = torch.randn(rows, t_, nh * d, generator=g).to(dtype)
+    a_log = kl.draw_leaf("A_log", (nh,), g)
+    dt_bias = kl.draw_leaf("dt_bias", (nh * d,), g)
+    w = kl.draw_leaf("conv", (c, 4), g).to(dtype)
+    return proj, f, a_log, dt_bias, w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["prefill", "decode"])
+def test_conv_qkv_plain_is_the_chain_it_replaces(mode, dtype):
+    """Prefill: prefixes of 1, 2, 3, 4 and 100 real tokens of 100, their
+    last 3 real inputs (zeros where fewer) into their window rows, the
+    rows no prefix writes untouched. Decode: rows reading windows of other
+    rows of their group that are themselves rewritten (read before write).
+    q, k, v, g, beta and the windows equal the old chain's bit for bit at
+    the real positions, zeros past them; the wrapper runs the plain
+    version for CPU tensors and counts no launch."""
+    nh, d = 2, 8
+    c = 3 * nh * d
+    if mode == "prefill":
+        lengths = torch.tensor([1, 2, 3, 4, 100], dtype=torch.int32)
+        proj, f, a_log, dt_bias, w = _stage_inputs(dtype, 5, 100, nh, d)
+        rows_out = torch.tensor([0, 2, 4, 6, 9], dtype=torch.int32)
+        conv = torch.full((11, 3, c), 7.0).to(dtype)
+        want_conv = conv.clone()
+        # the old kda_prefill's window and convolutions
+        real = torch.arange(100)[None] < lengths[:, None].long()
+        qkv = proj[..., :c]
+        idx = real.sum(1, keepdim=True) + torch.arange(-3, 0)
+        last = qkv.gather(1, idx.clamp_min(0)[..., None].expand(-1, -1, c))
+        want_conv[rows_out.long()] = torch.where((idx >= 0)[..., None], last,
+                                                 0.0)
+        y = _chain_short_conv(qkv, w)
+        kw = dict(lengths=lengths, rows_out=rows_out)
+    else:
+        beam, rows = 3, 12
+        proj, f, a_log, dt_bias, w = _stage_inputs(dtype, rows, 1, nh, d)
+        parent = (torch.arange(rows) // beam * beam + torch.tensor(
+            [2, 0, 0, 1, 1, 1, 0, 2, 1, 2, 2, 2])).to(torch.int32)
+        conv = torch.randn(rows, 3, c,
+                           generator=torch.Generator().manual_seed(1)
+                           ).to(dtype)
+        want_conv = conv.clone()
+        real = torch.ones(rows, 1, dtype=torch.bool)
+        y = _chain_conv_step(proj[:, 0, :c], want_conv, parent, w)[:, None]
+        assert torch.equal(want_conv[:, :2], conv[parent.long(), 1:])
+        kw = dict(parent=parent, group=beam)
+    want = _chain_qkv(y, nh, d) + _chain_gates(proj, f, a_log, dt_bias, nh, d)
+    rate = torch.exp(a_log.float())
+    before = kda_op.conv_qkv.launches
+    for fn in (kda_op.conv_qkv_plain, kda_op.conv_qkv):
+        got_conv = conv.clone()
+        got = fn(proj, f, rate, dt_bias, w, got_conv, **kw)
+        assert torch.equal(got_conv, want_conv)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == torch.float32
+            assert torch.equal(a[real], b[real])
+            assert not a[~real].any()
+    assert kda_op.conv_qkv.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("lead", [(12,), (5, 7)], ids=["decode", "prefill"])
+def test_gated_norm_plain_is_the_chain_it_replaces(lead, dtype):
+    """The recurrence's o through the old kda_out's RMSNorm and gate, up to
+    o_proj's input: equal bit for bit; the wrapper runs the plain version
+    for CPU tensors and counts no launch."""
+    g = torch.Generator().manual_seed(2)
+    nh, d, eps = 3, 8, 1e-5
+    o = torch.randn(*lead, nh, d, generator=g)
+    gate = torch.randn(*lead, nh * d, generator=g).to(dtype)
+    weight = (1 + 0.1 * torch.randn(d, generator=g)).to(dtype)
+    want = F.rms_norm(o, (d,), weight.float(), eps)
+    want = (want * torch.sigmoid(gate.float().unflatten(-1, (nh, d)))
+            ).flatten(-2).to(dtype)
+    before = kda_op.gated_norm.launches
+    for fn in (kda_op.gated_norm_plain, kda_op.gated_norm):
+        got = fn(o, gate, weight, eps)
+        assert got.dtype == dtype and torch.equal(got, want)
+    assert kda_op.gated_norm.launches == before
+
+
+def test_stages_refuse_devices_they_cannot_run_on():
+    """No fallback: a tensor neither on the CPU nor on a card raises."""
+    proj, f, a_log, dt_bias, w = (t.to("meta") for t in _stage_inputs(
+        torch.float32, 5, 1))
+    conv = torch.empty(5, 3, 48, device="meta")
+    with pytest.raises(ValueError):
+        kda_op.conv_qkv(proj, f, a_log, dt_bias, w, conv,
+                        parent=torch.zeros(5, dtype=torch.int32,
+                                           device="meta"))
+    with pytest.raises(ValueError):
+        kda_op.gated_norm(torch.empty(5, 2, 8, device="meta"),
+                          torch.empty(5, 16, device="meta"),
+                          torch.empty(8, device="meta"), 1e-5)
+
+
+def test_decode_graphs_count_every_kda_kernel():
+    """A decode shape's graphs replay the launch counts of the layer's
+    three kernels: the recurrence, the input stage and the gated norm."""
+    _, _, _, _, cap, _ = decode(0)
+    (buf,) = cap._shapes.values()
+    assert buf.graphs.counted == (kda_op.kda_recurrence, kda_op.conv_qkv,
+                                  kda_op.gated_norm)
 
 
 @pytest.mark.parametrize("share", [4, 8])

@@ -239,6 +239,33 @@ def test_sweep_reaches_every_kda_shape(cases):
     assert kda[0].launches(3) == {"kda_recurrence": 3}
 
 
+def test_sweep_reaches_every_kda_stage_shape(cases):
+    """The KDA layer's input stage: decode rows 1, 5, 40 and 640 in groups
+    of 1, 5 and 8, bf16 and f32; prefill 1 and 128 jobs (and 3, 4, 5) with
+    every position real and ragged; its gated norm at rows 1 to 12800, bf16
+    and f32; the Kimi-Linear cell's calls of both FULL_REPEATS times."""
+    conv = [c for c in cases if c.op == "conv"]
+    decode = [c for c in conv if c.layout == "decode"]
+    prefill = [c for c in conv if c.layout != "decode"]
+    assert all(c.shape[1] == 1 for c in decode)
+    assert {c.shape[0] for c in decode} == {1, 5, 40, 640}
+    assert {c.shape[3] for c in decode} == {1, 5, 8}
+    assert {c.shape[4] for c in decode} == {"bfloat16", "float32"}
+    assert {c.shape[0] for c in prefill} >= {1, 128}
+    assert {c.layout for c in prefill} == {"padded", "ragged"}
+    norm = [c for c in cases if c.op == "norm"]
+    assert {c.shape[2] for c in norm} == {"bfloat16", "float32"}
+    assert {c.shape[0] for c in norm} >= {1, 640, 12800}
+    full = {(c.op, c.shape) for c in conv + norm
+            if c.repeats >= mc.FULL_REPEATS}
+    assert full == {("conv", (640, 1, 32, 5, "bfloat16")),
+                    ("conv", (128, 100, 32, 1, "bfloat16")),
+                    ("norm", (640, 32, "bfloat16")),
+                    ("norm", (12800, 32, "bfloat16"))}
+    assert conv[0].launches(3) == {"short_conv": 3}
+    assert norm[0].launches(3) == {"gated_norm": 3}
+
+
 def test_sweep_reaches_every_sinkhorn_case(cases):
     smoke = mc._smoke()
     assert sorted(c.shape for c in cases if c.op == "sinkhorn") == sorted(
@@ -450,7 +477,9 @@ def test_tables_name_what_the_sources_enumerate():
     for kernel, file in (("fused_attention", "fused_attention.cu"),
                          ("vocab_tma", "vocab_topk.cu"),
                          ("sinkhorn_block", "sinkhorn.cu"),
-                         ("kda_recurrence", "kda.cu")):
+                         ("kda_recurrence", "kda.cu"),
+                         ("short_conv", "kda.cu"),
+                         ("gated_norm", "kda.cu")):
         bounds = enum((csrc / file).read_text(), "Bound")
         assert set(bounds) == set(mc.BOUNDS[kernel]), file
     files = re.search(r"files\[kFiles\].*?\};",

@@ -41,6 +41,8 @@ enum VsrcicKernel {
   kStepPlanesGrad = 10,   // step_planes_grad_kernel
   kStepPlanesSplitT = 11,  // step_planes_split_t_kernel
   kKdaRecurrence = 12,     // kda.cu kda_recurrence_kernel
+  kShortConv = 13,         // kda.cu short_conv_kernel
+  kGatedNorm = 14,         // kda.cu gated_norm_kernel
 };
 
 // the record's `kind` (tools/memcheck.py KINDS)

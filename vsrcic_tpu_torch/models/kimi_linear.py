@@ -64,10 +64,10 @@ from vsrcic_tpu_torch.models.kimi_vl import (KimiVLCaptioner, KimiVLConfig,
                                              LatentCache, decode_layers,
                                              mla_decode, mla_prefill, nest,
                                              prefill, rms_norm)
-from vsrcic_tpu_torch.ops.kda import kda_recurrence
+from vsrcic_tpu_torch.ops.kda import (conv_qkv, gated_norm,
+                                     kda_recurrence)
 from vsrcic_tpu_torch.utils import observability as obs
 
-L2_EPS = 1e-6   # under the root of the q and k norms (FLA's l2norm)
 F32 = 4
 
 
@@ -204,60 +204,39 @@ def init_kimi_linear_params(gen, cfg: KimiLinearConfig,
 # ---------------------------------------------------------------------------
 
 def kda_project(lp, cfg, x):
-    """The layer's products of the normed tokens x (..., H): the pre-conv
-    q, k, v (..., 3 x 4096) in x's dtype, the log-decay g (..., heads, D)
-    and beta (..., heads) in f32, the output gate's pre-sigmoid (...,
-    4096)."""
-    nh, d, hd = cfg.kda_heads, cfg.kda_head_dim, cfg.kda_width
-    qkv, fa, ga, b = F.linear(x, lp["in_proj"]).split([3 * hd, d, d, nh], -1)
-    f = F.linear(fa, lp["f_b"]).float().unflatten(-1, (nh, d))
-    g = (-torch.exp(lp["A_log"].float())[:, None]
-         * F.softplus(f + lp["dt_bias"].float().view(nh, d)))
-    return (qkv, g, torch.sigmoid(b.float()).contiguous(),
-            F.linear(ga, lp["g_b"]))
+    """The layer's products of the normed tokens x (..., H) and its decay
+    rates, what `ops/kda.py::conv_qkv` and `gated_norm` take: in_proj's
+    rows (..., 3 x 4096 + 2D + heads: the pre-conv q, k, v, W_fa x, W_ga
+    x, beta's pre-sigmoid) in x's dtype; the heads' decay rates A =
+    exp(A_log) (heads,) f32 (g = -A softplus(f + dt_bias)); f = W_fb W_fa
+    x (..., 4096) and the output gate's pre-sigmoid (..., 4096) in x's
+    dtype."""
+    d, c = cfg.kda_head_dim, 3 * cfg.kda_width
+    proj = F.linear(x, lp["in_proj"])
+    f = F.linear(proj[..., c:c + d], lp["f_b"])
+    gate = F.linear(proj[..., c + d:c + 2 * d], lp["g_b"])
+    return proj, torch.exp(lp["A_log"].float()), f, gate
 
 
-def short_conv(qkv, w):
-    """The causal depthwise convolutions of a prefix's leading real
-    tokens, qkv (P, N, C), weights w (C, K): SiLU of the f32 sums."""
-    n, kk = qkv.shape[1], w.shape[1]
-    xp = F.pad(qkv, (0, 0, kk - 1, 0)).float()
-    w = w.float()
-    y = xp[:, :n] * w[:, 0]
-    for j in range(1, kk):
-        y.addcmul_(xp[:, j:j + n], w[:, j])
-    return F.silu(y)
-
-
-def conv_step(qkv, conv, parent, w):
-    """One decode position of the convolutions: rows' inputs qkv (R, C)
-    after their parents' last K - 1 inputs (conv (R', K - 1, C), gathered
-    by `parent`); the rows' own windows written into `conv` in place.
-    Returns SiLU of the f32 sums (R, C)."""
-    window = torch.cat([conv.index_select(0, parent), qkv[:, None]], 1)
-    conv.copy_(window[:, 1:])
-    return F.silu((window.float() * w.T.float()).sum(1))
-
-
-def kda_qkv(cfg, y):
-    """The convolutions' outputs (..., 3 x 4096) f32 -> q, k, v (...,
-    heads, D), q and k L2-normed per head, q scaled by D^-1/2."""
-    nh, d, hd = cfg.kda_heads, cfg.kda_head_dim, cfg.kda_width
-    q, k, v = (y[..., i * hd:(i + 1) * hd].unflatten(-1, (nh, d))
-               for i in range(3))
-
-    def l2(t):
-        return t * torch.rsqrt(t.pow(2).sum(-1, keepdim=True) + L2_EPS)
-    return l2(q) * d ** -0.5, l2(k), v.contiguous()
+def conv_step(pre, conv, parent, w):
+    """One decode position of the layer's input stage (`conv_qkv` at T =
+    1): the rows' products pre = (in_proj's rows (R, ...), the decay
+    rates, f), after their parents' last K - 1 pre-conv inputs (conv (R,
+    K - 1, C), read at `parent` (R,) int32, each row's own window written
+    in place); w = (the layer's parameters, the beam: a job's rows, one
+    group). Returns q, k, v, g (R, 1, heads, D) and beta (R, 1, heads),
+    f32."""
+    (proj, rate, f), (lp, beam) = pre, w
+    return conv_qkv(proj[:, None], f[:, None], rate, lp["dt_bias"],
+                    lp["conv"], conv, parent=parent, group=beam)
 
 
 def kda_out(lp, cfg, o, gate):
     """The recurrence's o (..., heads, D) f32 through the gated RMSNorm
-    (f32) and the output projection, in the gate's dtype."""
-    o = F.rms_norm(o, (cfg.kda_head_dim,), lp["o_norm"].float(),
-                   cfg.rms_norm_eps)
-    o = o * torch.sigmoid(gate.float().unflatten(-1, o.shape[-2:]))
-    return F.linear(o.flatten(-2).to(gate.dtype), lp["o_proj"])
+    (f32; `ops/kda.py::gated_norm`) and the output projection, in the
+    gate's dtype."""
+    return F.linear(gated_norm(o, gate, lp["o_norm"], cfg.rms_norm_eps),
+                    lp["o_proj"])
 
 
 def kda_prefill(lp, cfg, h, real, state, conv, rows_in, rows_out):
@@ -266,14 +245,10 @@ def kda_prefill(lp, cfg, h, real, state, conv, rows_in, rows_out):
     and leaves each job's in `state[rows_out]` (R, heads, D, D); its last
     K - 1 real pre-conv inputs go into `conv[rows_out]` (R, K - 1, C).
     Returns the mixer's output (P, N, H), 0 at padding."""
-    qkv, g, beta, gate = kda_project(lp, cfg, h)
-    kk = cfg.conv_size
-    idx = real.sum(1, keepdim=True) + torch.arange(1 - kk, 0,
-                                                   device=h.device)
-    last = qkv.gather(1, idx.clamp_min(0)[..., None].expand(
-        -1, -1, qkv.shape[-1]))
-    conv[rows_out.long()] = torch.where((idx >= 0)[..., None], last, 0.0)
-    q, k, v = kda_qkv(cfg, short_conv(qkv, lp["conv"]))
+    proj, rate, f, gate = kda_project(lp, cfg, h)
+    q, k, v, g, beta = conv_qkv(proj, f, rate, lp["dt_bias"], lp["conv"],
+                                conv, lengths=real.sum(1, dtype=torch.int32),
+                                rows_out=rows_out)
     o = kda_recurrence(q, k, v, g, beta, state, rows_in, rows_out,
                        real.to(torch.uint8), group=1)
     return kda_out(lp, cfg, o, gate)
@@ -283,21 +258,22 @@ def kda_decode(lp, cfg, x, state, conv, parent, rows, beam, probe=None):
     """A KDA layer at one decode position: x (R, H) normed; row r reads its
     parent's state and conv window (`parent` (R,) int32 rows of `state`
     (R, heads, D, D) and `conv` (R, K - 1, C)) and writes its own in place
-    (`rows`, (R,) int32), the beam's K rows of a job one group. `probe`
-    (see `KimiLinearCaptioner.probe`): the recurrence's inputs and output
-    at its job's rows, copied there. Returns the output (R, H)."""
-    qkv, g, beta, gate = kda_project(lp, cfg, x)
-    q, k, v = kda_qkv(cfg, conv_step(qkv, conv, parent, lp["conv"]))
+    (state at `rows`, (R,) int32, and conv at r), the beam's K rows of a
+    job one group. `probe` (see `KimiLinearCaptioner.probe`): the
+    recurrence's inputs and output at its job's rows, copied there.
+    Returns the output (R, H)."""
+    proj, rate, f, gate = kda_project(lp, cfg, x)
+    q, k, v, g, beta = conv_step((proj, rate, f), conv, parent, (lp, beam))
     if probe is not None:
         at = probe.rows
         probe.parent.copy_(parent[at])
         probe.state.copy_(state[at])
-    o = kda_recurrence(q[:, None], k[:, None], v[:, None], g[:, None],
-                       beta[:, None], state, parent, rows, None, group=beam)
+    o = kda_recurrence(q, k, v, g, beta, state, parent, rows, None,
+                       group=beam)
     if probe is not None:
         for name, val in (("q", q), ("k", k), ("v", v), ("g", g),
-                          ("beta", beta), ("o", o[:, 0])):
-            getattr(probe, name).copy_(val[at])
+                          ("beta", beta), ("o", o)):
+            getattr(probe, name).copy_(val[at, 0])
     return kda_out(lp, cfg, o[:, 0], gate)
 
 
@@ -388,7 +364,7 @@ class KimiLinearCaptioner(KimiVLCaptioner):
         cfg, dev = self.cfg, self.device
         rows = n_jobs * k
         buf = super()._new_buffers(n_jobs, n, k, len(cfg.mla_layers),
-                                   (kda_recurrence,))
+                                   (kda_recurrence, conv_qkv, gated_norm))
         nh, d, lk = cfg.kda_heads, cfg.kda_head_dim, len(cfg.kda_layers)
         i32 = torch.int32
         buf.kda_state = torch.empty((lk, rows, nh, d, d), device=dev)

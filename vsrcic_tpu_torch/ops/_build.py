@@ -72,6 +72,8 @@ SIGNATURES = {
     "vsrcic_step_planes_grad": [P, P, I, I, I, I, I, I, I, I, P, P],
     "vsrcic_step_planes_split_t": [P, I, I, P, P],
     "vsrcic_kda": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    "vsrcic_short_conv": [P] * 14 + [I] * 7 + [P],
+    "vsrcic_gated_norm": [P, P, P, P, I, F, I, P],
 }
 # the checked build's records (csrc/check.cu)
 CHECK_SIGNATURES = {

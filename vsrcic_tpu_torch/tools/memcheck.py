@@ -33,9 +33,14 @@ SINK_CASE_N x SINK_CASE_S; the step products and their split pass at
 `step_planes_grad_kernel`, the transposing split pass) at `_xe_cases`'
 shapes; the KDA recurrence at `_kda_cases`' (rows 1, 5, 640 at one
 position with parents within groups of 1, 5, 8; 1, 5, 128 sequences of
-100 positions; ragged positions). The beam's fused call, each route's
-full-width call, each of the eval cell's step product groups and the
-Kimi-Linear cell's recurrence calls run FULL_REPEATS times.
+100 positions; ragged positions); the KDA layer's input stage
+(`short_conv_kernel`) at `_kda_stage_cases`' (decode rows 1, 5, 40, 640
+reading parents within groups of 1, 5, 8; prefill 1, 3, 4, 5, 128 jobs,
+every position real and ragged lengths) and its gated norm
+(`gated_norm_kernel`) at rows 1 to 12800 of 1 to 32 heads, bf16 and f32.
+The beam's fused call, each route's full-width call, each of the eval
+cell's step product groups and the Kimi-Linear cell's recurrence, input
+stage and gated norm calls run FULL_REPEATS times.
 `run_case(case, lib)` launches a case and returns what it found: the fault
 records, guard breaches, changed inputs, and whether the outputs match the
 plain version at chip_smoke.py phase 3's tolerances (the gradient cases:
@@ -69,7 +74,8 @@ REPO = os.path.dirname(os.path.dirname(HERE))
 KERNELS = ("fused_attention", "vocab_tile", "vocab_tile_bf16", "vocab_tma",
            "vocab_split", "vocab_merge", "sinkhorn_packed", "sinkhorn_block",
            "step_planes", "step_planes_split", "step_planes_grad",
-           "step_planes_split_t", "kda_recurrence")
+           "step_planes_split_t", "kda_recurrence", "short_conv",
+           "gated_norm")
 KINDS = ("global", "shared", "distributed shared", "tensor-map extent",
          "mbarrier")
 # the files whose records vsrcic_check_read returns, in order
@@ -96,10 +102,13 @@ _SINKHORN_BOUNDS = {1: "x", 2: "out", 3: "warp tiles", 4: "matrix",
                     5: "dynamic shared bytes"}
 _KDA_BOUNDS = {1: "q", 2: "k", 3: "v", 4: "g", 5: "beta", 6: "valid",
                7: "rows_in", 8: "rows_out", 9: "state", 10: "out",
-               11: "shared vectors"}
+               11: "shared vectors", 12: "proj", 13: "f", 14: "rate",
+               15: "dt_bias", 16: "conv weights", 17: "conv windows",
+               18: "parent", 19: "lengths", 20: "shared sums",
+               21: "gate", 22: "norm weight", 23: "normed"}
 BOUNDS = dict(zip(KERNELS, (_FUSED_BOUNDS,) + (_VOCAB_BOUNDS,) * 5
                   + (_SINKHORN_BOUNDS,) * 2 + (_VOCAB_BOUNDS,) * 4
-                  + (_KDA_BOUNDS,)))
+                  + (_KDA_BOUNDS,) * 3))
 
 GUARD = 0xFF            # every byte of a guard band (NaN, -1)
 MARGIN = 4096           # guard bytes on each side of a view
@@ -134,6 +143,22 @@ KDA_SHAPES = ((1, 1, 3, 1), (5, 1, 3, 5), (5, 1, 3, 1), (640, 1, 3, 8),
               (640, 1, 3, 1), (1, 100, 3, 1), (5, 100, 3, 1),
               (5, 100, 3, 5), (128, 100, 3, 1), (40, 7, 5, 8))
 KDA_CELL = ((640, 1, 32, 5), (128, 100, 32, 1))
+# the KDA layer's input stage (ops/kda.py::conv_qkv): decode (sequences,
+# heads, group) at T = 1, bf16 and f32 (heads even: in_proj's rows, 3 x
+# heads x 128 + 256 + heads wide, are read in pairs); prefill (sequences,
+# positions, heads), every position real and ragged; the cell's decode
+# (640 rows in groups of 5) and prefill (128 jobs of up to 100) at 32
+# heads FULL_REPEATS times. The gated norm (ops/kda.py::gated_norm): (rows,
+# heads), bf16 and f32, and the cell's decode and prefill rows.
+KDA_DECODE = ((1, 2, 1), (5, 2, 5), (5, 4, 1), (40, 6, 8), (640, 2, 5),
+              (640, 4, 8))
+KDA_PREFILL = ((1, 100, 2), (5, 100, 4), (128, 100, 2), (3, 7, 2), (1, 1, 2),
+               (4, 9, 6))
+NORM_SHAPES = ((1, 1), (1, 3), (5, 3), (7, 5), (9, 1), (33, 2), (100, 2),
+               (640, 3), (1000, 4))
+KDA_STAGE_CELL = ((640, 1, 32, 5), (128, 100, 32, 1))
+NORM_CELL = ((640, 32), (12800, 32))
+NORM_EPS = 1e-5       # the cell's rms_norm_eps
 # the routes' operand types: (h2, table)
 _TYPES = {"split": ("float32", "bfloat16"), "split9": ("float32", "float32"),
           "split_w": ("bfloat16", "float32"),
@@ -252,8 +277,11 @@ class Case:
     widths, N, add_div: 0 without an addend); op "step_grad": shape (rows,
     the forward's segments' widths, N), the gradients of that product.
     op "kda": shape (S, T, H, group), `layout` "ragged" (some positions
-    not valid) or "padded" (all valid); `plan` is the launch plan (op
-    "step_grad": dA's and dW's); `repeats` the launches."""
+    not valid) or "padded" (all valid); op "conv": shape (S, T, H, group,
+    storage dtype), `layout` "decode" (T = 1, parents within groups),
+    "padded" (prefill, every position real) or "ragged"; op "norm": shape
+    (rows, H, storage dtype); `plan` is the launch plan (op "step_grad":
+    dA's and dW's); `repeats` the launches."""
     op: str
     name: str
     shape: tuple
@@ -280,6 +308,10 @@ class Case:
                     "step_planes_split_t": n}
         if self.op == "kda":
             return {"kda_recurrence": n}
+        if self.op == "conv":
+            return {"short_conv": n}
+        if self.op == "norm":
+            return {"gated_norm": n}
         out = {k: n for k in _ROUTE_KERNELS[self.plan.route]}
         if self.plan.w_planes > 1:   # W_t's planes, made once a table
             out["vocab_split"] = out.get("vocab_split", 0) + 1
@@ -510,6 +542,36 @@ def _kda_cases(seed):
     return cases
 
 
+def _kda_stage_cases(seed):
+    """The KDA layer's input stage at KDA_DECODE's and KDA_PREFILL's shapes
+    (decode in bf16 and f32, prefill with every position real and with
+    ragged lengths) and its gated norm at NORM_SHAPES (bf16 and f32); the
+    Kimi-Linear cell's calls of each FULL_REPEATS times."""
+    cases = []
+
+    def add(op, name, shape, layout="padded", repeats=1):
+        cases.append(Case(op, name, shape, layout=layout, repeats=repeats,
+                          seed=seed + len(cases)))
+    for s_, h, group in KDA_DECODE:
+        for dt in ("bfloat16", "float32"):
+            add("conv", "conv_decode_S%d_H%d_g%d_%s" % (s_, h, group, dt),
+                (s_, 1, h, group, dt), "decode")
+    for s_, t_, h in KDA_PREFILL:
+        for layout in ("padded", "ragged"):
+            add("conv", "conv_prefill_S%d_T%d_H%d_%s" % (s_, t_, h, layout),
+                (s_, t_, h, 1, "bfloat16"), layout)
+    for shape, layout in zip(KDA_STAGE_CELL, ("decode", "ragged")):
+        add("conv", "conv_cell_S%d_T%d" % shape[:2], shape + ("bfloat16",),
+            layout, FULL_REPEATS)
+    for rows, h in NORM_SHAPES:
+        for dt in ("bfloat16", "float32"):
+            add("norm", "norm_N%d_H%d_%s" % (rows, h, dt), (rows, h, dt))
+    for rows, h in NORM_CELL:
+        add("norm", "norm_cell_N%d" % rows, (rows, h, "bfloat16"),
+            repeats=FULL_REPEATS)
+    return cases
+
+
 def sweep_cases(seed=0, sms=132):
     """The sweep, a deterministic list of Cases for a card of `sms` SMs
     (the module's note says what it covers)."""
@@ -520,12 +582,13 @@ def sweep_cases(seed=0, sms=132):
             cases.append(Case("sinkhorn", "sinkhorn_n%d_S%d" % (n, s),
                               (s, n), seed=seed + 2000 + len(cases)))
     return (cases + _step_cases(sms, seed + 3000)
-            + _xe_cases(sms, seed + 4000) + _kda_cases(seed + 5000))
+            + _xe_cases(sms, seed + 4000) + _kda_cases(seed + 5000)
+            + _kda_stage_cases(seed + 6000))
 
 
 def cut_cases(sms=132):
     """The card tests' proof that the checks are live: {(kernel, bound id):
-    (case, kind)}, one bound of each of the ten kernels (and the two
+    (case, kind)}, one bound of each of the fifteen kernels (and the two
     tensor maps' extents, the step products' addend) whose last element
     the case's launch reaches;
     cut by one element (`run_case(..., cut_bound=)`), it must fault there,
@@ -569,6 +632,14 @@ def cut_cases(sms=132):
                                 "global"),                 # state
         ("kda_recurrence", 10): (Case("kda", "cut_kda_out", (5, 3, 3, 1)),
                                  "global"),                # out
+        ("short_conv", 17): (Case("conv", "cut_conv", (5, 1, 2, 5,
+                                                       "bfloat16"),
+                                  layout="decode"), "global"),  # windows
+        ("short_conv", 1): (Case("conv", "cut_conv_q", (3, 7, 2, 1,
+                                                        "bfloat16"),
+                                 layout="ragged"), "global"),   # q
+        ("gated_norm", 23): (Case("norm", "cut_norm", (7, 3, "bfloat16")),
+                             "global"),                    # normed
     }
 
 
@@ -898,8 +969,128 @@ def _run_kda(case, lib, pool, gen, repeats, launch=None):
                  else "beyond 1e-5 of the plain version, relative")
 
 
+def kda_stage_inputs(gen, s_, t_, h, group, layout, dtype, device):
+    """Inputs of the KDA layer's input stage (`ops/kda.py::conv_qkv`) at the
+    kernel's head width, the weights drawn as `init_kimi_linear_params`
+    draws them: in_proj's rows proj (S, T, 3 H 128 + 2 x 128 + H) and f
+    (S, T, H 128) normal, in `dtype`; the rates, dt_bias (f32) and conv
+    weights; the windows conv normal. layout "decode" (T = 1): R = S rows,
+    each row's parent a row of its group; else prefill: R = 5 S rows, the
+    sequences' windows into rows 0, 5, ..; lengths T ("padded") or ragged
+    (1, 2, 3, 4 first, the rest in [1, T]). Returns (proj, f, rate,
+    dt_bias, w, conv, the mode's keyword arguments)."""
+    import torch
+    from vsrcic_tpu_torch.models.kimi_linear import draw_leaf
+    from vsrcic_tpu_torch.ops.kda import HEAD_DIM as d
+    c = 3 * h * d
+    proj = torch.randn((s_, t_, c + 2 * d + h), generator=gen,
+                       device=device).to(dtype)
+    f = torch.randn((s_, t_, h * d), generator=gen, device=device).to(dtype)
+    rate = torch.exp(draw_leaf("A_log", (h,), gen))
+    dt_bias = draw_leaf("dt_bias", (h * d,), gen)
+    w = draw_leaf("conv", (c, 4), gen).to(dtype)
+    i32 = torch.int32
+    if layout == "decode":
+        conv = torch.randn((s_, 3, c), generator=gen, device=device).to(dtype)
+        first = torch.arange(s_, device=device) // group * group
+        parent = (first + torch.randint(group, (s_,), generator=gen,
+                                        device=device)).to(i32)
+        return proj, f, rate, dt_bias, w, conv, dict(parent=parent,
+                                                     group=group)
+    conv = torch.randn((5 * s_, 3, c), generator=gen, device=device
+                       ).to(dtype)
+    lengths = torch.full((s_,), t_, dtype=i32, device=device)
+    if layout == "ragged":
+        lengths = torch.randint(1, t_ + 1, (s_,), generator=gen,
+                                device=device).to(i32)
+        lengths[:4] = torch.arange(1, 5, device=device).clamp_max(t_)[
+            :min(4, s_)]
+    rows_out = torch.arange(0, 5 * s_, 5, dtype=i32, device=device)
+    return proj, f, rate, dt_bias, w, conv, dict(lengths=lengths,
+                                                 rows_out=rows_out)
+
+
+def stage_gap(got, want):
+    """The largest gap of the input stage's q, k, v, g, beta to the plain
+    version's, over the largest value of each (what the card's checks
+    hold to 1e-6)."""
+    err = 0.0
+    for a, b in zip(got, want):
+        scale = float(b.abs().max().clamp_min(1e-30))
+        err = max(err, float((a - b).abs().max()) / scale)
+    return err
+
+
+def norm_gap(got, want):
+    """(largest gap of the gated norm's output to the plain version's, in
+    units of the plain value's own rounding step (ulps of its storage type
+    at its size), over every element; the share of elements that differ).
+    Both round f32 values that lie within ~1e-6 of each other, so a few
+    land one step apart in bf16."""
+    import torch
+    step = torch.finfo(want.dtype).eps * want.float().abs().clamp_min(
+        torch.finfo(want.dtype).tiny)
+    gap = (got.float() - want.float()).abs()
+    return float((gap / step).max()), float((gap > 0).float().mean())
+
+
+def _run_conv(case, lib, pool, gen, repeats, launch=None):
+    import torch
+    from vsrcic_tpu_torch.ops import kda
+    s_, t_, h, group, dt = case.shape
+    proj, f, rate, dt_bias, w, conv, kw = kda_stage_inputs(
+        gen, s_, t_, h, group, case.layout, getattr(torch, dt), pool.device)
+    ins = [pool.input(n, x) for n, x in (
+        ("proj", proj), ("f", f), ("rate", rate), ("dt_bias", dt_bias),
+        ("w", w))]
+    idx = {n: pool.input(n, x) for n, x in kw.items() if n != "group"}
+    g_conv = pool.empty(tuple(conv.shape), conv.dtype)
+    out = pool.empty((4, s_, t_, h, kda.HEAD_DIM), torch.float32)
+    beta = pool.empty((s_, t_, h), torch.float32)
+    want_conv = conv.clone()
+    want = None
+    for _ in range(repeats):    # each launch from the same windows
+        g_conv.copy_(conv)
+        kda._conv_launch(lib, *ins, g_conv, idx.get("parent"),
+                         kw.get("group", 1), idx.get("lengths"),
+                         idx.get("rows_out"), out, beta)
+        if want is None:
+            want = kda.conv_qkv_plain(proj, f, rate, dt_bias, w, want_conv,
+                                      **kw)
+    torch.cuda.synchronize()
+    err = stage_gap((*out, beta), want)
+    if not torch.equal(g_conv, want_conv):
+        return err, "windows differ from the plain version's"
+    return err, (None if err <= 1e-6
+                 else "beyond 1e-6 of the plain version, relative")
+
+
+def _run_norm(case, lib, pool, gen, repeats, launch=None):
+    import torch
+    from vsrcic_tpu_torch.ops import kda
+    rows, h, dt = case.shape
+    d, dt = kda.HEAD_DIM, getattr(torch, dt)
+    o = torch.randn((rows, h, d), generator=gen, device=pool.device)
+    gate = torch.randn((rows, h * d), generator=gen, device=pool.device
+                       ).to(dt)
+    weight = (1 + 0.1 * torch.randn((d,), generator=gen,
+                                    device=pool.device)).to(dt)
+    ins = [pool.input(n, x) for n, x in (("o", o), ("gate", gate),
+                                         ("weight", weight))]
+    out = pool.empty((rows, h * d), dt)
+    for _ in range(repeats):
+        kda._norm_launch(lib, *ins, NORM_EPS, out)
+    want = kda.gated_norm_plain(o, gate, weight, NORM_EPS)
+    torch.cuda.synchronize()
+    steps, _ = norm_gap(out, want)
+    limit = 1.0 if dt == torch.bfloat16 else 16.0
+    return steps, (None if steps <= limit else "%.3g rounding steps from "
+                   "the plain version's output" % steps)
+
+
 _RUN = {"fused": _run_fused, "vocab": _run_vocab, "sinkhorn": _run_sinkhorn,
-        "step": _run_step, "step_grad": _run_step_grad, "kda": _run_kda}
+        "step": _run_step, "step_grad": _run_step_grad, "kda": _run_kda,
+        "conv": _run_conv, "norm": _run_norm}
 
 
 def run_case(case, lib, repeats=None, cut_bound=None, launch=None):
